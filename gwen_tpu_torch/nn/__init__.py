@@ -1,0 +1,6 @@
+from gwen_tpu_torch.nn.convert import params_from_jax, params_to_tree
+from gwen_tpu_torch.nn.gnn import EncodeProcessDecode
+from gwen_tpu_torch.nn.layers import gcn_apply, gcn_init
+
+__all__ = ["EncodeProcessDecode", "gcn_apply", "gcn_init", "params_from_jax",
+           "params_to_tree"]
