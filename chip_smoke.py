@@ -1,4 +1,5 @@
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,17 +8,33 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
 1. the device (``nvidia-smi`` name and power limit, torch's device name);
    exits non-zero when CUDA is absent;
 2. builds the kernels from this checkout's sources (nvcc for
-   ``csrc/window_spmm.cu``, Triton's first compile of the LayerNorm kernel);
-3. builds the L7 serving graph and checks each kernel against its plain
-   PyTorch version at the shapes serving gives it (bf16: ``max|err| ≤
-   1e-2·max|plain|``, the plain version in float32 from the same values;
-   float32: ``≤ 1e-5·max|plain|``), timing both with CUDA events;
+   ``csrc/window_spmm.cu`` while Triton compiles the LayerNorm forward and
+   backward kernels);
+3. builds the L7 graph and checks each kernel against its plain PyTorch
+   version at the shapes serving gives it (B1, B3, B2) and at the train
+   shapes, batch 4 (B4, B10, B2b on dm, dscale and dbias, and the diag
+   composite's x-gradient against autograd through the plain versions,
+   batched and unbatched): bf16 ``max|err| ≤ 1e-2·max|plain|``, the plain
+   version in float32 from the same values; float32 ``≤ 1e-5·max|plain|``.
+   Kernel and plain are timed with CUDA events;
 4. serves: exports a seeded random-weight model (the default
    ``train-mesh graph.refine=7`` model: 1 channel, latent 256, 4 process
    steps, bf16), answers 3 ``predict`` requests of 4 steps through the CLI
    entry point, checks the launch counts (each kernel 3 × 4 × 4 = 48), the
    trajectories, and one served step against the plain versions (within
-   2.5 bf16 ulps at max|plain|), and times the served steps.
+   2.5 bf16 ulps at max|plain|), and times the served steps;
+5. trains: ``train-mesh graph.refine=7 train.batch_size=4`` through the CLI
+   entry point (11 Adam steps at full width, remat off), checks the loss is
+   finite and each kernel's launch count is what the remat policy implies;
+   checks one train step's loss and gradients against the same step through
+   the plain versions (loss within 1e-2 relative, each gradient within
+   5e-2·max|plain|: bf16 roundings compound through four process steps and
+   their backward); times the batch-4 train step, then each other remat
+   policy of ``REMAT_LADDER`` (held to the launch counts it implies), and
+   the unbatched EPD train step (256 channels, the reference ``bench.py``
+   shape) with CUDA events, with peak memory; runs one step at the default batch 21 with the
+   cheapest remat policy that fits; then exports the trained run and
+   answers one ``predict`` request from it.
 
 The second-to-last lines are a JSON object of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``,
@@ -26,6 +43,7 @@ printed only when every phase passed.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -41,6 +59,9 @@ import torch
 LEVELS, LATENT, PROCESS_STEPS, CHANNELS, WINDOW = 7, 256, 4, 1, 384
 REQUESTS, ROLLOUT_STEPS = 3, 4
 BF16_TOL, F32_TOL, STEP_ULPS = 1e-2, 1e-5, 2.5
+TRAIN_BATCH, DEFAULT_BATCH = 4, 21
+LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
+REMAT_LADDER = (False, "save_agg", "save_agg:2", True, "nested:2")
 
 
 def log(msg: str) -> None:
@@ -257,6 +278,301 @@ def serve(graph, perm, device, workdir: Path) -> dict:
     return launches
 
 
+def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
+    """Phase 3 at train shapes: B4, B10 and B2b against their plain
+    versions, and the diag composite's x-gradient against autograd through
+    the plain versions."""
+    from gwen_tpu_torch.ops import fused_ln, spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    f = LATENT
+    u = graph.escape.rows.shape[0]
+    g2 = graph.esc2_graph
+    graph32 = dataclasses.replace(graph, s_mat=graph.s_mat.float())
+    g2_32 = dataclasses.replace(g2, s_mat=g2.s_mat.float())
+    results = {}
+
+    # B4: batched diag-window SpMM with escape placement.
+    x, fix = randn(batch, graph.num_padded_nodes, f), randn(batch, u, f)
+    want = spmm_cuda.diag_window_spmm_plain(graph32, x.float(), fix.float())
+    err = compare("B4 bf16", spmm_cuda.diag_window_spmm_b(graph, x, fix), want,
+                  BF16_TOL)
+    compare("B4 f32", spmm_cuda.diag_window_spmm_b(graph32, x.float(), fix.float()),
+            want, F32_TOL)
+    ms, plain_ms = timed_pair(lambda: spmm_cuda.diag_window_spmm_b(graph, x, fix),
+                              lambda: spmm_cuda.diag_window_spmm_plain(graph, x, fix))
+    results["B4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    del want
+
+    # B10: batched banded SpMM on the esc2 graph.
+    x2 = randn(batch, g2.num_nodes, f)
+    want = spmm_cuda.sliding_spmm_plain(g2_32, x2.float())
+    err = compare("B10 bf16", spmm_cuda.sliding_spmm_b(g2, x2), want, BF16_TOL)
+    compare("B10 f32", spmm_cuda.sliding_spmm_b(g2_32, x2.float()), want, F32_TOL)
+    ms, plain_ms = timed_pair(lambda: spmm_cuda.sliding_spmm_b(g2, x2),
+                              lambda: spmm_cuda.sliding_spmm_plain(g2, x2))
+    results["B10"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    # B2b: LayerNorm backward over the batch's padded rows.
+    rows = batch * graph.num_padded_nodes
+    m, g = randn(rows, f), randn(rows, f)
+    sc = randn(f, dtype=torch.float32)
+    w_dm, w_ds, w_db = fused_ln.residual_layernorm_bwd_plain(m.float(), g.float(), sc)
+    errs = []
+    for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        dm, ds, db = fused_ln.residual_layernorm_bwd(m.to(dt), g.to(dt), sc)
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        errs.append(compare(f"B2b {name} dm", dm, w_dm, tol))
+        compare(f"B2b {name} dscale", ds, w_ds, tol)
+        compare(f"B2b {name} dbias", db, w_db, tol)
+    ms, plain_ms = timed_pair(lambda: fused_ln.residual_layernorm_bwd(m, g, sc),
+                              lambda: fused_ln.residual_layernorm_bwd_plain(m, g, sc))
+    results["B2b"] = dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms)
+    del m, g, w_dm
+
+    # The composite's x-gradient (B1/B3 unbatched, B4/B10 batched) against
+    # autograd through the plain versions, float32 from the same values.
+    for shape in ((graph.num_padded_nodes, f), (batch, graph.num_padded_nodes, f)):
+        x = randn(*shape).requires_grad_()
+        cot = randn(*shape, dtype=torch.float32)
+        (gx,) = torch.autograd.grad(
+            (spmm_cuda.spmm_diag_window(graph, x).float() * cot).sum(), x)
+        x32 = x.detach().float().requires_grad_()
+        (want,) = torch.autograd.grad(
+            (spmm_cuda.spmm_diag_window(graph32, x32, plain=True) * cot).sum(), x32)
+        compare(f"composite x-grad {tuple(shape)}", gx, want, BF16_TOL)
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    return results
+
+
+def expected_launches(remat, process_steps: int) -> dict:
+    """Kernel launches per batched train step under a remat policy: each
+    aggregation runs B4 and B10 once forward and once backward, plus once
+    per recompute of its step; each LayerNorm runs B2 once per forward or
+    recompute and B2b once. Under ``nested:G`` a group's recompute stops
+    once the tensors it needs are rebuilt (torch's non-reentrant
+    checkpoint), so the group's last step is recomputed once, the others
+    twice."""
+    from gwen_tpu_torch.nn.gnn import parse_remat
+
+    kind, k = parse_remat(remat, process_steps)
+    s = process_steps
+    groups = -(-s // k) if kind == "nested" else 0
+    agg_recompute = {"none": 0, "full": s, "save_agg": s - min(k, s),
+                     "nested": 2 * s - groups}[kind]
+    ln_recompute = {"none": 0, "full": s, "save_agg": s,
+                    "nested": 2 * s - groups}[kind]
+    agg = 2 * s + agg_recompute
+    return {"B1": 0, "B3": 0, "B4": agg, "B10": agg, "B2": s + ln_recompute,
+            "B2b": s}
+
+
+def _counters() -> dict:
+    from gwen_tpu_torch.ops import fused_ln, spmm_cuda
+
+    return {"B1": spmm_cuda.diag_window_spmm, "B3": spmm_cuda.sliding_spmm,
+            "B4": spmm_cuda.diag_window_spmm_b, "B10": spmm_cuda.sliding_spmm_b,
+            "B2": fused_ln.residual_layernorm,
+            "B2b": fused_ln.residual_layernorm_bwd}
+
+
+def _train_model(device, channels: int, remat=False):
+    from gwen_tpu_torch.nn import EncodeProcessDecode
+
+    return EncodeProcessDecode(
+        channels, channels, device=device, latent_size=LATENT,
+        process_steps=PROCESS_STEPS, compute_dtype=torch.bfloat16, remat=remat,
+        generator=torch.Generator().manual_seed(0))
+
+
+def _step_ms(step, iters: int = 5) -> float:
+    """Mean ms of ``step()`` (CUDA events around ``iters`` steps, after one
+    warm-up step)."""
+    step()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _adam_step(model, graph, x, y):
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+    def step():
+        loss = torch.mean((model(graph, x) - y) ** 2)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    return step
+
+
+def train(graph, device, workdir: Path) -> dict:
+    """Phase 5: train through the CLI, check, time, export, serve."""
+    import contextlib
+    import io
+
+    from gwen_tpu_torch.cli.main import main as cli
+    from gwen_tpu_torch.registry import Run
+    from gwen_tpu_torch.serve import export_model, model_from_metadata
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli(["train-mesh", f"graph.refine={LEVELS}",
+                  f"train.batch_size={TRAIN_BATCH}",
+                  f"run.registry_root={workdir / 'runs'}", "--device", str(device)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if rc != 0:
+        raise AssertionError(f"train-mesh returned {rc}")
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    steps = out["steps"]
+    log(f"  train-mesh: {json.dumps(out)}")
+    log(f"  wall {wall:.1f} s (synthetic L{LEVELS} data, graph build and "
+        f"{steps} steps)")
+    if steps < 8 or not math.isfinite(out["best_train_loss"]):
+        raise AssertionError(f"train-mesh ran {steps} steps, best loss "
+                             f"{out['best_train_loss']}")
+    if out["layout"] != "DiagWindowGraph":
+        raise AssertionError(f"train-mesh took the {out['layout']} path")
+    per_step = expected_launches(False, PROCESS_STEPS)
+    want = {k: v * steps for k, v in per_step.items()}
+    log(f"  launches during training: {launches} (want {want})")
+    if launches != want:
+        raise AssertionError(f"kernel launch counts {launches} != {want}")
+    losses = [r["value"] for r in Run(Path(out["run_dir"])).metrics("train_loss")]
+    log(f"  logged train losses: {losses}")
+
+    # One train step against the same step through the plain versions.
+    n = graph.num_nodes
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, n, CHANNELS)).astype(np.float32)).to(device)
+    y = 0.9 * x + 0.1
+    model = _train_model(device, CHANNELS)
+
+    def loss_grads(backend):
+        model.backend = backend
+        model.zero_grad(set_to_none=True)
+        loss = torch.mean((model(graph, x) - y) ** 2)
+        loss.backward()
+        return loss.item(), {k: p.grad.detach().clone()
+                             for k, p in model.named_parameters()}
+
+    lk, gk = loss_grads("auto")
+    lp, gp = loss_grads("plain")
+    model.backend = "auto"
+    log(f"  train step loss: kernels {lk:.6g}, plain versions {lp:.6g}")
+    if not (math.isfinite(lk) and abs(lk - lp) <= LOSS_TOL * abs(lp)):
+        raise AssertionError(f"train step loss {lk} vs plain {lp}")
+    worst = max(((gk[k].float() - gp[k].float()).abs().max().item()
+                 / max(gp[k].float().abs().max().item(), 1e-30), k) for k in gp)
+    log(f"  gradients: worst max|err|/max|plain| {worst[0]:.3g} ({worst[1]}), "
+        f"bound {GRAD_TOL:g}")
+    for k in gp:
+        compare(f"grad {k}", gk[k], gp[k], GRAD_TOL)
+
+    # Train-step time and peak memory: batch 4 (kernels, then plain).
+    timing = {}
+    for backend in ("auto", "plain"):
+        model.backend = backend
+        torch.cuda.reset_peak_memory_stats()
+        ms = _step_ms(_adam_step(model, graph, x, y))
+        timing[backend] = (ms, torch.cuda.max_memory_allocated())
+    model.backend = "auto"
+    for backend, (ms, peak) in timing.items():
+        log(f"  batch-{TRAIN_BATCH} train step ({backend}): {ms:.3f} ms, peak "
+            f"memory {peak / 2**30:.2f} GiB")
+
+    # The other remat policies: launches per step as each implies, time.
+    for remat in REMAT_LADDER[1:]:
+        mr = _train_model(device, CHANNELS, remat=remat)
+        step = _adam_step(mr, graph, x, y)
+        for c in counters.values():
+            c.launches = 0
+        step()
+        got = {k: c.launches for k, c in counters.items()}
+        if got != expected_launches(remat, PROCESS_STEPS):
+            raise AssertionError(f"remat={remat!r}: launches {got} != "
+                                 f"{expected_launches(remat, PROCESS_STEPS)}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = _step_ms(step)
+        log(f"  batch-{TRAIN_BATCH} train step, remat={remat!r}: {ms:.3f} ms, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+            f"launches per step {got}")
+        del mr
+
+    # The unbatched EPD train step at 256 channels (bench.py's shape).
+    for c in counters.values():
+        c.launches = 0
+    x1 = torch.from_numpy(rng.normal(size=(n, LATENT)).astype(np.float32)).to(device)
+    m1 = _train_model(device, LATENT)
+    torch.cuda.reset_peak_memory_stats()
+    ms1 = _step_ms(_adam_step(m1, graph, x1, 0.9 * x1))
+    log(f"  unbatched EPD train step ({LATENT} channels): {ms1:.3f} ms, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{ {k: c.launches for k, c in counters.items()} }")
+    if counters["B1"].launches == 0 or counters["B3"].launches == 0:
+        raise AssertionError("the unbatched train step did not run B1/B3")
+    del m1, x1
+
+    # One step at the default batch with the cheapest remat policy that fits.
+    xb = torch.from_numpy(rng.normal(size=(DEFAULT_BATCH, n, CHANNELS)).astype(np.float32)).to(device)
+    for remat in REMAT_LADDER:
+        mb = _train_model(device, CHANNELS, remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step = _adam_step(mb, graph, xb, 0.9 * xb)
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            log(f"  batch {DEFAULT_BATCH}, remat={remat!r}: out of memory")
+            del mb
+            continue
+        log(f"  batch {DEFAULT_BATCH}, remat={remat!r}: fits, first step "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f}")
+        break
+    else:
+        raise AssertionError(f"no remat policy fits batch {DEFAULT_BATCH}")
+    del mb, xb
+
+    # Training feeds serving: export the trained run, answer one request.
+    params, cfg = Run(Path(out["run_dir"])).load_model()
+    trained = model_from_metadata(cfg, device)
+    trained.load_state_dict(params)
+    art = export_model(trained, np.zeros((n, CHANNELS), np.float32),
+                       workdir / "trained", metadata=cfg)
+    x0 = rng.normal(size=(n, CHANNELS)).astype(np.float32)
+    np.save(workdir / "x_trained.npy", x0)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(["predict", "--artifact", str(art), "--input",
+                  str(workdir / "x_trained.npy"), "--steps", "2", "--out",
+                  str(workdir / "y_trained.npy"), "--device", str(device)])
+    traj = np.load(workdir / "y_trained.npy")
+    if rc != 0 or traj.shape != (2, n, CHANNELS) or not np.isfinite(traj).all():
+        raise AssertionError(f"predict from the trained run: rc {rc}, "
+                             f"{traj.shape}, finite={np.isfinite(traj).all()}")
+    log(f"  predict from the trained run: {traj.shape}, finite")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -275,18 +591,23 @@ def main() -> int:
         f"count {torch.cuda.device_count()}")
 
     log("== phase 2: build kernels")
+    # nvcc builds csrc/window_spmm.cu in a thread while Triton compiles the
+    # LayerNorm kernels on their first launches.
     t0 = time.perf_counter()
-    lib_path, nvcc_log = spmm_cuda.build()
-    t_nvcc = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        nvcc_job = pool.submit(spmm_cuda.build)
+        z = torch.zeros(4, 256, device=device)
+        fused_ln.residual_layernorm(z, z, z[0], z[0])
+        fused_ln.residual_layernorm_bwd(z, z, z[0])
+        torch.cuda.synchronize()
+        t_triton = time.perf_counter() - t0
+        lib_path, nvcc_log = nvcc_job.result()
+    t_build = time.perf_counter() - t0
     for line in nvcc_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
-    t0 = time.perf_counter()
-    z = torch.zeros(4, 256, device=device)
-    fused_ln.residual_layernorm(z, z, z[0], z[0])
-    torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t0
-    log(f"  nvcc {t_nvcc:.1f} s ({lib_path.name}), triton first launch {t_triton:.1f} s")
+    log(f"  nvcc and triton together {t_build:.1f} s ({lib_path.name}), "
+        f"triton first launches {t_triton:.1f} s")
 
     log("== phase 3: kernels against their plain versions (L7 shapes)")
     t0 = time.perf_counter()
@@ -298,20 +619,32 @@ def main() -> int:
         f"unique receivers {graph.escape.rows.shape[0]}, "
         f"esc2 S {tuple(graph.esc2_graph.s_mat.shape)}")
     results = check_kernels(graph, device)
+    log(f"  train shapes, batch {TRAIN_BATCH}:")
+    results.update(check_train_kernels(graph, device))
 
     log("== phase 4: serve 3 requests x 4 steps through `predict`")
     with tempfile.TemporaryDirectory() as tmp:
         launches = serve(graph, perm, device, Path(tmp))
 
-    sources = {"B1": ("diag-window SpMM with escape placement", "cuda",
-                      "gwen_tpu_torch/csrc/window_spmm.cu",
-                      "gwen_tpu/ops/spmm_pallas.py:909"),
-               "B3": ("banded SpMM (esc2 contraction)", "cuda",
-                      "gwen_tpu_torch/csrc/window_spmm.cu",
-                      "gwen_tpu/ops/spmm_pallas.py:476"),
-               "B2": ("residual + LayerNorm forward", "triton",
-                      "gwen_tpu_torch/ops/fused_ln.py",
-                      "gwen_tpu/ops/fused_ln.py:42")}
+    log(f"== phase 5: train through `train-mesh` (batch {TRAIN_BATCH}), "
+        "time, export, serve")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update({k: v for k, v in train(graph, device, Path(tmp)).items()
+                         if k in ("B4", "B10", "B2b")})
+
+    spmm, ln = "gwen_tpu/ops/spmm_pallas.py", "gwen_tpu/ops/fused_ln.py"
+    cu, tr = "gwen_tpu_torch/csrc/window_spmm.cu", "gwen_tpu_torch/ops/fused_ln.py"
+    sources = {"B1": ("diag-window SpMM with escape placement", "cuda", cu,
+                      f"{spmm}:909"),
+               "B3": ("banded SpMM (esc2 contraction)", "cuda", cu,
+                      f"{spmm}:476"),
+               "B2": ("residual + LayerNorm forward", "triton", tr, f"{ln}:42"),
+               "B4": ("batched diag-window SpMM with escape placement", "cuda",
+                      cu, f"{spmm}:1138"),
+               "B10": ("batched banded SpMM (esc2 contraction)", "cuda", cu,
+                       f"{spmm}:609"),
+               "B2b": ("residual + LayerNorm backward", "triton", tr,
+                       f"{ln}:59")}
     kernels = [{"name": f"{key} {name}", "route": route, "source": src,
                 "replaces": rep, "launches": launches[key], **results[key]}
                for key, (name, route, src, rep) in sources.items()]

@@ -1,26 +1,68 @@
 """Counterpart of ``gwen_tpu.nn.gnn.EncodeProcessDecode`` (GCN processor).
 
 Encoder MLP → K GCN processor steps ``h ← h + LayerNorm(Â·relu(h)·W + b)``
-→ decoder MLP. The per-step tail runs through the fused residual-LayerNorm
-kernel, and on a :class:`DiagWindowGraph` the node state is held at
-``num_padded_nodes`` rows through the process loop, so every aggregation
-takes the pre-padded path (no zero-padded copy of the state per call). Pad
-rows carry finite values that no real row reads.
+→ decoder MLP, on ``(N, F)`` or batched ``(..., N, F)`` node fields. The
+per-step tail runs through the fused residual-LayerNorm kernels, and on a
+:class:`DiagWindowGraph` the node state is held at ``num_padded_nodes``
+rows through the process loop, so every aggregation takes the pre-padded
+path (no zero-padded copy of the state per call). Pad rows carry finite
+values that no real row reads.
+
+``remat`` is the reference's ladder, built on ``torch.utils.checkpoint``:
+
+* ``False`` — save everything;
+* ``"save_agg"`` / ``"save_agg:K"`` — keep each step's aggregation output
+  (for the first K steps) and recompute only the dense ops around it, so
+  the backward never re-runs the aggregation kernel; the other steps
+  recompute in full;
+* ``True`` — recompute every step in full from its input;
+* ``"nested:G"`` — checkpoint groups of G steps whose steps are
+  themselves checkpointed: ``ceil(steps / G)`` live boundaries, one more
+  forward recompute per step.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gwen_tpu_torch.graph.graph import DiagWindowGraph
 from gwen_tpu_torch.nn import core
-from gwen_tpu_torch.nn.layers import gcn_apply, gcn_init
+from gwen_tpu_torch.nn.layers import gcn_init, gcn_post, gcn_pre
+from gwen_tpu_torch.ops.aggregate import aggregate
 from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
 
 Tensor = torch.Tensor
+
+
+def parse_remat(remat: "bool | str", process_steps: int
+                ) -> tuple[str, int]:
+    """``remat`` → ``(kind, k)``: ``("none" | "full", 0)``,
+    ``("save_agg", K)`` or ``("nested", G)``. Raises ``ValueError`` on
+    anything else, including ``"nested"`` without ``:G`` and ``nested:0``."""
+    if remat is False or remat is None:
+        return "none", 0
+    if remat is True:
+        return "full", 0
+    if isinstance(remat, str):
+        head, _, arg = remat.partition(":")
+        if head == "save_agg" and not arg:
+            return "save_agg", process_steps
+        if head in ("save_agg", "nested") and arg.isdigit():
+            k = int(arg)
+            if head == "nested" and k < 1:
+                raise ValueError(f"remat={remat!r}: the group size G of "
+                                 "nested:G must be at least 1")
+            return head, k
+        if head == "nested":
+            raise ValueError(f"remat={remat!r}: nested needs a group size, "
+                             "as in 'nested:2'")
+    raise ValueError(f"unknown remat policy {remat!r}: use False, True, "
+                     "'save_agg', 'save_agg:K' or 'nested:G'")
 
 
 class EncodeProcessDecode(nn.Module):
@@ -44,13 +86,11 @@ class EncodeProcessDecode(nn.Module):
         super().__init__()
         if processor != "gcn":
             raise ValueError(
-                f"processor={processor!r} is not ported yet: the port's "
-                "slice 1 serves the GCN processor; interaction comes with "
-                "slice 4 and attention with slice 3")
-        if remat:
-            raise ValueError(
-                f"remat={remat!r} is a training policy; the remat ladder "
-                "comes with slice 2 of the port")
+                f"processor={processor!r} is not ported yet: the port runs "
+                "the GCN processor; interaction comes with slice 4 and "
+                "attention with slice 3")
+        self.remat = remat
+        self._remat = parse_remat(remat, process_steps)
         self.latent_size = latent_size
         self.process_steps = process_steps
         self.residual = residual
@@ -72,6 +112,47 @@ class EncodeProcessDecode(nn.Module):
                                             backend=self.backend)
         return core.layer_norm_apply(norm_params, m)
 
+    def _step(self, p, graph, h: Tensor) -> Tensor:
+        m = gcn_post(p["gcn"], aggregate(graph, gcn_pre(p["gcn"], torch.relu(h)),
+                                         backend=self.backend))
+        return self._norm_residual(p["norm"], m, h)
+
+    def _step_save_agg(self, p, graph, h: Tensor) -> Tensor:
+        """One step that keeps only its input and its aggregation output:
+        the dense ops on either side are recomputed in the backward."""
+        pre = checkpoint(lambda t: gcn_pre(p["gcn"], torch.relu(t)), h,
+                         use_reentrant=False)
+        a = aggregate(graph, pre, backend=self.backend)
+        return checkpoint(
+            lambda a, t: self._norm_residual(p["norm"], gcn_post(p["gcn"], a), t),
+            a, h, use_reentrant=False)
+
+    def _process(self, graph, h: Tensor) -> Tensor:
+        kind, k = self._remat
+        steps = [getattr(self, f"process_{i}") for i in range(self.process_steps)]
+
+        def full(p, t):
+            return checkpoint(self._step, p, graph, t, use_reentrant=False)
+
+        if kind == "nested":
+            def group(ps, t):
+                for p in ps:
+                    t = full(p, t)
+                return t
+
+            for i0 in range(0, len(steps), k):
+                h = checkpoint(functools.partial(group, steps[i0:i0 + k]), h,
+                               use_reentrant=False)
+            return h
+        for i, p in enumerate(steps):
+            if kind == "save_agg" and i < k:
+                h = self._step_save_agg(p, graph, h)
+            elif kind in ("save_agg", "full"):
+                h = full(p, h)
+            else:
+                h = self._step(p, graph, h)
+        return h
+
     def forward(self, graph, x: Tensor) -> Tensor:
         h = x.to(self.compute_dtype)
         h = core.mlp_apply(self.encoder, h)
@@ -81,12 +162,10 @@ class EncodeProcessDecode(nn.Module):
                 and h.shape[-2] == graph.num_nodes):
             pad_rows = graph.num_padded_nodes - graph.num_nodes
             if pad_rows > 0:
-                h = torch.cat([h, h.new_zeros(pad_rows, h.shape[-1])], dim=-2)
+                h = torch.cat([h, h.new_zeros(*h.shape[:-2], pad_rows,
+                                              h.shape[-1])], dim=-2)
 
-        for i in range(self.process_steps):
-            p = getattr(self, f"process_{i}")
-            m = gcn_apply(p["gcn"], graph, torch.relu(h), backend=self.backend)
-            h = self._norm_residual(p["norm"], m, h)
+        h = self._process(graph, h)
         if pad_rows > 0:
             h = h[..., : h.shape[-2] - pad_rows, :]
         h = core.mlp_apply(self.decoder, torch.relu(h))

@@ -4,6 +4,9 @@
 :func:`gwen_tpu_torch.ops.aggregate.aggregate`. It transforms first when
 the fan-out does not grow (``d_out ≤ d_in``) and aggregates first
 otherwise: the same result, with the aggregation on the narrower side.
+:func:`gcn_pre` and :func:`gcn_post` are the dense parts on either side of
+the aggregation, so a remat policy can keep the aggregation output and
+recompute only them (the reference tags that output ``AGG_CKPT_NAME``).
 """
 
 from __future__ import annotations
@@ -20,12 +23,25 @@ def gcn_init(d_in: int, d_out: int, generator: torch.Generator, device):
     return core.linear_init(d_in, d_out, generator, device)
 
 
-def gcn_apply(params, graph, x: Tensor, backend: str = "auto") -> Tensor:
+def _transform_first(params) -> bool:
     d_in, d_out = params["w"].shape
-    w = params["w"].to(x.dtype)
-    b = params["b"].to(x.dtype)
-    if d_out <= d_in:
-        h = aggregate(graph, x @ w, backend=backend)
-    else:
-        h = aggregate(graph, x, backend=backend) @ w
-    return h + b
+    return d_out <= d_in
+
+
+def gcn_pre(params, x: Tensor) -> Tensor:
+    """The dense part before the aggregation (``x @ w`` when transforming
+    first, else ``x``). The product is in ``x.dtype``: the weights are
+    cast, not the product."""
+    return x @ params["w"].to(x.dtype) if _transform_first(params) else x
+
+
+def gcn_post(params, a: Tensor) -> Tensor:
+    """The dense part after the aggregation output ``a``."""
+    if not _transform_first(params):
+        a = a @ params["w"].to(a.dtype)
+    return a + params["b"].to(a.dtype)
+
+
+def gcn_apply(params, graph, x: Tensor, backend: str = "auto") -> Tensor:
+    return gcn_post(params, aggregate(graph, gcn_pre(params, x),
+                                      backend=backend))

@@ -46,16 +46,17 @@ def _window_reference(graph, x: Tensor) -> Tensor:
     past x read as zero), then the escape edges through the ELL gather and
     a scatter-add."""
     out_rows = spmm_cuda._check_rows(graph, x)
-    n, f = x.shape
+    lead, (n, f) = x.shape[:-2], x.shape[-2:]
     nb, w = graph.num_blocks, graph.window_size
     src = graph.num_src_rows
-    xp = x.new_zeros(src, f)
+    xp = x.new_zeros(*lead, src, f)
     rows = min(n, src)
-    xp[:rows] = x[:rows]
+    xp[..., :rows, :] = x[..., :rows, :]
     idx = graph.window_start.long()[:, None] + torch.arange(w, device=x.device)
-    win = xp[idx]  # (nb, W, F)
+    win = xp[..., idx, :]  # (..., nb, W, F)
     s = graph.s_mat.to(x.dtype).reshape(nb, graph.block_size, w)
-    out = torch.bmm(s, win).reshape(nb * graph.block_size, f)[:out_rows]
+    out = torch.matmul(s, win).reshape(*lead, nb * graph.block_size, f)
+    out = out[..., :out_rows, :]
     return spmm_cuda._sliding_escape_add(graph, x, out)
 
 

@@ -1,7 +1,7 @@
 """Windowed SpMM for the diag-window and banded layouts: hand-written
 Hopper kernels (``csrc/window_spmm.cu``) and their plain PyTorch versions.
 
-Two kernel wrappers, each with a launch count (``.launches``):
+Four kernel wrappers, each with a launch count (``.launches``):
 
 * :func:`diag_window_spmm` — kernel B1, replacing
   ``gwen_tpu/ops/spmm_pallas.py:_diag_kernel`` (through ``_diag_impl``):
@@ -12,6 +12,12 @@ Two kernel wrappers, each with a launch count (``.launches``):
   ``_sliding_impl``): the same banded product with a start per block and no
   escapes. The reference keeps x in a VMEM ring buffer; the math is
   ``out_b = Σ_{s ∈ [ws_b, ws_b + W)} S_b[:, s − ws_b] x[s]``.
+* :func:`diag_window_spmm_b` — kernel B4, replacing ``_diag_kernel_b``
+  (through ``_diag_impl_b``): B1 on ``(B, N, F)``; each CTA stages its S
+  tile once and loops over the batch.
+* :func:`sliding_spmm_b` — kernel B10, replacing ``_sliding_kernel_b``
+  (through ``_sliding_impl_b``): B3 on ``(B, N, F)``, the batched kernel
+  without escapes.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
@@ -23,14 +29,19 @@ output (84 MB) — about 108 flop/byte, well under the ~295 flop/byte at
 which an H100 turns compute-bound. The design therefore keeps the products
 on the tensor cores (``mma.sync`` through WMMA, float32 accumulation) and
 lays the grid out so the four 64-column tiles of one destination block run
-next to each other and share its S tile in L2. Further work (TMA, ``wgmma``,
+next to each other and share its S tile in L2; the batched kernels read S
+once per block and tile for the whole batch. Further work (TMA, ``wgmma``,
 one CTA per block over all F) is for later PRs.
 
 The graph-level composites :func:`spmm_diag_window` and
 :func:`spmm_sliding_dense` follow ``spmm_pallas.spmm_diag_window`` /
 ``spmm_sliding_dense``: escape fix rows come from the hierarchical
-contraction (``x[esc2_src]`` → B3 → ``[esc2_back]``) when the graph has an
-``esc2_graph``, else from the ELL gather; gathers stay plain torch.
+contraction (``x[esc2_src]`` → B3/B10 → ``[esc2_back]``) when the graph has
+an ``esc2_graph``, else from the ELL gather; gathers stay plain torch. Both
+composites are symmetric operators that are zero on padding rows, so their
+gradient is the same composite applied to the cotangent (the reference's
+``_diag_comp_bwd`` and ``_sliding_bwd``); one ``torch.autograd.Function``
+carries that. S and the tables get no gradient.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ from gwen_tpu_torch.graph.graph import DiagWindowGraph, SlidingDenseGraph
 Tensor = torch.Tensor
 
 BLOCK = 128  # destination rows per graph block, fixed in the kernel
+MAX_SMEM = 232_448  # dynamic shared memory one H100 block may use
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "window_spmm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -98,6 +110,13 @@ def _lib() -> ctypes.CDLL:
         lib.gwen_window_spmm.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                          ci, ci, ci, ci, ci, vp]
         lib.gwen_window_spmm.restype = ci
+        # (..., num_blocks, window, f, x_rows, batch, n_fix, dtype, stream)
+        lib.gwen_window_spmm_batched.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                 ci, ci, ci, ci, ci, ci, ci,
+                                                 vp]
+        lib.gwen_window_spmm_batched.restype = ci
+        lib.gwen_window_spmm_batched_smem.argtypes = [ci, ci]
+        lib.gwen_window_spmm_batched_smem.restype = ci
         _LIB = lib
     return _LIB
 
@@ -108,37 +127,42 @@ def _lib() -> ctypes.CDLL:
 def window_spmm_plain(s_mat: Tensor, window_start: Tensor, x: Tensor,
                       src_rows: int, esc_rows: Optional[Tensor] = None,
                       fix: Optional[Tensor] = None) -> Tensor:
-    """Plain PyTorch version of both kernels: ``(N_pad, F)`` in ``x.dtype``.
+    """Plain PyTorch version of all four kernels: ``x`` is ``(rows, F)`` or
+    ``(B, rows, F)``; the result is ``(..., N_pad, F)`` in ``x.dtype``.
 
     ``S`` is cast to ``x.dtype`` (as the reference kernels do), products
     and the escape add run in float32, and the sum is cast once. Rows of x
-    at or past ``x.shape[0]`` read as zero (up to ``src_rows``).
+    at or past ``x.shape[-2]`` read as zero (up to ``src_rows``).
     """
     nb = window_start.shape[0]
     w = s_mat.shape[1]
     block = s_mat.shape[0] // nb
-    if x.shape[0] < src_rows:
-        x = torch.cat([x, x.new_zeros(src_rows - x.shape[0], x.shape[1])])
+    rows = x.shape[-2]
+    if rows < src_rows:
+        x = torch.cat([x, x.new_zeros(*x.shape[:-2], src_rows - rows,
+                                      x.shape[-1])], dim=-2)
     idx = (window_start.long()[:, None]
            + torch.arange(w, device=x.device)[None, :])
-    xw = x.index_select(0, idx.reshape(-1)).float().reshape(nb, w, -1)
+    xw = x.index_select(-2, idx.reshape(-1)).float()
+    xw = xw.reshape(*x.shape[:-2], nb, w, x.shape[-1])
     s = s_mat.to(x.dtype).float().reshape(nb, block, w)
-    acc = torch.bmm(s, xw).reshape(nb * block, -1)
+    acc = torch.matmul(s, xw).reshape(*x.shape[:-2], nb * block, x.shape[-1])
     if fix is not None:
-        acc.index_add_(0, esc_rows, fix.float())
+        acc = acc.index_add(-2, esc_rows, fix.float())
     return acc.to(x.dtype)
 
 
 def diag_window_spmm_plain(graph: DiagWindowGraph, x: Tensor,
                            fix: Optional[Tensor]) -> Tensor:
-    """Plain version of :func:`diag_window_spmm`."""
+    """Plain version of :func:`diag_window_spmm` and
+    :func:`diag_window_spmm_b`."""
     return window_spmm_plain(
         graph.s_mat, graph.window_start, x, graph.num_src_rows,
         None if fix is None else graph.escape.rows, fix)
 
 
 def sliding_spmm_plain(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """Plain version of :func:`sliding_spmm`."""
+    """Plain version of :func:`sliding_spmm` and :func:`sliding_spmm_b`."""
     return window_spmm_plain(graph.s_mat, graph.window_start, x,
                              graph.num_src_rows)
 
@@ -146,31 +170,26 @@ def sliding_spmm_plain(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
 # ------------------------------------------------------------ kernel wrappers
 
 
-def _no_grad_needed(*ts: Optional[Tensor]) -> None:
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "the CUDA window-SpMM kernels have no backward yet; training "
-            "comes with slice 2 of the port")
-
-
 def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
             esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
             fix: Optional[Tensor]) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm`` on the current
-    stream. Raises on anything the kernel does not take."""
-    if x.dim() != 2:
-        raise ValueError(f"x must be (rows, F); got shape {tuple(x.shape)} "
-                         "(batched inputs come with slice 4 of the port)")
+    """Check the operands and launch ``gwen_window_spmm`` (x ``(rows, F)``)
+    or ``gwen_window_spmm_batched`` (x ``(B, rows, F)``) on the current
+    stream. Raises on anything the kernels do not take."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"x must be (rows, F) or (B, rows, F); got shape "
+                         f"{tuple(x.shape)} (fold other batched inputs into "
+                         "one leading axis)")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"window SpMM kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
     if s_mat.dtype != x.dtype:
         raise TypeError(f"S is {s_mat.dtype} but x is {x.dtype}; build the "
                         "graph with dtype=x.dtype")
+    batched = x.dim() == 3
     nb = window_start.shape[0]
     n_pad, w = s_mat.shape
-    f = x.shape[1]
+    f = x.shape[-1]
     vec = 16 // x.element_size()
     if n_pad != nb * BLOCK:
         raise ValueError(f"the kernel takes {BLOCK}-row blocks; S has "
@@ -186,11 +205,13 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
     if fix is not None:
         if esc_ptr is None or esc_rows is None:
             raise ValueError("escape fix rows need esc_ptr and esc_rows")
-        if fix.dtype != x.dtype or fix.dim() != 2 or fix.shape[1] != f:
-            raise ValueError(f"fix must be (U, {f}) {x.dtype}")
+        if (fix.dtype != x.dtype or fix.shape[:-2] != x.shape[:-2]
+                or fix.dim() != x.dim() or fix.shape[-1] != f):
+            raise ValueError(f"fix must be (..., U, {f}) {x.dtype} with x's "
+                             "leading axes")
         if esc_ptr.dtype != torch.int32 or esc_ptr.shape[0] != nb + 1:
             raise ValueError("esc_ptr must be int32 (num_blocks + 1,)")
-        if esc_rows.dtype != torch.int64 or esc_rows.shape[0] != fix.shape[0]:
+        if esc_rows.dtype != torch.int64 or esc_rows.shape[0] != fix.shape[-2]:
             raise ValueError("esc_rows must be int64 with one row per fix row")
         ts += [esc_ptr, esc_rows, fix]
     for t in ts:
@@ -200,18 +221,28 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
             raise ValueError("window SpMM operands must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("window SpMM operands must be 16-byte aligned")
-    _no_grad_needed(s_mat, x, fix)
-    out = torch.empty(n_pad, f, dtype=x.dtype, device=x.device)
     lib = _lib()
+    code = _DTYPE_CODE[x.dtype]
+    if batched:
+        smem = lib.gwen_window_spmm_batched_smem(w, code)
+        if smem > MAX_SMEM:
+            raise ValueError(f"window {w} needs {smem} bytes of shared memory "
+                             f"per block in the batched kernel (at most "
+                             f"{MAX_SMEM})")
+    out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.gwen_window_spmm(
-        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(),
-        None if fix is None else esc_ptr.data_ptr(),
-        None if fix is None else esc_rows.data_ptr(),
-        None if fix is None else fix.data_ptr(),
-        out.data_ptr(), nb, w, f, x.shape[0], _DTYPE_CODE[x.dtype], stream)
+    ptrs = (s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(),
+            None if fix is None else esc_ptr.data_ptr(),
+            None if fix is None else esc_rows.data_ptr(),
+            None if fix is None else fix.data_ptr(), out.data_ptr())
+    if batched:
+        rc = lib.gwen_window_spmm_batched(
+            *ptrs, nb, w, f, x.shape[1], x.shape[0],
+            0 if fix is None else fix.shape[1], code, stream)
+    else:
+        rc = lib.gwen_window_spmm(*ptrs, nb, w, f, x.shape[0], code, stream)
     if rc != 0:
-        raise RuntimeError(f"gwen_window_spmm launch failed: CUDA error {rc}")
+        raise RuntimeError(f"window SpMM launch failed: CUDA error {rc}")
     return out
 
 
@@ -223,10 +254,17 @@ def _on_cuda(x: Tensor) -> bool:
     return True
 
 
+def _check_dim(x: Tensor, dim: int, name: str) -> None:
+    if x.dim() != dim:
+        raise ValueError(f"{name} takes a {dim}-d x; got shape "
+                         f"{tuple(x.shape)}")
+
+
 def diag_window_spmm(graph: DiagWindowGraph, x: Tensor,
                      fix: Optional[Tensor] = None) -> Tensor:
     """Kernel B1: the diag-window product plus the escape fix rows
     (``fix``: ``(U, F)`` in receiver order, or None). ``(N_pad, F)``."""
+    _check_dim(x, 2, "B1")
     if not _on_cuda(x):
         return diag_window_spmm_plain(graph, x, fix)
     out = _launch(graph.s_mat, graph.window_start, x, graph.esc_ptr,
@@ -235,8 +273,22 @@ def diag_window_spmm(graph: DiagWindowGraph, x: Tensor,
     return out
 
 
+def diag_window_spmm_b(graph: DiagWindowGraph, x: Tensor,
+                       fix: Optional[Tensor] = None) -> Tensor:
+    """Kernel B4: B1 on ``(B, rows, F)`` with fix ``(B, U, F)``.
+    ``(B, N_pad, F)``."""
+    _check_dim(x, 3, "B4")
+    if not _on_cuda(x):
+        return diag_window_spmm_plain(graph, x, fix)
+    out = _launch(graph.s_mat, graph.window_start, x, graph.esc_ptr,
+                  None if fix is None else graph.escape.rows, fix)
+    diag_window_spmm_b.launches += 1
+    return out
+
+
 def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
     """Kernel B3: the banded product (no escapes). ``(N_pad, F)``."""
+    _check_dim(x, 2, "B3")
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
     out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
@@ -244,18 +296,30 @@ def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
     return out
 
 
+def sliding_spmm_b(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
+    """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``."""
+    _check_dim(x, 3, "B10")
+    if not _on_cuda(x):
+        return sliding_spmm_plain(graph, x)
+    out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
+    sliding_spmm_b.launches += 1
+    return out
+
+
 diag_window_spmm.launches = 0
+diag_window_spmm_b.launches = 0
 sliding_spmm.launches = 0
+sliding_spmm_b.launches = 0
 
 
 # ------------------------------------------------------------ composites
 
 
 def _escape_rows_fix(nbr: Tensor, w: Tensor, x: Tensor) -> Tensor:
-    """Escape contributions per unique receiver: ``x[nbr]`` + ELL
-    contraction. nbr/w ``(U, deg)``, x ``(N, F)`` → ``(U, F)``."""
-    gathered = x[nbr]  # (U, deg, F)
-    return torch.einsum("ud,udf->uf", w.to(x.dtype), gathered)
+    """Escape contributions per unique receiver: ``x[..., nbr, :]`` + ELL
+    contraction. nbr/w ``(U, deg)``, x ``(..., N, F)`` → ``(..., U, F)``."""
+    gathered = x[..., nbr, :]  # (..., U, deg, F)
+    return torch.einsum("ud,...udf->...uf", w.to(x.dtype), gathered)
 
 
 def _sliding_escape_add(graph, x: Tensor, out: Tensor) -> Tensor:
@@ -265,7 +329,7 @@ def _sliding_escape_add(graph, x: Tensor, out: Tensor) -> Tensor:
     if esc is None:
         return out
     fix = _escape_rows_fix(esc.nbr, esc.w, x)
-    return out.index_add(0, esc.rows, fix.to(out.dtype))
+    return out.index_add(-2, esc.rows, fix.to(out.dtype))
 
 
 def _check_rows(graph, x: Tensor) -> int:
@@ -280,33 +344,84 @@ def _check_rows(graph, x: Tensor) -> int:
     return n if n in (n_pad, src) else graph.num_nodes
 
 
+def _fit_rows(t: Tensor, rows: int) -> Tensor:
+    """``t`` cut or zero-padded to ``rows`` node rows."""
+    have = t.shape[-2]
+    if have >= rows:
+        return t[..., :rows, :]
+    return torch.cat([t, t.new_zeros(*t.shape[:-2], rows - have, t.shape[-1])],
+                     dim=-2)
+
+
+def _sliding_composite(graph: SlidingDenseGraph, x: Tensor,
+                       plain: bool) -> Tensor:
+    out_rows = _check_rows(graph, x)
+    if plain:
+        b3 = sliding_spmm_plain
+    else:
+        b3 = sliding_spmm_b if x.dim() == 3 else sliding_spmm
+    return _sliding_escape_add(graph, x, b3(graph, x)[..., :out_rows, :])
+
+
+def _diag_composite(graph: DiagWindowGraph, x: Tensor, plain: bool) -> Tensor:
+    out_rows = _check_rows(graph, x)
+    batched = x.dim() == 3
+    if plain:
+        b1, b3 = diag_window_spmm_plain, sliding_spmm_plain
+    elif batched:
+        b1, b3 = diag_window_spmm_b, sliding_spmm_b
+    else:
+        b1, b3 = diag_window_spmm, sliding_spmm
+    fix = None
+    if graph.esc2_graph is not None:
+        xc2 = x.index_select(-2, graph.esc2_src)
+        fix = b3(graph.esc2_graph, xc2).index_select(-2, graph.esc2_back)
+    elif graph.escape is not None:
+        esc = graph.escape
+        fix = _escape_rows_fix(esc.nbr, esc.w, x).to(x.dtype).contiguous()
+    return b1(graph, x, fix)[..., :out_rows, :]
+
+
+class _SymmetricAggregation(torch.autograd.Function):
+    """A composite aggregation ``A·x`` whose operator is symmetric and zero
+    on padding rows and columns: its x-gradient is ``A·g`` on the
+    cotangent, cut or padded to x's rows — the same kernels again."""
+
+    @staticmethod
+    def forward(ctx, x, composite, graph):
+        ctx.composite, ctx.graph, ctx.rows = composite, graph, x.shape[-2]
+        return composite(graph, x, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        gx = ctx.composite(ctx.graph, g.contiguous(), False)
+        return _fit_rows(gx, ctx.rows).to(g.dtype), None, None
+
+
 def spmm_sliding_dense(graph: SlidingDenseGraph, x: Tensor,
                        plain: bool = False) -> Tensor:
-    """Banded aggregation over a :class:`SlidingDenseGraph` (kernel B3 on
-    CUDA; its plain version with ``plain=True``), plus its escape edges."""
-    out_rows = _check_rows(graph, x)
-    b3 = sliding_spmm_plain if plain else sliding_spmm
-    return _sliding_escape_add(graph, x, b3(graph, x)[:out_rows])
+    """Banded aggregation over a :class:`SlidingDenseGraph` (kernel B3, or
+    B10 on ``(B, N, F)``, on CUDA), plus its escape edges. Differentiable in
+    x; ``plain=True`` runs the plain versions and leaves the gradient to
+    autograd."""
+    if plain:
+        return _sliding_composite(graph, x, True)
+    return _SymmetricAggregation.apply(x, _sliding_composite, graph)
 
 
 def spmm_diag_window(graph: DiagWindowGraph, x: Tensor,
                      plain: bool = False) -> Tensor:
-    """Diag-window aggregation (kernel B1 on CUDA) with its escape edges.
+    """Diag-window aggregation (kernel B1, or B4 on ``(B, N, F)``, on
+    CUDA) with its escape edges.
 
     The fix rows come from the hierarchical contraction when the graph has
-    an ``esc2_graph`` (gather, kernel B3, gather back), else from the ELL
-    gather; B1 places them in-kernel. ``plain=True`` takes the same path
-    with each kernel replaced by its plain version. Pre-padded inputs
-    (``num_padded_nodes`` or ``num_src_rows`` rows) keep their row count;
-    B1 reads only rows below ``num_src_rows``."""
-    out_rows = _check_rows(graph, x)
-    b1 = diag_window_spmm_plain if plain else diag_window_spmm
-    b3 = sliding_spmm_plain if plain else sliding_spmm
-    fix = None
-    if graph.esc2_graph is not None:
-        xc2 = x.index_select(0, graph.esc2_src)
-        fix = b3(graph.esc2_graph, xc2).index_select(0, graph.esc2_back)
-    elif graph.escape is not None:
-        esc = graph.escape
-        fix = _escape_rows_fix(esc.nbr, esc.w, x).to(x.dtype)
-    return b1(graph, x, fix)[:out_rows]
+    an ``esc2_graph`` (gather, kernel B3/B10, gather back), else from the
+    ELL gather; B1/B4 place them in-kernel. Differentiable in x: the
+    backward runs the same composite on the cotangent. ``plain=True`` takes
+    the same path with each kernel replaced by its plain version and leaves
+    the gradient to autograd. Pre-padded inputs (``num_padded_nodes`` or
+    ``num_src_rows`` rows) keep their row count; the kernels read only rows
+    below ``num_src_rows``."""
+    if plain:
+        return _diag_composite(graph, x, True)
+    return _SymmetricAggregation.apply(x, _diag_composite, graph)

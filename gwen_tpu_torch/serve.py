@@ -113,6 +113,24 @@ def export_model(model: EncodeProcessDecode, sample_input: np.ndarray, path,
     return path
 
 
+def model_from_metadata(md: dict, device) -> EncodeProcessDecode:
+    """An :class:`EncodeProcessDecode` built from a run's hyperparameters
+    (an artifact's ``metadata``, or the ``model.json`` that
+    :meth:`gwen_tpu_torch.registry.Run.save_model` writes), with its
+    parameters still to be loaded."""
+    dtype = (torch.bfloat16 if md.get("compute_dtype", "bfloat16") == "bfloat16"
+             else torch.float32)
+    ch = int(md["channels"])
+    return EncodeProcessDecode(
+        ch, ch, device=device,
+        latent_size=int(md["latent_size"]),
+        process_steps=int(md["process_steps"]),
+        mlp_layers=int(md.get("mlp_layers", 2)),
+        residual=bool(md.get("residual", True)),
+        compute_dtype=dtype,
+    )
+
+
 class ServingModel:
     """A loaded artifact: ``step`` runs one forward, ``rollout`` many.
 
@@ -151,20 +169,10 @@ class ServingModel:
                              f"the L{md['levels']} icosphere has {n}")
         perm = kd_patch_order(verts, s, r, n)
         s2, r2, _ = apply_order(perm, s, r)
-        dtype = (torch.bfloat16 if md.get("compute_dtype", "bfloat16") == "bfloat16"
-                 else torch.float32)
+        model = model_from_metadata(md, device)
         graph = to_diag_window(build_graph(s2, r2, n),
                                window_size=int(md.get("diag_window", 384)),
-                               dtype=dtype).to(device)
-        ch = int(md["channels"])
-        model = EncodeProcessDecode(
-            ch, ch, device=device,
-            latent_size=int(md["latent_size"]),
-            process_steps=int(md["process_steps"]),
-            mlp_layers=int(md.get("mlp_layers", 2)),
-            residual=bool(md.get("residual", True)),
-            compute_dtype=dtype,
-        )
+                               dtype=model.compute_dtype).to(device)
         model.load_state_dict(params_from_jax(params))
         model.eval()
         return cls(model, graph, perm, meta)

@@ -18,6 +18,7 @@ import gwen_tpu.graph as J
 import gwen_tpu_torch.graph as P
 from gwen_tpu.graph.reorder import rcm_order as j_rcm
 from gwen_tpu_torch.graph.reorder import rcm_order as p_rcm
+from test_torch_ops import same_rcm  # noqa: F401 (fixture)
 
 
 def _ordered(levels, leaf_size):
@@ -29,7 +30,7 @@ def _ordered(levels, leaf_size):
 
 
 @pytest.mark.parametrize("levels", [3, 4, 5])
-def test_host_graph_code_matches_reference(levels):
+def test_host_graph_code_matches_reference(levels, same_rcm):
     vj, sj, rj = J.icosphere_edges(levels)
     vp, sp, rp = P.icosphere_edges(levels)
     np.testing.assert_array_equal(vj, vp)
@@ -97,7 +98,7 @@ def _assert_sliding_equal(sj, sp):
     dict(levels=4, leaf=512, window_size=256, esc2_min_rows=1),
     dict(levels=5, leaf=2048, window_size=384),
 ])
-def test_to_diag_window_matches_reference(kw):
+def test_to_diag_window_matches_reference(kw, same_rcm):
     kw = dict(kw)
     s, r, n = _ordered(kw.pop("levels"), kw.pop("leaf"))
     dj = J.to_diag_window(J.build_graph(s, r, n), **kw)

@@ -95,7 +95,7 @@ def test_params_round_trip_and_names():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(processor="attention"), "slice 3"),
-    (dict(remat="save_agg"), "slice 2"),
+    (dict(processor="interaction"), "slice 4"),
 ])
 def test_epd_rejects_later_slices(kw, match):
     with pytest.raises(ValueError, match=match):
