@@ -1,12 +1,17 @@
 """``python -m gwen_tpu_torch train-mesh``: mesh-scale next-step training of
-the encode-process-decode GCN model on one device.
+the encode-process-decode model (GCN or attention processor) on one
+device.
 
 Counterpart of ``gwen_tpu.cli.train_mesh.main``, with the reference's
-choice of path and ``cuda`` in place of ``tpu``: on a CUDA device the
+choice of path and ``cuda`` in place of ``tpu``. GCN: on a CUDA device the
 nodes take the KD-patch order and the graph the diag-window layout
 (aggregations through kernels B1/B4 with the esc2 contraction on B3/B10,
 residual LayerNorms through B2/B2b); on the CPU they take RCM and the
-segment path. ``mesh.kernel="sliding"`` takes the banded layout on CUDA.
+segment path; ``mesh.kernel="sliding"`` takes the banded layout on CUDA.
+Attention (``model.processor=attention``): KD-patch order and the
+diag-window layout with transpose tables on every device, as the
+reference (kernels B5, B6, B7 on CUDA, their plain versions on the CPU);
+a ``mesh.kernel`` other than ``auto``/``diag``/``diag_packed`` is refused.
 The device is explicit: asking for ``cuda`` where there is none raises.
 
 Not ported yet, each refused with a ``ValueError``: the skill verification
@@ -61,7 +66,14 @@ def resolve_device(device: str) -> torch.device:
 
 
 def diag_path(dev: torch.device, kernel: str, processor: str) -> bool:
-    """Whether the run takes KD-patch order and the diag-window layout."""
+    """Whether the run takes KD-patch order and the diag-window layout:
+    attention on every device, GCN on CUDA."""
+    if processor == "attention":
+        if kernel not in ("auto", "diag", "diag_packed"):
+            raise ValueError(
+                "model.processor='attention' requires mesh.kernel in "
+                f"('auto', 'diag', 'diag_packed'); got {kernel!r}")
+        return True
     return dev.type == "cuda" and kernel in ("auto", "diag") and processor == "gcn"
 
 
@@ -112,13 +124,16 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
         remat=tcfg.remat,
         compute_dtype=compute_dtype,
         processor=processor,
+        attn_heads=config.model.attn_heads,
+        attn_pack=config.model.attn_pack,
         generator=torch.Generator().manual_seed(tcfg.seed),
     )
 
     g = build_graph(s2, r2, n)
     if use_diag:
         graph = to_diag_window(g, window_size=config.mesh.diag_window,
-                               dtype=compute_dtype)
+                               dtype=compute_dtype,
+                               transpose_tables=processor == "attention")
     elif dev.type == "cuda" and kernel == "sliding" and processor == "gcn":
         graph = to_sliding_dense(g, dtype=compute_dtype)
     else:

@@ -5,6 +5,7 @@ from gwen_tpu_torch.graph.graph import (
     Graph,
     SlidingDenseGraph,
     build_graph,
+    diag_transpose_tables,
     gcn_normalize,
     to_diag_window,
     to_sliding_dense,
@@ -22,6 +23,7 @@ __all__ = [
     "Graph",
     "SlidingDenseGraph",
     "build_graph",
+    "diag_transpose_tables",
     "gcn_normalize",
     "to_diag_window",
     "to_sliding_dense",

@@ -137,6 +137,15 @@ class DiagWindowGraph:
     is computed by the hierarchical contraction: gather ``x[esc2_src]``, a
     banded SpMM over the RCM-ordered escape graph, and a gather
     ``[esc2_back]`` back to receiver order.
+
+    The transpose tables (:func:`diag_transpose_tables`, ``t_max > 0``)
+    are what windowed attention needs. ``t_lo``/``t_cnt``/``t_max`` are
+    the reference's: the destination blocks whose windows cover source
+    block ``c`` are ``[t_lo[c], t_lo[c] + t_cnt[c])``. The attention
+    kernels read the mask ``s_mat != 0`` as neighbour lists instead:
+    ``attn_nbr[i]`` holds the absolute source rows of destination row
+    ``i`` in ascending order, ``attn_nbr_t[c]`` the destination rows whose
+    mask holds source row ``c``, both padded with -1.
     """
 
     s_mat: Tensor  # (N_pad, W) window-relative
@@ -152,6 +161,11 @@ class DiagWindowGraph:
     esc2_graph: Optional[SlidingDenseGraph] = None
     esc2_src: Optional[Tensor] = None  # (U,) int64, node row per c2 row
     esc2_back: Optional[Tensor] = None  # (U,) int64, c2 row per fix row
+    t_lo: Optional[Tensor] = None  # (num_src_rows // block,) int32
+    t_cnt: Optional[Tensor] = None  # (num_src_rows // block,) int32
+    t_max: int = 0
+    attn_nbr: Optional[Tensor] = None  # (N_pad, D) int32, -1 padded
+    attn_nbr_t: Optional[Tensor] = None  # (num_src_rows, D_t) int32
 
     @property
     def num_padded_nodes(self) -> int:
@@ -557,6 +571,7 @@ def to_diag_window(
     superblock: int = 8,
     dtype: torch.dtype = torch.float32,
     esc2_min_rows: int = 4096,
+    transpose_tables: bool = False,
 ) -> DiagWindowGraph:
     """Build the diagonal-window layout (see :class:`DiagWindowGraph`),
     as the reference's ``to_diag_window(packed=False)`` does: same window,
@@ -566,7 +581,8 @@ def to_diag_window(
 
     ``superblock`` only sets the row padding (``N_pad`` is a multiple of
     ``block_size · superblock``, shrunk on tiny graphs as the reference
-    does), so that both packages pad alike.
+    does), so that both packages pad alike. ``transpose_tables`` attaches
+    the tables windowed attention needs (:func:`diag_transpose_tables`).
     """
     e = graph.num_edges
     n = graph.num_nodes
@@ -651,7 +667,7 @@ def to_diag_window(
         window_size=W,
         forced_window_start=ws,
     )
-    return DiagWindowGraph(
+    out = DiagWindowGraph(
         s_mat=_build_s(nbr_rel, nbr_w, W, dtype),
         window_start=torch.from_numpy(ws.astype(np.int32)),
         num_nodes=n,
@@ -666,3 +682,52 @@ def to_diag_window(
         esc2_src=esc2_src,
         esc2_back=esc2_back,
     )
+    return diag_transpose_tables(out) if transpose_tables else out
+
+
+def _padded_lists(keys: np.ndarray, vals: np.ndarray, rows: int) -> np.ndarray:
+    """``(rows, D)`` int32 table: row ``r`` holds the ``vals`` of the pairs
+    whose key is ``r``, in the order given, padded with -1 (``D`` is the
+    largest count, at least 1)."""
+    counts = np.bincount(keys, minlength=rows)
+    table = np.full((rows, max(int(counts.max(initial=0)), 1)), -1, np.int32)
+    starts = np.zeros(rows + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    table[keys, np.arange(keys.size) - starts[keys]] = vals
+    return table
+
+
+def diag_transpose_tables(graph: DiagWindowGraph) -> DiagWindowGraph:
+    """Attach the transpose tables of the reference's
+    ``diag_transpose_tables`` (``t_lo``, ``t_cnt``, ``t_max``, from the
+    per-block window starts) and the port's attention neighbour lists
+    (``attn_nbr``, ``attn_nbr_t``, from the mask ``s_mat != 0`` itself) to
+    a diag-window graph; see :class:`DiagWindowGraph`. Host-side; the
+    tables land on the graph's device."""
+    if graph.t_max:
+        return graph
+    block, w = graph.block_size, graph.window_size
+    if w % block:
+        raise ValueError(f"window {w} not a multiple of block {block}")
+    device = graph.s_mat.device
+    starts = graph.window_start.cpu().numpy().astype(np.int64)
+    if (np.diff(starts) < 0).any():
+        raise AssertionError("diag-window starts are not monotonic")
+    # Source block c is covered by dst block j iff start_j ≤ c·block <
+    # start_j + W; starts are nondecreasing, so the j form one range.
+    c_rows = np.arange(graph.num_src_rows // block, dtype=np.int64) * block
+    t_lo = np.searchsorted(starts, c_rows - w, side="right")
+    t_cnt = np.searchsorted(starts, c_rows, side="right") - t_lo
+
+    rows, cols = np.nonzero((graph.s_mat != 0).cpu().numpy())
+    src = starts[rows // block] + cols  # row-major: ascending per dst row
+    attn_nbr = _padded_lists(rows, src, graph.num_padded_nodes)
+    by_src = np.lexsort((rows, src))
+    attn_nbr_t = _padded_lists(src[by_src], rows[by_src], graph.num_src_rows)
+    return dataclasses.replace(
+        graph,
+        t_lo=torch.from_numpy(t_lo.astype(np.int32)).to(device),
+        t_cnt=torch.from_numpy(t_cnt.astype(np.int32)).to(device),
+        t_max=int(max(1, t_cnt.max(initial=0))),
+        attn_nbr=torch.from_numpy(attn_nbr).to(device),
+        attn_nbr_t=torch.from_numpy(attn_nbr_t).to(device))

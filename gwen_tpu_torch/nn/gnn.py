@@ -1,12 +1,17 @@
-"""Counterpart of ``gwen_tpu.nn.gnn.EncodeProcessDecode`` (GCN processor).
+"""Counterpart of ``gwen_tpu.nn.gnn.EncodeProcessDecode`` (GCN and
+attention processors).
 
-Encoder MLP → K GCN processor steps ``h ← h + LayerNorm(Â·relu(h)·W + b)``
-→ decoder MLP, on ``(N, F)`` or batched ``(..., N, F)`` node fields. The
-per-step tail runs through the fused residual-LayerNorm kernels, and on a
-:class:`DiagWindowGraph` the node state is held at ``num_padded_nodes``
-rows through the process loop, so every aggregation takes the pre-padded
-path (no zero-padded copy of the state per call). Pad rows carry finite
-values that no real row reads.
+Encoder MLP → K processor steps → decoder MLP, on ``(N, F)`` or batched
+``(..., N, F)`` node fields. A GCN step is ``h ← h + LayerNorm(Â·relu(h)·W
++ b)``, an attention step ``h ← h + LayerNorm(attn(relu(h)))`` with the
+windowed multi-head attention of :mod:`gwen_tpu_torch.nn.attention`. The
+per-step tail runs through the fused residual-LayerNorm kernels. For the
+GCN processor on a :class:`DiagWindowGraph` the node state is held at
+``num_padded_nodes`` rows through the process loop, so every aggregation
+takes the pre-padded path (no zero-padded copy of the state per call); pad
+rows carry finite values that no real row reads. The attention processor
+keeps the state at ``N`` rows, as the reference does: its kernels read
+only real rows.
 
 ``remat`` is the reference's ladder, built on ``torch.utils.checkpoint``:
 
@@ -14,7 +19,10 @@ values that no real row reads.
 * ``"save_agg"`` / ``"save_agg:K"`` — keep each step's aggregation output
   (for the first K steps) and recompute only the dense ops around it, so
   the backward never re-runs the aggregation kernel; the other steps
-  recompute in full;
+  recompute in full. For attention the kept tensor is the attention
+  block's output ``m`` (the reference's ``checkpoint_name``); the block is
+  recomputed in the backward, whose weight gradient of ``wo`` needs the
+  attention output before it;
 * ``True`` — recompute every step in full from its input;
 * ``"nested:G"`` — checkpoint groups of G steps whose steps are
   themselves checkpointed: ``ceil(steps / G)`` live boundaries, one more
@@ -32,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from gwen_tpu_torch.graph.graph import DiagWindowGraph
 from gwen_tpu_torch.nn import core
+from gwen_tpu_torch.nn.attention import graph_attention_apply, graph_attention_init
 from gwen_tpu_torch.nn.layers import gcn_init, gcn_post, gcn_pre
 from gwen_tpu_torch.ops.aggregate import aggregate
 from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
@@ -65,15 +74,30 @@ def parse_remat(remat: "bool | str", process_steps: int
                      "'save_agg', 'save_agg:K' or 'nested:G'")
 
 
+def pack_mode(mode: "str | bool | None") -> "bool | None":
+    """Config ``model.attn_pack`` (``"auto"``/``"on"``/``"off"``, or
+    ``"true"``/``"false"``) → the model's ``attn_pack`` (None/True/False),
+    as the reference's ``train_mesh._pack_mode``."""
+    if mode is None or isinstance(mode, bool):
+        return mode
+    table = {"auto": None, "on": True, "true": True, "off": False,
+             "false": False}
+    if str(mode).lower() not in table:
+        raise ValueError(f"model.attn_pack must be auto/on/off, got {mode!r}")
+    return table[str(mode).lower()]
+
+
 class EncodeProcessDecode(nn.Module):
-    """Encoder MLP → K GCN processor steps (residual + LayerNorm) → decoder.
+    """Encoder MLP → K processor steps (residual + LayerNorm) → decoder.
 
     Parameters are named as the reference's param tree (``encoder.layer_0.w``,
-    ``process_0.gcn.w``, ``process_0.norm.scale``, ...) and drawn on the CPU
-    from ``generator``, then placed on ``device``. ``backend="auto"`` runs
-    the aggregations and the LayerNorm tail through the kernel wrappers,
-    ``"plain"`` through the kernels' plain versions on the same path, and
-    any other value through the plain references.
+    ``process_0.gcn.w`` or ``process_0.attn.wq.w``, ``process_0.norm.scale``,
+    ...) and drawn on the CPU from ``generator``, then placed on ``device``.
+    ``backend="auto"`` runs the aggregations (or attention) and the
+    LayerNorm tail through the kernel wrappers, ``"plain"`` through the
+    kernels' plain versions on the same path, and any other value through
+    the plain references. ``processor`` is ``"gcn"`` or ``"attention"``
+    (with ``attn_heads``; ``attn_pack`` is accepted and changes nothing).
     """
 
     def __init__(self, channels_in: int, channels_out: int, *,
@@ -81,14 +105,18 @@ class EncodeProcessDecode(nn.Module):
                  mlp_layers: int = 2, residual: bool = True,
                  compute_dtype: torch.dtype = torch.float32,
                  backend: str = "auto", processor: str = "gcn",
+                 attn_heads: int = 2, attn_pack: "bool | None" = None,
                  remat: "bool | str" = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if processor != "gcn":
+        if processor not in ("gcn", "attention"):
             raise ValueError(
                 f"processor={processor!r} is not ported yet: the port runs "
-                "the GCN processor; interaction comes with slice 4 and "
-                "attention with slice 3")
+                "the GCN and attention processors; interaction comes with "
+                "slice 4")
+        self.processor = processor
+        self.attn_heads = attn_heads
+        self.attn_pack = pack_mode(attn_pack)
         self.remat = remat
         self._remat = parse_remat(remat, process_steps)
         self.latent_size = latent_size
@@ -100,8 +128,10 @@ class EncodeProcessDecode(nn.Module):
         L = latent_size
         self.encoder = core.mlp_init([channels_in] + [L] * mlp_layers, gen, device)
         for i in range(process_steps):
+            block = (graph_attention_init(L, attn_heads, gen, device)
+                     if processor == "attention" else gcn_init(L, L, gen, device))
             self.add_module(f"process_{i}", nn.ModuleDict({
-                "gcn": gcn_init(L, L, gen, device),
+                "attn" if processor == "attention" else "gcn": block,
                 "norm": core.layer_norm_init(L, device),
             }))
         self.decoder = core.mlp_init([L] * mlp_layers + [channels_out], gen, device)
@@ -112,14 +142,29 @@ class EncodeProcessDecode(nn.Module):
                                             backend=self.backend)
         return core.layer_norm_apply(norm_params, m)
 
+    def _attend(self, p, graph, h: Tensor) -> Tensor:
+        """The attention block of a step: ``m = attn(relu(h))``."""
+        return graph_attention_apply(p["attn"], graph, torch.relu(h),
+                                     heads=self.attn_heads,
+                                     backend=self.backend,
+                                     pack=self.attn_pack)
+
     def _step(self, p, graph, h: Tensor) -> Tensor:
-        m = gcn_post(p["gcn"], aggregate(graph, gcn_pre(p["gcn"], torch.relu(h)),
-                                         backend=self.backend))
+        if self.processor == "attention":
+            m = self._attend(p, graph, h)
+        else:
+            m = gcn_post(p["gcn"], aggregate(graph, gcn_pre(p["gcn"], torch.relu(h)),
+                                             backend=self.backend))
         return self._norm_residual(p["norm"], m, h)
 
     def _step_save_agg(self, p, graph, h: Tensor) -> Tensor:
         """One step that keeps only its input and its aggregation output:
-        the dense ops on either side are recomputed in the backward."""
+        the dense ops on either side are recomputed in the backward. An
+        attention step keeps ``m`` and recomputes the attention block."""
+        if self.processor == "attention":
+            m = checkpoint(functools.partial(self._attend, p, graph), h,
+                           use_reentrant=False)
+            return self._norm_residual(p["norm"], m, h)
         pre = checkpoint(lambda t: gcn_pre(p["gcn"], torch.relu(t)), h,
                          use_reentrant=False)
         a = aggregate(graph, pre, backend=self.backend)
@@ -158,7 +203,8 @@ class EncodeProcessDecode(nn.Module):
         h = core.mlp_apply(self.encoder, h)
 
         pad_rows = 0
-        if (self.latent_size % 128 == 0 and isinstance(graph, DiagWindowGraph)
+        if (self.processor == "gcn" and self.latent_size % 128 == 0
+                and isinstance(graph, DiagWindowGraph)
                 and h.shape[-2] == graph.num_nodes):
             pad_rows = graph.num_padded_nodes - graph.num_nodes
             if pad_rows > 0:

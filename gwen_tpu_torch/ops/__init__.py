@@ -4,6 +4,7 @@ from gwen_tpu_torch.ops.aggregate import (
     aggregate_segment,
     aggregate_sliding_dense_reference,
 )
+from gwen_tpu_torch.ops.attention import windowed_attention
 from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
 from gwen_tpu_torch.ops.spmm_cuda import spmm_diag_window, spmm_sliding_dense
 
@@ -15,4 +16,5 @@ __all__ = [
     "fused_residual_layernorm",
     "spmm_diag_window",
     "spmm_sliding_dense",
+    "windowed_attention",
 ]

@@ -77,26 +77,32 @@ def _nvcc() -> str:
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not Path(nvcc).exists():
         raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build csrc/window_spmm.cu")
+                           "build the kernels in csrc/")
     return nvcc
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/window_spmm.cu`` for sm_90a into ``_build/`` (once per
-    source hash). Returns the library path and the compiler's output
-    (ptxas register and shared-memory use; empty when already built)."""
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libwindow_spmm_{tag}.so"
+def nvcc_build(src: Path) -> tuple[Path, str]:
+    """Compile the CUDA source ``src`` for sm_90a into a shared library in
+    ``_build/`` (once per source hash). Returns the library path and the
+    compiler's output (ptxas register and shared-memory use; empty when
+    already built)."""
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
     return out, res.stdout + res.stderr
+
+
+def build() -> tuple[Path, str]:
+    """Compile ``csrc/window_spmm.cu`` (see :func:`nvcc_build`)."""
+    return nvcc_build(_SRC)
 
 
 def _lib() -> ctypes.CDLL:

@@ -8,7 +8,9 @@ as written by the reference's ``gwen-tpu export`` or by
 program and is not read: :class:`ServingModel` rebuilds the model from the
 stored hyperparameters and the graph from the stored mesh level (the
 reference's ``export_cli.py`` recipe: icosphere, KD-patch order,
-``to_diag_window``), then loads the stored weights.
+``to_diag_window``, with transpose tables for the attention processor),
+then loads the stored weights. The GCN and attention processors are
+served; the interaction network waits for slice 4.
 """
 
 from __future__ import annotations
@@ -92,7 +94,8 @@ def export_model(model: EncodeProcessDecode, sample_input: np.ndarray, path,
     ``metadata`` must carry the run hyperparameters that
     :meth:`ServingModel.load` rebuilds from: ``levels``, ``channels``,
     ``latent_size``, ``process_steps``, ``mlp_layers``, ``residual``,
-    ``compute_dtype``, ``diag_window`` and ``processor``.
+    ``compute_dtype``, ``diag_window`` and ``processor`` (and, for
+    attention, ``attn_heads`` and ``attn_pack``).
     """
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
@@ -128,6 +131,9 @@ def model_from_metadata(md: dict, device) -> EncodeProcessDecode:
         mlp_layers=int(md.get("mlp_layers", 2)),
         residual=bool(md.get("residual", True)),
         compute_dtype=dtype,
+        processor=md.get("processor", "gcn"),
+        attn_heads=int(md.get("attn_heads", 2)),
+        attn_pack=md.get("attn_pack", "auto"),
     )
 
 
@@ -154,10 +160,11 @@ class ServingModel:
         params = unpack_tree(meta["params"], leaves)
         md = meta.get("metadata", {})
         processor = md.get("processor", "gcn")
-        if processor != "gcn":
+        if processor not in ("gcn", "attention"):
             raise ValueError(
                 f"artifact uses processor={processor!r}; the port serves the "
-                "GCN processor only (attention comes with slice 3)")
+                "GCN and attention processors (interaction comes with "
+                "slice 4)")
         if md.get("data"):
             raise ValueError(
                 f"artifact was trained on the mesh dataset {md['data']!r}; the "
@@ -172,7 +179,9 @@ class ServingModel:
         model = model_from_metadata(md, device)
         graph = to_diag_window(build_graph(s2, r2, n),
                                window_size=int(md.get("diag_window", 384)),
-                               dtype=model.compute_dtype).to(device)
+                               dtype=model.compute_dtype,
+                               transpose_tables=processor == "attention"
+                               ).to(device)
         model.load_state_dict(params_from_jax(params))
         model.eval()
         return cls(model, graph, perm, meta)

@@ -93,10 +93,14 @@ def test_params_round_trip_and_names():
         np.testing.assert_array_equal(node.numpy(), leaf)
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(processor="attention"), "slice 3"),
-    (dict(processor="interaction"), "slice 4"),
+@pytest.mark.parametrize("kw,exc,match", [
+    # attention runs on the diag-window layout only
+    (dict(processor="attention"), TypeError, "DiagWindowGraph"),
+    (dict(processor="interaction"), ValueError, "slice 4"),
 ])
-def test_epd_rejects_later_slices(kw, match):
-    with pytest.raises(ValueError, match=match):
-        EncodeProcessDecode(2, 2, device="cpu", latent_size=32, **kw)
+def test_epd_rejects_later_slices(kw, exc, match):
+    verts, s, r = J.icosphere_edges(1)
+    graph = P.build_graph(s, r, verts.shape[0])
+    with pytest.raises(exc, match=match):
+        model = EncodeProcessDecode(2, 2, device="cpu", latent_size=32, **kw)
+        model(graph, torch.zeros(verts.shape[0], 2))
