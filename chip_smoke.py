@@ -17,9 +17,14 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    the plain versions, batched and unbatched), and for attention (B5, B6
    with its row stats, B7) at nb = 1 (a direct 2-D call), 2 and 8 (dh 128)
    and 4 (dh 64), with the attention Function's gradients against autograd
-   through the plain forward: bf16 ``max|err| ≤ 1e-2·max|plain|``, the
-   plain version in float32 from the same values; float32
-   ``≤ 1e-5·max|plain|``. Kernel and plain are timed with CUDA events;
+   through the plain forward; then builds the bit-packed L7 graphs (the
+   diag layout in the same KD order, the RCM banded layout at block 256)
+   and checks packed B1 (F 256), packed B4 (batch 4) and B13 (F 256 and
+   batch 4), the packed composites' x-gradients against autograd through
+   the plain versions, and the packed diag composite against the unpacked
+   one: bf16 ``max|err| ≤ 1e-2·max|plain|``, the plain version in float32
+   from the same values; float32 ``≤ 1e-5·max|plain|``. Kernel and plain
+   are timed with CUDA events (packed kernels beside unpacked B1/B4 too);
 4. serves the GCN model: exports a seeded random-weight model (the default
    ``train-mesh graph.refine=7`` model: 1 channel, latent 256, 4 process
    steps, bf16), answers 3 ``predict`` requests of 4 steps through the CLI
@@ -44,7 +49,14 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
 7. the same for ``train-mesh model.processor=attention``: B5, B6, B7, B2
    and B2b 4 times per step with remat off, the step against the plain
    versions (at batch 2 if theirs does not fit at batch 4), times and peak
-   memory with remat off and ``save_agg``, export and one request.
+   memory with remat off and ``save_agg``, export and one request;
+8. trains on the bit-packed layouts: ``train-mesh graph.refine=7
+   train.batch_size=4`` with ``mesh.kernel=diag_packed`` (GCN: packed B4
+   and B10 8 times per step, B2 and B2b 4; attention: B5, B6, B7, B2, B2b
+   4) and ``mesh.kernel=packed`` (GCN: B13 8 times per step), each with no
+   plain version on the card, one step against the plain versions, step
+   time and peak memory; then the unbatched 256-channel EPD step on
+   ``diag_packed`` (packed B1).
 
 The second-to-last lines are a JSON object of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``,
@@ -467,18 +479,123 @@ def check_attention_kernels(graph, device) -> dict:
     return results
 
 
-def expected_launches(remat, process_steps: int, processor: str = "gcn") -> dict:
+def build_packed_graphs(device, perm) -> dict:
+    """The bit-packed L7 graphs, keyed by the ``mesh.kernel`` that takes
+    them: the diag layout in the serving graph's KD order (with the
+    attention tables) and the banded layout in RCM order at the reference's
+    defaults (block 256)."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      rcm_order, to_diag_window, to_sliding_packed)
+
+    verts, s, r = icosphere_edges(LEVELS)
+    n = verts.shape[0]
+    s2, r2, _ = apply_order(perm, s, r)
+    diag = to_diag_window(build_graph(s2, r2, n), window_size=WINDOW,
+                          dtype=torch.bfloat16, transpose_tables=True, packed=True)
+    s3, r3, _ = apply_order(rcm_order(s, r, n), s, r)
+    sliding = to_sliding_packed(build_graph(s3, r3, n))
+    return {"diag_packed": diag.to(device), "packed": sliding.to(device)}
+
+
+def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
+                         batch: int = TRAIN_BATCH) -> dict:
+    """Phase 3 for the bit-packed layouts: packed B1 (F 256), packed B4
+    (batch 4) and B13 (F 256, unbatched and at the batch-4 train shape)
+    against their plain versions in bf16 and float32; the packed
+    composites' x-gradients against autograd through the plain versions;
+    the packed diag composite (packed B1) against the unpacked one (B1) on
+    the same x. The float32 plain versions get the scales rounded to bf16,
+    as the bf16 kernels round them. Times beside the plain versions' and
+    the unpacked kernels' (``unpacked``)."""
+    from gwen_tpu_torch.ops import aggregate, spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    def rounded(g, *names):
+        return dataclasses.replace(
+            g, **{k: getattr(g, k).bfloat16().float() for k in names})
+
+    f = LATENT
+    pg, sg = packed["diag_packed"], packed["packed"]
+    p32 = rounded(pg, "r1_col", "r1_row")
+    s32 = rounded(sg, "col_scale", "row_scale")
+    u, rows, n = pg.escape.rows.shape[0], pg.num_padded_nodes, sg.num_nodes
+    # name, kernel, plain, graph, float32 graph, x, fix, kept for the JSON
+    cases = (
+        ("B1p", spmm_cuda.diag_window_spmm_packed,
+         spmm_cuda.diag_window_spmm_packed_plain, pg, p32, (rows, f), (u, f), True),
+        ("B4p", spmm_cuda.diag_window_spmm_packed_b,
+         spmm_cuda.diag_window_spmm_packed_plain, pg, p32, (batch, rows, f),
+         (batch, u, f), True),
+        ("B13", spmm_cuda.sliding_packed_spmm, spmm_cuda.sliding_packed_spmm_plain,
+         sg, s32, (n, f), None, False),
+        ("B13", spmm_cuda.sliding_packed_spmm, spmm_cuda.sliding_packed_spmm_plain,
+         sg, s32, (batch, n, f), None, True),
+    )
+    results = {}
+    for key, kern, plain, g, g32, shape, fix_shape, keep in cases:
+        x = randn(*shape)
+        extra = () if fix_shape is None else (randn(*fix_shape),)
+        extra32 = tuple(e.float() for e in extra)
+        tag = f"{key} {tuple(shape)}"
+        want = plain(g32, x.float(), *extra32)
+        err = compare(f"{tag} bf16", kern(g, x, *extra), want, BF16_TOL)
+        compare(f"{tag} f32", kern(g32, x.float(), *extra32), want, F32_TOL)
+        del want
+        ms, plain_ms = timed_pair(lambda: kern(g, x, *extra),
+                                  lambda: plain(g, x, *extra),
+                                  5 if len(shape) == 3 else 20)
+        ref = unpacked["B4" if len(shape) == 3 else "B1"]["ms"]
+        log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unpacked "
+            f"{'B4' if len(shape) == 3 else 'B1'} {ref:.4f} ms")
+        if keep:
+            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del x, extra, extra32
+        torch.cuda.empty_cache()
+
+    # The composites' x-gradients (packed B1/B3 unbatched, packed B4/B10
+    # and B13 at batch 4) against autograd through the plain versions.
+    for g, g32, shape in ((pg, p32, (rows, f)), (pg, p32, (batch, rows, f)),
+                          (sg, s32, (batch, n, f))):
+        x = randn(*shape).requires_grad_()
+        cot = randn(*shape, dtype=torch.float32)
+        (gx,) = torch.autograd.grad((aggregate(g, x).float() * cot).sum(), x)
+        x32 = x.detach().float().requires_grad_()
+        (want,) = torch.autograd.grad(
+            (aggregate(g32, x32, backend="plain") * cot).sum(), x32)
+        compare(f"{type(g).__name__} composite x-grad {tuple(shape)}", gx, want,
+                BF16_TOL)
+        del x, cot, gx, x32, want
+    # Packed against unpacked on the same x. The composites round the
+    # weights at different places (bf16(a_r a_s) against bf16(a_s)·bf16(a_r)
+    # and the output), each within BF16_TOL of the operator, so the two are
+    # held to the sum of both bounds.
+    x = randn(rows, f)
+    compare("packed diag composite vs unpacked (packed B1 vs B1)",
+            spmm_cuda.spmm_diag_window(pg, x), spmm_cuda.spmm_diag_window(graph, x),
+            2 * BF16_TOL)
+    torch.cuda.empty_cache()
+    return results
+
+
+def expected_launches(remat, process_steps: int, processor: str = "gcn",
+                      kernel: str = "diag") -> dict:
     """Kernel launches per batched train step under a remat policy.
 
-    GCN: each aggregation runs B4 and B10 once forward and once backward,
-    plus once per recompute of its step. Attention: each step runs B5 once
-    per forward or recompute, B6 and B7 once. Each LayerNorm runs B2 once
-    per forward or recompute and B2b once. ``save_agg`` keeps the GCN
-    aggregation output (no recompute) but recomputes the attention block
-    around its kept output, not the LayerNorm after it. Under ``nested:G`` a
-    group's recompute stops once the tensors it needs are rebuilt (torch's
-    non-reentrant checkpoint), so the group's last step is recomputed once,
-    the others twice."""
+    GCN: each aggregation runs its kernels once forward and once backward,
+    plus once per recompute of its step: B4 and B10 on the diag layout,
+    packed B4 and B10 on ``kernel="diag_packed"``, B13 alone on the
+    bit-packed banded layout (``kernel="packed"``). Attention (the same on
+    either diag layout): each step runs B5 once per forward or recompute, B6
+    and B7 once. Each LayerNorm runs B2 once per forward or recompute and
+    B2b once. ``save_agg`` keeps the GCN aggregation output (no recompute)
+    but recomputes the attention block around its kept output, not the
+    LayerNorm after it. Under ``nested:G`` a group's recompute stops once
+    the tensors it needs are rebuilt (torch's non-reentrant checkpoint), so
+    the group's last step is recomputed once, the others twice."""
     from gwen_tpu_torch.nn.gnn import parse_remat
 
     kind, k = parse_remat(remat, process_steps)
@@ -487,13 +604,16 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn") -> dict
     saved = min(k, s) if kind == "save_agg" else 0
     recompute = {"none": 0, "full": s, "save_agg": s,
                  "nested": 2 * s - groups}[kind]
-    out = dict.fromkeys(("B1", "B3", "B4", "B10", "B5", "B6", "B7"), 0)
+    out = dict.fromkeys(("B1", "B3", "B4", "B10", "B5", "B6", "B7", "B1p",
+                         "B4p", "B13"), 0)
     if processor == "attention":
         out.update(B5=s + recompute, B6=s, B7=s, B2=s + recompute - saved,
                    B2b=s)
     else:
         agg = 2 * s + recompute - saved
-        out.update(B4=agg, B10=agg, B2=s + recompute, B2b=s)
+        aggs = {"packed": ("B13",), "diag_packed": ("B4p", "B10")}
+        out.update(dict.fromkeys(aggs.get(kernel, ("B4", "B10")), agg),
+                   B2=s + recompute, B2b=s)
     return out
 
 
@@ -505,7 +625,10 @@ def _counters() -> dict:
             "B2": fused_ln.residual_layernorm,
             "B2b": fused_ln.residual_layernorm_bwd,
             "B5": attention_cuda.attention_fwd, "B6": attention_cuda.attention_dq,
-            "B7": attention_cuda.attention_dkdv}
+            "B7": attention_cuda.attention_dkdv,
+            "B1p": spmm_cuda.diag_window_spmm_packed,
+            "B4p": spmm_cuda.diag_window_spmm_packed_b,
+            "B13": spmm_cuda.sliding_packed_spmm}
 
 
 # Calls of a kernel's plain version with a CUDA tensor: the main paths must
@@ -518,7 +641,8 @@ def count_plain_calls_on_cuda() -> None:
     tensor adds one to ``PLAIN_ON_CUDA``."""
     from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda
 
-    # window_spmm_plain sits under the plain versions of B1, B3, B4, B10.
+    # window_spmm_plain sits under the plain versions of B1, B3, B4, B10
+    # and of the packed forms and B13.
     plains = ((spmm_cuda, ("window_spmm_plain",)),
               (fused_ln, ("residual_layernorm_plain",
                           "residual_layernorm_bwd_plain")),
@@ -607,18 +731,19 @@ def _against_plain_step(model, graph, x, y) -> None:
         compare(f"grad {k}", gk[k], gp[k], GRAD_TOL)
 
 
-def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
-    """Phase 5: train through the CLI (launch counts per step as remat off
-    implies, no plain version on the card), one step against the plain
-    versions, step times and peak memory, export and serve."""
+def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
+                    kernel: str = "auto") -> tuple[dict, dict]:
+    """``train-mesh graph.refine=7 train.batch_size=4`` through the CLI entry
+    point with ``mesh.kernel=kernel``: checks the run (at least 8 steps,
+    finite loss), the layout it took, and the launch counts per step that
+    remat off implies, with no plain version called on CUDA tensors.
+    Returns the CLI's JSON line and the launch counts."""
     import contextlib
     import io
 
     from gwen_tpu_torch.cli.main import main as cli
     from gwen_tpu_torch.registry import Run
-    from gwen_tpu_torch.serve import export_model, model_from_metadata
 
-    attention = processor == "attention"
     counters = _counters()
     for c in counters.values():
         c.launches = 0
@@ -627,7 +752,7 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli(["train-mesh", f"graph.refine={LEVELS}",
-                  f"model.processor={processor}",
+                  f"model.processor={processor}", f"mesh.kernel={kernel}",
                   f"train.batch_size={TRAIN_BATCH}",
                   f"run.registry_root={workdir / 'runs'}", "--device", str(device)])
     torch.cuda.synchronize()
@@ -643,9 +768,11 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
     if steps < 8 or not math.isfinite(out["best_train_loss"]):
         raise AssertionError(f"train-mesh ran {steps} steps, best loss "
                              f"{out['best_train_loss']}")
-    if out["layout"] != "DiagWindowGraph":
-        raise AssertionError(f"train-mesh took the {out['layout']} path")
-    per_step = expected_launches(False, PROCESS_STEPS, processor)
+    layout = "SlidingPackedGraph" if kernel == "packed" else "DiagWindowGraph"
+    if out["layout"] != layout or out["packed"] != ("packed" in kernel):
+        raise AssertionError(f"train-mesh took the {out['layout']} path "
+                             f"(packed: {out['packed']})")
+    per_step = expected_launches(False, PROCESS_STEPS, processor, kernel)
     want = {k: v * steps for k, v in per_step.items()}
     log(f"  launches during training: {launches} (want {want}); plain versions "
         f"called on CUDA tensors: {PLAIN_ON_CUDA['calls']}")
@@ -654,14 +781,13 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
                              "plain version ran on the card")
     losses = [r["value"] for r in Run(Path(out["run_dir"])).metrics("train_loss")]
     log(f"  logged train losses: {losses}")
+    return out, launches
 
-    # One train step against the same step through the plain versions, at
-    # batch 4, or at batch 2 where the plain versions' step does not fit.
-    n = graph.num_nodes
-    rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, n, CHANNELS)).astype(np.float32)).to(device)
-    y = 0.9 * x + 0.1
-    model = _train_model(device, CHANNELS, processor=processor)
+
+def _check_and_time_step(model, graph, x, y, tag: str) -> None:
+    """One train step against the same step through the plain versions, at
+    batch 4, or at batch 2 where the plain versions' step does not fit; then
+    the batch-4 train-step time and peak memory (kernels, then plain)."""
     try:
         _against_plain_step(model, graph, x, y)
     except torch.cuda.OutOfMemoryError:
@@ -672,7 +798,6 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
         _against_plain_step(model, graph, x[:2], y[:2])
     torch.cuda.empty_cache()
 
-    # Train-step time and peak memory: batch 4 (kernels, then plain).
     timing = {}
     for backend in ("auto", "plain"):
         model.backend = backend
@@ -680,15 +805,63 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
         try:
             ms = _step_ms(_adam_step(model, graph, x, y))
         except torch.cuda.OutOfMemoryError:
-            log(f"  batch-{TRAIN_BATCH} {processor} train step ({backend}): out "
-                "of memory")
+            log(f"  batch-{TRAIN_BATCH} {tag} train step ({backend}): out of "
+                "memory")
             torch.cuda.empty_cache()
             continue
         timing[backend] = (ms, torch.cuda.max_memory_allocated())
     model.backend = "auto"
     for backend, (ms, peak) in timing.items():
-        log(f"  batch-{TRAIN_BATCH} {processor} train step ({backend}): "
+        log(f"  batch-{TRAIN_BATCH} {tag} train step ({backend}): "
             f"{ms:.3f} ms, peak memory {peak / 2**30:.2f} GiB")
+
+
+def _train_batch(n: int, device, rng) -> tuple[torch.Tensor, torch.Tensor]:
+    x = torch.from_numpy(rng.normal(size=(TRAIN_BATCH, n, CHANNELS)).astype(np.float32)).to(device)
+    return x, 0.9 * x + 0.1
+
+
+def _unbatched_step(graph, device, rng, kernels: tuple) -> dict:
+    """The unbatched EPD train step at 256 channels (``bench.py``'s shape):
+    time, peak memory and launch counts; fails unless each of ``kernels``
+    ran. Returns the counts."""
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    x1 = torch.from_numpy(rng.normal(size=(graph.num_nodes, LATENT)).astype(np.float32)).to(device)
+    m1 = _train_model(device, LATENT)
+    torch.cuda.reset_peak_memory_stats()
+    ms1 = _step_ms(_adam_step(m1, graph, x1, 0.9 * x1))
+    launches = {k: c.launches for k, c in counters.items()}
+    log(f"  unbatched EPD train step ({LATENT} channels): {ms1:.3f} ms, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if not all(launches[k] for k in kernels):
+        raise AssertionError(f"the unbatched train step did not run {kernels}")
+    del m1, x1
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
+    """Phases 6 and 7: train through the CLI (launch counts per step as
+    remat off implies, no plain version on the card), one step against the
+    plain versions, step times and peak memory, export and serve."""
+    import contextlib
+    import io
+
+    from gwen_tpu_torch.cli.main import main as cli
+    from gwen_tpu_torch.registry import Run
+    from gwen_tpu_torch.serve import export_model, model_from_metadata
+
+    attention = processor == "attention"
+    counters = _counters()
+    out, launches = _run_train_mesh(workdir, device, processor)
+    n = graph.num_nodes
+    rng = np.random.default_rng(5)
+    x, y = _train_batch(n, device, rng)
+    model = _train_model(device, CHANNELS, processor=processor)
+    _check_and_time_step(model, graph, x, y, processor)
     del model
     torch.cuda.empty_cache()
 
@@ -714,19 +887,7 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
     torch.cuda.empty_cache()
 
     if not attention:
-        # The unbatched EPD train step at 256 channels (bench.py's shape).
-        for c in counters.values():
-            c.launches = 0
-        x1 = torch.from_numpy(rng.normal(size=(n, LATENT)).astype(np.float32)).to(device)
-        m1 = _train_model(device, LATENT)
-        torch.cuda.reset_peak_memory_stats()
-        ms1 = _step_ms(_adam_step(m1, graph, x1, 0.9 * x1))
-        log(f"  unbatched EPD train step ({LATENT} channels): {ms1:.3f} ms, peak "
-            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-            f"{ {k: c.launches for k, c in counters.items()} }")
-        if counters["B1"].launches == 0 or counters["B3"].launches == 0:
-            raise AssertionError("the unbatched train step did not run B1/B3")
-        del m1, x1
+        _unbatched_step(graph, device, rng, ("B1", "B3"))
 
         # One step at the default batch with the cheapest remat policy that
         # fits.
@@ -772,6 +933,34 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
         raise AssertionError(f"predict from the trained run: rc {rc}, "
                              f"{traj.shape}, finite={np.isfinite(traj).all()}")
     log(f"  predict from the trained {processor} run: {traj.shape}, finite")
+    return launches
+
+
+def train_packed(graphs: dict, device, workdir: Path) -> dict:
+    """Phase 8: ``train-mesh`` on the bit-packed layouts (``diag_packed``
+    for GCN and attention, ``packed`` for GCN): launch counts per step and
+    no plain version on the card, one step against the plain versions, step
+    time and peak memory; then the unbatched 256-channel EPD step on
+    ``diag_packed`` (packed B1). Returns the packed kernels' launch counts
+    on these paths."""
+    launches = {}
+    rng = np.random.default_rng(6)
+    for kernel, processor, keys in (("diag_packed", "gcn", ("B4p",)),
+                                    ("diag_packed", "attention", ()),
+                                    ("packed", "gcn", ("B13",))):
+        log(f"  -- mesh.kernel={kernel} model.processor={processor}")
+        graph = graphs[kernel]
+        _, got = _run_train_mesh(workdir / f"{kernel}-{processor}", device,
+                                 processor, kernel)
+        launches.update({k: got[k] for k in keys})
+        x, y = _train_batch(graph.num_nodes, device, rng)
+        model = _train_model(device, CHANNELS, processor=processor)
+        _check_and_time_step(model, graph, x, y, f"{kernel} {processor}")
+        del model, x, y
+        torch.cuda.empty_cache()
+    log("  -- the unbatched step on mesh.kernel=diag_packed")
+    launches["B1p"] = _unbatched_step(graphs["diag_packed"], device, rng,
+                                      ("B1p", "B3"))["B1p"]
     return launches
 
 
@@ -829,6 +1018,17 @@ def main() -> int:
     results.update(check_train_kernels(graph, device))
     log("  attention (B5, B6, B7):")
     results.update(check_attention_kernels(graph, device))
+    t0 = time.perf_counter()
+    packed = build_packed_graphs(device, perm)
+    pg, sg = packed["diag_packed"], packed["packed"]
+    log(f"  bit-packed L{LEVELS} graphs built in {time.perf_counter() - t0:.1f} s: "
+        f"diag bits {tuple(pg.s_pack.shape)} int32 ({pg.s_pack.nbytes / 2**20:.2f} "
+        f"MiB; bf16 S would be {pg.num_padded_nodes * pg.window_size * 2 / 2**20:.1f} "
+        f"MiB), escape edges {pg.escape.num_edges}; RCM banded: block "
+        f"{sg.block_size}, W {sg.window_size}, padded {sg.num_padded_nodes}, bits "
+        f"{tuple(sg.s_pack.shape)} ({sg.s_pack.nbytes / 2**20:.2f} MiB)")
+    log("  bit-packed layouts (packed B1, packed B4, B13):")
+    results.update(check_packed_kernels(graph, packed, device, results))
 
     log("== phase 4: serve 3 requests x 4 steps through `predict` (GCN)")
     with tempfile.TemporaryDirectory() as tmp:
@@ -850,6 +1050,11 @@ def main() -> int:
         launches.update({k: v for k, v in train(graph, device, Path(tmp),
                                                 "attention").items()
                          if k in ("B6", "B7")})
+
+    log(f"== phase 8: train through `train-mesh` on the bit-packed layouts "
+        f"(batch {TRAIN_BATCH}), time")
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(train_packed(packed, device, Path(tmp)))
 
     spmm, ln = "gwen_tpu/ops/spmm_pallas.py", "gwen_tpu/ops/fused_ln.py"
     att = "gwen_tpu/ops/attention_pallas.py"
@@ -878,7 +1083,14 @@ def main() -> int:
                "B7": (f"attention dK and dV (nb = 1{one})", "cuda", acu,
                       f"{att}:1053"),
                "B7b": (f"batched attention dK and dV (nb = 8{one})", "cuda",
-                       acu, f"{att}:1216")}
+                       acu, f"{att}:1216"),
+               "B1p": ("packed diag-window SpMM: S01 bits, rank-1 scales "
+                       "(the packed branch of _diag_kernel)", "cuda", cu,
+                       f"{spmm}:998"),
+               "B4p": ("batched packed diag-window SpMM (the packed branch of "
+                       "_diag_kernel_b)", "cuda", cu, f"{spmm}:1224"),
+               "B13": ("bit-packed banded SpMM (batch 4, the train-mesh "
+                       "shape)", "cuda", cu, f"{spmm}:1556")}
     kernels = [{"name": f"{key} {name}", "route": route, "source": src,
                 "replaces": rep,
                 "launches": launches[key[:-1] if key in ("B5b", "B6b", "B7b") else key],

@@ -3,22 +3,25 @@ the encode-process-decode model (GCN or attention processor) on one
 device.
 
 Counterpart of ``gwen_tpu.cli.train_mesh.main``, with the reference's
-choice of path and ``cuda`` in place of ``tpu``. GCN: on a CUDA device the
-nodes take the KD-patch order and the graph the diag-window layout
-(aggregations through kernels B1/B4 with the esc2 contraction on B3/B10,
-residual LayerNorms through B2/B2b); on the CPU they take RCM and the
-segment path; ``mesh.kernel="sliding"`` takes the banded layout on CUDA.
-Attention (``model.processor=attention``): KD-patch order and the
-diag-window layout with transpose tables on every device, as the
-reference (kernels B5, B6, B7 on CUDA, their plain versions on the CPU);
-a ``mesh.kernel`` other than ``auto``/``diag``/``diag_packed`` is refused.
+choice of path and ``cuda`` in place of ``tpu``. GCN: on a CUDA device,
+with ``mesh.kernel`` ``auto``, ``diag`` or ``diag_packed``, the nodes take
+the KD-patch order and the graph the diag-window layout (aggregations
+through kernels B1/B4, or their packed form on ``diag_packed``, with the
+esc2 contraction on B3/B10; residual LayerNorms through B2/B2b). Other
+kernels on CUDA take RCM and a banded layout: ``packed`` (and any kernel
+but ``sliding`` whose weighted S would reach 7 GiB) the bit-packed one
+(kernel B13), else the weighted one (B3/B10); ``segment`` keeps the COO
+graph. On the CPU GCN takes RCM and the segment path. Attention
+(``model.processor=attention``): KD-patch order and the diag-window layout
+with transpose tables on every device, packed on ``diag_packed``, as the
+reference (kernels B5, B6, B7 on CUDA, their plain versions on the CPU); a
+``mesh.kernel`` other than ``auto``/``diag``/``diag_packed`` is refused.
 The device is explicit: asking for ``cuda`` where there is none raises.
 
 Not ported yet, each refused with a ``ValueError``: the skill verification
 of generated ensembles after training (it needs the ensemble code of
 slice 4; the run ends after ``save_model``), ``train.rollout_horizon > 1``,
-``train.loss="crps-ensemble"``, the partitioned path, ``--data`` input and
-``mesh.kernel="diag_packed"``.
+``train.loss="crps-ensemble"``, the partitioned path and ``--data`` input.
 """
 
 from __future__ import annotations
@@ -47,9 +50,6 @@ def _refuse_later_slices(config: GwenConfig, data: str) -> None:
          "slice 6 of the port"),
         (bool(data), "--data (mesh-ensemble stores) is not ported yet; "
          "train on the synthetic ensemble"),
-        (mesh.kernel in ("diag_packed", "packed"), f"mesh.kernel="
-         f"{mesh.kernel!r} (the bit-packed layouts) comes with slice 7 of "
-         "the port"),
     ]
     for cond, msg in waits:
         if cond:
@@ -68,13 +68,35 @@ def resolve_device(device: str) -> torch.device:
 def diag_path(dev: torch.device, kernel: str, processor: str) -> bool:
     """Whether the run takes KD-patch order and the diag-window layout:
     attention on every device, GCN on CUDA."""
+    if kernel == "diag_packed" and processor == "interaction":
+        raise ValueError(
+            "mesh.kernel='diag_packed' supports model.processor='gcn' and "
+            "'attention' (the interaction net rides the segment path)")
     if processor == "attention":
         if kernel not in ("auto", "diag", "diag_packed"):
             raise ValueError(
                 "model.processor='attention' requires mesh.kernel in "
                 f"('auto', 'diag', 'diag_packed'); got {kernel!r}")
         return True
-    return dev.type == "cuda" and kernel in ("auto", "diag") and processor == "gcn"
+    return (dev.type == "cuda" and kernel in ("auto", "diag", "diag_packed")
+            and processor == "gcn")
+
+
+def banded_layout(g, s2: np.ndarray, r2: np.ndarray, kernel: str,
+                  dtype: torch.dtype):
+    """The banded layout of the GCN path on CUDA off the diag layout, as the
+    reference picks it on the TPU: the bit-packed one for
+    ``mesh.kernel="packed"`` or where the weighted S (bf16, band rounded up
+    plus one block) would reach 7 GiB, unless ``"sliding"`` asks for the
+    weighted one."""
+    from gwen_tpu_torch.graph import bandwidth, to_sliding_dense, to_sliding_packed
+
+    n = g.num_nodes
+    bw = bandwidth(s2, r2)
+    s_bytes = (-(-n // 128) * 128) * (-(-bw // 128) * 128 + 128) * 2
+    if kernel == "packed" or (kernel != "sliding" and s_bytes >= int(7 * 2**30)):
+        return to_sliding_packed(g)
+    return to_sliding_dense(g, dtype=dtype)
 
 
 def main(config: GwenConfig, members: int = 4, steps: int = 16,
@@ -86,7 +108,6 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
         kd_patch_order,
         rcm_order,
         to_diag_window,
-        to_sliding_dense,
     )
     from gwen_tpu_torch.nn import EncodeProcessDecode
     from gwen_tpu_torch.train import (
@@ -133,9 +154,10 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
     if use_diag:
         graph = to_diag_window(g, window_size=config.mesh.diag_window,
                                dtype=compute_dtype,
-                               transpose_tables=processor == "attention")
-    elif dev.type == "cuda" and kernel == "sliding" and processor == "gcn":
-        graph = to_sliding_dense(g, dtype=compute_dtype)
+                               transpose_tables=processor == "attention",
+                               packed=kernel == "diag_packed")
+    elif dev.type == "cuda" and kernel != "segment" and processor == "gcn":
+        graph = banded_layout(g, s2, r2, kernel, compute_dtype)
     else:
         graph = g
     loss_fn = mesh_graph_loss_fn(
@@ -188,4 +210,5 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
     return {"best_train_loss": best, "run_id": run.run_id,
             "run_dir": str(run.path), "steps": state.step, "nodes": n,
             "edges": len(s), "device": str(dev),
-            "layout": type(graph).__name__}
+            "layout": type(graph).__name__,
+            "packed": getattr(graph, "s_pack", None) is not None}

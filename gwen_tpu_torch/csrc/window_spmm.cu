@@ -1,25 +1,45 @@
-// Windowed SpMM for the diag-window (B1) and banded (B3) layouts.
+// Windowed SpMM for the diag-window (B1, B4), banded (B3, B10) and
+// bit-packed (packed B1 and B4, B13) layouts.
 //
-// Replaces two Pallas TPU kernels of the reference package:
+// Replaces these Pallas TPU kernels of the reference package:
 //   B1  gwen_tpu/ops/spmm_pallas.py:_diag_kernel     (through _diag_impl)
 //   B3  gwen_tpu/ops/spmm_pallas.py:_sliding_kernel  (through _sliding_impl)
-// Both compute, for every 128-row destination block b with window start ws_b,
+//   B13 gwen_tpu/ops/spmm_pallas.py:_sliding_packed_kernel
+//       (through _sliding_packed_impl)
+// and, in the batched section below, B4 and B10. All compute, for every
+// 128-row destination block b with window start ws_b,
 //   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
-// in float32, then (B1 only) add the block's escape fix rows
+// in float32, then (B1 and B4 only) add the block's escape fix rows
 //   out[esc_rows[j], :] += fix[j, :]   for j in [esc_ptr[b], esc_ptr[b+1])
 // and cast once to the output type. The TPU kernels stage x in VMEM (a
-// superblock union window for B1, a ring buffer for B3) and place escapes
-// with a one-hot matmul; here each CTA reads its own window and places the
-// (row-unique) escape rows directly in its shared-memory output tile.
+// superblock union window for B1, a ring buffer for B3 and B13) and place
+// escapes with a one-hot matmul; here each CTA reads its own window and
+// places the (row-unique) escape rows directly in its shared-memory output
+// tile.
+//
+// Packed form (PACKED = true; packed B1 and B4, and B13): S is not read.
+// For rank-1 GCN weights S = a_r a_s (.) S01, and the kernel rebuilds it:
+// bit j of word k of row i (bits: (N_pad, W / 32) uint32) is S01[i, 32k+j];
+// the S tile entry is S01 * T(a_s[ws_b + c]) (the column scale rounded to
+// the input type, as the reference's in-kernel S tile), and each output row
+// is multiplied by T(a_r[row]) after the escape rows are added (the escape
+// tables of packed graphs carry w = a_s), before the single rounding. The
+// bits are 1/16 of bf16 S. B13 is this kernel without escapes on the
+// banded packed layout: its 256-row graph blocks run as two 128-row kernel
+// blocks that share a start, and the reference's outside scales
+// (a . K01(a . x)) are folded in the same way.
 //
 // What bounds it on an H100: bytes, not flops. At L7 (S 164864 x 384,
-// F = 256, bf16) one call is 32 GFLOP against ~300 MB of S, x and output,
-// about 108 flop/byte, a third of the ridge point. So bf16 products run on
-// the tensor cores (WMMA -> mma.sync, float32 accumulators) to stay far
-// below the memory time, the next chunk's loads are issued into registers
-// before the current chunk's products, and the grid walks the 64-column
-// tiles of one block consecutively so they share its S tile in L2.
-// float32 inputs take a CUDA-core FMA path (full float32, no TF32).
+// F = 256, bf16) one B1 call is 32 GFLOP against ~300 MB of S, x and
+// output, about 108 flop/byte, a third of the ridge point. So bf16
+// products run on the tensor cores (WMMA -> mma.sync, float32
+// accumulators) to stay far below the memory time, the next chunk's loads
+// are issued into registers before the current chunk's products, and the
+// grid walks the 64-column tiles of one block consecutively so they share
+// its S tile in L2. float32 inputs take a CUDA-core FMA path (full float32,
+// no TF32). B13's window is wide (1,792 rows at L7 in RCM order): ~150
+// GFLOP a call at F = 256, most of it on zero bits; skipping empty
+// sub-tiles is later work.
 //
 // Plain C interface, loaded with ctypes (gwen_tpu_torch/ops/spmm_cuda.py).
 
@@ -34,9 +54,10 @@ namespace {
 
 constexpr int BM = 128;  // destination rows per graph block
 constexpr int BN = 64;   // feature columns per CTA
-constexpr int BK = 32;   // window rows staged per chunk
+constexpr int BK = 32;   // window rows staged per chunk (one bit word)
 constexpr int NT = 256;  // threads per CTA (8 warps)
 constexpr int LDC = BN + 4;  // float32 output tile row (16-byte multiple)
+constexpr int HALF = 16;     // window columns one thread expands per word
 
 template <typename T>
 struct Cfg {
@@ -53,6 +74,22 @@ constexpr int SMEM_BYTES =
     cmax(cmax(Cfg<float>::STAGE_BYTES, Cfg<__nv_bfloat16>::STAGE_BYTES),
          BM * LDC * (int)sizeof(float));
 
+// Everything a launch passes; pointers the form does not use are null.
+struct Args {
+  const void* s;             // (N_pad, W) S, unpacked forms
+  const uint32_t* bits;      // (N_pad, W / 32) S01, packed forms
+  const float* col_scale;    // a on source rows, packed forms
+  const float* row_scale;    // a on destination rows, packed forms
+  const void* x;             // (batch, x_rows, f)
+  const int* window_start;   // (num_blocks,)
+  const int* esc_ptr;        // (num_blocks + 1,) or null
+  const int64_t* esc_rows;   // (n_fix,)
+  const void* fix;           // (batch, n_fix, f)
+  void* out;                 // (batch, num_blocks * 128, f)
+  int n_fc, window, f, x_rows, batch, n_fix;
+  int64_t n_pad;
+};
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -66,14 +103,28 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T, bool HAS_ESC>
-__global__ void __launch_bounds__(NT)
-window_spmm_kernel(const T* __restrict__ s, const T* __restrict__ x,
-                   const int* __restrict__ window_start,
-                   const int* __restrict__ esc_ptr,
-                   const int64_t* __restrict__ esc_rows,
-                   const T* __restrict__ fix, T* __restrict__ out, int n_fc,
-                   int window, int f, int x_rows) {
+// A scale as the kernels use it: rounded to the input type, then float32.
+template <typename T>
+__device__ __forceinline__ float scale_at(const float* v, int64_t i) {
+  return to_f32(from_f32<T>(v[i]));
+}
+
+// 16 S-tile entries from half `h` of a bit word: bit (16h + j) selects the
+// (rounded) column scale sc[j], else 0. Written as 16-byte vectors.
+template <typename T>
+__device__ __forceinline__ void expand_half(uint32_t word, int h,
+                                            const float* sc, T* dst) {
+  __align__(16) T tmp[HALF];
+#pragma unroll
+  for (int j = 0; j < HALF; ++j)
+    tmp[j] = from_f32<T>(((word >> (h * HALF + j)) & 1u) ? sc[j] : 0.f);
+#pragma unroll
+  for (int v = 0; v < HALF * (int)sizeof(T) / 16; ++v)
+    reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(tmp)[v];
+}
+
+template <typename T, bool HAS_ESC, bool PACKED>
+__global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   using C = Cfg<T>;
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   T* As = reinterpret_cast<T*>(smem);          // [BM][LDA] S chunk
@@ -81,21 +132,45 @@ window_spmm_kernel(const T* __restrict__ s, const T* __restrict__ x,
   float* Cs = reinterpret_cast<float*>(smem);  // [BM][LDC], after the loop
 
   const int tid = threadIdx.x;
-  const int fc = blockIdx.x % n_fc;  // column tile: fastest, shares S in L2
-  const int b = blockIdx.x / n_fc;   // destination block
+  const int fc = blockIdx.x % a.n_fc;  // column tile: fastest, shares S in L2
+  const int b = blockIdx.x / a.n_fc;   // destination block
+  const int bi = blockIdx.y;           // batch member
+  const int window = a.window, f = a.f, x_rows = a.x_rows;
   const int c0 = fc * BN;
   const int64_t row0 = (int64_t)b * BM;
-  const int64_t ws = window_start[b];
-  const T* s_blk = s + row0 * window;
+  const int64_t ws = a.window_start[b];
+  const T* s_blk =
+      PACKED ? nullptr : static_cast<const T*>(a.s) + row0 * window;
+  const T* x = static_cast<const T*>(a.x) + (int64_t)bi * x_rows * f;
+  T* out = static_cast<T*>(a.out) + (int64_t)bi * a.n_pad * f;
+  // Packed: thread (pr, ph) expands half ph of row pr's word of each chunk.
+  const int pr = tid >> 1, ph = tid & 1;
+  const int wpr = window / BK;  // bit words per row
 
   uint4 ra[C::A_VECS], rb[C::B_VECS];
+  uint32_t rw = 0;
+  float rsc[HALF];
   auto load = [&](int k0) {
+    if constexpr (PACKED) {
+      rw = a.bits[(row0 + pr) * wpr + k0 / BK];
+      const float4* sp = reinterpret_cast<const float4*>(
+          a.col_scale + ws + k0 + ph * HALF);
 #pragma unroll
-    for (int i = 0; i < C::A_VECS; ++i) {
-      const int v = tid + i * NT;
-      const int r = v / (BK / C::VEC), cv = v % (BK / C::VEC);
-      ra[i] = *reinterpret_cast<const uint4*>(s_blk + (int64_t)r * window +
-                                              k0 + cv * C::VEC);
+      for (int i = 0; i < HALF / 4; ++i) {
+        const float4 v = sp[i];
+        rsc[4 * i] = v.x;
+        rsc[4 * i + 1] = v.y;
+        rsc[4 * i + 2] = v.z;
+        rsc[4 * i + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < C::A_VECS; ++i) {
+        const int v = tid + i * NT;
+        const int r = v / (BK / C::VEC), cv = v % (BK / C::VEC);
+        ra[i] = *reinterpret_cast<const uint4*>(s_blk + (int64_t)r * window +
+                                                k0 + cv * C::VEC);
+      }
     }
 #pragma unroll
     for (int i = 0; i < C::B_VECS; ++i) {
@@ -109,11 +184,18 @@ window_spmm_kernel(const T* __restrict__ s, const T* __restrict__ x,
     }
   };
   auto stage = [&]() {
+    if constexpr (PACKED) {
+      float sc[HALF];
 #pragma unroll
-    for (int i = 0; i < C::A_VECS; ++i) {
-      const int v = tid + i * NT;
-      const int r = v / (BK / C::VEC), cv = v % (BK / C::VEC);
-      *reinterpret_cast<uint4*>(As + r * C::LDA + cv * C::VEC) = ra[i];
+      for (int j = 0; j < HALF; ++j) sc[j] = to_f32(from_f32<T>(rsc[j]));
+      expand_half<T>(rw, ph, sc, As + pr * C::LDA + ph * HALF);
+    } else {
+#pragma unroll
+      for (int i = 0; i < C::A_VECS; ++i) {
+        const int v = tid + i * NT;
+        const int r = v / (BK / C::VEC), cv = v % (BK / C::VEC);
+        *reinterpret_cast<uint4*>(As + r * C::LDA + cv * C::VEC) = ra[i];
+      }
     }
 #pragma unroll
     for (int i = 0; i < C::B_VECS; ++i) {
@@ -142,11 +224,11 @@ window_spmm_kernel(const T* __restrict__ s, const T* __restrict__ x,
                                                            tx * 4);
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          const float a = As[(ty * 8 + i) * C::LDA + k];
-          acc[i][0] = fmaf(a, bv.x, acc[i][0]);
-          acc[i][1] = fmaf(a, bv.y, acc[i][1]);
-          acc[i][2] = fmaf(a, bv.z, acc[i][2]);
-          acc[i][3] = fmaf(a, bv.w, acc[i][3]);
+          const float av = As[(ty * 8 + i) * C::LDA + k];
+          acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+          acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+          acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+          acc[i][3] = fmaf(av, bv.w, acc[i][3]);
         }
       }
       __syncthreads();
@@ -205,11 +287,12 @@ window_spmm_kernel(const T* __restrict__ s, const T* __restrict__ x,
 
   if constexpr (HAS_ESC) {
     // Escape receivers are unique, so no two threads add to one element.
-    const int j0 = esc_ptr[b], j1 = esc_ptr[b + 1];
+    const T* fix = static_cast<const T*>(a.fix) + (int64_t)bi * a.n_fix * f;
+    const int j0 = a.esc_ptr[b], j1 = a.esc_ptr[b + 1];
     for (int idx = tid; idx < (j1 - j0) * BN; idx += NT) {
       const int j = j0 + idx / BN, c = idx % BN;
       if (c0 + c < f)
-        Cs[(int)(esc_rows[j] - row0) * LDC + c] +=
+        Cs[(int)(a.esc_rows[j] - row0) * LDC + c] +=
             to_f32(fix[(int64_t)j * f + c0 + c]);
     }
     __syncthreads();
@@ -220,81 +303,87 @@ window_spmm_kernel(const T* __restrict__ s, const T* __restrict__ x,
     const int r = v / OV, cv = v % OV;
     const int col = c0 + cv * C::VEC;
     if (col < f) {
+      const float rs = PACKED ? scale_at<T>(a.row_scale, row0 + r) : 1.f;
       __align__(16) T tmp[C::VEC];
 #pragma unroll
       for (int e = 0; e < C::VEC; ++e)
-        tmp[e] = from_f32<T>(Cs[r * LDC + cv * C::VEC + e]);
+        tmp[e] = from_f32<T>(PACKED ? Cs[r * LDC + cv * C::VEC + e] * rs
+                                    : Cs[r * LDC + cv * C::VEC + e]);
       *reinterpret_cast<uint4*>(out + (row0 + r) * f + col) =
           *reinterpret_cast<const uint4*>(tmp);
     }
   }
 }
 
-template <typename T, bool HAS_ESC>
-int launch(const void* s, const void* x, const int* window_start,
-           const int* esc_ptr, const int64_t* esc_rows, const void* fix,
-           void* out, int num_blocks, int window, int f, int x_rows,
-           cudaStream_t stream) {
-  const int n_fc = (f + BN - 1) / BN;
-  const dim3 grid((unsigned)n_fc * (unsigned)num_blocks);
-  window_spmm_kernel<T, HAS_ESC><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(x), window_start,
-      esc_ptr, esc_rows, static_cast<const T*>(fix), static_cast<T*>(out),
-      n_fc, window, f, x_rows);
+template <typename T, bool HAS_ESC, bool PACKED>
+int launch(const Args& a, int num_blocks, cudaStream_t stream) {
+  const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks, (unsigned)a.batch);
+  window_spmm_kernel<T, HAS_ESC, PACKED><<<grid, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- batched
 //
-// B4 and B10: the same product on x (B, x_rows, F) -> out (B, N_pad, F),
-// replacing gwen_tpu/ops/spmm_pallas.py:_diag_kernel_b (through
-// _diag_impl_b) and _sliding_kernel_b (through _sliding_impl_b). What the
-// batched TPU kernels buy is that S is streamed once per destination block
-// and reused for every batch member. Here each CTA copies its whole S tile
-// (128 x W) into shared memory once, then loops over the batch, streaming
-// only x chunks. The escape rows of a block are the same fix-array range
-// for every member; fix is (B, U, F).
+// B4 and B10 (and packed B4): the same product on x (B, x_rows, F) -> out
+// (B, N_pad, F), replacing gwen_tpu/ops/spmm_pallas.py:_diag_kernel_b
+// (through _diag_impl_b) and _sliding_kernel_b (through _sliding_impl_b).
+// What the batched TPU kernels buy is that S is streamed once per
+// destination block and reused for every batch member. Here each CTA copies
+// its whole S tile (128 x W) into shared memory once (packed: expands it
+// from the bits and column scales once), then loops over the batch,
+// streaming only x chunks. The escape rows of a block are the same
+// fix-array range for every member; fix is (B, U, F).
 //
-// Shared memory: the S tile (row padded by one 16-byte vector), one x chunk
-// and, for bf16, the float32 output tile the escape rows are added into
-// before the single rounding. float32 outputs need no rounding, so they are
+// Shared memory: the S tile (row padded by one 16-byte vector), one x chunk,
+// for bf16 the float32 output tile the escape rows are added into before
+// the single rounding, and, packed, the window's rounded column scales
+// (read once from global memory, then by every row's expansion). float32 outputs need no rounding, so they are
 // stored straight from registers and the escape rows added in place after a
 // barrier (the CTA owns those rows and columns); that keeps the float32 tile
-// at W = 384 inside the 227 KB a block may use.
+// at W = 384 inside the 227 KB a block may use. Packed float32 stores
+// a_r * acc and adds a_r * fix, equal to a_r * (acc + fix) to float32
+// rounding.
 
-template <typename T>
+template <typename T, bool PACKED>
 constexpr int batched_smem_bytes(int window) {
   using C = Cfg<T>;
   return BM * (window + C::VEC) * (int)sizeof(T) + BK * C::LDB * (int)sizeof(T) +
-         (std::is_same<T, float>::value ? 0 : BM * LDC * (int)sizeof(float));
+         (std::is_same<T, float>::value ? 0 : BM * LDC * (int)sizeof(float)) +
+         (PACKED ? window * (int)sizeof(float) : 0);
 }
 
-template <typename T, bool HAS_ESC>
-__global__ void __launch_bounds__(NT)
-window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
-                           const int* __restrict__ window_start,
-                           const int* __restrict__ esc_ptr,
-                           const int64_t* __restrict__ esc_rows,
-                           const T* __restrict__ fix, T* __restrict__ out,
-                           int n_fc, int window, int f, int x_rows, int batch,
-                           int n_fix, int64_t n_pad) {
+template <typename T, bool HAS_ESC, bool PACKED>
+__global__ void __launch_bounds__(NT) window_spmm_batched_kernel(const Args a) {
   using C = Cfg<T>;
   extern __shared__ __align__(128) unsigned char smem[];
+  const int window = a.window, f = a.f, x_rows = a.x_rows;
   const int lds = window + C::VEC;             // padded S-tile row
   T* Ss = reinterpret_cast<T*>(smem);          // [BM][lds] whole S tile
   T* Bs = Ss + BM * lds;                       // [BK][LDB] x chunk
   float* Cs = reinterpret_cast<float*>(Bs + BK * C::LDB);  // [BM][LDC], bf16
+  float* Sc = Cs + (std::is_same<T, float>::value ? 0 : BM * LDC);  // [window]
 
   const int tid = threadIdx.x;
-  const int fc = blockIdx.x % n_fc;
-  const int b = blockIdx.x / n_fc;
+  const int fc = blockIdx.x % a.n_fc;
+  const int b = blockIdx.x / a.n_fc;
   const int c0 = fc * BN;
   const int64_t row0 = (int64_t)b * BM;
-  const int64_t ws = window_start[b];
+  const int64_t ws = a.window_start[b];
 
   // Stage the S tile once.
-  {
-    const T* s_blk = s + row0 * window;
+  if constexpr (PACKED) {
+    for (int c = tid; c < window; c += NT) Sc[c] = scale_at<T>(a.col_scale, ws + c);
+    __syncthreads();
+    // Consecutive threads take consecutive rows of one half word, so a warp
+    // reads the same 16 scales (a shared-memory broadcast).
+    const int wpr = window / BK;
+    for (int v = tid; v < BM * wpr * 2; v += NT) {
+      const int r = v % BM, hw = v / BM;
+      const uint32_t word = a.bits[(row0 + r) * wpr + hw / 2];
+      expand_half<T>(word, hw & 1, Sc + hw * HALF, Ss + r * lds + hw * HALF);
+    }
+  } else {
+    const T* s_blk = static_cast<const T*>(a.s) + row0 * window;
     const int vpr = window / C::VEC;
     for (int v = tid; v < BM * vpr; v += NT) {
       const int r = v / vpr, cv = v % vpr;
@@ -306,13 +395,14 @@ window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
 
   int j0 = 0, j1 = 0;
   if constexpr (HAS_ESC) {
-    j0 = esc_ptr[b];
-    j1 = esc_ptr[b + 1];
+    j0 = a.esc_ptr[b];
+    j1 = a.esc_ptr[b + 1];
   }
 
-  for (int bi = 0; bi < batch; ++bi) {
-    const T* xb = x + (int64_t)bi * x_rows * f;
-    T* ob = out + (int64_t)bi * n_pad * f;
+  for (int bi = 0; bi < a.batch; ++bi) {
+    const T* xb = static_cast<const T*>(a.x) + (int64_t)bi * x_rows * f;
+    T* ob = static_cast<T*>(a.out) + (int64_t)bi * a.n_pad * f;
+    const T* fb = static_cast<const T*>(a.fix) + (int64_t)bi * a.n_fix * f;
     uint4 rb[C::B_VECS];
     auto load = [&](int k0) {
 #pragma unroll
@@ -353,11 +443,11 @@ window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
               *reinterpret_cast<const float4*>(Bs + k * C::LDB + tx * 4);
 #pragma unroll
           for (int i = 0; i < 8; ++i) {
-            const float a = Ss[(ty * 8 + i) * lds + k0 + k];
-            acc[i][0] = fmaf(a, bv.x, acc[i][0]);
-            acc[i][1] = fmaf(a, bv.y, acc[i][1]);
-            acc[i][2] = fmaf(a, bv.z, acc[i][2]);
-            acc[i][3] = fmaf(a, bv.w, acc[i][3]);
+            const float av = Ss[(ty * 8 + i) * lds + k0 + k];
+            acc[i][0] = fmaf(av, bv.x, acc[i][0]);
+            acc[i][1] = fmaf(av, bv.y, acc[i][1]);
+            acc[i][2] = fmaf(av, bv.z, acc[i][2]);
+            acc[i][3] = fmaf(av, bv.w, acc[i][3]);
           }
         }
         __syncthreads();
@@ -365,16 +455,22 @@ window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
       const int col = c0 + tx * 4;
       if (col < f) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < 8; ++i) {
+          const float rs =
+              PACKED ? scale_at<T>(a.row_scale, row0 + ty * 8 + i) : 1.f;
           *reinterpret_cast<float4*>(ob + (row0 + ty * 8 + i) * f + col) =
-              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+              make_float4(acc[i][0] * rs, acc[i][1] * rs, acc[i][2] * rs,
+                          acc[i][3] * rs);
+        }
       }
       if constexpr (HAS_ESC) {
         __syncthreads();  // the tile's stores are visible to the block
-        const T* fb = fix + (int64_t)bi * n_fix * f;
         for (int idx = tid; idx < (j1 - j0) * BN; idx += NT) {
           const int j = j0 + idx / BN, c = idx % BN;
-          if (c0 + c < f) ob[esc_rows[j] * f + c0 + c] += fb[(int64_t)j * f + c0 + c];
+          const int64_t row = a.esc_rows[j];
+          const float rs = PACKED ? scale_at<T>(a.row_scale, row) : 1.f;
+          if (c0 + c < f)
+            ob[row * f + c0 + c] += fb[(int64_t)j * f + c0 + c] * rs;
         }
       }
     } else {
@@ -397,20 +493,20 @@ window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
               fa[2];
           wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                          wmma::row_major>
-              fb[2];
+              fbf[2];
 #pragma unroll
           for (int i = 0; i < 2; ++i)
             wmma::load_matrix_sync(fa[i], Ss + (wm * 32 + i * 16) * lds + k0 + kk,
                                    lds);
 #pragma unroll
           for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(fb[j], Bs + kk * C::LDB + wn * 32 + j * 16,
+            wmma::load_matrix_sync(fbf[j], Bs + kk * C::LDB + wn * 32 + j * 16,
                                    C::LDB);
 #pragma unroll
           for (int i = 0; i < 2; ++i)
 #pragma unroll
             for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+              wmma::mma_sync(acc[i][j], fa[i], fbf[j], acc[i][j]);
         }
         __syncthreads();
       }
@@ -423,11 +519,10 @@ window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
               wmma::mem_row_major);
       __syncthreads();
       if constexpr (HAS_ESC) {
-        const T* fb = fix + (int64_t)bi * n_fix * f;
         for (int idx = tid; idx < (j1 - j0) * BN; idx += NT) {
           const int j = j0 + idx / BN, c = idx % BN;
           if (c0 + c < f)
-            Cs[(int)(esc_rows[j] - row0) * LDC + c] +=
+            Cs[(int)(a.esc_rows[j] - row0) * LDC + c] +=
                 to_f32(fb[(int64_t)j * f + c0 + c]);
         }
         __syncthreads();
@@ -437,10 +532,12 @@ window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
         const int r = v / OV, cv = v % OV;
         const int col = c0 + cv * C::VEC;
         if (col < f) {
+          const float rs = PACKED ? scale_at<T>(a.row_scale, row0 + r) : 1.f;
           __align__(16) T tmp[C::VEC];
 #pragma unroll
           for (int e = 0; e < C::VEC; ++e)
-            tmp[e] = from_f32<T>(Cs[r * LDC + cv * C::VEC + e]);
+            tmp[e] = from_f32<T>(PACKED ? Cs[r * LDC + cv * C::VEC + e] * rs
+                                        : Cs[r * LDC + cv * C::VEC + e]);
           *reinterpret_cast<uint4*>(ob + (row0 + r) * f + col) =
               *reinterpret_cast<const uint4*>(tmp);
         }
@@ -451,24 +548,65 @@ window_spmm_batched_kernel(const T* __restrict__ s, const T* __restrict__ x,
   }
 }
 
-template <typename T, bool HAS_ESC>
-int launch_batched(const void* s, const void* x, const int* window_start,
-                   const int* esc_ptr, const int64_t* esc_rows,
-                   const void* fix, void* out, int num_blocks, int window,
-                   int f, int x_rows, int batch, int n_fix,
-                   cudaStream_t stream) {
-  const int smem = batched_smem_bytes<T>(window);
-  auto kernel = window_spmm_batched_kernel<T, HAS_ESC>;
+template <typename T, bool HAS_ESC, bool PACKED>
+int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
+  const int smem = batched_smem_bytes<T, PACKED>(a.window);
+  auto kernel = window_spmm_batched_kernel<T, HAS_ESC, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const int n_fc = (f + BN - 1) / BN;
-  const dim3 grid((unsigned)n_fc * (unsigned)num_blocks);
-  kernel<<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(s), static_cast<const T*>(x), window_start,
-      esc_ptr, esc_rows, static_cast<const T*>(fix), static_cast<T*>(out),
-      n_fc, window, f, x_rows, batch, n_fix, (int64_t)num_blocks * BM);
+  const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks);
+  kernel<<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// One launch of either kernel for dtype code 0 (float32) or 1 (bfloat16),
+// with or without escapes. -1 for arguments the kernels do not take.
+template <bool BATCHED, bool PACKED>
+int dispatch(Args a, int num_blocks, int dtype, void* stream) {
+  if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0 ||
+      a.batch <= 0)
+    return -1;
+  if (PACKED && !BATCHED && a.batch > 65535) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool esc = a.esc_ptr != nullptr;
+  a.n_fc = (a.f + BN - 1) / BN;
+  a.n_pad = (int64_t)num_blocks * BM;
+  if (dtype == 0) {
+    if (a.f % Cfg<float>::VEC) return -1;
+    if (BATCHED)
+      return esc ? launch_batched<float, true, PACKED>(a, num_blocks, st)
+                 : launch_batched<float, false, PACKED>(a, num_blocks, st);
+    return esc ? launch<float, true, PACKED>(a, num_blocks, st)
+               : launch<float, false, PACKED>(a, num_blocks, st);
+  }
+  if (dtype == 1) {
+    if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
+    if (BATCHED)
+      return esc ? launch_batched<__nv_bfloat16, true, PACKED>(a, num_blocks, st)
+                 : launch_batched<__nv_bfloat16, false, PACKED>(a, num_blocks, st);
+    return esc ? launch<__nv_bfloat16, true, PACKED>(a, num_blocks, st)
+               : launch<__nv_bfloat16, false, PACKED>(a, num_blocks, st);
+  }
+  return -1;
+}
+
+Args make_args(const void* x, const void* window_start, const void* esc_ptr,
+               const void* esc_rows, const void* fix, void* out, int window,
+               int f, int x_rows, int batch, int n_fix) {
+  Args a{};
+  a.x = x;
+  a.window_start = static_cast<const int*>(window_start);
+  a.esc_ptr = static_cast<const int*>(esc_ptr);
+  a.esc_rows = static_cast<const int64_t*>(esc_rows);
+  a.fix = fix;
+  a.out = out;
+  a.window = window;
+  a.f = f;
+  a.x_rows = x_rows;
+  a.batch = batch;
+  a.n_fix = n_fix;
+  return a;
 }
 
 }  // namespace
@@ -481,36 +619,22 @@ extern "C" int gwen_window_spmm(const void* s, const void* x,
                                 const void* esc_rows, const void* fix,
                                 void* out, int num_blocks, int window, int f,
                                 int x_rows, int dtype, void* stream) {
-  if (num_blocks <= 0 || window <= 0 || window % BK || f <= 0) return -1;
-  const int* ws = static_cast<const int*>(window_start);
-  const int* ep = static_cast<const int*>(esc_ptr);
-  const int64_t* er = static_cast<const int64_t*>(esc_rows);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool esc = esc_ptr != nullptr;
-  if (dtype == 0) {
-    if (f % Cfg<float>::VEC) return -1;
-    return esc ? launch<float, true>(s, x, ws, ep, er, fix, out, num_blocks,
-                                     window, f, x_rows, st)
-               : launch<float, false>(s, x, ws, ep, er, fix, out, num_blocks,
-                                      window, f, x_rows, st);
-  }
-  if (dtype == 1) {
-    if (f % Cfg<__nv_bfloat16>::VEC) return -1;
-    return esc ? launch<__nv_bfloat16, true>(s, x, ws, ep, er, fix, out,
-                                             num_blocks, window, f, x_rows, st)
-               : launch<__nv_bfloat16, false>(s, x, ws, ep, er, fix, out,
-                                              num_blocks, window, f, x_rows,
-                                              st);
-  }
-  return -1;
+  Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
+                     x_rows, 1, 0);
+  a.s = s;
+  return dispatch<false, false>(a, num_blocks, dtype, stream);
 }
 
-// Shared memory one CTA of the batched kernel needs for a window of
-// `window` rows (dtype as below); the wrapper refuses windows over the
-// 232,448 bytes a block may use.
-extern "C" int gwen_window_spmm_batched_smem(int window, int dtype) {
-  if (dtype == 0) return batched_smem_bytes<float>(window);
-  if (dtype == 1) return batched_smem_bytes<__nv_bfloat16>(window);
+// Shared memory one CTA of the batched kernel (packed != 0: its packed
+// form) needs for a window of `window` rows (dtype as below); the wrapper
+// refuses windows over the 232,448 bytes a block may use.
+extern "C" int gwen_window_spmm_batched_smem(int window, int dtype, int packed) {
+  if (dtype == 0)
+    return packed ? batched_smem_bytes<float, true>(window)
+                  : batched_smem_bytes<float, false>(window);
+  if (dtype == 1)
+    return packed ? batched_smem_bytes<__nv_bfloat16, true>(window)
+                  : batched_smem_bytes<__nv_bfloat16, false>(window);
   return -1;
 }
 
@@ -522,30 +646,29 @@ extern "C" int gwen_window_spmm_batched(
     const void* esc_ptr, const void* esc_rows, const void* fix, void* out,
     int num_blocks, int window, int f, int x_rows, int batch, int n_fix,
     int dtype, void* stream) {
-  if (num_blocks <= 0 || window <= 0 || window % BK || f <= 0 || batch <= 0)
-    return -1;
-  const int* ws = static_cast<const int*>(window_start);
-  const int* ep = static_cast<const int*>(esc_ptr);
-  const int64_t* er = static_cast<const int64_t*>(esc_rows);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool esc = esc_ptr != nullptr;
-  if (dtype == 0) {
-    if (f % Cfg<float>::VEC) return -1;
-    return esc ? launch_batched<float, true>(s, x, ws, ep, er, fix, out,
-                                             num_blocks, window, f, x_rows,
-                                             batch, n_fix, st)
-               : launch_batched<float, false>(s, x, ws, ep, er, fix, out,
-                                              num_blocks, window, f, x_rows,
-                                              batch, n_fix, st);
-  }
-  if (dtype == 1) {
-    if (f % Cfg<__nv_bfloat16>::VEC) return -1;
-    return esc ? launch_batched<__nv_bfloat16, true>(
-                     s, x, ws, ep, er, fix, out, num_blocks, window, f,
-                     x_rows, batch, n_fix, st)
-               : launch_batched<__nv_bfloat16, false>(
-                     s, x, ws, ep, er, fix, out, num_blocks, window, f,
-                     x_rows, batch, n_fix, st);
-  }
-  return -1;
+  Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
+                     x_rows, batch, n_fix);
+  a.s = s;
+  return dispatch<true, false>(a, num_blocks, dtype, stream);
+}
+
+// Packed forms: bits (num_blocks * 128, window / 32) uint32, col_scale and
+// row_scale float32 (a on source and destination rows). `batched` != 0
+// takes the batched kernel (packed B4: the S tile expanded once per CTA);
+// otherwise the batch is the grid's second axis (packed B1 at batch 1, and
+// B13, whose wide window does not fit shared memory whole). Shapes and
+// return codes as gwen_window_spmm_batched.
+extern "C" int gwen_window_spmm_packed(
+    const void* bits, const void* col_scale, const void* row_scale,
+    const void* x, const void* window_start, const void* esc_ptr,
+    const void* esc_rows, const void* fix, void* out, int num_blocks,
+    int window, int f, int x_rows, int batch, int n_fix, int batched,
+    int dtype, void* stream) {
+  Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
+                     x_rows, batch, n_fix);
+  a.bits = static_cast<const uint32_t*>(bits);
+  a.col_scale = static_cast<const float*>(col_scale);
+  a.row_scale = static_cast<const float*>(row_scale);
+  return batched ? dispatch<true, true>(a, num_blocks, dtype, stream)
+                 : dispatch<false, true>(a, num_blocks, dtype, stream);
 }

@@ -1,7 +1,8 @@
 """Graph containers and the layouts the serving path aggregates over.
 
-Counterpart of ``gwen_tpu.graph.graph``, cut to what
-``to_diag_window(packed=False)`` needs. Everything is built on the host with
+Counterpart of ``gwen_tpu.graph.graph``, cut to what the ported paths
+need: the diag-window layout (weighted or bit-packed), the banded layout
+and the bit-packed banded layout. Everything is built on the host with
 numpy (the same code as the reference, so both packages agree edge for
 edge), then held as plain dataclasses of torch tensors; ``.to(device)``
 moves a container and everything inside it.
@@ -14,7 +15,12 @@ The port keeps the math and drops the TPU's layout workarounds:
 * :class:`DiagWindowGraph` stores one window start per block instead of
   ``xbase``/``offsets`` (a superblock DMA workaround), and places escape rows
   with per-block ranges (``esc_ptr``) into the receiver-sorted fix array
-  instead of the one-hot ``esc_start``/``esc_lrow`` tables.
+  instead of the one-hot ``esc_start``/``esc_lrow`` tables;
+* the bit-packed layouts (:class:`DiagWindowGraph` with ``s_pack``,
+  :class:`SlidingPackedGraph`) pack S01 along the window, 32 columns to an
+  int32 word (:func:`pack_bits`), instead of the reference's 8 rows to a
+  byte in ``pltpu.repeat`` tile order, and :class:`SlidingPackedGraph` is
+  window-relative like :class:`SlidingDenseGraph` (no ring).
 """
 
 from __future__ import annotations
@@ -146,9 +152,22 @@ class DiagWindowGraph:
     ``attn_nbr[i]`` holds the absolute source rows of destination row
     ``i`` in ascending order, ``attn_nbr_t[c]`` the destination rows whose
     mask holds source row ``c``, both padded with -1.
+
+    Packed graphs (``to_diag_window(..., packed=True)``, rank-1 GCN weights
+    ``w_e = a_r·a_s``) hold no ``s_mat``. ``s_pack`` holds S01, the 0/1
+    mask of S, 32 window columns to an int32 word: bit ``j`` of
+    ``s_pack[i, k]`` is column ``32k + j`` of row ``i`` (:func:`pack_bits`).
+    A kernel thread reads one word per row and 32-column chunk and expands
+    it with shifts, with no gather across rows. ``r1_row`` holds ``a`` on
+    destination rows (0 on padding), ``r1_col`` ``a`` on source rows
+    (``max(N_pad, num_src_rows)`` long). ``S = a_r a_s ⊙ S01`` is rebuilt
+    in the kernel: column scales on the S tile, the row scale after the
+    escape rows are added, so the escape tables (and the esc2 graph) carry
+    ``w = a_s`` instead of the edge weight. :func:`window_mask` gives the
+    (N_pad, W) mask of either form.
     """
 
-    s_mat: Tensor  # (N_pad, W) window-relative
+    s_mat: Optional[Tensor]  # (N_pad, W) window-relative; None when packed
     window_start: Tensor  # (num_blocks,) int32
     num_nodes: int
     num_edges: int
@@ -166,10 +185,13 @@ class DiagWindowGraph:
     t_max: int = 0
     attn_nbr: Optional[Tensor] = None  # (N_pad, D) int32, -1 padded
     attn_nbr_t: Optional[Tensor] = None  # (num_src_rows, D_t) int32
+    s_pack: Optional[Tensor] = None  # (N_pad, W // 32) int32 S01 bits
+    r1_row: Optional[Tensor] = None  # (N_pad,) float32
+    r1_col: Optional[Tensor] = None  # (max(N_pad, num_src_rows),) float32
 
     @property
     def num_padded_nodes(self) -> int:
-        return int(self.s_mat.shape[0])
+        return int((self.s_mat if self.s_pack is None else self.s_pack).shape[0])
 
     @property
     def num_blocks(self) -> int:
@@ -177,6 +199,66 @@ class DiagWindowGraph:
 
     def to(self, device) -> "DiagWindowGraph":
         return _to(self, device)
+
+
+@dataclass(frozen=True)
+class SlidingPackedGraph:
+    """Bit-packed banded layout for rank-1 GCN weights (``w_e = a_r·a_s``).
+
+    The window and starts are those of :class:`SlidingDenseGraph` (and of
+    the reference's ``to_sliding_packed``); block ``b`` reads source rows
+    ``[window_start[b], window_start[b] + window_size)``. ``s_pack`` holds
+    S01 window-relative, 32 columns to an int32 word as
+    :class:`DiagWindowGraph`'s bits. Aggregation is ``a ⊙ S01·(a ⊙ x)``
+    with ``row_scale``/``col_scale`` = ``a`` (0 on padding); there are no
+    escapes.
+    """
+
+    s_pack: Tensor  # (N_pad, W // 32) int32
+    window_start: Tensor  # (num_blocks,) int32
+    row_scale: Tensor  # (N_pad,) float32
+    col_scale: Tensor  # (num_src_rows,) float32
+    num_nodes: int
+    num_edges: int
+    block_size: int
+    window_size: int
+    num_src_rows: int
+
+    @property
+    def num_padded_nodes(self) -> int:
+        return int(self.s_pack.shape[0])
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.window_start.shape[0])
+
+    def to(self, device) -> "SlidingPackedGraph":
+        return _to(self, device)
+
+
+def pack_bits(s01: np.ndarray) -> Tensor:
+    """(rows, W) 0/1 → (rows, W // 32) int32: bit ``j`` of word ``k`` is
+    column ``32k + j``. ``W`` must be a multiple of 32."""
+    rows, w = s01.shape
+    if w % 32:
+        raise ValueError(f"window {w} is not a multiple of 32")
+    packed = np.packbits(np.asarray(s01, bool), axis=1, bitorder="little")
+    return torch.from_numpy(np.ascontiguousarray(packed).view("<i4").reshape(rows, w // 32))
+
+
+def unpack_bits(bits: Tensor) -> Tensor:
+    """Inverse of :func:`pack_bits`: (rows, W // 32) int32 → (rows, W) bool,
+    on the device of ``bits``."""
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    return ((bits[..., None] >> shifts) & 1).reshape(bits.shape[0], -1).bool()
+
+
+def window_mask(graph) -> Tensor:
+    """The (N_pad, W) 0/1 mask of a windowed layout as bool: ``s_mat != 0``,
+    or the S01 bits unpacked."""
+    if getattr(graph, "s_pack", None) is not None:
+        return unpack_bits(graph.s_pack)
+    return graph.s_mat != 0
 
 
 # ------------------------------------------------------------------ builders
@@ -213,6 +295,26 @@ def gcn_normalize(
         receivers = np.concatenate([receivers, loops])
         weights = np.concatenate([weights, inv_sqrt[loops] ** 2])
     return senders, receivers, weights.astype(np.float32)
+
+
+def rank1_scales(graph: Graph, atol: float = 1e-5) -> np.ndarray:
+    """Recover the rank-1 factor ``a`` (``w_e = a[r]·a[s]``) of a
+    GCN-normalized graph from its self-loop weights (``a[i]²``) and check
+    it on every edge. Raises ``ValueError`` if some node has no self loop
+    or the weights are not rank-1 to ``atol``."""
+    s, r, w = graph.host_edges()
+    w = w.astype(np.float64)
+    loops = s == r
+    a2 = np.zeros(graph.num_nodes, np.float64)
+    a2[r[loops]] = w[loops]
+    if not loops.any() or (a2 <= 0).any():
+        raise ValueError(
+            "rank-1 factorization needs self loops on every node "
+            "(build the graph with self_loops=True / GCN normalization)")
+    a = np.sqrt(a2)
+    if not np.allclose(w, a[r] * a[s], rtol=0, atol=atol):
+        raise ValueError("edge weights are not rank-1 (w_e != a_r * a_s)")
+    return a.astype(np.float32)
 
 
 def build_graph(
@@ -497,6 +599,71 @@ def _sliding_tables(
     return ws, rel
 
 
+def _banded_tables(s_np, r_np, w_np, n: int, block_size: int,
+                   window_size: Optional[int], forced_ws: Optional[np.ndarray]):
+    """Window, monotone clamped starts and window-relative ELL columns of
+    the banded layouts. Returns ``(ws, rel, nbr_w, window, src_pad)``."""
+    nbr, nbr_w, win_start, window, src_pad = ell_tables(
+        s_np, r_np, w_np,
+        num_dst=n,
+        num_src=n,
+        block_size=block_size,
+        window_size=window_size,
+        forced_window_start=forced_ws,
+    )
+    ws_mono, abs_idx, required = _sliding_monotonic(
+        nbr, nbr_w, win_start, block_size
+    )
+    window = max(window, _round_up(required, block_size))
+    window = min(window, src_pad)
+    if required > window:
+        raise ValueError("window cannot cover spans after monotonic adjustment")
+    ws, rel = _sliding_tables(ws_mono, abs_idx, nbr_w, window, block_size,
+                              src_pad)
+    return ws, rel, nbr_w, int(window), src_pad
+
+
+def _build_s01(cols: np.ndarray, nbr_w: np.ndarray, width: int) -> np.ndarray:
+    """Dense ``(N_pad, width)`` bool mask of the nonzero ELL slots."""
+    rows, slots = np.nonzero(nbr_w != 0)
+    s01 = np.zeros((cols.shape[0], width), bool)
+    s01[rows, cols[rows, slots]] = True
+    return s01
+
+
+def to_sliding_packed(graph: Graph, *, block_size: int = 256) -> SlidingPackedGraph:
+    """Build the bit-packed banded layout (see :class:`SlidingPackedGraph`)
+    for a GCN-normalized graph: the window and starts of the reference's
+    ``to_sliding_packed`` (block 256 by default), S01 window-relative.
+    ``block_size`` must be a multiple of 32 (whole bit words per window;
+    the reference asks a multiple of 8). Raises ``ValueError`` on weights
+    that are not rank-1 (:func:`rank1_scales`)."""
+    if block_size % 32:
+        raise ValueError(f"block_size {block_size} must be a multiple of 32 "
+                         "(32 window columns to a bit word)")
+    a = rank1_scales(graph)
+    n = graph.num_nodes
+    s_np, r_np, w_np = graph.host_edges()
+    ws, rel, nbr_w, window, src_pad = _banded_tables(
+        s_np, r_np, w_np, n, block_size, None, None)
+    n_pad = rel.shape[0]
+    row_scale = np.zeros(n_pad, np.float32)
+    row_scale[:n] = a
+    col_scale = np.zeros(src_pad, np.float32)
+    col_scale[:n] = a
+    return SlidingPackedGraph(
+        s_pack=pack_bits(_build_s01(rel, nbr_w, window)),
+        window_start=torch.from_numpy(ws.astype(np.int32)),
+        row_scale=torch.from_numpy(row_scale),
+        col_scale=torch.from_numpy(col_scale),
+        num_nodes=n,
+        num_edges=graph.num_edges,
+        block_size=block_size,
+        window_size=window,
+        num_src_rows=src_pad,
+    )
+
+
 def to_sliding_dense(
     graph: Graph,
     *,
@@ -534,23 +701,8 @@ def to_sliding_dense(
             keep = ~esc_mask
             s_np, r_np, w_np = s_np[keep], r_np[keep], w_np[keep]
         forced_ws = ws
-    nbr, nbr_w, win_start, window, src_pad = ell_tables(
-        s_np, r_np, w_np,
-        num_dst=n,
-        num_src=n,
-        block_size=block_size,
-        window_size=window_size,
-        forced_window_start=forced_ws,
-    )
-    ws_mono, abs_idx, required = _sliding_monotonic(
-        nbr, nbr_w, win_start, block_size
-    )
-    window = max(window, _round_up(required, block_size))
-    window = min(window, src_pad)
-    if required > window:
-        raise ValueError("window cannot cover spans after monotonic adjustment")
-    ws, rel = _sliding_tables(ws_mono, abs_idx, nbr_w, window, block_size,
-                              src_pad)
+    ws, rel, nbr_w, window, src_pad = _banded_tables(
+        s_np, r_np, w_np, n, block_size, window_size, forced_ws)
     return SlidingDenseGraph(
         s_mat=_build_s(rel, nbr_w, window, dtype),
         window_start=torch.from_numpy(ws.astype(np.int32)),
@@ -572,18 +724,23 @@ def to_diag_window(
     dtype: torch.dtype = torch.float32,
     esc2_min_rows: int = 4096,
     transpose_tables: bool = False,
+    packed: bool = False,
 ) -> DiagWindowGraph:
     """Build the diagonal-window layout (see :class:`DiagWindowGraph`),
-    as the reference's ``to_diag_window(packed=False)`` does: same window,
-    same padded row count, same diagonal offset, same escape set, same
-    esc2 permutation. Requires a locality ordering such as
+    as the reference's ``to_diag_window`` does: same window, same padded
+    row count, same diagonal offset, same escape set, same esc2
+    permutation. Requires a locality ordering such as
     :func:`gwen_tpu_torch.graph.reorder.kd_patch_order`.
 
     ``superblock`` only sets the row padding (``N_pad`` is a multiple of
     ``block_size · superblock``, shrunk on tiny graphs as the reference
     does), so that both packages pad alike. ``transpose_tables`` attaches
     the tables windowed attention needs (:func:`diag_transpose_tables`).
+    ``packed=True`` stores S as S01 bits and rank-1 scales (exact for GCN
+    weights, checked edge by edge by :func:`rank1_scales`); the escape
+    tables then carry ``w = a_s``.
     """
+    r1 = rank1_scales(graph) if packed else None
     e = graph.num_edges
     n = graph.num_nodes
     s_np, r_np, w_np = graph.host_edges()
@@ -626,7 +783,9 @@ def to_diag_window(
     n_esc = int(esc_mask.sum())
     if n_esc:
         _check_weight_symmetry(s_np, r_np, w_np, n)
-        w_esc = w_np[esc_mask]
+        # Packed: the fix rows arrive as Σ a_s x_s and the kernel's row
+        # scale a_r, applied after they are added, completes a_r a_s.
+        w_esc = r1[s_np[esc_mask]] if packed else w_np[esc_mask]
         escape = _build_escape_fixup(s_np[esc_mask], r_np[esc_mask], w_esc)
         uniq = escape.rows.numpy()
         # Receivers are sorted, so each block's fix rows are one range.
@@ -667,8 +826,16 @@ def to_diag_window(
         window_size=W,
         forced_window_start=ws,
     )
+    s_pack = r1_row = r1_col = None
+    if packed:
+        s_pack = pack_bits(_build_s01(nbr_rel, nbr_w, W))
+        r1_row = torch.zeros(n_pad)
+        r1_row[:n] = torch.from_numpy(r1)
+        # n_pad long too, so pre-padded inputs need no cut.
+        r1_col = torch.zeros(max(n_pad, src_alloc))
+        r1_col[:n] = torch.from_numpy(r1)
     out = DiagWindowGraph(
-        s_mat=_build_s(nbr_rel, nbr_w, W, dtype),
+        s_mat=None if packed else _build_s(nbr_rel, nbr_w, W, dtype),
         window_start=torch.from_numpy(ws.astype(np.int32)),
         num_nodes=n,
         num_edges=e,
@@ -681,6 +848,9 @@ def to_diag_window(
         esc2_graph=esc2_graph,
         esc2_src=esc2_src,
         esc2_back=esc2_back,
+        s_pack=s_pack,
+        r1_row=r1_row,
+        r1_col=r1_col,
     )
     return diag_transpose_tables(out) if transpose_tables else out
 
@@ -701,15 +871,16 @@ def diag_transpose_tables(graph: DiagWindowGraph) -> DiagWindowGraph:
     """Attach the transpose tables of the reference's
     ``diag_transpose_tables`` (``t_lo``, ``t_cnt``, ``t_max``, from the
     per-block window starts) and the port's attention neighbour lists
-    (``attn_nbr``, ``attn_nbr_t``, from the mask ``s_mat != 0`` itself) to
-    a diag-window graph; see :class:`DiagWindowGraph`. Host-side; the
-    tables land on the graph's device."""
+    (``attn_nbr``, ``attn_nbr_t``, from the mask itself: ``s_mat != 0`` or
+    the S01 bits, :func:`window_mask`) to a diag-window graph; see
+    :class:`DiagWindowGraph`. Host-side; the tables land on the graph's
+    device."""
     if graph.t_max:
         return graph
     block, w = graph.block_size, graph.window_size
     if w % block:
         raise ValueError(f"window {w} not a multiple of block {block}")
-    device = graph.s_mat.device
+    device = graph.window_start.device
     starts = graph.window_start.cpu().numpy().astype(np.int64)
     if (np.diff(starts) < 0).any():
         raise AssertionError("diag-window starts are not monotonic")
@@ -719,7 +890,7 @@ def diag_transpose_tables(graph: DiagWindowGraph) -> DiagWindowGraph:
     t_lo = np.searchsorted(starts, c_rows - w, side="right")
     t_cnt = np.searchsorted(starts, c_rows, side="right") - t_lo
 
-    rows, cols = np.nonzero((graph.s_mat != 0).cpu().numpy())
+    rows, cols = np.nonzero(window_mask(graph).cpu().numpy())
     src = starts[rows // block] + cols  # row-major: ascending per dst row
     attn_nbr = _padded_lists(rows, src, graph.num_padded_nodes)
     by_src = np.lexsort((rows, src))

@@ -8,9 +8,12 @@ path uses. Semantics for every backend::
 
 * :func:`aggregate_segment` — gather + ``index_add_``: the baseline, any
   device.
-* :func:`aggregate_diag_window_reference` and
-  :func:`aggregate_sliding_dense_reference` — vectorised plain-torch
-  versions of the windowed layouts (escapes through the ELL gather).
+* :func:`aggregate_diag_window_reference`,
+  :func:`aggregate_sliding_dense_reference` and
+  :func:`aggregate_sliding_packed_reference` — vectorised plain-torch
+  versions of the windowed layouts (escapes through the ELL gather; the
+  packed layouts with their rank-1 scales outside the product, as the
+  reference's plain versions).
 * ``backend="auto"`` on a windowed layout goes through
   :mod:`gwen_tpu_torch.ops.spmm_cuda` (the hand-written kernels on CUDA
   tensors, their plain versions on CPU tensors); ``backend="plain"`` takes
@@ -21,7 +24,13 @@ from __future__ import annotations
 
 import torch
 
-from gwen_tpu_torch.graph.graph import DiagWindowGraph, Graph, SlidingDenseGraph
+from gwen_tpu_torch.graph.graph import (
+    DiagWindowGraph,
+    Graph,
+    SlidingDenseGraph,
+    SlidingPackedGraph,
+    window_mask,
+)
 from gwen_tpu_torch.ops import spmm_cuda
 
 Tensor = torch.Tensor
@@ -40,11 +49,9 @@ def aggregate_segment(graph: Graph, x: Tensor) -> Tensor:
     return out.movedim(0, -2)
 
 
-def _window_reference(graph, x: Tensor) -> Tensor:
-    """Plain-torch reference of a windowed layout: per block,
-    ``S_b @ x[ws_b : ws_b + W]``, all blocks in one batched product (rows
-    past x read as zero), then the escape edges through the ELL gather and
-    a scatter-add."""
+def _window_product(graph, x: Tensor, s_mat: Tensor) -> Tensor:
+    """Per block, ``S_b @ x[ws_b : ws_b + W]``, all blocks in one batched
+    product (rows past x read as zero), cut to the output rows."""
     out_rows = spmm_cuda._check_rows(graph, x)
     lead, (n, f) = x.shape[:-2], x.shape[-2:]
     nb, w = graph.num_blocks, graph.window_size
@@ -54,24 +61,46 @@ def _window_reference(graph, x: Tensor) -> Tensor:
     xp[..., :rows, :] = x[..., :rows, :]
     idx = graph.window_start.long()[:, None] + torch.arange(w, device=x.device)
     win = xp[..., idx, :]  # (..., nb, W, F)
-    s = graph.s_mat.to(x.dtype).reshape(nb, graph.block_size, w)
+    s = s_mat.to(x.dtype).reshape(nb, graph.block_size, w)
     out = torch.matmul(s, win).reshape(*lead, nb * graph.block_size, f)
-    out = out[..., :out_rows, :]
-    return spmm_cuda._sliding_escape_add(graph, x, out)
+    return out[..., :out_rows, :]
+
+
+def _rank1_reference(graph, x: Tensor, col: Tensor, row: Tensor) -> Tensor:
+    """The packed layouts as the reference's plain versions compute them:
+    ``row ⊙ (S01 (col ⊙ x) + escapes)``, each scale rounded to x's type
+    and each product rounded in it; the escape tables carry ``a_s``."""
+    xs = x * col[: x.shape[-2]].to(x.dtype)[:, None]
+    out = _window_product(graph, xs, window_mask(graph))
+    out = spmm_cuda._sliding_escape_add(graph, x, out)
+    return out * row[: out.shape[-2]].to(out.dtype)[:, None]
 
 
 def aggregate_sliding_dense_reference(graph: SlidingDenseGraph,
                                       x: Tensor) -> Tensor:
-    """Plain-torch reference for the banded layout, escapes included."""
-    return _window_reference(graph, x)
+    """Plain-torch reference for the banded layout, escapes included
+    (through the ELL gather and a scatter-add)."""
+    return spmm_cuda._sliding_escape_add(
+        graph, x, _window_product(graph, x, graph.s_mat))
+
+
+def aggregate_sliding_packed_reference(graph: SlidingPackedGraph,
+                                       x: Tensor) -> Tensor:
+    """Plain-torch reference for the bit-packed banded layout:
+    ``a ⊙ S01·(a ⊙ x)`` with the scales outside, as the reference's
+    ``spmm_sliding_packed``."""
+    return _rank1_reference(graph, x, graph.col_scale, graph.row_scale)
 
 
 def aggregate_diag_window_reference(graph: DiagWindowGraph,
                                     x: Tensor) -> Tensor:
-    """Plain-torch reference for the diag-window layout. Escapes take the
-    ELL gather whether or not the graph has an esc2 contraction (the same
-    operator, another order of summation)."""
-    return _window_reference(graph, x)
+    """Plain-torch reference for the diag-window layout, weighted or
+    packed. Escapes take the ELL gather whether or not the graph has an
+    esc2 contraction (the same operator, another order of summation)."""
+    if graph.s_pack is not None:
+        return _rank1_reference(graph, x, graph.r1_col, graph.r1_row)
+    return spmm_cuda._sliding_escape_add(
+        graph, x, _window_product(graph, x, graph.s_mat))
 
 
 def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
@@ -79,19 +108,24 @@ def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
     runs the windowed kernels (on CUDA tensors), ``"plain"`` the same
     composite with the kernels' plain versions, anything else the plain
     references above."""
+    plain = backend == "plain"
+    kernels = backend in ("auto", "plain")
     if isinstance(graph, DiagWindowGraph):
-        if backend in ("auto", "plain"):
-            return spmm_cuda.spmm_diag_window(graph, x, plain=backend == "plain")
+        if kernels:
+            return spmm_cuda.spmm_diag_window(graph, x, plain=plain)
         return aggregate_diag_window_reference(graph, x)
     if isinstance(graph, SlidingDenseGraph):
-        if backend in ("auto", "plain"):
-            return spmm_cuda.spmm_sliding_dense(graph, x,
-                                                plain=backend == "plain")
+        if kernels:
+            return spmm_cuda.spmm_sliding_dense(graph, x, plain=plain)
         return aggregate_sliding_dense_reference(graph, x)
+    if isinstance(graph, SlidingPackedGraph):
+        if kernels:
+            return spmm_cuda.spmm_sliding_packed(graph, x, plain=plain)
+        return aggregate_sliding_packed_reference(graph, x)
     if isinstance(graph, Graph):
         return aggregate_segment(graph, x)
     raise TypeError(
-        f"no aggregation for {type(graph).__name__} yet: the port's slice 1 "
-        "covers Graph, DiagWindowGraph and SlidingDenseGraph; the other "
-        "layouts (dense, block-ELL, block tiles, packed, halo) come with "
-        "slices 5-7 (ROADMAP queue A)")
+        f"no aggregation for {type(graph).__name__} yet: the port covers "
+        "Graph, DiagWindowGraph (weighted or packed), SlidingDenseGraph and "
+        "SlidingPackedGraph; the other layouts (dense, block-ELL, block "
+        "tiles, int8 rank-1, halo) come with later slices (ROADMAP queue A)")

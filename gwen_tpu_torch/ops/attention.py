@@ -4,9 +4,10 @@ for the attention processor.
 :func:`windowed_attention` is masked softmax attention over each node's
 in-window neighbourhood on a :class:`DiagWindowGraph`: ``out[i] = Σ_j
 P[i, j] v[j]`` with ``P = softmax_j(q[i]·k[j]·scale)`` over the sources
-``j`` that the mask ``s_mat != 0`` holds in ``i``'s window. Out-of-window
-(escape) edges are excluded by definition, as in the reference. Scores and
-softmax run in float32; P is cast to v's type before ``P·V``.
+``j`` that the mask (``s_mat != 0``, or the S01 bits of a packed graph)
+holds in ``i``'s window. Out-of-window (escape) edges are excluded by
+definition, as in the reference. Scores and softmax run in float32; P is
+cast to v's type before ``P·V``.
 
 Backends:
 

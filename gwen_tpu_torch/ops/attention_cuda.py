@@ -17,12 +17,16 @@ CUDA kernel serves both forms, with the items as a grid dimension:
 * :func:`attention_dkdv` — B7 and B7b (``_attn_dkdv_kernel``,
   ``_attn_dkdv_kernel_b``): dK and dV, P rebuilt from the stats.
 
-The kernels read the mask ``s_mat != 0`` as the graph's neighbour lists
-(``attn_nbr``, ``attn_nbr_t``; see ``csrc/window_attention.cu`` for why).
-The plain versions never read those lists: they gather each block's window
-from ``s_mat`` and ``window_start`` and compute the reference's dense tile
-math, vectorised over blocks, so holding a kernel against its plain version
-on the card also checks the lists.
+The kernels read the mask (``s_mat != 0``, or the S01 bits of a packed
+graph) as the graph's neighbour lists (``attn_nbr``, ``attn_nbr_t``; see
+``csrc/window_attention.cu`` for why). On a packed graph the reference's
+``mp`` kernels unpack the bits per tile; here the lists are built from the
+bits once, when the graph is built, and the kernels do not change. The
+plain versions never read those lists: they gather each block's window
+from the mask (:func:`~gwen_tpu_torch.graph.graph.window_mask`) and
+``window_start`` and compute the reference's dense tile math, vectorised
+over blocks, so holding a kernel against its plain version on the card also
+checks the lists.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
@@ -37,7 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from gwen_tpu_torch.graph.graph import DiagWindowGraph
+from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
 from gwen_tpu_torch.ops.spmm_cuda import _fit_rows, nvcc_build
 
 Tensor = torch.Tensor
@@ -99,7 +103,7 @@ def _tiles(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
         ).reshape(nb, blocks, w, f)
 
     qt, kw, vw = rows(q), window(k), window(v)
-    mask = (graph.s_mat != 0).reshape(blocks, block, w)
+    mask = window_mask(graph).reshape(blocks, block, w)
     logits = torch.where(mask, torch.matmul(qt, kw.transpose(-1, -2)) * scale,
                          -1e30)
     return qt, None if g is None else rows(g), kw, vw, mask, idx, logits

@@ -1,7 +1,8 @@
-"""Windowed SpMM for the diag-window and banded layouts: hand-written
-Hopper kernels (``csrc/window_spmm.cu``) and their plain PyTorch versions.
+"""Windowed SpMM for the diag-window and banded layouts, weighted and
+bit-packed: hand-written Hopper kernels (``csrc/window_spmm.cu``) and their
+plain PyTorch versions.
 
-Four kernel wrappers, each with a launch count (``.launches``):
+Seven kernel wrappers, each with a launch count (``.launches``):
 
 * :func:`diag_window_spmm` — kernel B1, replacing
   ``gwen_tpu/ops/spmm_pallas.py:_diag_kernel`` (through ``_diag_impl``):
@@ -18,6 +19,20 @@ Four kernel wrappers, each with a launch count (``.launches``):
 * :func:`sliding_spmm_b` — kernel B10, replacing ``_sliding_kernel_b``
   (through ``_sliding_impl_b``): B3 on ``(B, N, F)``, the batched kernel
   without escapes.
+* :func:`diag_window_spmm_packed` and :func:`diag_window_spmm_packed_b` —
+  the packed form of B1 and B4 (the ``packed`` branch of ``_diag_kernel``
+  and ``_diag_kernel_b``): S01 bits expanded in the kernel, times the
+  column scales ``a_s`` rounded to x's type; the row scale ``a_r`` after
+  the escape rows are added.
+* :func:`sliding_packed_spmm` — kernel B13, replacing
+  ``_sliding_packed_kernel`` (through ``_sliding_packed_impl``): the packed
+  product on :class:`SlidingPackedGraph`, no escapes. The reference scales
+  outside (``a ⊙ K01(a ⊙ x)``, x rounded after its scale); the port folds
+  both scales into the kernel as packed B1 does (one rounding, and no pass
+  over x or the output for them). A 256-row graph block runs as two
+  128-row kernel blocks with its start. The batch is the launch grid's
+  second axis (each CTA one member; the wide window leaves no room to keep
+  the expanded tile), not folded into the feature axis.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
@@ -33,15 +48,19 @@ next to each other and share its S tile in L2; the batched kernels read S
 once per block and tile for the whole batch. Further work (TMA, ``wgmma``,
 one CTA per block over all F) is for later PRs.
 
-The graph-level composites :func:`spmm_diag_window` and
-:func:`spmm_sliding_dense` follow ``spmm_pallas.spmm_diag_window`` /
-``spmm_sliding_dense``: escape fix rows come from the hierarchical
+The graph-level composites :func:`spmm_diag_window`,
+:func:`spmm_sliding_dense` and :func:`spmm_sliding_packed` follow
+``spmm_pallas.spmm_diag_window`` / ``spmm_sliding_dense`` /
+``spmm_sliding_packed``: escape fix rows come from the hierarchical
 contraction (``x[esc2_src]`` → B3/B10 → ``[esc2_back]``) when the graph has
-an ``esc2_graph``, else from the ELL gather; gathers stay plain torch. Both
-composites are symmetric operators that are zero on padding rows, so their
-gradient is the same composite applied to the cotangent (the reference's
-``_diag_comp_bwd`` and ``_sliding_bwd``); one ``torch.autograd.Function``
-carries that. S and the tables get no gradient.
+an ``esc2_graph``, else from the ELL gather; gathers stay plain torch. A
+packed diag graph takes packed B1/B4 (its escape tables carry ``a_s``).
+The composites are symmetric operators that are zero on padding rows, so
+their gradient is the same composite applied to the cotangent (the
+reference's ``_diag_comp_bwd``, ``_sliding_bwd`` and
+``_sliding_packed_bwd``; ``a_r a_s ⊙ S01`` is symmetric too); one
+``torch.autograd.Function`` carries that. S and the tables get no
+gradient.
 """
 
 from __future__ import annotations
@@ -56,7 +75,12 @@ from typing import Optional
 
 import torch
 
-from gwen_tpu_torch.graph.graph import DiagWindowGraph, SlidingDenseGraph
+from gwen_tpu_torch.graph.graph import (
+    DiagWindowGraph,
+    SlidingDenseGraph,
+    SlidingPackedGraph,
+    unpack_bits,
+)
 
 Tensor = torch.Tensor
 
@@ -121,8 +145,13 @@ def _lib() -> ctypes.CDLL:
                                                  ci, ci, ci, ci, ci, ci, ci,
                                                  vp]
         lib.gwen_window_spmm_batched.restype = ci
-        lib.gwen_window_spmm_batched_smem.argtypes = [ci, ci]
+        lib.gwen_window_spmm_batched_smem.argtypes = [ci, ci, ci]
         lib.gwen_window_spmm_batched_smem.restype = ci
+        # (bits, col_scale, row_scale, x, window_start, esc_ptr, esc_rows,
+        #  fix, out, num_blocks, window, f, x_rows, batch, n_fix, batched,
+        #  dtype, stream)
+        lib.gwen_window_spmm_packed.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+        lib.gwen_window_spmm_packed.restype = ci
         _LIB = lib
     return _LIB
 
@@ -132,13 +161,16 @@ def _lib() -> ctypes.CDLL:
 
 def window_spmm_plain(s_mat: Tensor, window_start: Tensor, x: Tensor,
                       src_rows: int, esc_rows: Optional[Tensor] = None,
-                      fix: Optional[Tensor] = None) -> Tensor:
-    """Plain PyTorch version of all four kernels: ``x`` is ``(rows, F)`` or
+                      fix: Optional[Tensor] = None,
+                      row_scale: Optional[Tensor] = None) -> Tensor:
+    """Plain PyTorch version of all the kernels: ``x`` is ``(rows, F)`` or
     ``(B, rows, F)``; the result is ``(..., N_pad, F)`` in ``x.dtype``.
 
     ``S`` is cast to ``x.dtype`` (as the reference kernels do), products
-    and the escape add run in float32, and the sum is cast once. Rows of x
-    at or past ``x.shape[-2]`` read as zero (up to ``src_rows``).
+    and the escape add run in float32, each row is multiplied by
+    ``row_scale`` (rounded to ``x.dtype``) if given, and the sum is cast
+    once. Rows of x at or past ``x.shape[-2]`` read as zero (up to
+    ``src_rows``).
     """
     nb = window_start.shape[0]
     w = s_mat.shape[1]
@@ -155,7 +187,22 @@ def window_spmm_plain(s_mat: Tensor, window_start: Tensor, x: Tensor,
     acc = torch.matmul(s, xw).reshape(*x.shape[:-2], nb * block, x.shape[-1])
     if fix is not None:
         acc = acc.index_add(-2, esc_rows, fix.float())
+    if row_scale is not None:
+        acc = acc * row_scale.to(x.dtype).float()[:, None]
     return acc.to(x.dtype)
+
+
+def packed_s(bits: Tensor, window_start: Tensor, col_scale: Tensor,
+             dtype: torch.dtype) -> Tensor:
+    """The ``(N_pad, W)`` S tile the packed kernels build: S01 (from the
+    bits) times the column scale of each window column, rounded to
+    ``dtype``."""
+    mask = unpack_bits(bits)
+    n_pad, w = mask.shape
+    nb = window_start.shape[0]
+    idx = window_start.long()[:, None] + torch.arange(w, device=bits.device)
+    cs = col_scale.to(dtype)[idx]  # (nb, W)
+    return (mask.reshape(nb, n_pad // nb, w) * cs[:, None, :]).reshape(n_pad, w)
 
 
 def diag_window_spmm_plain(graph: DiagWindowGraph, x: Tensor,
@@ -173,15 +220,32 @@ def sliding_spmm_plain(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
                              graph.num_src_rows)
 
 
+def diag_window_spmm_packed_plain(graph: DiagWindowGraph, x: Tensor,
+                                  fix: Optional[Tensor]) -> Tensor:
+    """Plain version of :func:`diag_window_spmm_packed` and
+    :func:`diag_window_spmm_packed_b`."""
+    s = packed_s(graph.s_pack, graph.window_start, graph.r1_col, x.dtype)
+    return window_spmm_plain(
+        s, graph.window_start, x, graph.num_src_rows,
+        None if fix is None else graph.escape.rows, fix,
+        row_scale=graph.r1_row)
+
+
+def sliding_packed_spmm_plain(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
+    """Plain version of :func:`sliding_packed_spmm`."""
+    s = packed_s(graph.s_pack, graph.window_start, graph.col_scale, x.dtype)
+    return window_spmm_plain(s, graph.window_start, x, graph.num_src_rows,
+                             row_scale=graph.row_scale)
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
-def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
-            esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-            fix: Optional[Tensor]) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm`` (x ``(rows, F)``)
-    or ``gwen_window_spmm_batched`` (x ``(B, rows, F)``) on the current
-    stream. Raises on anything the kernels do not take."""
+def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
+           esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
+           fix: Optional[Tensor], layout: list) -> None:
+    """Raise on operands the kernels do not take. ``layout`` holds the
+    graph's tensors besides ``window_start`` (S, or the bits and scales)."""
     if x.dim() not in (2, 3):
         raise ValueError(f"x must be (rows, F) or (B, rows, F); got shape "
                          f"{tuple(x.shape)} (fold other batched inputs into "
@@ -189,12 +253,7 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"window SpMM kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
-    if s_mat.dtype != x.dtype:
-        raise TypeError(f"S is {s_mat.dtype} but x is {x.dtype}; build the "
-                        "graph with dtype=x.dtype")
-    batched = x.dim() == 3
     nb = window_start.shape[0]
-    n_pad, w = s_mat.shape
     f = x.shape[-1]
     vec = 16 // x.element_size()
     if n_pad != nb * BLOCK:
@@ -207,7 +266,7 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
                          f"{x.dtype}")
     if window_start.dtype != torch.int32:
         raise TypeError("window_start must be int32")
-    ts = [s_mat, window_start, x]
+    ts = [*layout, window_start, x]
     if fix is not None:
         if esc_ptr is None or esc_rows is None:
             raise ValueError("escape fix rows need esc_ptr and esc_rows")
@@ -227,20 +286,43 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
             raise ValueError("window SpMM operands must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError("window SpMM operands must be 16-byte aligned")
+
+
+def _check_smem(lib: ctypes.CDLL, w: int, code: int, packed: bool) -> None:
+    smem = lib.gwen_window_spmm_batched_smem(w, code, int(packed))
+    if smem > MAX_SMEM:
+        raise ValueError(f"window {w} needs {smem} bytes of shared memory "
+                         f"per block in the batched kernel (at most "
+                         f"{MAX_SMEM})")
+
+
+def _escape_ptrs(esc_ptr, esc_rows, fix) -> tuple:
+    if fix is None:
+        return None, None, None
+    return esc_ptr.data_ptr(), esc_rows.data_ptr(), fix.data_ptr()
+
+
+def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
+            esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
+            fix: Optional[Tensor]) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm`` (x ``(rows, F)``)
+    or ``gwen_window_spmm_batched`` (x ``(B, rows, F)``) on the current
+    stream. Raises on anything the kernels do not take."""
+    if x.dim() in (2, 3) and s_mat.dtype != x.dtype:
+        raise TypeError(f"S is {s_mat.dtype} but x is {x.dtype}; build the "
+                        "graph with dtype=x.dtype")
+    n_pad, w = s_mat.shape
+    _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat])
+    batched = x.dim() == 3
+    nb, f = window_start.shape[0], x.shape[-1]
     lib = _lib()
     code = _DTYPE_CODE[x.dtype]
     if batched:
-        smem = lib.gwen_window_spmm_batched_smem(w, code)
-        if smem > MAX_SMEM:
-            raise ValueError(f"window {w} needs {smem} bytes of shared memory "
-                             f"per block in the batched kernel (at most "
-                             f"{MAX_SMEM})")
+        _check_smem(lib, w, code, packed=False)
     out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     ptrs = (s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(),
-            None if fix is None else esc_ptr.data_ptr(),
-            None if fix is None else esc_rows.data_ptr(),
-            None if fix is None else fix.data_ptr(), out.data_ptr())
+            *_escape_ptrs(esc_ptr, esc_rows, fix), out.data_ptr())
     if batched:
         rc = lib.gwen_window_spmm_batched(
             *ptrs, nb, w, f, x.shape[1], x.shape[0],
@@ -249,6 +331,46 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
         rc = lib.gwen_window_spmm(*ptrs, nb, w, f, x.shape[0], code, stream)
     if rc != 0:
         raise RuntimeError(f"window SpMM launch failed: CUDA error {rc}")
+    return out
+
+
+def _launch_packed(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
+                   window_start: Tensor, src_rows: int, x: Tensor,
+                   esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
+                   fix: Optional[Tensor], batched_kernel: bool) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm_packed``: the
+    batched kernel (x ``(B, rows, F)``, the S tile expanded once per CTA)
+    or the streaming one with the batch as a grid axis (x ``(rows, F)`` or
+    ``(B, rows, F)``). Raises on anything the kernel does not take."""
+    n_pad, words = bits.shape
+    w = words * 32
+    if bits.dtype != torch.int32:
+        raise TypeError(f"the S01 bits must be int32, not {bits.dtype}")
+    if col_scale.dtype != torch.float32 or row_scale.dtype != torch.float32:
+        raise TypeError("the rank-1 scales must be float32")
+    if col_scale.shape[0] < src_rows or row_scale.shape[0] < n_pad:
+        raise ValueError(f"scales of {col_scale.shape[0]} source and "
+                         f"{row_scale.shape[0]} destination rows; the graph "
+                         f"has {src_rows} and {n_pad}")
+    _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix,
+           [bits, col_scale, row_scale])
+    if batched_kernel and x.dim() != 3:
+        raise ValueError("the batched packed kernel takes (B, rows, F)")
+    nb, f = window_start.shape[0], x.shape[-1]
+    lib = _lib()
+    code = _DTYPE_CODE[x.dtype]
+    if batched_kernel:
+        _check_smem(lib, w, code, packed=True)
+    out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = lib.gwen_window_spmm_packed(
+        bits.data_ptr(), col_scale.data_ptr(), row_scale.data_ptr(),
+        x.data_ptr(), window_start.data_ptr(),
+        *_escape_ptrs(esc_ptr, esc_rows, fix), out.data_ptr(),
+        nb, w, f, x.shape[-2], x.shape[0] if x.dim() == 3 else 1,
+        0 if fix is None else fix.shape[-2], int(batched_kernel), code, stream)
+    if rc != 0:
+        raise RuntimeError(f"packed window SpMM launch failed: CUDA error {rc}")
     return out
 
 
@@ -312,10 +434,65 @@ def sliding_spmm_b(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
     return out
 
 
+def diag_window_spmm_packed(graph: DiagWindowGraph, x: Tensor,
+                            fix: Optional[Tensor] = None) -> Tensor:
+    """Packed B1: the diag-window product from the S01 bits and rank-1
+    scales, plus the escape fix rows (``(U, F)``, built with ``w = a_s``).
+    ``(N_pad, F)``."""
+    _check_dim(x, 2, "packed B1")
+    if not _on_cuda(x):
+        return diag_window_spmm_packed_plain(graph, x, fix)
+    out = _launch_packed(graph.s_pack, graph.r1_col, graph.r1_row,
+                         graph.window_start, graph.num_src_rows, x,
+                         graph.esc_ptr,
+                         None if fix is None else graph.escape.rows, fix,
+                         batched_kernel=False)
+    diag_window_spmm_packed.launches += 1
+    return out
+
+
+def diag_window_spmm_packed_b(graph: DiagWindowGraph, x: Tensor,
+                              fix: Optional[Tensor] = None) -> Tensor:
+    """Packed B4: packed B1 on ``(B, rows, F)`` with fix ``(B, U, F)``;
+    each CTA expands its S tile once and loops over the batch.
+    ``(B, N_pad, F)``."""
+    _check_dim(x, 3, "packed B4")
+    if not _on_cuda(x):
+        return diag_window_spmm_packed_plain(graph, x, fix)
+    out = _launch_packed(graph.s_pack, graph.r1_col, graph.r1_row,
+                         graph.window_start, graph.num_src_rows, x,
+                         graph.esc_ptr,
+                         None if fix is None else graph.escape.rows, fix,
+                         batched_kernel=True)
+    diag_window_spmm_packed_b.launches += 1
+    return out
+
+
+def sliding_packed_spmm(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
+    """Kernel B13: ``a ⊙ S01·(a ⊙ x)`` on the bit-packed banded layout, x
+    ``(rows, F)`` or ``(B, rows, F)``. ``(..., N_pad, F)``."""
+    if not _on_cuda(x):
+        return sliding_packed_spmm_plain(graph, x)
+    if graph.block_size % BLOCK:
+        raise ValueError(f"block_size {graph.block_size} is not a multiple "
+                         f"of the kernel's {BLOCK}-row blocks")
+    per = graph.block_size // BLOCK
+    starts = (graph.window_start if per == 1
+              else graph.window_start.repeat_interleave(per))
+    out = _launch_packed(graph.s_pack, graph.col_scale, graph.row_scale,
+                         starts, graph.num_src_rows, x, None, None, None,
+                         batched_kernel=False)
+    sliding_packed_spmm.launches += 1
+    return out
+
+
 diag_window_spmm.launches = 0
 diag_window_spmm_b.launches = 0
 sliding_spmm.launches = 0
 sliding_spmm_b.launches = 0
+diag_window_spmm_packed.launches = 0
+diag_window_spmm_packed_b.launches = 0
+sliding_packed_spmm.launches = 0
 
 
 # ------------------------------------------------------------ composites
@@ -330,8 +507,8 @@ def _escape_rows_fix(nbr: Tensor, w: Tensor, x: Tensor) -> Tensor:
 
 def _sliding_escape_add(graph, x: Tensor, out: Tensor) -> Tensor:
     """``out`` plus the escape edges of ``graph.escape`` (ELL gather and a
-    scatter-add onto the unique receiver rows)."""
-    esc = graph.escape
+    scatter-add onto the unique receiver rows), if the layout has any."""
+    esc = getattr(graph, "escape", None)
     if esc is None:
         return out
     fix = _escape_rows_fix(esc.nbr, esc.w, x)
@@ -369,15 +546,26 @@ def _sliding_composite(graph: SlidingDenseGraph, x: Tensor,
     return _sliding_escape_add(graph, x, b3(graph, x)[..., :out_rows, :])
 
 
+def _sliding_packed_composite(graph: SlidingPackedGraph, x: Tensor,
+                              plain: bool) -> Tensor:
+    out_rows = _check_rows(graph, x)
+    b13 = sliding_packed_spmm_plain if plain else sliding_packed_spmm
+    return b13(graph, x)[..., :out_rows, :]
+
+
 def _diag_composite(graph: DiagWindowGraph, x: Tensor, plain: bool) -> Tensor:
     out_rows = _check_rows(graph, x)
     batched = x.dim() == 3
+    packed = graph.s_pack is not None
     if plain:
-        b1, b3 = diag_window_spmm_plain, sliding_spmm_plain
+        b1 = diag_window_spmm_packed_plain if packed else diag_window_spmm_plain
+        b3 = sliding_spmm_plain
     elif batched:
-        b1, b3 = diag_window_spmm_b, sliding_spmm_b
+        b1 = diag_window_spmm_packed_b if packed else diag_window_spmm_b
+        b3 = sliding_spmm_b
     else:
-        b1, b3 = diag_window_spmm, sliding_spmm
+        b1 = diag_window_spmm_packed if packed else diag_window_spmm
+        b3 = sliding_spmm
     fix = None
     if graph.esc2_graph is not None:
         xc2 = x.index_select(-2, graph.esc2_src)
@@ -431,3 +619,15 @@ def spmm_diag_window(graph: DiagWindowGraph, x: Tensor,
     if plain:
         return _diag_composite(graph, x, True)
     return _SymmetricAggregation.apply(x, _diag_composite, graph)
+
+
+def spmm_sliding_packed(graph: SlidingPackedGraph, x: Tensor,
+                        plain: bool = False) -> Tensor:
+    """Bit-packed banded aggregation (kernel B13 on CUDA) on ``(N, F)`` or
+    ``(B, N, F)``. Differentiable in x: ``a ⊙ S01 ⊙ a`` is symmetric, so the
+    backward is B13 on the cotangent (the reference's
+    ``_sliding_packed_bwd``). ``plain=True`` runs the plain version and
+    leaves the gradient to autograd."""
+    if plain:
+        return _sliding_packed_composite(graph, x, True)
+    return _SymmetricAggregation.apply(x, _sliding_packed_composite, graph)

@@ -327,7 +327,8 @@ def test_train_mesh_cli_trains_and_feeds_serving(tmp_path, capsys):
     (["train.rollout_horizon=2"], ValueError),
     (["train.loss=crps-ensemble"], ValueError),
     (["mesh.graph_axis=2"], ValueError),
-    (["mesh.kernel=diag_packed"], ValueError),
+    (["mesh.kernel=diag_packed", "model.processor=interaction", "graph.refine=2"],
+     ValueError),
     (["--data", "store.zarr"], ValueError),
     (["--device", "cuda"], RuntimeError),
 ])
@@ -338,6 +339,48 @@ def test_train_mesh_refuses_what_is_not_ported(args, exc, tmp_path, monkeypatch)
         argv += ["--device", "cpu"]
     with pytest.raises(exc):
         cli(argv)
+
+
+@pytest.mark.parametrize("args,layout,packed", [
+    (["mesh.kernel=diag_packed", "model.processor=attention"], "DiagWindowGraph", True),
+    (["mesh.kernel=packed"], "Graph", False),
+], ids=["diag_packed-attention", "packed-gcn"])
+def test_train_mesh_cli_on_the_packed_kernels(args, layout, packed, tmp_path, capsys):
+    """``train-mesh`` on the CPU with the bit-packed kernels: attention takes
+    the packed diag layout (neighbour lists from the S01 bits); GCN on
+    ``mesh.kernel=packed`` takes the segment path, as the reference does on
+    any backend but its accelerator."""
+    rc = cli(["train-mesh", "graph.refine=3", "model.latent_size=32",
+              "model.process_steps=2", "train.batch_size=4", *args,
+              f"run.registry_root={tmp_path}", "--members", "3", "--steps", "5",
+              "--device", "cpu"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (out["layout"], out["packed"]) == (layout, packed)
+    assert out["steps"] == 2 and np.isfinite(out["best_train_loss"])
+
+
+@pytest.mark.parametrize("kernel,layout", [
+    ("packed", "SlidingPackedGraph"), ("sliding", "SlidingDenseGraph"),
+    ("auto", "SlidingDenseGraph"),
+])
+def test_banded_layout_follows_the_reference_choice(kernel, layout, monkeypatch):
+    """The CUDA GCN path off the diag layout: ``packed`` takes the bit-packed
+    banded layout, ``sliding`` the weighted one, any other kernel the
+    weighted one unless its S would reach 7 GiB (the reference's formula)."""
+    from gwen_tpu_torch.cli import train_mesh
+    from gwen_tpu_torch.graph import apply_order, icosphere_edges, rcm_order
+
+    verts, s, r = icosphere_edges(2)
+    n = verts.shape[0]
+    s2, r2, _ = apply_order(rcm_order(s, r, n), s, r)
+    g = P.build_graph(s2, r2, n)
+    graph = train_mesh.banded_layout(g, s2, r2, kernel, torch.float32)
+    assert type(graph).__name__ == layout
+    if kernel == "auto":  # a band wide enough for 7 GiB takes the packed one
+        monkeypatch.setattr("gwen_tpu_torch.graph.bandwidth", lambda *a: 2**30)
+        graph = train_mesh.banded_layout(g, s2, r2, kernel, torch.float32)
+        assert type(graph).__name__ == "SlidingPackedGraph"
 
 
 @pytest.mark.parametrize("remat", [False, True, "save_agg", "save_agg:1", "nested:1", "nested:2"])
