@@ -1,5 +1,5 @@
-"""Smoke run of the PyTorch port's serving and training paths on one
-NVIDIA GPU, for the GCN and the attention processor.
+"""Smoke run of the PyTorch port's serving, training and ensemble paths on
+one NVIDIA GPU, for the GCN, attention and interaction processors.
 
     python3 chip_smoke.py
 
@@ -8,8 +8,9 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
 1. the device (``nvidia-smi`` name and power limit, torch's device name);
    exits non-zero when CUDA is absent;
 2. builds the kernels from this checkout's sources (one nvcc for each of
-   ``csrc/window_spmm.cu`` and ``csrc/window_attention.cu``, started
-   together, while Triton compiles the LayerNorm forward and backward);
+   ``csrc/window_spmm.cu``, ``csrc/window_attention.cu`` and
+   ``csrc/window_unfused.cu``, started together, while Triton compiles the
+   LayerNorm forward and backward);
 3. builds the L7 graph (with the attention tables) and checks each kernel
    against its plain PyTorch version at the shapes serving gives it (B1,
    B3, B2), at the train shapes, batch 4 (B4, B10, B2b on dm, dscale and
@@ -22,9 +23,24 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    and checks packed B1 (F 256), packed B4 (batch 4) and B13 (F 256 and
    batch 4), the packed composites' x-gradients against autograd through
    the plain versions, and the packed diag composite against the unpacked
-   one: bf16 ``max|err| ≤ 1e-2·max|plain|``, the plain version in float32
-   from the same values; float32 ``≤ 1e-5·max|plain|``. Kernel and plain
-   are timed with CUDA events (packed kernels beside unpacked B1/B4 too);
+   one; then the unfused operators: B8, B9 (nb 1), B9b (nb 2 and 8) and
+   ``diag_matvec`` (B1 on a runtime S) at f 128 and 256, the gradients of
+   ``diag_matvec`` and ``diag_sddmm`` against autograd through the plain
+   versions, and ``aggregate`` on a float32 ``(4, N, 1)`` field over the
+   bf16 and the packed diag graph: bf16 ``max|err| ≤ 1e-2·max|plain|``, the
+   plain version in float32 from the same values; float32
+   ``≤ 1e-5·max|plain|``. Kernel and plain are timed with CUDA events
+   (packed kernels beside unpacked B1/B4 too); beside each kernel its bound
+   (the larger of its bytes over 3.35 TB/s and its useful operations over
+   the peak rate of its type) and, where one PyTorch call computes the same
+   function, that call's time (``torch.sparse.mm`` on the same operator as
+   a CSR tensor for the SpMM kernels and, transposed, for B9 and B9b,
+   ``torch.sparse.sampled_addmm`` for B8, ``F.layer_norm`` plus the add and
+   its autograd backward for B2 and B2b, ``scaled_dot_product_attention``
+   on a dense mask and its backward for B5 to B7; the port never calls
+   them). A
+   fixed sparse operator counts in its kernel's bound as its nonzeros with
+   their indices, not as the dense tile the layout stores;
 4. serves the GCN model: exports a seeded random-weight model (the default
    ``train-mesh graph.refine=7`` model: 1 channel, latent 256, 4 process
    steps, bf16), answers 3 ``predict`` requests of 4 steps through the CLI
@@ -56,7 +72,21 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    4) and ``mesh.kernel=packed`` (GCN: B13 8 times per step), each with no
    plain version on the card, one step against the plain versions, step
    time and peak memory; then the unbatched 256-channel EPD step on
-   ``diag_packed`` (packed B1).
+   ``diag_packed`` (packed B1);
+9. the unfused operators and the ensemble paths at full width:
+   ``windowed_attention(backend="unfused")`` forward and backward at the
+   L7 attention shapes (nb 2, dh 128, bf16) against ``backend="auto"``,
+   with the launch counts its item loop implies (B8, B9 and B1 twice per
+   item) and a batched ``diag_spmm_t`` (B9b); then ``train-mesh
+   graph.refine=7 train.batch_size=4`` with ``train.loss=crps-ensemble``
+   (16 items a step; B4 and B10 10 times per step, two of them the noise
+   smoothing on a float32 field), with ``train.rollout_horizon=2`` and with
+   ``model.processor=interaction`` at the largest batch of 1, 2, 4 that
+   fits without remat, each to its end with finite skill numbers, no plain
+   version on the card, step time and peak memory. Every ``train-mesh``
+   run of phases 6 to 9 ends with the skill verification of a generated
+   ensemble (``skill_*`` in its JSON line), whose launches are counted
+   with the run's.
 
 The second-to-last lines are a JSON object of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``,
@@ -85,6 +115,13 @@ TRAIN_BATCH, DEFAULT_BATCH = 4, 21
 LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
 REMAT_LADDER = (False, "save_agg", "save_agg:2", True, "nested:2")
 ATTN_HEADS = 2
+# Published peaks of one H100 SXM at 700 W: device memory rate and dense
+# rates by operand type (float32 outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SKILL_HORIZON = 4  # steps the skill verification rolls out
+SKILL_KEYS = ("skill_crps", "skill_rmse_ensemble_mean", "skill_spread",
+              "skill_spread_error_ratio")
 
 
 def log(msg: str) -> None:
@@ -144,6 +181,169 @@ def timed_pair(kernel, plain, iters: int = 20) -> tuple[float, float]:
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def roofline(ins, outs, flops: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take for one call: the larger of the
+    bytes of ``ins`` and ``outs`` (each read or written once) over the
+    memory rate and the useful ``flops`` over the peak rate of ``dtype``.
+    An int among ``ins`` is a byte count (:func:`nonzero_bytes`)."""
+    nbytes = sum(t if isinstance(t, int) else t.numel() * t.element_size()
+                 for t in (*ins, *outs))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nonzero_bytes(s_dense: torch.Tensor, name: str) -> int:
+    """Bytes a fixed sparse operator needs: each nonzero of the windowed
+    tile ``s_dense`` with a 4-byte column index. The zeros of the dense
+    layout are the design's cost, not the function's, so the bounds count
+    this and the log states the stored bytes beside it."""
+    nnz = int((s_dense != 0).sum())
+    need = nnz * (s_dense.element_size() + 4)
+    stored = s_dense.numel() * s_dense.element_size()
+    log(f"    {name}: S holds {nnz} nonzeros, {need / 1e6:.2f} MB with their "
+        f"indices (the bound counts these); stored dense {stored / 1e6:.1f} MB, "
+        f"{stored / HBM_BYTES_PER_S * 1e3:.4f} ms to stream")
+    return need
+
+
+def window_csr(s_dense: torch.Tensor, window_start: torch.Tensor, block: int,
+               src_rows: int) -> tuple:
+    """The windowed operator ``s_dense`` ``(N_pad, W)`` as CSR parts
+    ``(crow, cols, values, size)`` over absolute source columns."""
+    rows, rel = torch.nonzero(s_dense, as_tuple=True)
+    vals = s_dense[rows, rel]
+    cols = window_start.long()[rows // block] + rel
+    crow = torch.zeros(s_dense.shape[0] + 1, dtype=torch.int64,
+                       device=s_dense.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=s_dense.shape[0]), 0)
+    return crow, cols, vals, (s_dense.shape[0], src_rows)
+
+
+def sparse_mm_ms(csr: tuple, x: torch.Tensor, iters: int = 20) -> float:
+    """Time of ``torch.sparse.mm`` on the CSR operator and ``x`` ``(rows,
+    F)`` or ``(B, rows, F)`` (laid out ``(rows, B·F)`` outside the timed
+    region), in x's type where cuSPARSE takes it, else in float32. The
+    library yardstick of the SpMM kernels; the port never calls it."""
+    from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+
+    crow, cols, vals, size = csr
+    x2 = _fit_rows(x, size[1])
+    if x2.dim() == 3:
+        x2 = x2.transpose(0, 1).reshape(size[1], -1)
+    for dtype in (x.dtype, torch.float32):
+        try:
+            a = torch.sparse_csr_tensor(crow, cols, vals.to(dtype), size=size)
+            b = x2.to(dtype).contiguous()
+            ms = cuda_ms(lambda: torch.sparse.mm(a, b), iters)
+        except RuntimeError as err:
+            if dtype == torch.float32:
+                raise
+            log(f"  torch.sparse.mm does not take {dtype}: {str(err)[:80]}")
+            continue
+        log(f"    torch.sparse.mm ({dtype}, nnz {vals.numel()}, x "
+            f"{tuple(b.shape)}): {ms:.4f} ms")
+        return ms
+    raise AssertionError("unreachable")
+
+
+def full_window_pattern(graph, nb: int = 1) -> tuple:
+    """CSR index parts ``(crow, cols, size)`` of the full window: row i of
+    item b holds the ``W`` columns from ``b·src_rows + window_start[i //
+    block]``, block-diagonal over ``nb`` items. The graph fixes it, so a
+    runtime ``(nb, N_pad, W)`` tile, flattened, is the values of a CSR
+    tensor on it without a copy. int32 indices, which cuSPARSE takes
+    faster."""
+    n_pad, w, src = graph.num_padded_nodes, graph.window_size, graph.num_src_rows
+    dev = graph.window_start.device
+    rows = torch.arange(nb * n_pad, device=dev)
+    first = (rows // n_pad) * src + graph.window_start.long()[
+        (rows % n_pad) // graph.block_size]
+    cols = (first[:, None] + torch.arange(w, device=dev)).reshape(-1)
+    crow = torch.arange(nb * n_pad + 1, device=dev) * w
+    return crow.int(), cols.int(), (nb * n_pad, nb * src)
+
+
+def sampled_addmm_ms(graph, a: torch.Tensor, b: torch.Tensor,
+                     kernel_out: torch.Tensor) -> float:
+    """Time of ``torch.sparse.sampled_addmm`` on the full window pattern:
+    the one PyTorch call that computes B8's SDDMM (its values are the
+    ``(N_pad, W)`` tile), held to ``kernel_out`` first. In a's type where
+    the library takes it, else in float32; pattern and padded operands are
+    built outside the timed region. The port never calls it."""
+    from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+
+    crow, cols, size = full_window_pattern(graph)
+    for dtype in (a.dtype, torch.float32):
+        pat = torch.sparse_csr_tensor(
+            crow, cols, torch.zeros(cols.numel(), dtype=dtype, device=a.device),
+            size=size)
+        ap = _fit_rows(a.to(dtype), size[0])
+        bt = _fit_rows(b.to(dtype), size[1]).t()
+        try:
+            out = torch.sparse.sampled_addmm(pat, ap, bt, beta=0.0)
+        except (RuntimeError, NotImplementedError) as err:
+            if dtype == torch.float32:
+                raise
+            log(f"    torch.sparse.sampled_addmm does not take {dtype}: "
+                f"{str(err)[:80]}")
+            continue
+        compare(f"B8 against torch.sparse.sampled_addmm ({dtype})", kernel_out,
+                out.values().reshape(kernel_out.shape), F32_TOL)
+        del out
+        ms = cuda_ms(lambda: torch.sparse.sampled_addmm(pat, ap, bt, beta=0.0), 10)
+        log(f"    torch.sparse.sampled_addmm ({dtype}, nnz {cols.numel()}): "
+            f"{ms:.4f} ms")
+        return ms
+    raise AssertionError("unreachable")
+
+
+def sparse_mm_t_ms(graph, s: torch.Tensor, g: torch.Tensor,
+                   kernel_out: torch.Tensor) -> float:
+    """Time of ``torch.sparse.mm`` on the transposed CSR tensor of the
+    runtime tile ``s`` ``(N_pad, W)`` or ``(nb, N_pad, W)`` (one
+    block-diagonal operator over the items): the one PyTorch call that
+    computes B9 and B9b, held to ``kernel_out`` first. ``s`` is an operand
+    of the call, so wrapping it as a CSR tensor on the fixed pattern (no
+    copy) is inside the timed region; the pattern and the padded ``g`` are
+    not. In s's type where the library takes it, else in float32. The port
+    never calls it."""
+    from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+
+    nb = 1 if s.dim() == 2 else s.shape[0]
+    crow, cols, size = full_window_pattern(graph, nb)
+
+    def call_in(dtype):
+        sv = s.to(dtype)
+        gp = _fit_rows(g.to(dtype), graph.num_padded_nodes).reshape(size[0], -1)
+
+        def call():
+            op = torch.sparse_csr_tensor(crow, cols, sv.reshape(-1), size=size)
+            return torch.sparse.mm(op.t(), gp)
+        return call
+
+    # The same function: held in float32, where the library rounds once.
+    compare(f"B9{'b' if nb > 1 else ''} against torch.sparse.mm on the "
+            f"transposed CSR (float32, nb {nb})", kernel_out,
+            call_in(torch.float32)().reshape(kernel_out.shape), BF16_TOL)
+    for dtype in (s.dtype, torch.float32):
+        call = call_in(dtype)
+        try:
+            call()
+        except (RuntimeError, NotImplementedError) as err:
+            if dtype == torch.float32:
+                raise
+            log(f"    torch.sparse.mm on a transposed CSR does not take {dtype}: "
+                f"{str(err)[:80]}")
+            continue
+        ms = cuda_ms(call, 5, 1)
+        log(f"    torch.sparse.mm, transposed CSR ({dtype}, nnz {cols.numel()}, "
+            f"nb {nb}): {ms:.4f} ms")
+        return ms
+    raise AssertionError("unreachable")
+
+
 def build_serving_graph(device, dtype):
     from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
                                       kd_patch_order, to_diag_window)
@@ -159,6 +359,8 @@ def build_serving_graph(device, dtype):
 
 def check_kernels(graph, device) -> dict:
     """Phase 3: each kernel against its plain version at serving shapes."""
+    import torch.nn.functional as F
+
     from gwen_tpu_torch.ops import fused_ln, spmm_cuda
 
     gen = torch.Generator(device=device).manual_seed(1)
@@ -185,7 +387,15 @@ def check_kernels(graph, device) -> dict:
             want, F32_TOL)
     ms, plain_ms = timed_pair(lambda: spmm_cuda.diag_window_spmm(graph, x, fix),
                               lambda: spmm_cuda.diag_window_spmm_plain(graph, x, fix))
-    results["B1"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    nnz = int((graph.s_mat != 0).sum())
+    csr = window_csr(graph.s_mat, graph.window_start, graph.block_size,
+                     graph.num_src_rows)
+    results["B1"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **roofline((nonzero_bytes(graph.s_mat, "B1"), x[: graph.num_src_rows], fix),
+                   (x,),
+                   2.0 * (nnz + u) * f, torch.bfloat16),
+        library_ms=sparse_mm_ms(csr, x))
 
     # B3: banded SpMM on the esc2 graph (x compacted to the U endpoints).
     x2 = randn(g2.num_nodes, f)
@@ -194,7 +404,13 @@ def check_kernels(graph, device) -> dict:
     compare("B3 f32", spmm_cuda.sliding_spmm(g2_32, x2.float()), want, F32_TOL)
     ms, plain_ms = timed_pair(lambda: spmm_cuda.sliding_spmm(g2, x2),
                               lambda: spmm_cuda.sliding_spmm_plain(g2, x2))
-    results["B3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["B3"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **roofline((nonzero_bytes(g2.s_mat, "B3"), x2),
+                   (spmm_cuda.sliding_spmm(g2, x2),),
+                   2.0 * int((g2.s_mat != 0).sum()) * f, torch.bfloat16),
+        library_ms=sparse_mm_ms(window_csr(g2.s_mat, g2.window_start,
+                                           g2.block_size, g2.num_src_rows), x2))
 
     # B2: residual + LayerNorm at the padded state's shape.
     m, h = randn(graph.num_padded_nodes, f), randn(graph.num_padded_nodes, f)
@@ -206,11 +422,25 @@ def check_kernels(graph, device) -> dict:
             want, F32_TOL)
     ms, plain_ms = timed_pair(lambda: fused_ln.residual_layernorm(m, h, sc, bi),
                               lambda: fused_ln.residual_layernorm_plain(m, h, sc, bi))
-    results["B2"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    scb, bib = sc.bfloat16(), bi.bfloat16()
+    lib = cuda_ms(lambda: h + F.layer_norm(m, (f,), scb, bib, 1e-6))
+    log(f"    F.layer_norm + add (two calls, bf16): {lib:.4f} ms")
+    results["B2"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **roofline((m, h, sc, bi), (m,), 10.0 * m.numel(), torch.float32),
+        library_ms=lib)
     torch.cuda.synchronize()
-    for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    _log_times(results)
     return results
+
+
+def _log_times(results: dict) -> None:
+    for name, r in results.items():
+        lib = r["library_ms"]
+        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['ms']:.0%} of it reached), library "
+            f"{'none' if lib is None else f'{lib:.4f} ms'}")
 
 
 def _serving_model(device, processor: str):
@@ -321,6 +551,8 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
     """Phase 3 at train shapes: B4, B10 and B2b against their plain
     versions, and the diag composite's x-gradient against autograd through
     the plain versions."""
+    import torch.nn.functional as F
+
     from gwen_tpu_torch.ops import fused_ln, spmm_cuda
 
     gen = torch.Generator(device=device).manual_seed(2)
@@ -344,7 +576,15 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
             want, F32_TOL)
     ms, plain_ms = timed_pair(lambda: spmm_cuda.diag_window_spmm_b(graph, x, fix),
                               lambda: spmm_cuda.diag_window_spmm_plain(graph, x, fix))
-    results["B4"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    nnz = int((graph.s_mat != 0).sum())
+    results["B4"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **roofline((nonzero_bytes(graph.s_mat, "B4"),
+                    x[:, : graph.num_src_rows], fix), (x,),
+                   2.0 * (nnz + u) * f * batch, torch.bfloat16),
+        library_ms=sparse_mm_ms(window_csr(graph.s_mat, graph.window_start,
+                                           graph.block_size,
+                                           graph.num_src_rows), x, 5))
     del want
 
     # B10: batched banded SpMM on the esc2 graph.
@@ -354,7 +594,13 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
     compare("B10 f32", spmm_cuda.sliding_spmm_b(g2_32, x2.float()), want, F32_TOL)
     ms, plain_ms = timed_pair(lambda: spmm_cuda.sliding_spmm_b(g2, x2),
                               lambda: spmm_cuda.sliding_spmm_plain(g2, x2))
-    results["B10"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    results["B10"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **roofline((nonzero_bytes(g2.s_mat, "B10"), x2),
+                   (spmm_cuda.sliding_spmm_b(g2, x2),),
+                   2.0 * int((g2.s_mat != 0).sum()) * f * batch, torch.bfloat16),
+        library_ms=sparse_mm_ms(window_csr(g2.s_mat, g2.window_start,
+                                           g2.block_size, g2.num_src_rows), x2))
 
     # B2b: LayerNorm backward over the batch's padded rows.
     rows = batch * graph.num_padded_nodes
@@ -370,8 +616,18 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
         compare(f"B2b {name} dbias", db, w_db, tol)
     ms, plain_ms = timed_pair(lambda: fused_ln.residual_layernorm_bwd(m, g, sc),
                               lambda: fused_ln.residual_layernorm_bwd_plain(m, g, sc))
-    results["B2b"] = dict(max_abs_err=errs[0], ms=ms, plain_ms=plain_ms)
-    del m, g, w_dm
+    # The library's version: autograd's backward of F.layer_norm (its graph
+    # built outside the timed region).
+    leaves = [m.detach().requires_grad_(), sc.bfloat16().requires_grad_(),
+              torch.zeros(f, dtype=torch.bfloat16, device=device).requires_grad_()]
+    out = F.layer_norm(leaves[0], (f,), leaves[1], leaves[2], 1e-6)
+    lib = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+    log(f"    backward of F.layer_norm (bf16): {lib:.4f} ms")
+    results["B2b"] = dict(
+        max_abs_err=errs[0], ms=ms, plain_ms=plain_ms,
+        **roofline((m, g, sc), (m, sc, sc), 20.0 * m.numel(), torch.float32),
+        library_ms=lib)
+    del m, g, w_dm, leaves, out
 
     # The composite's x-gradient (B1/B3 unbatched, B4/B10 batched) against
     # autograd through the plain versions, float32 from the same values.
@@ -385,9 +641,74 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
             (spmm_cuda.spmm_diag_window(graph32, x32, plain=True) * cot).sum(), x32)
         compare(f"composite x-grad {tuple(shape)}", gx, want, BF16_TOL)
     torch.cuda.synchronize()
-    for name, r in results.items():
-        log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    _log_times(results)
     return results
+
+
+def sdpa_library_ms(graph, inputs: dict) -> dict:
+    """Times of ``F.scaled_dot_product_attention`` and its autograd backward
+    on a dense additive ``(N, N)`` mask (0 on the window's neighbours, −inf
+    elsewhere: 53.7 GB in bf16 at L7, built outside the timed region): the
+    one PyTorch call that computes B5's function, and the one that yields
+    B6's dQ or B7's dK and dV (its backward computes all three whichever
+    is asked for). Each is held to the kernel first; both sides round to
+    bf16, so to the sum of two bf16 bounds. The cuDNN backend is pinned: at
+    this size the memory-efficient one returns wrong values. ``inputs`` maps
+    nb to the ``(q, k, v, g)`` the kernels were timed on. Returns ms by
+    ``(kernel, nb)``. The port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from gwen_tpu_torch.ops import attention_cuda as ac
+
+    n = graph.num_nodes
+    torch.cuda.empty_cache()
+    bias = torch.full((n, -(-n // 8) * 8), float("-inf"), dtype=torch.bfloat16,
+                      device=graph.s_mat.device)
+    rows, rel = torch.nonzero(graph.s_mat, as_tuple=True)
+    cols = graph.window_start.long()[rows // graph.block_size] + rel
+    keep = (rows < n) & (cols < n)
+    bias[rows[keep], cols[keep]] = 0
+    del rows, rel, cols, keep
+    mask, out = bias[:, :n], {}
+    for nb, (q, k, v, g) in inputs.items():
+        dh = q.shape[-1]
+        scale = dh ** -0.5
+        leaves = [t.detach().reshape(1, nb, n, dh).requires_grad_()
+                  for t in (q, k, v)]
+        cot = g.reshape(1, nb, n, dh)
+
+        def fwd():
+            with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+                return F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                      scale=scale)
+
+        def grads(of):
+            return torch.autograd.grad(res, of, cot, retain_graph=True)
+
+        res = fwd()
+        dq, st = ac.attention_dq(graph, q, k, v, g, scale)
+        pairs = zip(("out", "dq", "dk", "dv"),
+                    (ac.attention_fwd(graph, q, k, v, scale), dq,
+                     *ac.attention_dkdv(graph, q, k, v, g, st, scale)),
+                    (res, *grads(leaves)))
+        for name, kern, lib in pairs:
+            compare(f"B5/B6/B7 {name} against scaled_dot_product_attention on a "
+                    f"dense mask (nb {nb})", kern, lib.reshape(kern.shape),
+                    2 * BF16_TOL)
+        del dq, st, pairs
+        with torch.no_grad():
+            out[("B5", nb)] = cuda_ms(fwd, 2, 1)
+        out[("B6", nb)] = cuda_ms(lambda: grads(leaves[:1]), 2, 1)
+        out[("B7", nb)] = cuda_ms(lambda: grads(leaves[1:]), 2, 1)
+        log(f"    scaled_dot_product_attention (cuDNN, dense mask "
+            f"{bias.numel() * 2 / 1e9:.1f} GB, nb {nb}): forward "
+            f"{out[('B5', nb)]:.3f} ms, backward for dQ {out[('B6', nb)]:.3f} ms, "
+            f"for dK and dV {out[('B7', nb)]:.3f} ms")
+        del res, leaves
+    del bias, mask
+    torch.cuda.empty_cache()
+    return out
 
 
 def check_attention_kernels(graph, device) -> dict:
@@ -397,7 +718,7 @@ def check_attention_kernels(graph, device) -> dict:
     (training: 2 heads × batch 4) at dh 128, nb = 4 at dh 64 (4 heads);
     then the autograd Function's gradients against autograd through the
     plain forward. Each kernel is timed beside its plain version at nb = 1,
-    2 and 8."""
+    2 and 8, and beside the library's call (:func:`sdpa_library_ms`)."""
     from gwen_tpu_torch.ops import attention_cuda as ac
     from gwen_tpu_torch.ops.attention import windowed_attention
 
@@ -407,7 +728,7 @@ def check_attention_kernels(graph, device) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
 
-    results, times = {}, {}
+    results, times, kept, row_of = {}, {}, {}, {}
     for lead, dh in (((), 128), ((2,), 128), ((8,), 128), ((4,), 64)):
         tag = f"nb={lead[0] if lead else 1}{'' if lead else ' (2-D)'} dh={dh}"
         q, k, v, g = (randn(*lead, n, dh) for _ in range(4))
@@ -454,12 +775,29 @@ def check_attention_kernels(graph, device) -> dict:
             # shape, B6b and B7b at the batch-4 train shape.
             rows = {1: {"B5": "B5", "B6": "B6", "B7": "B7"}, 2: {"B5": "B5b"},
                     8: {"B6": "B6b", "B7": "B7b"}}[nb]
+            # Bytes: q, k, v (and g, the stats) and the neighbour lists in,
+            # the results out; operations per mask entry and head column: 4
+            # forward (scores, P·V), 6 for dQ, 8 for dK and dV.
+            nnz = int((graph.attn_nbr >= 0).sum())
+            io = {"B5": ((q, k, v, graph.attn_nbr), (q,), 4),
+                  "B6": ((q, k, v, g, graph.attn_nbr), (q, st), 6),
+                  "B7": ((q, k, v, g, st, graph.attn_nbr_t), (k, v), 8)}
             for key, row in rows.items():
                 ms, plain_ms = times[(key, nb)]
-                results[row] = dict(max_abs_err=errs[(key, "bf16")], ms=ms,
-                                    plain_ms=plain_ms)
+                ins, outs, ops = io[key]
+                results[row] = dict(
+                    max_abs_err=errs[(key, "bf16")], ms=ms, plain_ms=plain_ms,
+                    **roofline(ins, outs, float(ops) * dh * nnz * nb,
+                               torch.bfloat16),
+                    library_ms=None)
+                row_of[row] = (key, nb)
+            kept[nb] = (q, k, v, g)
         del q, k, v, g
         torch.cuda.empty_cache()
+    lib = sdpa_library_ms(graph, kept)
+    for row, at in row_of.items():
+        results[row]["library_ms"] = lib[at]
+    del kept
 
     # The Function's gradients (B6 then B7 on the cotangent) against autograd
     # through the plain forward, float32 from the same values.
@@ -552,7 +890,23 @@ def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
         log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unpacked "
             f"{'B4' if len(shape) == 3 else 'B1'} {ref:.4f} ms")
         if keep:
-            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            # The operator the kernel rebuilds, a_r a_s ⊙ S01, as CSR.
+            packed_diag = g is pg
+            col, row = ((g.r1_col, g.r1_row) if packed_diag
+                        else (g.col_scale, g.row_scale))
+            dense = spmm_cuda.packed_s(g.s_pack, g.window_start, col,
+                                       torch.bfloat16)
+            dense = dense * row.bfloat16()[: dense.shape[0], None]
+            csr = window_csr(dense, g.window_start, g.block_size, g.num_src_rows)
+            del dense
+            nb = shape[0] if len(shape) == 3 else 1
+            results[key] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                **roofline((g.s_pack, col, row, x[..., : g.num_src_rows, :],
+                            *extra), (x[..., : g.num_padded_nodes, :],),
+                           2.0 * csr[2].numel() * f * nb, torch.bfloat16),
+                library_ms=sparse_mm_ms(csr, x, 5 if len(shape) == 3 else 20))
+            del csr
         del x, extra, extra32
         torch.cuda.empty_cache()
 
@@ -581,6 +935,145 @@ def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
     return results
 
 
+def check_unfused_kernels(graph, packed_diag, device) -> dict:
+    """Phase 3 for the unfused attention operators: B8 (SDDMM), B9 and B9b
+    (transpose SpMM at nb 1, 2 and 8) and ``diag_matvec``'s forward (B1 on a
+    runtime S) against their plain versions at f 128 and 256; the gradients
+    of ``diag_matvec`` (in s and x) and ``diag_sddmm`` (in a and b) against
+    autograd through the plain versions; ``aggregate`` on a float32
+    ``(4, N, 1)`` field over the bf16 and the packed diag graph. Times at
+    f 128, the attention head width, beside the library's calls on the full
+    window pattern as CSR: ``torch.sparse.sampled_addmm`` for B8,
+    ``torch.sparse.mm`` on the transposed operator for B9 and B9b."""
+    from gwen_tpu_torch.ops import aggregate, spmm_cuda, unfused_cuda
+    from gwen_tpu_torch.ops.attention import diag_matvec, diag_sddmm
+
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    n, n_pad, w = graph.num_nodes, graph.num_padded_nodes, graph.window_size
+    src = graph.num_src_rows
+    results, errs = {}, {}
+    for f in (128, 256):
+        for nb in (1, 2, 8):
+            lead = () if nb == 1 else (nb,)
+            tag = f"nb={nb}{' (2-D)' if nb == 1 else ''} f={f}"
+            a, b = randn(*lead, n, f), randn(*lead, n, f)
+            want = unfused_cuda.sddmm_plain(graph, a.float(), b.float())
+            errs[("B8", nb, f)] = compare(
+                f"B8 bf16 {tag}", unfused_cuda.sddmm(graph, a, b), want, BF16_TOL)
+            compare(f"B8 f32 {tag}", unfused_cuda.sddmm(graph, a.float(), b.float()),
+                    want, F32_TOL)
+            del want
+            s, g = randn(*lead, n_pad, w), randn(*lead, n, f)
+            want = unfused_cuda.spmm_t_plain(graph, s.float(), g.float())
+            errs[("B9", nb, f)] = compare(
+                f"B9{'b' if nb > 1 else ''} bf16 {tag}",
+                unfused_cuda.spmm_t(graph, s, g), want, BF16_TOL)
+            compare(f"B9{'b' if nb > 1 else ''} f32 {tag}",
+                    unfused_cuda.spmm_t(graph, s.float(), g.float()), want, F32_TOL)
+            del want
+            if nb == 1:
+                x = randn(n, f)
+                want = unfused_cuda.matvec_plain(graph, s.float(), x.float())
+                compare(f"diag_matvec forward (B1 on a runtime S) bf16 f={f}",
+                        unfused_cuda.matvec(graph, s, x), want, BF16_TOL)
+                compare(f"diag_matvec forward f32 f={f}",
+                        unfused_cuda.matvec(graph, s.float(), x.float()), want,
+                        F32_TOL)
+                del want
+                ms = cuda_ms(lambda: unfused_cuda.matvec(graph, s, x))
+                log(f"  diag_matvec forward f={f}: B1 on a runtime S {ms:.4f} ms")
+            iters = 20 if nb < 8 else 5
+            pairs = {"B8": (lambda: unfused_cuda.sddmm(graph, a, b),
+                            lambda: unfused_cuda.sddmm_plain(graph, a, b)),
+                     "B9": (lambda: unfused_cuda.spmm_t(graph, s, g),
+                            lambda: unfused_cuda.spmm_t_plain(graph, s, g))}
+            # JSON rows at f 128: B8 and B9 as the unfused backend calls them
+            # (one item), B9b at nb 2.
+            rows = {1: {"B8": "B8", "B9": "B9"}, 2: {"B9": "B9b"}}.get(nb, {})
+            for key, (kern, plain) in pairs.items():
+                ms, plain_ms = timed_pair(kern, plain, iters)
+                log(f"  {key}{'b' if key == 'B9' and nb > 1 else ''} {tag}: "
+                    f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                if f == 128 and key in rows:
+                    out = kern()
+                    ins, lib = (((a, b), sampled_addmm_ms(graph, a, b, out))
+                                if key == "B8" else
+                                ((s, g), sparse_mm_t_ms(graph, s, g, out)))
+                    results[rows[key]] = dict(
+                        max_abs_err=errs[(key, nb, f)], ms=ms, plain_ms=plain_ms,
+                        **roofline(ins, (out,), 2.0 * nb * n_pad * w * f,
+                                   torch.bfloat16),
+                        library_ms=lib)
+                    del out
+            del a, b, s, g
+            torch.cuda.empty_cache()
+    _log_times(results)
+
+    # The two Functions' gradients against autograd through the plain
+    # versions, float32 from the same values.
+    s, x = randn(n_pad, w).requires_grad_(), randn(n, 128).requires_grad_()
+    cot = randn(n, 128, dtype=torch.float32)
+    got = torch.autograd.grad((diag_matvec(graph, s, x).float() * cot).sum(), (s, x))
+    s32, x32 = (t.detach().float().requires_grad_() for t in (s, x))
+    want = torch.autograd.grad(
+        (unfused_cuda.matvec_plain(graph, s32, x32)[:n] * cot).sum(), (s32, x32))
+    for name, u, v in zip(("ds", "dx"), got, want):
+        compare(f"diag_matvec {name} vs autograd through the plain version", u, v,
+                BF16_TOL)
+    a, b = randn(n, 128).requires_grad_(), randn(n, 128).requires_grad_()
+    cot = randn(n_pad, w, dtype=torch.float32)
+    got = torch.autograd.grad((diag_sddmm(graph, a, b) * cot).sum(), (a, b))
+    a32, b32 = (t.detach().float().requires_grad_() for t in (a, b))
+    want = torch.autograd.grad(
+        (unfused_cuda.sddmm_plain(graph, a32, b32) * cot).sum(), (a32, b32))
+    for name, u, v in zip(("da", "db"), got, want):
+        compare(f"diag_sddmm {name} vs autograd through the plain version", u, v,
+                BF16_TOL)
+    del s, x, a, b, cot, got, want, s32, x32, a32, b32
+    torch.cuda.empty_cache()
+
+    # What the ensemble code hands aggregate: a float32 field with a member
+    # axis and one channel, on a bf16 and on a packed layout. Through the
+    # batched kernels (B4 or packed B4, and B10), never the plain versions.
+    counters = _counters()
+    for name, g, b4 in (("bf16 diag", graph, "B4"), ("packed diag", packed_diag,
+                                                     "B4p")):
+        x = randn(4, n, 1, dtype=torch.float32)
+        before = {k: counters[k].launches for k in (b4, "B10")}
+        plain_before = PLAIN_ON_CUDA["calls"]
+        got = aggregate(g, x)
+        ran = {k: counters[k].launches - v for k, v in before.items()}
+        if got.dtype != torch.float32 or got.shape != x.shape or ran != {
+                b4: 1, "B10": 1} or PLAIN_ON_CUDA["calls"] != plain_before:
+            raise AssertionError(f"aggregate (4, N, 1) float32 on the {name} "
+                                 f"graph: {got.dtype} {tuple(got.shape)}, "
+                                 f"launches {ran}")
+        compare(f"aggregate (4, N, 1) float32 on the {name} graph ({b4}, B10)",
+                got, aggregate(g, x, backend="plain"), F32_TOL)
+        ms = cuda_ms(lambda: aggregate(g, x))
+        log(f"  aggregate (4, N, 1) float32 on the {name} graph: {ms:.4f} ms")
+    torch.cuda.empty_cache()
+    return results
+
+
+def skill_launches(processor: str, kernel: str = "diag") -> dict:
+    """Kernel launches of ``train-mesh``'s skill verification (4 members,
+    ``SKILL_HORIZON`` steps, no calibration): the float32 skill model runs
+    the LayerNorm kernel once per process step and forecast step; the
+    attention skill model also B5, and its noise smoothing the batched
+    aggregation kernels of the trained diag graph twice. The GCN and
+    interaction skill models aggregate on the COO graph."""
+    fwd = SKILL_HORIZON * PROCESS_STEPS
+    if processor == "attention":
+        return {"B5": fwd, "B2": fwd, "B10": 2,
+                "B4p" if kernel == "diag_packed" else "B4": 2}
+    return {"B2": fwd} if processor == "gcn" else {}
+
+
 def expected_launches(remat, process_steps: int, processor: str = "gcn",
                       kernel: str = "diag") -> dict:
     """Kernel launches per batched train step under a remat policy.
@@ -604,8 +1097,10 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
     saved = min(k, s) if kind == "save_agg" else 0
     recompute = {"none": 0, "full": s, "save_agg": s,
                  "nested": 2 * s - groups}[kind]
-    out = dict.fromkeys(("B1", "B3", "B4", "B10", "B5", "B6", "B7", "B1p",
-                         "B4p", "B13"), 0)
+    out = dict.fromkeys(("B1", "B3", "B4", "B10", "B2", "B2b", "B5", "B6", "B7",
+                         "B1p", "B4p", "B13", "B8", "B9"), 0)
+    if processor == "interaction":  # COO graph, its own LayerNorm: no kernel
+        return out
     if processor == "attention":
         out.update(B5=s + recompute, B6=s, B7=s, B2=s + recompute - saved,
                    B2b=s)
@@ -618,7 +1113,7 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
 
 
 def _counters() -> dict:
-    from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda
+    from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda, unfused_cuda
 
     return {"B1": spmm_cuda.diag_window_spmm, "B3": spmm_cuda.sliding_spmm,
             "B4": spmm_cuda.diag_window_spmm_b, "B10": spmm_cuda.sliding_spmm_b,
@@ -628,7 +1123,8 @@ def _counters() -> dict:
             "B7": attention_cuda.attention_dkdv,
             "B1p": spmm_cuda.diag_window_spmm_packed,
             "B4p": spmm_cuda.diag_window_spmm_packed_b,
-            "B13": spmm_cuda.sliding_packed_spmm}
+            "B13": spmm_cuda.sliding_packed_spmm,
+            "B8": unfused_cuda.sddmm, "B9": unfused_cuda.spmm_t}
 
 
 # Calls of a kernel's plain version with a CUDA tensor: the main paths must
@@ -639,11 +1135,12 @@ PLAIN_ON_CUDA = {"calls": 0}
 def count_plain_calls_on_cuda() -> None:
     """Wrap every kernel's plain version so that each call with a CUDA
     tensor adds one to ``PLAIN_ON_CUDA``."""
-    from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda
+    from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda, unfused_cuda
 
-    # window_spmm_plain sits under the plain versions of B1, B3, B4, B10
-    # and of the packed forms and B13.
+    # window_spmm_plain sits under the plain versions of B1, B3, B4, B10,
+    # of the packed forms and B13, and of diag_matvec's forward.
     plains = ((spmm_cuda, ("window_spmm_plain",)),
+              (unfused_cuda, ("sddmm_plain", "spmm_t_plain")),
               (fused_ln, ("residual_layernorm_plain",
                           "residual_layernorm_bwd_plain")),
               (attention_cuda, ("attention_fwd_plain", "attention_dq_plain",
@@ -732,12 +1229,16 @@ def _against_plain_step(model, graph, x, y) -> None:
 
 
 def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
-                    kernel: str = "auto") -> tuple[dict, dict]:
+                    kernel: str = "auto", extra: tuple = (),
+                    per_step: "dict | None" = None,
+                    batch: int = TRAIN_BATCH) -> tuple[dict, dict]:
     """``train-mesh graph.refine=7 train.batch_size=4`` through the CLI entry
-    point with ``mesh.kernel=kernel``: checks the run (at least 8 steps,
-    finite loss), the layout it took, and the launch counts per step that
-    remat off implies, with no plain version called on CUDA tensors.
-    Returns the CLI's JSON line and the launch counts."""
+    point with ``mesh.kernel=kernel`` (and the ``extra`` options): checks
+    the run (at least 8 steps, finite loss, finite skill numbers), the
+    layout it took, and the launch counts: per step what remat off implies
+    (or ``per_step``, merged over it), plus the skill verification's, with
+    no plain version called on CUDA tensors. Returns the CLI's JSON line
+    and the launch counts."""
     import contextlib
     import io
 
@@ -753,7 +1254,7 @@ def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
     with contextlib.redirect_stdout(buf):
         rc = cli(["train-mesh", f"graph.refine={LEVELS}",
                   f"model.processor={processor}", f"mesh.kernel={kernel}",
-                  f"train.batch_size={TRAIN_BATCH}",
+                  f"train.batch_size={batch}", *extra,
                   f"run.registry_root={workdir / 'runs'}", "--device", str(device)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -768,12 +1269,19 @@ def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
     if steps < 8 or not math.isfinite(out["best_train_loss"]):
         raise AssertionError(f"train-mesh ran {steps} steps, best loss "
                              f"{out['best_train_loss']}")
-    layout = "SlidingPackedGraph" if kernel == "packed" else "DiagWindowGraph"
+    skill = {k: out.get(k) for k in SKILL_KEYS}
+    if not all(isinstance(v, float) and math.isfinite(v) for v in skill.values()):
+        raise AssertionError(f"skill verification gave {skill}")
+    layout = ("Graph" if processor == "interaction" else
+              "SlidingPackedGraph" if kernel == "packed" else "DiagWindowGraph")
     if out["layout"] != layout or out["packed"] != ("packed" in kernel):
         raise AssertionError(f"train-mesh took the {out['layout']} path "
                              f"(packed: {out['packed']})")
-    per_step = expected_launches(False, PROCESS_STEPS, processor, kernel)
+    per_step = {**expected_launches(False, PROCESS_STEPS, processor, kernel),
+                **(per_step or {})}
     want = {k: v * steps for k, v in per_step.items()}
+    for k, v in skill_launches(processor, kernel).items():
+        want[k] += v
     log(f"  launches during training: {launches} (want {want}); plain versions "
         f"called on CUDA tensors: {PLAIN_ON_CUDA['calls']}")
     if launches != want or PLAIN_ON_CUDA["calls"]:
@@ -964,12 +1472,191 @@ def train_packed(graphs: dict, device, workdir: Path) -> dict:
     return launches
 
 
+def _profile_step(step, tag: str, top: int = 10) -> None:
+    """One ``step()`` under ``torch.profiler``: the device time of its
+    kernels by name, and the share of the span from the first kernel's
+    start to the last one's end in which a kernel ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_name, start, end = {}, math.inf, -math.inf
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+        start, end = min(start, ev.time_range.start), max(end, ev.time_range.end)
+    if not by_name:
+        log(f"  {tag} profile: the trace holds no device event; kernel shares "
+            "not measured")
+        return
+    busy = sum(by_name.values())
+    log(f"  {tag} profile of one step: device busy {busy / 1e3:.3f} ms of a "
+        f"{(end - start) / 1e3:.3f} ms span ({busy / (end - start):.1%}); by "
+        "kernel:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
+        log(f"    {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
+
+
+def _task_step(model, loss_fn, graph, batch, tag: str,
+               profile: bool = False) -> None:
+    """Time one Adam step of ``loss_fn(batch, graph)`` (CUDA events, 3 steps
+    after a warm-up) with its peak memory; with ``profile``, trace one more
+    step and log its kernels' shares."""
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+    def step():
+        loss, _ = loss_fn(batch, graph)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _step_ms(step, 3)
+    log(f"  {tag} train step: {ms:.3f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if profile:
+        _profile_step(step, tag)
+
+
+def check_unfused_attention(graph, device) -> dict:
+    """Phase 9, first part: ``windowed_attention(backend="unfused")`` at
+    the L7 attention shapes (nb 2, dh 128, bf16), forward and the q, k, v
+    gradients, against ``backend="auto"`` (B5, B6, B7), and a batched
+    ``diag_spmm_t`` (B9b) against its items; the launch counts the item
+    loop implies and no plain version on the card. Both backends round P
+    and the gradients to bf16 at their own places, so they are held to the
+    sum of two bf16 bounds. Returns the launch counts."""
+    from gwen_tpu_torch.ops.attention import diag_spmm_t, windowed_attention
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    n, nb, dh = graph.num_nodes, ATTN_HEADS, LATENT // ATTN_HEADS
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    q, k, v = (randn(nb, n, dh).requires_grad_() for _ in range(3))
+    cot = randn(nb, n, dh)
+
+    def run(backend):
+        out = windowed_attention(graph, q, k, v, backend=backend)
+        return (out.detach(), *torch.autograd.grad(out, (q, k, v), cot))
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    PLAIN_ON_CUDA["calls"] = 0
+    got = run("unfused")
+    s, g = randn(nb, graph.num_padded_nodes, graph.window_size), randn(nb, n, dh)
+    batched = diag_spmm_t(graph, s, g)
+    launches = {key: c.launches for key, c in counters.items()}
+    # Per item: B8 forward and for dP, B1 for P·V and for dQ, B9 for dV and
+    # dK; one more B9 launch for the batched call and none yet for its items.
+    want = dict.fromkeys(counters, 0)
+    want.update(B8=2 * nb, B1=2 * nb, B9=2 * nb + 1)
+    log(f"  launches of one unfused forward and backward (nb {nb}) and one "
+        f"batched diag_spmm_t: { {k: v for k, v in launches.items() if v} }; "
+        f"plain versions called on CUDA tensors: {PLAIN_ON_CUDA['calls']}")
+    if launches != want or PLAIN_ON_CUDA["calls"]:
+        raise AssertionError(f"unfused attention launched {launches}, want "
+                             f"{want}, or a plain version ran on the card")
+    for i in range(nb):
+        compare(f"batched diag_spmm_t (B9b) item {i} vs the 2-D call (B9)",
+                batched[i], diag_spmm_t(graph, s[i], g[i]), F32_TOL)
+    del s, g, batched
+    ref = run("auto")
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, ref):
+        compare(f"unfused vs auto {name} (nb {nb}, dh {dh})", a, b, 2 * BF16_TOL)
+    del got, ref
+    for backend in ("unfused", "auto"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: windowed_attention(graph, q, k, v, backend=backend),
+                          5, 1)
+        both = cuda_ms(lambda: run(backend), 5, 1)
+        log(f"  windowed_attention backend={backend!r} (nb {nb}, dh {dh}): "
+            f"forward {fwd:.3f} ms, forward and backward {both:.3f} ms, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ensemble_paths(graph, device, workdir: Path) -> None:
+    """Phase 9, second part: ``train-mesh`` on the ensemble tasks, each to
+    its end (skill verification included) with the launch counts it implies
+    and no plain version on the card, then the task's train-step time and
+    peak memory. CRPS: the model sees batch × members = 16 items a step
+    (the batched kernels launch as for any batch), and the noise smoothing
+    adds two batched aggregations of a float32 field per step. Rollout
+    horizon 2: two forwards and backwards per step. Interaction: the COO
+    graph, no kernel; at the largest batch of 1, 2, 4 whose step fits
+    without remat."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      rcm_order)
+    from gwen_tpu_torch.train import (ensemble_crps_loss_fn, mesh_graph_loss_fn,
+                                      rollout_loss_fn)
+
+    n = graph.num_nodes
+    rng = np.random.default_rng(8)
+    x, y = _train_batch(n, device, rng)
+    base = expected_launches(False, PROCESS_STEPS)
+
+    log("  -- train.loss=crps-ensemble (GCN, 4 members x batch 4)")
+    _run_train_mesh(workdir / "crps", device, extra=("train.loss=crps-ensemble",),
+                    per_step={"B4": base["B4"] + 2, "B10": base["B10"] + 2})
+    for processor in ("gcn", "attention"):
+        model = _train_model(device, CHANNELS, processor=processor)
+        _task_step(model, ensemble_crps_loss_fn(model, num_members=4), graph,
+                   (x, y, 3), f"batch-{TRAIN_BATCH} {processor} crps-ensemble",
+                   profile=True)
+        del model
+    torch.cuda.empty_cache()
+
+    log("  -- train.rollout_horizon=2 (GCN)")
+    _run_train_mesh(workdir / "rollout", device,
+                    extra=("train.rollout_horizon=2",),
+                    per_step={k: 2 * v for k, v in base.items()})
+    model = _train_model(device, CHANNELS)
+    _task_step(model, rollout_loss_fn(model, 2), graph,
+               (x, torch.stack([y, 0.9 * y + 0.1], dim=1)),
+               f"batch-{TRAIN_BATCH} gcn rollout-horizon-2")
+    del model
+    torch.cuda.empty_cache()
+
+    log("  -- model.processor=interaction (COO graph, RCM order)")
+    verts, s, r = icosphere_edges(LEVELS)
+    s2, r2, _ = apply_order(rcm_order(s, r, n), s, r)
+    coo = build_graph(s2, r2, n).to(device)
+    fits = 0
+    for batch in (1, 2, 4):
+        model = _train_model(device, CHANNELS, processor="interaction")
+        try:
+            _task_step(model, mesh_graph_loss_fn(model), coo,
+                       (x[:batch], y[:batch]), f"batch-{batch} interaction")
+            fits = batch
+        except torch.cuda.OutOfMemoryError:
+            log(f"  batch-{batch} interaction train step: out of memory")
+        del model
+        torch.cuda.empty_cache()
+        if fits != batch:
+            break
+    if not fits:
+        raise AssertionError("the interaction train step does not fit at batch 1")
+    _run_train_mesh(workdir / "interaction", device, processor="interaction",
+                    batch=fits)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda
+    from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda, unfused_cuda
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -985,8 +1672,9 @@ def main() -> int:
     # One nvcc per CUDA source, started together, while Triton compiles the
     # LayerNorm kernels on their first launches.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        nvcc_jobs = [pool.submit(spmm_cuda.build), pool.submit(attention_cuda.build)]
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        nvcc_jobs = [pool.submit(mod.build)
+                     for mod in (spmm_cuda, attention_cuda, unfused_cuda)]
         z = torch.zeros(4, 256, device=device)
         fused_ln.residual_layernorm(z, z, z[0], z[0])
         fused_ln.residual_layernorm_bwd(z, z, z[0])
@@ -1029,6 +1717,9 @@ def main() -> int:
         f"{tuple(sg.s_pack.shape)} ({sg.s_pack.nbytes / 2**20:.2f} MiB)")
     log("  bit-packed layouts (packed B1, packed B4, B13):")
     results.update(check_packed_kernels(graph, packed, device, results))
+    log("  unfused operators (B8, B9, B9b, diag_matvec) and aggregate on a "
+        "float32 field:")
+    results.update(check_unfused_kernels(graph, pg, device))
 
     log("== phase 4: serve 3 requests x 4 steps through `predict` (GCN)")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1056,10 +1747,18 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(train_packed(packed, device, Path(tmp)))
 
+    log("== phase 9: the unfused attention backend; `train-mesh` on the "
+        "ensemble tasks and the interaction processor")
+    unfused = check_unfused_attention(graph, device)
+    launches.update({k: unfused[k] for k in ("B8", "B9")})
+    with tempfile.TemporaryDirectory() as tmp:
+        ensemble_paths(graph, device, Path(tmp))
+
     spmm, ln = "gwen_tpu/ops/spmm_pallas.py", "gwen_tpu/ops/fused_ln.py"
     att = "gwen_tpu/ops/attention_pallas.py"
     cu, tr = "gwen_tpu_torch/csrc/window_spmm.cu", "gwen_tpu_torch/ops/fused_ln.py"
     acu = "gwen_tpu_torch/csrc/window_attention.cu"
+    ucu = "gwen_tpu_torch/csrc/window_unfused.cu"
     one = "; one kernel for both forms, one count"
     sources = {"B1": ("diag-window SpMM with escape placement", "cuda", cu,
                       f"{spmm}:909"),
@@ -1090,10 +1789,17 @@ def main() -> int:
                "B4p": ("batched packed diag-window SpMM (the packed branch of "
                        "_diag_kernel_b)", "cuda", cu, f"{spmm}:1224"),
                "B13": ("bit-packed banded SpMM (batch 4, the train-mesh "
-                       "shape)", "cuda", cu, f"{spmm}:1556")}
+                       "shape)", "cuda", cu, f"{spmm}:1556"),
+               "B8": ("SDDMM: window-relative score tile (one item, f 128)",
+                      "cuda", ucu, f"{att}:78"),
+               "B9": (f"transpose SpMM on a runtime S (nb = 1, f 128{one})",
+                      "cuda", ucu, f"{att}:171"),
+               "B9b": (f"batched transpose SpMM (nb = 2, f 128{one})", "cuda",
+                       ucu, f"{att}:1393")}
     kernels = [{"name": f"{key} {name}", "route": route, "source": src,
                 "replaces": rep,
-                "launches": launches[key[:-1] if key in ("B5b", "B6b", "B7b") else key],
+                "launches": launches[key[:-1] if key in ("B5b", "B6b", "B7b", "B9b")
+                                     else key],
                 **results[key]}
                for key, (name, route, src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))

@@ -2,7 +2,8 @@
 
 Counterpart of ``gwen_tpu.cli.export_cli.predict_main``. The input is a
 ``(nodes, channels)`` .npy in *original* node order; it is mapped through
-the port's own KD-patch permutation and the trajectory mapped back.
+the artifact's node permutation (``ServingModel.node_perm``) and the
+trajectory mapped back.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""``python -m gwen_tpu_torch train-mesh``: mesh-scale next-step training of
-the encode-process-decode model (GCN or attention processor) on one
-device.
+"""``python -m gwen_tpu_torch train-mesh``: mesh-scale training of the
+encode-process-decode model (GCN, attention or interaction processor) on
+one device, followed by the skill verification of a generated ensemble.
 
 Counterpart of ``gwen_tpu.cli.train_mesh.main``, with the reference's
 choice of path and ``cuda`` in place of ``tpu``. GCN: on a CUDA device,
@@ -16,12 +16,25 @@ graph. On the CPU GCN takes RCM and the segment path. Attention
 with transpose tables on every device, packed on ``diag_packed``, as the
 reference (kernels B5, B6, B7 on CUDA, their plain versions on the CPU); a
 ``mesh.kernel`` other than ``auto``/``diag``/``diag_packed`` is refused.
-The device is explicit: asking for ``cuda`` where there is none raises.
+The interaction processor (``model.processor=interaction``) keeps RCM and
+the COO graph on every device. The device is explicit: asking for ``cuda``
+where there is none raises.
 
-Not ported yet, each refused with a ``ValueError``: the skill verification
-of generated ensembles after training (it needs the ensemble code of
-slice 4; the run ends after ``save_model``), ``train.rollout_horizon > 1``,
-``train.loss="crps-ensemble"``, the partitioned path and ``--data`` input.
+The task follows the reference: ``train.rollout_horizon > 1`` trains on
+trajectories (``rollout_loss_fn``), ``train.loss=crps-ensemble`` on the
+fair ensemble CRPS of ``train.crps_members`` perturbed forecasts per
+sample, anything else on next-step MSE or L1. The last member is held out.
+After ``save_model`` the run generates an ensemble from the held-out
+member's first state (``members`` members, up to 4 steps; ``train.sigma``,
+or the amplitude ``train.calibrate_sigma`` picks on the training members),
+inflates it (``train.inflation``, or ``train.calibrate_inflation`` on
+member 0) and logs and returns its ``skill_*`` scores. The skill model
+computes in float32: on the COO graph, except attention, which keeps the
+trained diag-window graph (its noise smoothing then runs the aggregation
+kernels on a float32 field over the bf16 layout).
+
+Not ported yet, each refused with a ``ValueError``: the partitioned path
+and ``--data`` input.
 """
 
 from __future__ import annotations
@@ -39,12 +52,8 @@ log = get_logger()
 
 
 def _refuse_later_slices(config: GwenConfig, data: str) -> None:
-    tcfg, mesh = config.train, config.mesh
+    mesh = config.mesh
     waits = [
-        (tcfg.rollout_horizon > 1, "train.rollout_horizon > 1 (rollout "
-         "training) comes with a later slice of the port"),
-        (tcfg.loss == "crps-ensemble", "train.loss='crps-ensemble' comes "
-         "with slice 4 of the port"),
         (mesh.graph_axis > 1 or mesh.force_partition, "the partitioned "
          "path (mesh.graph_axis > 1, mesh.force_partition) comes with "
          "slice 6 of the port"),
@@ -114,8 +123,10 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
         Checkpointer,
         Trainer,
         TrainState,
+        ensemble_crps_loss_fn,
         make_optimizer,
         mesh_graph_loss_fn,
+        rollout_loss_fn,
     )
 
     _refuse_later_slices(config, data)
@@ -160,8 +171,14 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
         graph = banded_layout(g, s2, r2, kernel, compute_dtype)
     else:
         graph = g
-    loss_fn = mesh_graph_loss_fn(
-        model, loss=tcfg.loss if tcfg.loss in ("mse", "l1") else "mse")
+    if tcfg.rollout_horizon > 1:
+        loss_fn = rollout_loss_fn(model, tcfg.rollout_horizon)
+    elif tcfg.loss == "crps-ensemble":
+        loss_fn = ensemble_crps_loss_fn(
+            model, num_members=tcfg.crps_members, sigma=tcfg.sigma)
+    else:
+        loss_fn = mesh_graph_loss_fn(
+            model, loss=tcfg.loss if tcfg.loss in ("mse", "l1") else "mse")
 
     # Train on all members except the last (held out for skill verification).
     ds = MeshEnsembleDataset(fields=fields[:, :-1])
@@ -185,9 +202,20 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
     )
     trainer = Trainer(loss_fn, dev, run=run, checkpointer=ckpt,
                       log_every=tcfg.log_every, context=graph)
-    state, best = trainer.fit(
-        state, lambda ep: ds.batches(tcfg.batch_size, shuffle=True, seed=ep),
-        tcfg.epochs, checkpoint_every=tcfg.checkpoint_every)
+    if tcfg.rollout_horizon > 1:
+        def batches(ep):
+            return ds.trajectory_batches(tcfg.batch_size, tcfg.rollout_horizon,
+                                         shuffle=True, seed=ep)
+    elif tcfg.loss == "crps-ensemble":
+        def batches(ep):  # a seed per step for the perturbations
+            for i, (x, y) in enumerate(ds.batches(tcfg.batch_size, shuffle=True,
+                                                  seed=ep)):
+                yield x, y, ep * 100003 + i
+    else:
+        def batches(ep):
+            return ds.batches(tcfg.batch_size, shuffle=True, seed=ep)
+    state, best = trainer.fit(state, batches, tcfg.epochs,
+                              checkpoint_every=tcfg.checkpoint_every)
     run.save_model(
         model.state_dict(),
         {"latent_size": config.model.latent_size,
@@ -203,12 +231,96 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
          "nodes": n, "data": data or ""},
         best_metric=best,
     )
-    log.info("skill verification is not computed: it needs the ensemble "
-             "code of slice 4 of the port")
+    skill = verify_skill(config, model, fields, g, trainer.context, members,
+                         dev, run)
     run.finish()
-    log.info("mesh training done: best=%.5f steps=%d", best, state.step)
+    log.info("mesh training done: best=%.5f steps=%d skill=%s", best,
+             state.step, skill)
     return {"best_train_loss": best, "run_id": run.run_id,
             "run_dir": str(run.path), "steps": state.step, "nodes": n,
             "edges": len(s), "device": str(dev),
             "layout": type(graph).__name__,
-            "packed": getattr(graph, "s_pack", None) is not None}
+            "packed": getattr(graph, "s_pack", None) is not None,
+            **{f"skill_{k}": v for k, v in skill.items()}}
+
+
+def verify_skill(config: GwenConfig, model, fields: np.ndarray, coo_graph,
+                 trained_graph, members: int, dev: torch.device, run=None,
+                 draw=None) -> dict:
+    """Skill of a generated ensemble against the held-out (last) member, as
+    the reference's ``train_mesh`` computes it after training.
+
+    A float32 skill model with the trained weights (the segment path on
+    ``coo_graph``; attention keeps ``trained_graph``, the diag-window graph
+    on ``dev``) generates ``members`` members over up to 4 steps from the
+    held-out member's first state. ``train.calibrate_sigma`` picks the
+    amplitude on the training members first, ``train.calibrate_inflation``
+    the inflation on member 0. ``fields`` is ``(time, member, nodes,
+    channels)`` in the model's node order. ``draw(seed, shape)`` gives the
+    white noise of one draw; the default draws standard normals from a
+    ``torch.Generator`` on ``dev`` seeded with ``seed``. The scores are
+    logged on ``run`` as ``skill_*`` and returned."""
+    from gwen_tpu_torch import ensemble
+    from gwen_tpu_torch.nn import EncodeProcessDecode
+
+    tcfg, processor = config.train, config.model.processor
+    ch = fields.shape[-1]
+    horizon = min(4, fields.shape[0] - 1)
+    base = torch.from_numpy(np.ascontiguousarray(fields[0, -1])).to(dev)
+    truth = torch.from_numpy(np.ascontiguousarray(fields[1: 1 + horizon, -1])).to(dev)
+
+    skill_model = EncodeProcessDecode(
+        ch, ch, device=dev,
+        latent_size=config.model.latent_size,
+        process_steps=config.model.process_steps,
+        mlp_layers=config.model.mlp_layers,
+        residual=config.model.residual,
+        backend="segment" if processor != "attention" else "auto",
+        processor=processor,
+        attn_heads=config.model.attn_heads,
+        attn_pack=config.model.attn_pack,
+    )
+    skill_model.load_state_dict(model.state_dict())
+    skill_model.eval()
+    graph = trained_graph if processor == "attention" else coo_graph.to(dev)
+
+    def log_metric(name, value):
+        if run is not None:
+            run.log_metric(name, value)
+
+    if draw is None:
+        def draw(seed, shape):
+            return torch.randn(shape, device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(seed))
+
+    member_shape = (members, *base.shape)
+    sigma = tcfg.sigma
+    if tcfg.calibrate_sigma and fields.shape[1] > 1:
+        cal = ensemble.calibrate_sigma(
+            skill_model, graph, fields[:, :-1], None, num_members=members,
+            horizon=horizon,
+            noise=draw(11, (len(ensemble.SIGMAS), fields.shape[1] - 1,
+                            *member_shape)))
+        sigma = cal["best_sigma"]
+        log_metric("calibrated_sigma", sigma)
+    gen = ensemble.generate_ensemble(
+        skill_model, graph, base, None, num_members=members,
+        num_steps=horizon, sigma=sigma, noise=draw(7, member_shape))
+    inflation = tcfg.inflation
+    if tcfg.calibrate_inflation and fields.shape[1] > 1:
+        # Calibrate on a validation member (not the held-out one), then
+        # apply to the held-out generation.
+        vbase = torch.from_numpy(np.ascontiguousarray(fields[0, 0])).to(dev)
+        vtruth = torch.from_numpy(
+            np.ascontiguousarray(fields[1: 1 + horizon, 0])).to(dev)
+        vgen = ensemble.generate_ensemble(
+            skill_model, graph, vbase, None, num_members=members,
+            num_steps=horizon, sigma=sigma, noise=draw(13, member_shape))
+        inflation = ensemble.calibrate_inflation(vgen, vtruth, ensemble_axis=0)
+        log_metric("calibrated_inflation", inflation)
+    if inflation != 1.0:
+        gen = ensemble.inflate_ensemble(gen, inflation, ensemble_axis=0)
+    skill = ensemble.ensemble_skill(gen, truth, ensemble_axis=0)
+    for k, v in skill.items():
+        log_metric(f"skill_{k}", v)
+    return skill

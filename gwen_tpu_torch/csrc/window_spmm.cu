@@ -41,6 +41,11 @@
 // GFLOP a call at F = 256, most of it on zero bits; skipping empty
 // sub-tiles is later work.
 //
+// Mixed operands (MIXED = true): a float32 x on a bfloat16 S, as the
+// reference's kernels take it (S is cast to x's type per tile; bf16 ->
+// float32 is exact). The S tile is read as bf16 (half the bytes of a float32
+// copy) and widened as it is staged; products and output are float32.
+//
 // Plain C interface, loaded with ctypes (gwen_tpu_torch/ops/spmm_cuda.py).
 
 #include <cuda_bf16.h>
@@ -64,7 +69,6 @@ struct Cfg {
   static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
   static constexpr int LDA = BK + VEC;        // padded S-chunk row
   static constexpr int LDB = BN + VEC;        // padded x-chunk row
-  static constexpr int A_VECS = BM * BK / VEC / NT;
   static constexpr int B_VECS = BK * BN / VEC / NT;
   static constexpr int STAGE_BYTES = (BM * LDA + BK * LDB) * sizeof(T);
 };
@@ -123,9 +127,27 @@ __device__ __forceinline__ void expand_half(uint32_t word, int h,
     reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(tmp)[v];
 }
 
-template <typename T, bool HAS_ESC, bool PACKED>
+// One 16-byte vector of S into the staged tile: as it is, or (MIXED) its
+// 8 bf16 values widened to float32.
+template <typename T, bool MIXED>
+__device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
+  if constexpr (MIXED) {
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3]));
+    *reinterpret_cast<float4*>(dst + 4) =
+        make_float4(to_f32(h[4]), to_f32(h[5]), to_f32(h[6]), to_f32(h[7]));
+  } else {
+    *reinterpret_cast<uint4*>(dst) = raw;
+  }
+}
+
+template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
 __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   using C = Cfg<T>;
+  using TS = typename std::conditional<MIXED, __nv_bfloat16, T>::type;
+  constexpr int SVEC = 16 / sizeof(TS);          // S elements per vector
+  constexpr int SA_VECS = BM * BK / SVEC / NT;   // S vectors per thread
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
   T* As = reinterpret_cast<T*>(smem);          // [BM][LDA] S chunk
   T* Bs = As + BM * C::LDA;                    // [BK][LDB] x chunk
@@ -139,15 +161,15 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   const int c0 = fc * BN;
   const int64_t row0 = (int64_t)b * BM;
   const int64_t ws = a.window_start[b];
-  const T* s_blk =
-      PACKED ? nullptr : static_cast<const T*>(a.s) + row0 * window;
+  const TS* s_blk =
+      PACKED ? nullptr : static_cast<const TS*>(a.s) + row0 * window;
   const T* x = static_cast<const T*>(a.x) + (int64_t)bi * x_rows * f;
   T* out = static_cast<T*>(a.out) + (int64_t)bi * a.n_pad * f;
   // Packed: thread (pr, ph) expands half ph of row pr's word of each chunk.
   const int pr = tid >> 1, ph = tid & 1;
   const int wpr = window / BK;  // bit words per row
 
-  uint4 ra[C::A_VECS], rb[C::B_VECS];
+  uint4 ra[SA_VECS], rb[C::B_VECS];
   uint32_t rw = 0;
   float rsc[HALF];
   auto load = [&](int k0) {
@@ -165,11 +187,11 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
       }
     } else {
 #pragma unroll
-      for (int i = 0; i < C::A_VECS; ++i) {
+      for (int i = 0; i < SA_VECS; ++i) {
         const int v = tid + i * NT;
-        const int r = v / (BK / C::VEC), cv = v % (BK / C::VEC);
+        const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
         ra[i] = *reinterpret_cast<const uint4*>(s_blk + (int64_t)r * window +
-                                                k0 + cv * C::VEC);
+                                                k0 + cv * SVEC);
       }
     }
 #pragma unroll
@@ -191,10 +213,10 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
       expand_half<T>(rw, ph, sc, As + pr * C::LDA + ph * HALF);
     } else {
 #pragma unroll
-      for (int i = 0; i < C::A_VECS; ++i) {
+      for (int i = 0; i < SA_VECS; ++i) {
         const int v = tid + i * NT;
-        const int r = v / (BK / C::VEC), cv = v % (BK / C::VEC);
-        *reinterpret_cast<uint4*>(As + r * C::LDA + cv * C::VEC) = ra[i];
+        const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
+        store_s<T, MIXED>(As + r * C::LDA + cv * SVEC, ra[i]);
       }
     }
 #pragma unroll
@@ -315,10 +337,10 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   }
 }
 
-template <typename T, bool HAS_ESC, bool PACKED>
+template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
 int launch(const Args& a, int num_blocks, cudaStream_t stream) {
   const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks, (unsigned)a.batch);
-  window_spmm_kernel<T, HAS_ESC, PACKED><<<grid, NT, 0, stream>>>(a);
+  window_spmm_kernel<T, HAS_ESC, PACKED, MIXED><<<grid, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -352,9 +374,11 @@ constexpr int batched_smem_bytes(int window) {
          (PACKED ? window * (int)sizeof(float) : 0);
 }
 
-template <typename T, bool HAS_ESC, bool PACKED>
+template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
 __global__ void __launch_bounds__(NT) window_spmm_batched_kernel(const Args a) {
   using C = Cfg<T>;
+  using TS = typename std::conditional<MIXED, __nv_bfloat16, T>::type;
+  constexpr int SVEC = 16 / sizeof(TS);
   extern __shared__ __align__(128) unsigned char smem[];
   const int window = a.window, f = a.f, x_rows = a.x_rows;
   const int lds = window + C::VEC;             // padded S-tile row
@@ -383,13 +407,13 @@ __global__ void __launch_bounds__(NT) window_spmm_batched_kernel(const Args a) {
       expand_half<T>(word, hw & 1, Sc + hw * HALF, Ss + r * lds + hw * HALF);
     }
   } else {
-    const T* s_blk = static_cast<const T*>(a.s) + row0 * window;
-    const int vpr = window / C::VEC;
+    const TS* s_blk = static_cast<const TS*>(a.s) + row0 * window;
+    const int vpr = window / SVEC;
     for (int v = tid; v < BM * vpr; v += NT) {
       const int r = v / vpr, cv = v % vpr;
-      *reinterpret_cast<uint4*>(Ss + r * lds + cv * C::VEC) =
-          *reinterpret_cast<const uint4*>(s_blk + (int64_t)r * window +
-                                          cv * C::VEC);
+      store_s<T, MIXED>(Ss + r * lds + cv * SVEC,
+                        *reinterpret_cast<const uint4*>(
+                            s_blk + (int64_t)r * window + cv * SVEC));
     }
   }
 
@@ -548,10 +572,10 @@ __global__ void __launch_bounds__(NT) window_spmm_batched_kernel(const Args a) {
   }
 }
 
-template <typename T, bool HAS_ESC, bool PACKED>
+template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
 int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
   const int smem = batched_smem_bytes<T, PACKED>(a.window);
-  auto kernel = window_spmm_batched_kernel<T, HAS_ESC, PACKED>;
+  auto kernel = window_spmm_batched_kernel<T, HAS_ESC, PACKED, MIXED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -560,8 +584,9 @@ int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// One launch of either kernel for dtype code 0 (float32) or 1 (bfloat16),
-// with or without escapes. -1 for arguments the kernels do not take.
+// One launch of either kernel for dtype code 0 (float32), 1 (bfloat16) or
+// 2 (float32 x, fix and output on a bfloat16 S; unpacked forms only), with
+// or without escapes. -1 for arguments the kernels do not take.
 template <bool BATCHED, bool PACKED>
 int dispatch(Args a, int num_blocks, int dtype, void* stream) {
   if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0 ||
@@ -588,6 +613,16 @@ int dispatch(Args a, int num_blocks, int dtype, void* stream) {
     return esc ? launch<__nv_bfloat16, true, PACKED>(a, num_blocks, st)
                : launch<__nv_bfloat16, false, PACKED>(a, num_blocks, st);
   }
+  if constexpr (!PACKED) {
+    if (dtype == 2) {
+      if (a.f % Cfg<float>::VEC) return -1;
+      if (BATCHED)
+        return esc ? launch_batched<float, true, false, true>(a, num_blocks, st)
+                   : launch_batched<float, false, false, true>(a, num_blocks, st);
+      return esc ? launch<float, true, false, true>(a, num_blocks, st)
+                 : launch<float, false, false, true>(a, num_blocks, st);
+    }
+  }
   return -1;
 }
 
@@ -613,7 +648,7 @@ Args make_args(const void* x, const void* window_start, const void* esc_ptr,
 
 // Returns 0 on success, a cudaError_t from the launch, or -1 for arguments
 // the kernel does not take. esc_ptr == NULL means no escapes (B3).
-// dtype: 0 = float32, 1 = bfloat16.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float32 x on a bfloat16 S.
 extern "C" int gwen_window_spmm(const void* s, const void* x,
                                 const void* window_start, const void* esc_ptr,
                                 const void* esc_rows, const void* fix,
@@ -629,6 +664,7 @@ extern "C" int gwen_window_spmm(const void* s, const void* x,
 // form) needs for a window of `window` rows (dtype as below); the wrapper
 // refuses windows over the 232,448 bytes a block may use.
 extern "C" int gwen_window_spmm_batched_smem(int window, int dtype, int packed) {
+  if (dtype == 2 && !packed) return batched_smem_bytes<float, false>(window);
   if (dtype == 0)
     return packed ? batched_smem_bytes<float, true>(window)
                   : batched_smem_bytes<float, false>(window);

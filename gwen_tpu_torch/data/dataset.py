@@ -1,4 +1,4 @@
-"""Mesh-scale next-step dataset: counterpart of
+"""Mesh-scale next-step and trajectory dataset: counterpart of
 ``gwen_tpu.data.dataset.MeshEnsembleDataset``."""
 
 from __future__ import annotations
@@ -40,3 +40,20 @@ class MeshEnsembleDataset:
             idx = self._pairs[order[start : start + batch_size]]
             yield (self.fields[idx[:, 0], idx[:, 1]],
                    self.fields[idx[:, 0] + 1, idx[:, 1]])
+
+    def trajectory_batches(self, batch_size: int, horizon: int,
+                           shuffle: bool = False, seed: int = 0):
+        """``(x0, traj)`` batches for rollout-horizon training: ``traj`` is
+        ``(batch, horizon, nodes, channels)``, the next ``horizon`` states,
+        in the reference's order."""
+        t, m = self.fields.shape[:2]
+        starts = np.asarray([(ti, mi) for mi in range(m)
+                             for ti in range(t - horizon)])
+        order = np.arange(len(starts))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        for s0 in range(0, len(order) - batch_size + 1, batch_size):
+            idx = starts[order[s0: s0 + batch_size]]
+            yield (self.fields[idx[:, 0], idx[:, 1]],
+                   np.stack([self.fields[ti + 1: ti + 1 + horizon, mi]
+                             for ti, mi in idx]))

@@ -884,6 +884,11 @@ def diag_transpose_tables(graph: DiagWindowGraph) -> DiagWindowGraph:
     starts = graph.window_start.cpu().numpy().astype(np.int64)
     if (np.diff(starts) < 0).any():
         raise AssertionError("diag-window starts are not monotonic")
+    if (starts % block).any() or graph.num_src_rows % block:
+        # The transpose decomposes into full (block, block) tiles only then.
+        raise AssertionError(f"diag-window starts {starts[starts % block != 0][:4]}"
+                             f" or {graph.num_src_rows} source rows are not "
+                             f"multiples of the block {block}")
     # Source block c is covered by dst block j iff start_j ≤ c·block <
     # start_j + W; starts are nondecreasing, so the j form one range.
     c_rows = np.arange(graph.num_src_rows // block, dtype=np.int64) * block

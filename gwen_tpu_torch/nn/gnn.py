@@ -1,11 +1,14 @@
-"""Counterpart of ``gwen_tpu.nn.gnn.EncodeProcessDecode`` (GCN and
-attention processors).
+"""Counterpart of ``gwen_tpu.nn.gnn.EncodeProcessDecode`` (GCN, attention
+and interaction processors).
 
 Encoder MLP → K processor steps → decoder MLP, on ``(N, F)`` or batched
 ``(..., N, F)`` node fields. A GCN step is ``h ← h + LayerNorm(Â·relu(h)·W
 + b)``, an attention step ``h ← h + LayerNorm(attn(relu(h)))`` with the
-windowed multi-head attention of :mod:`gwen_tpu_torch.nn.attention`. The
-per-step tail runs through the fused residual-LayerNorm kernels. For the
+windowed multi-head attention of :mod:`gwen_tpu_torch.nn.attention`, an
+interaction step the edge-MLP message passing of
+:mod:`gwen_tpu_torch.nn.interaction` on the COO graph (it carries its own
+LayerNorm and residual). The GCN and attention per-step tail runs through
+the fused residual-LayerNorm kernels. For the
 GCN processor on a :class:`DiagWindowGraph` the node state is held at
 ``num_padded_nodes`` rows through the process loop, so every aggregation
 takes the pre-padded path (no zero-padded copy of the state per call); pad
@@ -22,7 +25,8 @@ only real rows.
   recompute in full. For attention the kept tensor is the attention
   block's output ``m`` (the reference's ``checkpoint_name``); the block is
   recomputed in the backward, whose weight gradient of ``wo`` needs the
-  attention output before it;
+  attention output before it. An interaction step names no tensor to
+  keep (as in the reference) and is recomputed in full;
 * ``True`` — recompute every step in full from its input;
 * ``"nested:G"`` — checkpoint groups of G steps whose steps are
   themselves checkpointed: ``ceil(steps / G)`` live boundaries, one more
@@ -41,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from gwen_tpu_torch.graph.graph import DiagWindowGraph
 from gwen_tpu_torch.nn import core
 from gwen_tpu_torch.nn.attention import graph_attention_apply, graph_attention_init
+from gwen_tpu_torch.nn.interaction import interaction_apply, interaction_init
 from gwen_tpu_torch.nn.layers import gcn_init, gcn_post, gcn_pre
 from gwen_tpu_torch.ops.aggregate import aggregate
 from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
@@ -95,9 +100,11 @@ class EncodeProcessDecode(nn.Module):
     ...) and drawn on the CPU from ``generator``, then placed on ``device``.
     ``backend="auto"`` runs the aggregations (or attention) and the
     LayerNorm tail through the kernel wrappers, ``"plain"`` through the
-    kernels' plain versions on the same path, and any other value through
-    the plain references. ``processor`` is ``"gcn"`` or ``"attention"``
-    (with ``attn_heads``; ``attn_pack`` is accepted and changes nothing).
+    kernels' plain versions on the same path, ``"segment"`` the aggregation
+    through its plain reference with the LayerNorm tail still on its
+    kernels, and any other value everything through the plain references. ``processor`` is ``"gcn"``, ``"attention"``
+    (with ``attn_heads``; ``attn_pack`` is accepted and changes nothing) or
+    ``"interaction"`` (COO graph only).
     """
 
     def __init__(self, channels_in: int, channels_out: int, *,
@@ -109,11 +116,9 @@ class EncodeProcessDecode(nn.Module):
                  remat: "bool | str" = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if processor not in ("gcn", "attention"):
-            raise ValueError(
-                f"processor={processor!r} is not ported yet: the port runs "
-                "the GCN and attention processors; interaction comes with "
-                "slice 4")
+        if processor not in ("gcn", "attention", "interaction"):
+            raise ValueError(f"unknown processor {processor!r}: use 'gcn', "
+                             "'attention' or 'interaction'")
         self.processor = processor
         self.attn_heads = attn_heads
         self.attn_pack = pack_mode(attn_pack)
@@ -128,6 +133,10 @@ class EncodeProcessDecode(nn.Module):
         L = latent_size
         self.encoder = core.mlp_init([channels_in] + [L] * mlp_layers, gen, device)
         for i in range(process_steps):
+            if processor == "interaction":
+                self.add_module(f"process_{i}",
+                                interaction_init(L, mlp_layers, gen, device))
+                continue
             block = (graph_attention_init(L, attn_heads, gen, device)
                      if processor == "attention" else gcn_init(L, L, gen, device))
             self.add_module(f"process_{i}", nn.ModuleDict({
@@ -138,8 +147,10 @@ class EncodeProcessDecode(nn.Module):
 
     def _norm_residual(self, norm_params, m: Tensor, h: Tensor) -> Tensor:
         if self.residual:
-            return fused_residual_layernorm(norm_params, m, h,
-                                            backend=self.backend)
+            # "segment" names the aggregation path only: the LayerNorm tail
+            # keeps its kernels, as in the reference.
+            backend = "auto" if self.backend == "segment" else self.backend
+            return fused_residual_layernorm(norm_params, m, h, backend=backend)
         return core.layer_norm_apply(norm_params, m)
 
     def _attend(self, p, graph, h: Tensor) -> Tensor:
@@ -150,6 +161,8 @@ class EncodeProcessDecode(nn.Module):
                                      pack=self.attn_pack)
 
     def _step(self, p, graph, h: Tensor) -> Tensor:
+        if self.processor == "interaction":
+            return interaction_apply(p, graph, torch.relu(h))
         if self.processor == "attention":
             m = self._attend(p, graph, h)
         else:
@@ -190,7 +203,8 @@ class EncodeProcessDecode(nn.Module):
                                use_reentrant=False)
             return h
         for i, p in enumerate(steps):
-            if kind == "save_agg" and i < k:
+            if (kind == "save_agg" and i < k
+                    and self.processor != "interaction"):
                 h = self._step_save_agg(p, graph, h)
             elif kind in ("save_agg", "full"):
                 h = full(p, h)

@@ -5,7 +5,12 @@ from gwen_tpu_torch.ops.aggregate import (
     aggregate_sliding_dense_reference,
     aggregate_sliding_packed_reference,
 )
-from gwen_tpu_torch.ops.attention import windowed_attention
+from gwen_tpu_torch.ops.attention import (
+    diag_matvec,
+    diag_sddmm,
+    diag_spmm_t,
+    windowed_attention,
+)
 from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
 from gwen_tpu_torch.ops.spmm_cuda import (
     spmm_diag_window,
@@ -19,6 +24,9 @@ __all__ = [
     "aggregate_segment",
     "aggregate_sliding_dense_reference",
     "aggregate_sliding_packed_reference",
+    "diag_matvec",
+    "diag_sddmm",
+    "diag_spmm_t",
     "fused_residual_layernorm",
     "spmm_diag_window",
     "spmm_sliding_dense",

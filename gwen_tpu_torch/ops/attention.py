@@ -1,5 +1,17 @@
-"""Windowed graph attention: counterpart of ``gwen_tpu.ops.attention_pallas``
-for the attention processor.
+"""Windowed graph attention and the unfused operators under it: counterpart
+of ``gwen_tpu.ops.attention_pallas``.
+
+The three operators ride the diag-window layout with transpose tables:
+
+* :func:`diag_sddmm` — the window-relative score tile ``out[i, j] = a[i] ·
+  b[ws(i) + j]``, float32 ``(N_pad, W)`` (kernel B8), differentiable in
+  ``a`` and ``b``;
+* :func:`diag_spmm_t` — the transpose aggregation ``out[j] = Σ_i
+  s[i, j − ws(i)] · g[i]`` for a runtime, asymmetric ``s`` (kernels B9 and,
+  on 3-d operands, B9b);
+* :func:`diag_matvec` — ``S @ X`` with a runtime ``s``, differentiable in
+  ``s`` (an SDDMM of the cotangent with ``x``) and in ``x`` (the transpose
+  kernel); its forward is kernel B1 on ``s``.
 
 :func:`windowed_attention` is masked softmax attention over each node's
 in-window neighbourhood on a :class:`DiagWindowGraph`: ``out[i] = Σ_j
@@ -19,8 +31,12 @@ Backends:
 * ``"plain"``, ``"reference"``, ``"segment"`` — the plain forward on any
   device, differentiated by autograd: an independent check of the two
   backward kernels.
-* ``"unfused"`` (SDDMM, softmax and the transpose SpMM as separate kernel
-  passes) waits for slice 3b of the port, with its kernels B8, B9, B9b.
+* ``"unfused"`` — the same math as separate passes: :func:`diag_sddmm`,
+  the masked softmax on the dense score tile in plain torch (the reference
+  leaves it to XLA), P cast to v's type, :func:`diag_matvec`; item by item,
+  as the reference loops. The backward runs B8, B9 and B1 again through the
+  two Functions below. A check on the fused kernels and a path for
+  bisecting them; the ``(N_pad, W)`` tiles live in device memory.
 """
 
 from __future__ import annotations
@@ -29,21 +45,120 @@ from typing import Optional
 
 import torch
 
-from gwen_tpu_torch.graph.graph import DiagWindowGraph
-from gwen_tpu_torch.ops import attention_cuda
+from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
+from gwen_tpu_torch.ops import attention_cuda, unfused_cuda
+from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
 
 Tensor = torch.Tensor
 
-_BACKENDS = ("auto", "plain", "reference", "segment")
+_BACKENDS = ("auto", "unfused", "plain", "reference", "segment")
 
 
 def _require_tables(graph: DiagWindowGraph, who: str) -> None:
+    if not isinstance(graph, DiagWindowGraph):
+        raise TypeError(f"{who} needs a DiagWindowGraph, got "
+                        f"{type(graph).__name__}")
     if graph.t_max == 0:
         raise ValueError(
             f"{who} needs transpose tables — build the graph with "
             "to_diag_window(..., transpose_tables=True) or wrap it with "
             "diag_transpose_tables(graph)"
         )
+
+
+def _two_d(name: str, *ts: Tensor) -> None:
+    for t in ts:
+        if t.dim() != 2:
+            raise ValueError(f"{name} takes 2-d operands, as the reference; "
+                             f"got shape {tuple(t.shape)}")
+
+
+class _SDDMM(torch.autograd.Function):
+    """Forward B8; backward, with ``ĝ`` the cotangent in b's type:
+    ``dA = matvec(ĝ, b)`` (B1) and ``dB = spmm_t(ĝ, a)`` (B9), as the
+    reference's ``_sddmm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, a, b, graph):
+        ctx.save_for_backward(a, b)
+        ctx.graph = graph
+        return unfused_cuda.sddmm(graph, a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        gs = g.to(b.dtype).contiguous()
+        da = unfused_cuda.matvec(ctx.graph, gs, b)
+        db = unfused_cuda.spmm_t(ctx.graph, gs, a)
+        return (_fit_rows(da, a.shape[-2]).to(a.dtype),
+                _fit_rows(db, b.shape[-2]).to(b.dtype), None)
+
+
+class _MatVec(torch.autograd.Function):
+    """Forward B1 on the runtime ``s``; backward ``dS = sddmm(g, x)`` (B8)
+    cast to s's type and ``dX = spmm_t(s, g)`` (B9), as the reference's
+    ``_matvec_bwd``."""
+
+    @staticmethod
+    def forward(ctx, s, x, graph):
+        ctx.save_for_backward(s, x)
+        ctx.graph = graph
+        return unfused_cuda.matvec(graph, s, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s, x = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        ds = unfused_cuda.sddmm(ctx.graph, g, x)
+        dx = unfused_cuda.spmm_t(ctx.graph, s, g)
+        return ds.to(s.dtype), _fit_rows(dx, x.shape[-2]).to(x.dtype), None
+
+
+def diag_sddmm(graph: DiagWindowGraph, a: Tensor, b: Tensor) -> Tensor:
+    """Window-relative score tile ``out[i, j] = a[i] · b[ws(i) + j]``
+    (float32), shape ``(num_padded_nodes, window)``. ``a`` ``(N, f)`` is
+    indexed by destination row, ``b`` ``(N_kv, f)`` by source row; rows
+    past ``num_padded_nodes`` and ``num_src_rows`` are cut, missing rows
+    read as zero. Differentiable in both."""
+    _require_tables(graph, "diag_sddmm")
+    _two_d("diag_sddmm", a, b)
+    return _SDDMM.apply(a[: graph.num_padded_nodes].contiguous(),
+                        b[: graph.num_src_rows].contiguous(), graph)
+
+
+def diag_spmm_t(graph: DiagWindowGraph, s: Tensor, g: Tensor) -> Tensor:
+    """Transpose aggregation ``out[j] = Σ_i s[i, j − ws(i)] · g[i]`` over
+    the window-relative tile ``s`` ``(N_pad, W)``, the adjoint of
+    :func:`diag_matvec` in x: ``(num_src_rows, f)`` in g's type. With 3-d
+    ``s`` ``(nb, N_pad, W)`` and ``g`` ``(nb, N, f)`` every item has its own
+    tile (kernel B9b). Not differentiable, as in the reference."""
+    _require_tables(graph, "diag_spmm_t")
+    with torch.no_grad():
+        return unfused_cuda.spmm_t(
+            graph, s.contiguous(),
+            g[..., : graph.num_padded_nodes, :].contiguous())
+
+
+def diag_matvec(graph: DiagWindowGraph, s: Tensor, x: Tensor) -> Tensor:
+    """``S @ X`` with a runtime, differentiable window-relative ``s``
+    ``(num_padded_nodes, window)`` and ``x`` ``(N, f)``: ``(num_nodes, f)``
+    in x's type. ``dS`` is an SDDMM of the cotangent with ``x``, ``dX`` the
+    transpose kernel."""
+    _require_tables(graph, "diag_matvec")
+    _two_d("diag_matvec", s, x)
+    out = _MatVec.apply(s.contiguous(),
+                        x[: graph.num_src_rows].contiguous(), graph)
+    return out[: graph.num_nodes]
+
+
+def _unfused_item(graph: DiagWindowGraph, mask: Tensor, q: Tensor, k: Tensor,
+                  v: Tensor, scale: float) -> Tensor:
+    """One item of the unfused backend: B8, masked softmax, B1 on P."""
+    scores = diag_sddmm(graph, q, k) * scale
+    logits = torch.where(mask, scores, -1e30)
+    p, _, _ = attention_cuda._softmax(logits, mask)
+    out = diag_matvec(graph, p.to(v.dtype), v)
+    return _fit_rows(out, q.shape[-2])
 
 
 class _WindowedAttention(torch.autograd.Function):
@@ -73,7 +188,8 @@ def windowed_attention(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     """Masked softmax attention over each node's in-window neighbourhood
     (see the module docstring). ``q`` is ``(..., N, f)`` and ``k``/``v``
     ``(..., N_kv, f)`` with the same leading axes, which fold into one item
-    axis for the kernels; the result is shaped like q. ``scale`` defaults to
+    axis for the kernels (``"unfused"`` loops over it); the result is shaped
+    like q. ``scale`` defaults to
     ``1/sqrt(f)``.
 
     ``pack=True`` reads each item as the reference's two lane-packed
@@ -81,14 +197,9 @@ def windowed_attention(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     and needs ``f = 128`` and an explicit ``scale``; the port attends each
     sub-head as an ordinary 64-wide head, which is exact.
     """
-    if backend == "unfused":
-        raise ValueError(
-            "backend='unfused' (SDDMM, masked softmax and transpose SpMM as "
-            "separate passes, kernels B8, B9 and B9b) comes with slice 3b "
-            "of the port; use backend='auto'")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of "
-                         f"{_BACKENDS} or 'unfused'")
+                         f"{_BACKENDS}")
     if not isinstance(graph, DiagWindowGraph):
         raise TypeError("windowed_attention needs a DiagWindowGraph, got "
                         f"{type(graph).__name__}")
@@ -116,6 +227,10 @@ def windowed_attention(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     q3, k3, v3 = (t.reshape(-1, *t.shape[-2:]).contiguous() for t in (q, k, v))
     if backend == "auto":
         out = _WindowedAttention.apply(q3, k3, v3, graph, float(scale))
+    elif backend == "unfused":
+        mask = window_mask(graph)
+        out = torch.stack([_unfused_item(graph, mask, qi, ki, vi, float(scale))
+                           for qi, ki, vi in zip(q3, k3, v3)])
     else:
         out = attention_cuda.attention_fwd_plain(graph, q3, k3, v3,
                                                  float(scale))

@@ -2,7 +2,8 @@
 bit-packed: hand-written Hopper kernels (``csrc/window_spmm.cu``) and their
 plain PyTorch versions.
 
-Seven kernel wrappers, each with a launch count (``.launches``):
+Seven kernel wrappers (and :func:`window_matvec`, which counts as B1),
+each with a launch count (``.launches``):
 
 * :func:`diag_window_spmm` — kernel B1, replacing
   ``gwen_tpu/ops/spmm_pallas.py:_diag_kernel`` (through ``_diag_impl``):
@@ -36,6 +37,14 @@ Seven kernel wrappers, each with a launch count (``.launches``):
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
+
+Mixed operands: a float32 ``x`` on a bfloat16 ``S`` is taken as the
+reference's kernels take it (S cast to x's type per tile, which is exact,
+then a float32 product): an instantiation of the unpacked kernels that
+reads S as bf16 and widens it as it is staged, with no float32 copy of S.
+The packed kernels build their S tile in x's type whatever it is.
+:func:`window_matvec` is B1 on a runtime S with no escapes (the forward of
+``diag_matvec``).
 
 What bounds the kernels on an H100: bytes. At L7 (W = 384, F = 256, bf16)
 one aggregation does 32 GFLOP on the tensor cores but must stream S
@@ -249,7 +258,7 @@ def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
     if x.dim() not in (2, 3):
         raise ValueError(f"x must be (rows, F) or (B, rows, F); got shape "
                          f"{tuple(x.shape)} (fold other batched inputs into "
-                         "one leading axis)")
+                         "one leading axis, as the graph-level composites do)")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"window SpMM kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
@@ -288,6 +297,17 @@ def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
             raise ValueError("window SpMM operands must be 16-byte aligned")
 
 
+def _kernel_code(s_dtype: torch.dtype, x: Tensor) -> int:
+    """The kernels' dtype code for an S of ``s_dtype`` and ``x``: 0 float32,
+    1 bfloat16, 2 float32 x on a bfloat16 S."""
+    if s_dtype == x.dtype and x.dtype in _DTYPE_CODE:
+        return _DTYPE_CODE[x.dtype]
+    if s_dtype == torch.bfloat16 and x.dtype == torch.float32:
+        return 2
+    raise TypeError(f"S is {s_dtype} but x is {x.dtype}: the kernels take S "
+                    "in x's type, or a float32 x on a bfloat16 S")
+
+
 def _check_smem(lib: ctypes.CDLL, w: int, code: int, packed: bool) -> None:
     smem = lib.gwen_window_spmm_batched_smem(w, code, int(packed))
     if smem > MAX_SMEM:
@@ -308,15 +328,12 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
     """Check the operands and launch ``gwen_window_spmm`` (x ``(rows, F)``)
     or ``gwen_window_spmm_batched`` (x ``(B, rows, F)``) on the current
     stream. Raises on anything the kernels do not take."""
-    if x.dim() in (2, 3) and s_mat.dtype != x.dtype:
-        raise TypeError(f"S is {s_mat.dtype} but x is {x.dtype}; build the "
-                        "graph with dtype=x.dtype")
     n_pad, w = s_mat.shape
     _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat])
+    code = _kernel_code(s_mat.dtype, x)
     batched = x.dim() == 3
     nb, f = window_start.shape[0], x.shape[-1]
     lib = _lib()
-    code = _DTYPE_CODE[x.dtype]
     if batched:
         _check_smem(lib, w, code, packed=False)
     out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
@@ -411,6 +428,23 @@ def diag_window_spmm_b(graph: DiagWindowGraph, x: Tensor,
     out = _launch(graph.s_mat, graph.window_start, x, graph.esc_ptr,
                   None if fix is None else graph.escape.rows, fix)
     diag_window_spmm_b.launches += 1
+    return out
+
+
+def window_matvec(s_mat: Tensor, graph: DiagWindowGraph, x: Tensor) -> Tensor:
+    """Kernel B1 on a runtime ``s_mat`` ``(N_pad, W)`` in place of the
+    graph's, with no escape rows: ``S_b @ x[ws_b : ws_b + W]`` per block,
+    ``(N_pad, F)`` in x's type. x is ``(rows, F)`` with at most
+    ``num_src_rows`` rows; F a multiple of the kernel's vector width."""
+    _check_dim(x, 2, "B1")
+    if s_mat.shape != (graph.num_padded_nodes, graph.window_size):
+        raise ValueError(f"s must be {(graph.num_padded_nodes, graph.window_size)}"
+                         f"; got {tuple(s_mat.shape)}")
+    if not _on_cuda(x):
+        return window_spmm_plain(s_mat, graph.window_start, x,
+                                 graph.num_src_rows)
+    out = _launch(s_mat, graph.window_start, x, None, None, None)
+    diag_window_spmm.launches += 1
     return out
 
 
@@ -536,6 +570,27 @@ def _fit_rows(t: Tensor, rows: int) -> Tensor:
                      dim=-2)
 
 
+def _fold(x: Tensor) -> tuple[Tensor, tuple, int]:
+    """``x`` ``(..., N, F)`` as the kernels take it: the leading axes folded
+    into one item axis (none stays 2-d) and, on a CUDA tensor, F zero-padded
+    up to the kernels' 16-byte vector (4 float32, 8 bf16). Returns the
+    folded tensor, the leading shape and F, for :func:`_unfold`."""
+    lead, f = tuple(x.shape[:-2]), x.shape[-1]
+    if len(lead) > 1:
+        x = x.reshape(-1, *x.shape[-2:])
+    vec = 16 // x.element_size()
+    if x.device.type != "cpu" and f % vec:
+        x = torch.nn.functional.pad(x, (0, vec - f % vec))
+    return x.contiguous(), lead, f
+
+
+def _unfold(out: Tensor, lead: tuple, f: int) -> Tensor:
+    """Undo :func:`_fold` on an aggregation's result."""
+    if out.shape[-1] != f:
+        out = out[..., :f]
+    return out.reshape(*lead, *out.shape[-2:]) if len(lead) > 1 else out
+
+
 def _sliding_composite(graph: SlidingDenseGraph, x: Tensor,
                        plain: bool) -> Tensor:
     out_rows = _check_rows(graph, x)
@@ -592,21 +647,32 @@ class _SymmetricAggregation(torch.autograd.Function):
         return _fit_rows(gx, ctx.rows).to(g.dtype), None, None
 
 
+def _aggregate(composite, graph, x: Tensor, plain: bool) -> Tensor:
+    """``composite`` on ``x`` ``(..., N, F)`` with any leading axes and any
+    F (see :func:`_fold`)."""
+    xf, lead, f = _fold(x)
+    if plain:
+        out = composite(graph, xf, True)
+    else:
+        out = _SymmetricAggregation.apply(xf, composite, graph)
+    return _unfold(out, lead, f)
+
+
 def spmm_sliding_dense(graph: SlidingDenseGraph, x: Tensor,
                        plain: bool = False) -> Tensor:
     """Banded aggregation over a :class:`SlidingDenseGraph` (kernel B3, or
-    B10 on ``(B, N, F)``, on CUDA), plus its escape edges. Differentiable in
-    x; ``plain=True`` runs the plain versions and leaves the gradient to
-    autograd."""
-    if plain:
-        return _sliding_composite(graph, x, True)
-    return _SymmetricAggregation.apply(x, _sliding_composite, graph)
+    B10 on ``(..., N, F)`` with leading axes, on CUDA), plus its escape
+    edges. Differentiable in x; ``plain=True`` runs the plain versions and
+    leaves the gradient to autograd."""
+    return _aggregate(_sliding_composite, graph, x, plain)
 
 
 def spmm_diag_window(graph: DiagWindowGraph, x: Tensor,
                      plain: bool = False) -> Tensor:
-    """Diag-window aggregation (kernel B1, or B4 on ``(B, N, F)``, on
-    CUDA) with its escape edges.
+    """Diag-window aggregation (kernel B1, or B4 on ``(..., N, F)`` with
+    leading axes, which fold into one batch axis, on CUDA) with its escape
+    edges. Any F (zero-padded to the kernels' vector width on CUDA), and a
+    float32 x on a bfloat16 graph, as the reference takes them.
 
     The fix rows come from the hierarchical contraction when the graph has
     an ``esc2_graph`` (gather, kernel B3/B10, gather back), else from the
@@ -616,18 +682,14 @@ def spmm_diag_window(graph: DiagWindowGraph, x: Tensor,
     the gradient to autograd. Pre-padded inputs (``num_padded_nodes`` or
     ``num_src_rows`` rows) keep their row count; the kernels read only rows
     below ``num_src_rows``."""
-    if plain:
-        return _diag_composite(graph, x, True)
-    return _SymmetricAggregation.apply(x, _diag_composite, graph)
+    return _aggregate(_diag_composite, graph, x, plain)
 
 
 def spmm_sliding_packed(graph: SlidingPackedGraph, x: Tensor,
                         plain: bool = False) -> Tensor:
-    """Bit-packed banded aggregation (kernel B13 on CUDA) on ``(N, F)`` or
-    ``(B, N, F)``. Differentiable in x: ``a ⊙ S01 ⊙ a`` is symmetric, so the
+    """Bit-packed banded aggregation (kernel B13 on CUDA) on ``(..., N,
+    F)``. Differentiable in x: ``a ⊙ S01 ⊙ a`` is symmetric, so the
     backward is B13 on the cotangent (the reference's
     ``_sliding_packed_bwd``). ``plain=True`` runs the plain version and
     leaves the gradient to autograd."""
-    if plain:
-        return _sliding_packed_composite(graph, x, True)
-    return _SymmetricAggregation.apply(x, _sliding_packed_composite, graph)
+    return _aggregate(_sliding_packed_composite, graph, x, plain)

@@ -8,9 +8,9 @@ as written by the reference's ``gwen-tpu export`` or by
 program and is not read: :class:`ServingModel` rebuilds the model from the
 stored hyperparameters and the graph from the stored mesh level (the
 reference's ``export_cli.py`` recipe: icosphere, KD-patch order,
-``to_diag_window``, with transpose tables for the attention processor),
-then loads the stored weights. The GCN and attention processors are
-served; the interaction network waits for slice 4.
+``to_diag_window``, with transpose tables for the attention processor; an
+interaction artifact takes RCM order and the COO graph, the only container
+its edge MLP runs on), then loads the stored weights.
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from gwen_tpu_torch.graph import (
     build_graph,
     icosphere_edges,
     kd_patch_order,
+    rcm_order,
     to_diag_window,
 )
 from gwen_tpu_torch.nn import EncodeProcessDecode, params_from_jax, params_to_tree
@@ -140,8 +141,8 @@ def model_from_metadata(md: dict, device) -> EncodeProcessDecode:
 class ServingModel:
     """A loaded artifact: ``step`` runs one forward, ``rollout`` many.
 
-    States are in the graph's (KD-patch) node order; ``node_perm`` maps
-    original node ``perm[i]`` to row ``i``.
+    States are in the graph's node order (KD-patch; RCM for an interaction
+    artifact); ``node_perm`` maps original node ``perm[i]`` to row ``i``.
     """
 
     def __init__(self, model: EncodeProcessDecode, graph, node_perm: np.ndarray,
@@ -160,11 +161,9 @@ class ServingModel:
         params = unpack_tree(meta["params"], leaves)
         md = meta.get("metadata", {})
         processor = md.get("processor", "gcn")
-        if processor not in ("gcn", "attention"):
-            raise ValueError(
-                f"artifact uses processor={processor!r}; the port serves the "
-                "GCN and attention processors (interaction comes with "
-                "slice 4)")
+        if processor not in ("gcn", "attention", "interaction"):
+            raise ValueError(f"artifact uses an unknown processor "
+                             f"{processor!r}")
         if md.get("data"):
             raise ValueError(
                 f"artifact was trained on the mesh dataset {md['data']!r}; the "
@@ -174,14 +173,17 @@ class ServingModel:
         if md.get("nodes") is not None and int(md["nodes"]) != n:
             raise ValueError(f"artifact was trained on {md['nodes']} nodes; "
                              f"the L{md['levels']} icosphere has {n}")
-        perm = kd_patch_order(verts, s, r, n)
+        interaction = processor == "interaction"
+        perm = rcm_order(s, r, n) if interaction else kd_patch_order(verts, s, r, n)
         s2, r2, _ = apply_order(perm, s, r)
         model = model_from_metadata(md, device)
-        graph = to_diag_window(build_graph(s2, r2, n),
-                               window_size=int(md.get("diag_window", 384)),
-                               dtype=model.compute_dtype,
-                               transpose_tables=processor == "attention"
-                               ).to(device)
+        graph = build_graph(s2, r2, n)
+        if not interaction:
+            graph = to_diag_window(graph,
+                                   window_size=int(md.get("diag_window", 384)),
+                                   dtype=model.compute_dtype,
+                                   transpose_tables=processor == "attention")
+        graph = graph.to(device)
         model.load_state_dict(params_from_jax(params))
         model.eval()
         return cls(model, graph, perm, meta)

@@ -4,7 +4,11 @@ from gwen_tpu_torch.train.remat import (
     remat_policy_for_budget,
     select_save_agg_steps,
 )
-from gwen_tpu_torch.train.tasks import mesh_graph_loss_fn
+from gwen_tpu_torch.train.tasks import (
+    ensemble_crps_loss_fn,
+    mesh_graph_loss_fn,
+    rollout_loss_fn,
+)
 from gwen_tpu_torch.train.trainer import Trainer, TrainState
 
 __all__ = [
@@ -12,9 +16,11 @@ __all__ = [
     "Optimizer",
     "Trainer",
     "TrainState",
+    "ensemble_crps_loss_fn",
     "make_optimizer",
     "make_schedule",
     "mesh_graph_loss_fn",
     "remat_policy_for_budget",
+    "rollout_loss_fn",
     "select_save_agg_steps",
 ]

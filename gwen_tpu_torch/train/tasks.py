@@ -1,11 +1,16 @@
-"""Task definitions: counterpart of ``gwen_tpu.train.tasks``, cut to the
-mesh next-step task the ``train-mesh`` path trains."""
+"""Task definitions: counterpart of ``gwen_tpu.train.tasks`` for the tasks
+the ``train-mesh`` path trains: next-step prediction, fair-ensemble-CRPS
+training on perturbed members, and rollout-horizon training. Each
+``loss_fn(batch, graph) -> (loss, preds)`` closes over the model; the graph
+comes in as the Trainer's context."""
 
 from __future__ import annotations
 
 from typing import Callable
 
-from gwen_tpu_torch import losses
+import torch
+
+from gwen_tpu_torch import ensemble, losses
 
 
 def mesh_graph_loss_fn(model, loss: str = "mse") -> Callable:
@@ -20,5 +25,58 @@ def mesh_graph_loss_fn(model, loss: str = "mse") -> Callable:
         x, y = batch
         preds = model(graph, x)
         return fn(preds, y), preds
+
+    return loss_fn
+
+
+def ensemble_crps_loss_fn(model, num_members: int = 4, sigma: float = 0.05,
+                          smoothing_steps: int = 2,
+                          spread_weight: float = 0.0) -> Callable:
+    """Probabilistic mesh training: minimise the fair ensemble CRPS of K
+    perturbed forecasts.
+
+    ``loss_fn((x, y, seed_or_noise), graph)``: for each sample, K
+    graph-correlated perturbations of the input state are forecast one step
+    and scored against the target. The third batch entry is either a seed
+    (an int: the white noise is drawn from a ``torch.Generator`` on x's
+    device seeded with it) or the ``(B, K, N, C)`` white noise itself. The
+    ``B · K`` members ride the model's batch axis; the reported predictions
+    are the ensemble mean."""
+
+    def loss_fn(batch, graph):
+        x, y, third = batch
+        b = x.shape[0]
+        if isinstance(third, torch.Tensor) and third.dim() == x.dim() + 1:
+            generator, noise = None, third
+        else:
+            generator = torch.Generator(device=x.device).manual_seed(int(third))
+            noise = None
+        xs = ensemble.sample_perturbed_members(
+            generator, x, num_members, sigma, graph, smoothing_steps,
+            batch_dims=1, noise=noise)  # (B, K, N, C)
+        preds = model(graph, xs.reshape(b * num_members, *x.shape[1:]))
+        preds = preds.reshape(b, num_members, *y.shape[1:])
+        value = losses.crps_ensemble(preds, y, ensemble_axis=1, fair=True)
+        if spread_weight:
+            spread = torch.sqrt(
+                torch.mean(preds.var(dim=1, unbiased=False)) + 1e-12)
+            value = value - spread_weight * spread
+        return value, preds.mean(dim=1)
+
+    return loss_fn
+
+
+def rollout_loss_fn(model, horizon: int, loss: str = "mse") -> Callable:
+    """Multi-step (rollout-horizon) training: autoregress ``horizon`` steps
+    and penalise the whole trajectory. ``loss_fn((x0, traj), graph)`` with
+    ``traj`` ``(B, horizon, N, C)``; autograd runs through all the steps
+    (the model's remat policy applies to each)."""
+    fn = losses.mse_loss if loss == "mse" else losses.l1_loss
+
+    def loss_fn(batch, graph):
+        x0, traj = batch
+        preds = ensemble.rollout(lambda x: model(graph, x), x0,
+                                 horizon).movedim(0, 1)  # (B, H, N, C)
+        return fn(preds, traj), preds
 
     return loss_fn

@@ -42,7 +42,9 @@ LossFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 
 def to_device(batch: Any, device) -> Any:
     """A batch (numpy arrays or tensors, alone or in a tuple or list) on
-    ``device``."""
+    ``device``; plain numbers (a seed) pass through."""
+    if isinstance(batch, (int, float)):
+        return batch
     if isinstance(batch, np.ndarray):
         batch = torch.from_numpy(np.ascontiguousarray(batch))
     if isinstance(batch, torch.Tensor):

@@ -204,8 +204,8 @@ def test_pad_rows_and_an_isolated_row_give_zero():
 def test_windowed_attention_refusals():
     dj, dp, n = _graphs(levels=2)
     x = torch.zeros(n, 32)
-    with pytest.raises(ValueError, match="slice 3b"):
-        windowed_attention(dp, x, x, x, backend="unfused")
+    with pytest.raises(ValueError, match="unknown backend"):
+        windowed_attention(dp, x, x, x, backend="fused")
     bare = P.to_diag_window(P.build_graph(*J.icosphere_edges(2)[1:], n),
                             window_size=128, block_size=32)
     with pytest.raises(ValueError, match="transpose tables"):

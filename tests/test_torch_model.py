@@ -96,7 +96,7 @@ def test_params_round_trip_and_names():
 @pytest.mark.parametrize("kw,exc,match", [
     # attention runs on the diag-window layout only
     (dict(processor="attention"), TypeError, "DiagWindowGraph"),
-    (dict(processor="interaction"), ValueError, "slice 4"),
+    (dict(processor="mlp"), ValueError, "unknown processor"),
 ])
 def test_epd_rejects_later_slices(kw, exc, match):
     verts, s, r = J.icosphere_edges(1)

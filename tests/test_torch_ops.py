@@ -336,3 +336,77 @@ def test_layernorm_backward_matches_reference(dtype):
                                        err_msg=name)
         else:
             np.testing.assert_allclose(a, b, **TOL, err_msg=name)
+
+
+# ------------------------------------- any width, leading axes, mixed operands
+
+
+def _layout_pair(layout: str):
+    s, r, n = _ordered(3, 128)
+    gj, gp = J.build_graph(s, r, n), P.build_graph(s, r, n)
+    kw = dict(window_size=256, block_size=32, superblock=4, esc2_min_rows=1)
+    if layout == "diag-bf16":
+        return (J.to_diag_window(gj, dtype=jnp.bfloat16, **kw),
+                P.to_diag_window(gp, dtype=torch.bfloat16, **kw), n)
+    if layout == "diag-packed":
+        return (J.to_diag_window(gj, packed=True, **kw),
+                P.to_diag_window(gp, packed=True, **kw), n)
+    if layout == "banded-bf16":
+        return (J.to_sliding_dense(gj, block_size=32, dtype=jnp.bfloat16),
+                P.to_sliding_dense(gp, block_size=32, dtype=torch.bfloat16), n)
+    return J.to_sliding_packed(gj, block_size=32), P.to_sliding_packed(gp, block_size=32), n
+
+
+@pytest.mark.parametrize("lead,f", [((4,), 1), ((2, 3), 3)], ids=["KN1", "BKN3"])
+@pytest.mark.parametrize("layout", ["diag-bf16", "diag-packed", "banded-bf16",
+                                    "banded-packed"])
+def test_aggregate_takes_any_width_leading_axes_and_f32_on_bf16(layout, lead, f,
+                                                                same_rcm):
+    """What the ensemble code hands ``aggregate``: a float32 ``(K, N, 1)`` or
+    ``(B, K, N, 3)`` field on a bf16 or bit-packed windowed layout, against
+    the reference's ``aggregate`` (S cast to x's type, a float32 product)."""
+    from gwen_tpu.ops import aggregate as j_aggregate
+
+    lj, lp, n = _layout_pair(layout)
+    x = np.random.default_rng(len(lead) + f).normal(size=(*lead, n, f)).astype(np.float32)
+    want = np.asarray(j_aggregate(lj, jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    got = aggregate(lp, xt)
+    assert got.shape == x.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.detach().numpy(), want, **TOL)
+    np.testing.assert_allclose(aggregate(lp, xt.detach(), backend="plain").numpy(),
+                               want, **TOL)
+    # The operator is symmetric: the x-gradient is the aggregation of the
+    # cotangent, in x's shape.
+    (gx,) = torch.autograd.grad(got, xt, torch.from_numpy(x))
+    np.testing.assert_allclose(gx.numpy(), want, **TOL)
+
+
+def test_fold_pads_the_width_only_where_the_kernels_run():
+    x = torch.zeros(2, 3, 10, 5)
+    folded, lead, f = spmm_cuda._fold(x)
+    assert folded.shape == (6, 10, 5) and lead == (2, 3) and f == 5
+    assert spmm_cuda._unfold(folded, lead, f).shape == x.shape
+    # Off the CPU the width is padded to one 16-byte vector.
+    for dtype, width in ((torch.float32, 8), (torch.bfloat16, 8)):
+        m = torch.zeros(2, 3, 10, 5, dtype=dtype, device="meta")
+        folded, lead, f = spmm_cuda._fold(m)
+        assert folded.shape == (6, 10, width)
+        assert spmm_cuda._unfold(folded, lead, f).shape == m.shape
+    m = torch.zeros(10, 1, device="meta")
+    folded, lead, f = spmm_cuda._fold(m)
+    assert folded.shape == (10, 4) and lead == ()
+    assert spmm_cuda._unfold(folded, lead, f).shape == (10, 1)
+    m = torch.zeros(4, 10, 256, dtype=torch.bfloat16, device="meta")
+    assert spmm_cuda._fold(m)[0] is m
+
+
+def test_kernel_dtype_codes():
+    f32, bf16 = torch.zeros(1), torch.zeros(1, dtype=torch.bfloat16)
+    assert spmm_cuda._kernel_code(torch.float32, f32) == 0
+    assert spmm_cuda._kernel_code(torch.bfloat16, bf16) == 1
+    assert spmm_cuda._kernel_code(torch.bfloat16, f32) == 2  # S widened per tile
+    with pytest.raises(TypeError, match="S is"):
+        spmm_cuda._kernel_code(torch.float32, bf16)
+    with pytest.raises(TypeError, match="S is"):
+        spmm_cuda._kernel_code(torch.float16, torch.zeros(1, dtype=torch.float16))

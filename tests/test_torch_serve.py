@@ -120,7 +120,7 @@ def test_pack_tree_bf16_and_struct_leaves():
 
 
 @pytest.mark.parametrize("key,val,match", [
-    ("processor", "interaction", "slice 4"),
+    ("processor", "mlp", "unknown processor"),
     ("data", "mesh.zarr", "icosphere graphs only"),
 ])
 def test_load_rejects_what_the_port_cannot_serve(tmp_path, key, val, match):

@@ -324,8 +324,9 @@ def test_train_mesh_cli_trains_and_feeds_serving(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,exc", [
-    (["train.rollout_horizon=2"], ValueError),
-    (["train.loss=crps-ensemble"], ValueError),
+    (["mesh.force_partition=true"], ValueError),
+    (["model.processor=attention", "mesh.kernel=packed", "graph.refine=2"],
+     ValueError),
     (["mesh.graph_axis=2"], ValueError),
     (["mesh.kernel=diag_packed", "model.processor=interaction", "graph.refine=2"],
      ValueError),
