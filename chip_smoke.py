@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch port's serving, training and ensemble paths on
-one NVIDIA GPU, for the GCN, attention and interaction processors.
+"""Smoke run of the PyTorch port's serving, training, ensemble and
+partitioned paths on one NVIDIA GPU, for the GCN, attention and interaction
+processors.
 
     python3 chip_smoke.py
 
@@ -84,9 +85,29 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    ``model.processor=interaction`` at the largest batch of 1, 2, 4 that
    fits without remat, each to its end with finite skill numbers, no plain
    version on the card, step time and peak memory. Every ``train-mesh``
-   run of phases 6 to 9 ends with the skill verification of a generated
+   run of phases 6 to 10 ends with the skill verification of a generated
    ensemble (``skill_*`` in its JSON line), whose launches are counted
-   with the run's.
+   with the run's;
+10. the partitioned path on one rank: B11 (windowed-dense SpMM) and B12
+   (blocked-ELL SpMM) on the L7 mesh in RCM order at F 256, unbatched and
+   at batch 4, bf16 and float32 (B11 also with a float32 S under a bf16
+   x), and on one partition's halo-extended, non-square operator, each
+   against its plain version, with times, bound and ``torch.sparse.mm`` on
+   the same operator, and B12 once more in the serving graph's KD-patch
+   order; then ``train-mesh graph.refine=7 train.batch_size=4
+   mesh.force_partition=true`` with ``mesh.partition_layout`` ``sliding``
+   (B10 8 times per step), ``diag`` (B4 and B10 8), ``dense`` (B11 8),
+   ``ell`` (B12 8) and ``model.processor=attention`` on ``diag`` (B5, B6,
+   B7, B2, B2b 4), each with no plain version on the card and finite skill
+   numbers; then on that rank's graph, at the shapes the run gave them
+   (batch 4, the halo-extended rows), ``aggregate_halo`` (bf16 and
+   float32) or ``attend_halo`` with its gradients against the plain
+   versions, one train step's loss and gradients against the same step
+   through the plain versions, the step time and peak memory, and one
+   step under ``torch.profiler``. One rank: the halos are
+   zero rows and no collective runs; a last line says whether a 1-rank
+   NCCL group on this host carries ``all_reduce`` and ``all_gather``
+   (a child process; logged, not held).
 
 The second-to-last lines are a JSON object of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``,
@@ -1081,7 +1102,9 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
     GCN: each aggregation runs its kernels once forward and once backward,
     plus once per recompute of its step: B4 and B10 on the diag layout,
     packed B4 and B10 on ``kernel="diag_packed"``, B13 alone on the
-    bit-packed banded layout (``kernel="packed"``). Attention (the same on
+    bit-packed banded layout (``kernel="packed"``); on the partitioned path
+    ``kernel`` names the partition layout: ``"sliding"`` B10, ``"dense"``
+    B11, ``"ell"`` B12. Attention (the same on
     either diag layout): each step runs B5 once per forward or recompute, B6
     and B7 once. Each LayerNorm runs B2 once per forward or recompute and
     B2b once. ``save_agg`` keeps the GCN aggregation output (no recompute)
@@ -1098,7 +1121,7 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
     recompute = {"none": 0, "full": s, "save_agg": s,
                  "nested": 2 * s - groups}[kind]
     out = dict.fromkeys(("B1", "B3", "B4", "B10", "B2", "B2b", "B5", "B6", "B7",
-                         "B1p", "B4p", "B13", "B8", "B9"), 0)
+                         "B1p", "B4p", "B13", "B8", "B9", "B11", "B12"), 0)
     if processor == "interaction":  # COO graph, its own LayerNorm: no kernel
         return out
     if processor == "attention":
@@ -1106,7 +1129,8 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
                    B2b=s)
     else:
         agg = 2 * s + recompute - saved
-        aggs = {"packed": ("B13",), "diag_packed": ("B4p", "B10")}
+        aggs = {"packed": ("B13",), "diag_packed": ("B4p", "B10"),
+                "sliding": ("B10",), "dense": ("B11",), "ell": ("B12",)}
         out.update(dict.fromkeys(aggs.get(kernel, ("B4", "B10")), agg),
                    B2=s + recompute, B2b=s)
     return out
@@ -1124,7 +1148,8 @@ def _counters() -> dict:
             "B1p": spmm_cuda.diag_window_spmm_packed,
             "B4p": spmm_cuda.diag_window_spmm_packed_b,
             "B13": spmm_cuda.sliding_packed_spmm,
-            "B8": unfused_cuda.sddmm, "B9": unfused_cuda.spmm_t}
+            "B8": unfused_cuda.sddmm, "B9": unfused_cuda.spmm_t,
+            "B11": spmm_cuda.windowed_dense_spmm, "B12": spmm_cuda.block_ell_spmm}
 
 
 # Calls of a kernel's plain version with a CUDA tensor: the main paths must
@@ -1138,8 +1163,8 @@ def count_plain_calls_on_cuda() -> None:
     from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda, unfused_cuda
 
     # window_spmm_plain sits under the plain versions of B1, B3, B4, B10,
-    # of the packed forms and B13, and of diag_matvec's forward.
-    plains = ((spmm_cuda, ("window_spmm_plain",)),
+    # B11, of the packed forms and B13, and of diag_matvec's forward.
+    plains = ((spmm_cuda, ("window_spmm_plain", "block_ell_spmm_plain")),
               (unfused_cuda, ("sddmm_plain", "spmm_t_plain")),
               (fused_ln, ("residual_layernorm_plain",
                           "residual_layernorm_bwd_plain")),
@@ -1231,14 +1256,17 @@ def _against_plain_step(model, graph, x, y) -> None:
 def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
                     kernel: str = "auto", extra: tuple = (),
                     per_step: "dict | None" = None,
-                    batch: int = TRAIN_BATCH) -> tuple[dict, dict]:
+                    batch: int = TRAIN_BATCH,
+                    partition: str = "") -> tuple[dict, dict]:
     """``train-mesh graph.refine=7 train.batch_size=4`` through the CLI entry
     point with ``mesh.kernel=kernel`` (and the ``extra`` options): checks
     the run (at least 8 steps, finite loss, finite skill numbers), the
     layout it took, and the launch counts: per step what remat off implies
     (or ``per_step``, merged over it), plus the skill verification's, with
-    no plain version called on CUDA tensors. Returns the CLI's JSON line
-    and the launch counts."""
+    no plain version called on CUDA tensors. With ``partition`` the run is
+    the partitioned path on one rank (``mesh.force_partition=true``) with
+    that ``mesh.partition_layout``. Returns the CLI's JSON line and the
+    launch counts."""
     import contextlib
     import io
 
@@ -1255,6 +1283,8 @@ def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
         rc = cli(["train-mesh", f"graph.refine={LEVELS}",
                   f"model.processor={processor}", f"mesh.kernel={kernel}",
                   f"train.batch_size={batch}", *extra,
+                  *((f"mesh.partition_layout={partition}",
+                     "mesh.force_partition=true") if partition else ()),
                   f"run.registry_root={workdir / 'runs'}", "--device", str(device)])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1272,12 +1302,17 @@ def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
     skill = {k: out.get(k) for k in SKILL_KEYS}
     if not all(isinstance(v, float) and math.isfinite(v) for v in skill.values()):
         raise AssertionError(f"skill verification gave {skill}")
-    layout = ("Graph" if processor == "interaction" else
+    layout = ("HaloDiagGraph" if partition == "diag" else
+              "HaloGraph" if partition else
+              "Graph" if processor == "interaction" else
               "SlidingPackedGraph" if kernel == "packed" else "DiagWindowGraph")
-    if out["layout"] != layout or out["packed"] != ("packed" in kernel):
+    if (out["layout"] != layout or out["packed"] != ("packed" in kernel)
+            or out.get("partition_layout", "") != partition):
         raise AssertionError(f"train-mesh took the {out['layout']} path "
-                             f"(packed: {out['packed']})")
-    per_step = {**expected_launches(False, PROCESS_STEPS, processor, kernel),
+                             f"(packed: {out['packed']}, partition layout "
+                             f"{out.get('partition_layout')!r})")
+    per_step = {**expected_launches(False, PROCESS_STEPS, processor,
+                                    partition or kernel),
                 **(per_step or {})}
     want = {k: v * steps for k, v in per_step.items()}
     for k, v in skill_launches(processor, kernel).items():
@@ -1651,6 +1686,266 @@ def ensemble_paths(graph, device, workdir: Path) -> None:
                     batch=fits)
 
 
+def build_partition_layouts(device, kd_perm) -> dict:
+    """The L7 mesh in RCM order as the windowed-dense layout (S in float32
+    and in bf16) and the blocked-ELL layout, one partition's local,
+    halo-extended (non-square) operators of both, and the blocked-ELL
+    layout in the serving graph's KD-patch order (``kd_perm``), the order
+    B1 and B4 are timed in."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      rcm_order, to_block_ell, to_windowed_dense)
+    from gwen_tpu_torch.parallel import local_graph, partition_graph
+
+    verts, s, r = icosphere_edges(LEVELS)
+    n = verts.shape[0]
+    s2, r2, _ = apply_order(rcm_order(s, r, n), s, r)
+    g = build_graph(s2, r2, n)
+    wd32 = to_windowed_dense(g).to(device)
+    halo = local_graph(partition_graph(s2, r2, n, 1, reorder=False,
+                                       layout="dense"), 0).to(device)
+    return {"dense32": wd32,
+            "dense": dataclasses.replace(wd32, s_mat=wd32.s_mat.bfloat16()),
+            "ell": to_block_ell(g).to(device),
+            "ell_kd": to_block_ell(build_graph(
+                *apply_order(kd_perm, s, r)[:2], n)).to(device),
+            "halo_dense": halo.local_windowed_dense(),
+            "halo_ell": halo.local_block_ell()}
+
+
+def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
+    """Phase 10, first part: B11 and B12 against their plain versions at L7
+    (F 256; unbatched and batch 4; bf16, float32, and B11 with a float32 S
+    under a bf16 x; then on the halo-extended operator), timed beside the
+    plain versions, the bound and ``torch.sparse.mm`` on the same operator
+    as a bf16 CSR. B12's bound counts its tables as they are stored (8 bytes
+    a slot), B11's its nonzeros with their indices."""
+    from gwen_tpu_torch.ops import spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(10)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    f = LATENT
+    wd, wd32, ell = layouts["dense"], layouts["dense32"], layouts["ell"]
+    wd32r = dataclasses.replace(wd32, s_mat=wd.s_mat.float())  # bf16 values
+    n = wd.num_nodes
+    log(f"  RCM L{LEVELS}: windowed-dense S {tuple(wd.s_mat.shape)} "
+        f"({wd.s_mat.nbytes / 2**20:.0f} MiB bf16, {wd32.s_mat.nbytes / 2**20:.0f} "
+        f"MiB float32), ELL tables {tuple(ell.nbr.shape)}, window "
+        f"{ell.window_size}")
+    csr = window_csr(wd.s_mat, wd.window_start, wd.block_size, wd.num_src_rows)
+    nnz = csr[2].numel()
+    s_need = nonzero_bytes(wd.s_mat, "B11")
+    results = {}
+    b11, b11p = spmm_cuda.windowed_dense_spmm, spmm_cuda.windowed_dense_spmm_plain
+    b12, b12p = spmm_cuda.block_ell_spmm, spmm_cuda.block_ell_spmm_plain
+    for shape in ((n, f), (batch, n, f)):
+        x = randn(*shape)
+        nb = shape[0] if len(shape) == 3 else 1
+        iters = 5 if nb > 1 else 20
+        tag = f"{tuple(shape)}"
+        want = b11p(wd32r, x.float())
+        err = compare(f"B11 {tag} bf16", b11(wd, x), want, BF16_TOL)
+        compare(f"B11 {tag} float32 S under bf16 x", b11(wd32, x), want, BF16_TOL)
+        compare(f"B11 {tag} f32", b11(wd32r, x.float()), want, F32_TOL)
+        del want
+        ms, plain_ms = timed_pair(lambda: b11(wd, x), lambda: b11p(wd, x), iters)
+        mixed_ms = cuda_ms(lambda: b11(wd32, x), iters)
+        lib = sparse_mm_ms(csr, x, iters)
+        out_like = x.new_empty(*shape[:-2], wd.num_padded_nodes, f)
+        row11 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     **roofline((s_need, x), (out_like,), 2.0 * nnz * f * nb,
+                                torch.bfloat16), library_ms=lib)
+        log(f"    B11 {tag} with a float32 S under the bf16 x: {mixed_ms:.4f} ms")
+        want = b12p(ell, x.float())
+        err = compare(f"B12 {tag} bf16", b12(ell, x), want, BF16_TOL)
+        compare(f"B12 {tag} f32", b12(ell, x.float()), want, F32_TOL)
+        del want
+        ms, plain_ms = timed_pair(lambda: b12(ell, x), lambda: b12p(ell, x), iters)
+        row12 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     **roofline((ell.nbr, ell.nbr_weight, x), (out_like,),
+                                2.0 * int((ell.nbr_weight != 0).sum()) * f * nb,
+                                torch.bfloat16), library_ms=lib)
+        _log_times({f"B11 {tag}": row11, f"B12 {tag}": row12})
+        if nb == 1:
+            results.update(B11=row11, B12=row12)
+        del x, out_like
+        torch.cuda.empty_cache()
+    del csr
+    # B12 on the same mesh in KD-patch order, where a block's sources span
+    # nearly the whole array: the ordering B1 and B4 run in.
+    kd = layouts["ell_kd"]
+    for shape in ((n, f), (batch, n, f)):
+        x = randn(*shape)
+        compare(f"B12 {tuple(shape)} KD-patch order (window {kd.window_size}) "
+                "bf16", b12(kd, x), b12p(kd, x.float()), BF16_TOL)
+        ms, plain_ms = timed_pair(lambda: b12(kd, x), lambda: b12p(kd, x),
+                                  5 if len(shape) == 3 else 20)
+        log(f"  B12 {tuple(shape)} KD-patch order: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
+    # One partition's local operator: ext_rows source rows, n_local outputs.
+    for key, kern, plain in (("halo_dense", b11, b11p), ("halo_ell", b12, b12p)):
+        g = layouts[key]
+        x = randn(batch, g.num_src_rows, f)
+        g32 = g if key == "halo_ell" else dataclasses.replace(
+            g, s_mat=g.s_mat.bfloat16().float())
+        got = kern(g, x)
+        if got.shape[-2] != g.num_padded_nodes or g.num_src_rows == g.num_padded_nodes:
+            raise AssertionError(f"{key}: {g.num_src_rows} source rows gave "
+                                 f"{tuple(got.shape)}")
+        compare(f"{key} ({g.num_src_rows} source rows -> {g.num_padded_nodes}, "
+                f"batch {batch}) bf16", got, plain(g32, x.float()), BF16_TOL)
+        del x, got
+        torch.cuda.empty_cache()
+    return results
+
+
+def _halo_float32(graph):
+    """One rank's halo graph with every S in float32, holding the values S
+    has when rounded to bf16 (what the kernels see under a bf16 x)."""
+    def f32(g):
+        return dataclasses.replace(g, s_mat=g.s_mat.bfloat16().float())
+
+    if hasattr(graph, "local"):
+        return dataclasses.replace(
+            graph, local=f32(graph.local),
+            esc2=None if graph.esc2 is None else f32(graph.esc2))
+    return graph if graph.s_mat is None else f32(graph)
+
+
+def check_halo_operators(graph, processor: str, device,
+                         batch: int = TRAIN_BATCH) -> None:
+    """The partitioned path's operators on one rank's halo graph, at the
+    shapes ``train-mesh`` gives them (batch 4, the halo-extended source
+    rows), against their plain versions on the same path: for GCN
+    ``aggregate_halo`` (``sliding``: B10, whose window here takes the
+    streaming launch; ``diag``: B4 over the extended rows with the fix rows
+    of the gathered contraction, B10; ``dense``: B11; ``ell``: B12) in bf16
+    and in float32; for attention ``attend_halo`` (B5 on the extended K/V,
+    B6 and B7 through its gradients) in bf16 against autograd through the
+    plain forward in float32."""
+    from gwen_tpu_torch.parallel import aggregate_halo, attend_halo
+
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    n = graph.n_local
+    if processor == "attention":
+        dh = LATENT // ATTN_HEADS
+        ts = [randn(ATTN_HEADS, batch, n, dh).requires_grad_() for _ in range(3)]
+        cot = randn(ATTN_HEADS, batch, n, dh).float()
+        out = attend_halo(graph, *ts)
+        got = (out, *torch.autograd.grad((out.float() * cot).sum(), ts))
+        t32 = [t.detach().float().requires_grad_() for t in ts]
+        out = attend_halo(graph, *t32, backend="plain")
+        want = (out, *torch.autograd.grad((out * cot).sum(), t32))
+        for name, a, b in zip(("forward", "dq", "dk", "dv"), got, want):
+            compare(f"attend_halo {name} ({ATTN_HEADS} heads x batch {batch}, "
+                    f"{graph.ext_rows} extended rows) vs plain", a.detach(),
+                    b.detach(), BF16_TOL)
+        return
+    g32 = _halo_float32(graph)
+    x = randn(batch, n, LATENT)
+    want = aggregate_halo(g32, x.float(), backend="plain")
+    tag = (f"aggregate_halo on {type(graph).__name__} (batch {batch}, "
+           f"{graph.ext_rows} extended rows -> {n})")
+    compare(f"{tag} bf16", aggregate_halo(graph, x), want, BF16_TOL)
+    compare(f"{tag} f32", aggregate_halo(g32, x.float()), want, F32_TOL)
+
+
+def partitioned_paths(device, workdir: Path) -> dict:
+    """Phase 10, second part: ``train-mesh`` on the partitioned path with
+    one rank, for each partition layout (GCN) and for attention on ``diag``:
+    launch counts per step, no plain version on the card, finite skill
+    numbers; then, on the same rank's graph, the halo operators against
+    their plain versions, one train step against the same step through the
+    plain versions, and the layout's train-step time, peak memory and
+    profile. Returns the launch counts of B11 and B12 on these paths."""
+    from gwen_tpu_torch.graph import (apply_order, icosphere_edges,
+                                      kd_patch_order, rcm_order)
+    from gwen_tpu_torch.parallel import make_partitioned_apply, partition_graph
+    from gwen_tpu_torch.train import make_mesh, partitioned_mesh_loss_fn
+
+    launches = {}
+    rng = np.random.default_rng(10)
+    verts, s, r = icosphere_edges(LEVELS)
+    n = verts.shape[0]
+    orders = {}
+    for layout, processor in (("sliding", "gcn"), ("diag", "gcn"), ("dense", "gcn"),
+                              ("ell", "gcn"), ("diag", "attention")):
+        log(f"  -- mesh.partition_layout={layout} model.processor={processor}")
+        _, got = _run_train_mesh(workdir / f"part-{layout}-{processor}", device,
+                                 processor, partition=layout)
+        launches.update({k: got[k] for k in ("B11", "B12") if got[k]})
+        kd = layout == "diag"
+        if kd not in orders:
+            perm = kd_patch_order(np.asarray(verts), s, r, n) if kd else rcm_order(s, r, n)
+            orders[kd] = apply_order(perm, s, r)[:2]
+        pg = partition_graph(*orders[kd], n, num_parts=1, reorder=False,
+                             layout=layout, s_dtype=torch.bfloat16,
+                             diag_window=WINDOW)
+        model = _train_model(device, CHANNELS, processor=processor)
+        apply_fn = make_partitioned_apply(model, pg, make_mesh(1, 1), device,
+                                          transpose_tables=processor == "attention")
+        check_halo_operators(apply_fn.graph, processor, device)
+        torch.cuda.empty_cache()
+        x, y = _train_batch(pg.padded_nodes, device, rng)
+        try:
+            _against_plain_step(model, apply_fn.graph, x, y)
+        except torch.cuda.OutOfMemoryError:
+            log(f"  the plain versions' step at batch {TRAIN_BATCH} is out of "
+                "memory; comparing at batch 2")
+            model.zero_grad(set_to_none=True)
+            torch.cuda.empty_cache()
+            _against_plain_step(model, apply_fn.graph, x[:2], y[:2])
+        loss_fn = partitioned_mesh_loss_fn(apply_fn)
+        _task_step(model, lambda batch, _: loss_fn(batch), None, (x, y),
+                   f"batch-{TRAIN_BATCH} partitioned {layout} {processor}",
+                   profile=True)
+        del model, apply_fn, pg, x, y
+        torch.cuda.empty_cache()
+    return launches
+
+
+NCCL_PROBE = r"""
+import datetime, os, tempfile, torch, torch.distributed as dist
+store = os.path.join(tempfile.mkdtemp(), "store")
+dist.init_process_group("nccl", init_method=f"file://{store}", world_size=1,
+                        rank=0, timeout=datetime.timedelta(seconds=60))
+t = torch.ones(4, device="cuda")
+dist.all_reduce(t)
+parts = [torch.empty_like(t)]
+dist.all_gather(parts, t)
+dist.all_reduce(t, group=dist.new_group([0]))
+torch.cuda.synchronize()
+assert t.tolist() == parts[0].tolist() == [1.0] * 4
+print("nccl", ".".join(map(str, torch.cuda.nccl.version())))
+dist.destroy_process_group()
+"""
+
+
+def nccl_one_rank_probe() -> None:
+    """Whether this host's NCCL carries the collectives the partitioned
+    path uses (``all_reduce`` for the gradients, ``all_gather`` for the
+    escape rows, ``new_group``) on a 1-rank group over a file store. Logged
+    only: with one card the port's one-rank path needs no process group,
+    and two ranks cannot share a card. Runs in a child process with its own
+    time limit, which is killed at it."""
+    try:
+        res = subprocess.run([sys.executable, "-c", NCCL_PROBE], timeout=120,
+                             capture_output=True, text=True)
+        said = (res.stdout.strip().splitlines() or ["no output"])[-1]
+        log(f"  1-rank NCCL group (all_reduce, all_gather, new_group): "
+            f"{'ok, ' + said if res.returncode == 0 else 'failed: ' + res.stderr[-300:]}")
+    except subprocess.TimeoutExpired:
+        log("  1-rank NCCL group: no answer in 120 s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1754,6 +2049,19 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         ensemble_paths(graph, device, Path(tmp))
 
+    log("== phase 10: the partitioned path on one rank: B11 and B12 against "
+        "their plain versions, `train-mesh mesh.force_partition=true` on "
+        "each partition layout")
+    t0 = time.perf_counter()
+    layouts = build_partition_layouts(device, perm)
+    log(f"  RCM-ordered L{LEVELS} layouts built in {time.perf_counter() - t0:.1f} s")
+    results.update(check_partition_kernels(layouts, device))
+    del layouts
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches.update(partitioned_paths(device, Path(tmp)))
+    nccl_one_rank_probe()
+
     spmm, ln = "gwen_tpu/ops/spmm_pallas.py", "gwen_tpu/ops/fused_ln.py"
     att = "gwen_tpu/ops/attention_pallas.py"
     cu, tr = "gwen_tpu_torch/csrc/window_spmm.cu", "gwen_tpu_torch/ops/fused_ln.py"
@@ -1795,7 +2103,11 @@ def main() -> int:
                "B9": (f"transpose SpMM on a runtime S (nb = 1, f 128{one})",
                       "cuda", ucu, f"{att}:171"),
                "B9b": (f"batched transpose SpMM (nb = 2, f 128{one})", "cuda",
-                       ucu, f"{att}:1393")}
+                       ucu, f"{att}:1393"),
+               "B11": ("windowed-dense SpMM, absolute starts (RCM order, F "
+                       "256, unbatched)", "cuda", cu, f"{spmm}:353"),
+               "B12": ("blocked-ELL SpMM: gather, scale, sum (RCM order, F "
+                       "256, unbatched)", "cuda", cu, f"{spmm}:46")}
     kernels = [{"name": f"{key} {name}", "route": route, "source": src,
                 "replaces": rep,
                 "launches": launches[key[:-1] if key in ("B5b", "B6b", "B7b", "B9b")

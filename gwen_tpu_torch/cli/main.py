@@ -5,8 +5,13 @@
     python -m gwen_tpu_torch predict --artifact DIR --input x0.npy \
         [--steps N] [--out predictions.npy] [--device cuda]
 
-The port trains (slice 2) and serves (slice 1); the other ``gwen-tpu``
-subcommands come with later slices (ROADMAP queue A).
+``train-mesh`` partitioned over several devices is one process per device::
+
+    python -m torch.distributed.run --nproc-per-node 2 -m gwen_tpu_torch \
+        train-mesh --device cpu mesh.graph_axis=2
+
+The port trains and serves; the other ``gwen-tpu`` subcommands come with
+later slices (ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -38,18 +43,25 @@ def main(argv: "list[str] | None" = None) -> int:
     prd.add_argument("--out", default="predictions.npy")
     prd.add_argument("--device", default="cuda",
                      help="torch device (default cuda; fails without CUDA)")
-    args = parser.parse_args(argv)
+    # Overrides may also follow an option (``--device cpu mesh.graph_axis=2``),
+    # where argparse no longer collects the positional.
+    args, extra = parser.parse_known_args(argv)
+    stray = [a for a in extra if a.startswith("-") or "=" not in a]
+    if stray or (extra and args.cmd != "train-mesh"):
+        parser.error(f"unrecognized arguments: {' '.join(stray or extra)}")
 
     if args.cmd == "train-mesh":
         from gwen_tpu_torch.cli.train_mesh import main as run
         from gwen_tpu_torch.config import load_config
         from gwen_tpu_torch.logging_utils import setup_logger
+        from gwen_tpu_torch.train.mesh import is_main_process
 
         setup_logger()
-        cfg = load_config(args.config).apply_overrides(args.overrides)
+        cfg = load_config(args.config).apply_overrides([*args.overrides, *extra])
         out = run(cfg, members=args.members, steps=args.steps, data=args.data,
                   device=args.device)
-        print(json.dumps(out))
+        if is_main_process():  # rank 0 of a partitioned run speaks for it
+            print(json.dumps(out))
     elif args.cmd == "predict":
         from gwen_tpu_torch.cli.export_cli import predict_main
 

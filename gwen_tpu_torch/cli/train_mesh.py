@@ -1,6 +1,7 @@
 """``python -m gwen_tpu_torch train-mesh``: mesh-scale training of the
 encode-process-decode model (GCN, attention or interaction processor) on
-one device, followed by the skill verification of a generated ensemble.
+one device or, partitioned, on one process per device, followed by the
+skill verification of a generated ensemble.
 
 Counterpart of ``gwen_tpu.cli.train_mesh.main``, with the reference's
 choice of path and ``cuda`` in place of ``tpu``. GCN: on a CUDA device,
@@ -33,8 +34,21 @@ computes in float32: on the COO graph, except attention, which keeps the
 trained diag-window graph (its noise smoothing then runs the aggregation
 kernels on a float32 field over the bf16 layout).
 
-Not ported yet, each refused with a ``ValueError``: the partitioned path
-and ``--data`` input.
+The partitioned path (``mesh.graph_axis > 1`` over that many ranks, or
+``mesh.force_partition=true``): one process per rank, started with
+``python -m torch.distributed.run`` (NCCL on CUDA, gloo on the CPU); the
+ranks form a ``(data, graph)`` mesh with ``graph_parts = min(mesh.graph_axis,
+world)``. Nodes take the KD-patch order for ``mesh.partition_layout=diag``
+(kernels B1/B4, escapes through an ``all_gather`` and B3/B10), else RCM
+(``sliding``: B3/B10; ``dense``: B11; ``ell``: B12); attention needs
+``diag``. Every rank builds the same data, model and partition tables from
+the seed, keeps its slice, and computes its share of each global batch;
+gradients and the reported loss are summed over the ranks. The registry,
+the checkpoints, the skill verification (on the global graph; attention: the
+global diag layout rebuilt at the partition's padded size) and the JSON
+line belong to rank 0.
+
+Not ported yet, refused with a ``ValueError``: ``--data`` input.
 """
 
 from __future__ import annotations
@@ -51,18 +65,10 @@ from gwen_tpu_torch.registry import Registry, default_experiment
 log = get_logger()
 
 
-def _refuse_later_slices(config: GwenConfig, data: str) -> None:
-    mesh = config.mesh
-    waits = [
-        (mesh.graph_axis > 1 or mesh.force_partition, "the partitioned "
-         "path (mesh.graph_axis > 1, mesh.force_partition) comes with "
-         "slice 6 of the port"),
-        (bool(data), "--data (mesh-ensemble stores) is not ported yet; "
-         "train on the synthetic ensemble"),
-    ]
-    for cond, msg in waits:
-        if cond:
-            raise ValueError(msg)
+def _refuse_later_slices(data: str) -> None:
+    if data:
+        raise ValueError("--data (mesh-ensemble stores) is not ported yet; "
+                         "train on the synthetic ensemble")
 
 
 def resolve_device(device: str) -> torch.device:
@@ -128,19 +134,37 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
         mesh_graph_loss_fn,
         rollout_loss_fn,
     )
+    from gwen_tpu_torch.train import mesh as pmesh
 
-    _refuse_later_slices(config, data)
-    dev = resolve_device(device)
+    _refuse_later_slices(data)
+    started_group = not torch.distributed.is_initialized()
+    dev = pmesh.initialize_distributed(resolve_device(device))
+    world = pmesh.world_size()
+    main_rank = pmesh.is_main_process()
     tcfg = config.train
     levels = config.graph.refine
     processor = config.model.processor
+    layout = config.mesh.partition_layout
+    graph_parts = min(config.mesh.graph_axis, world)
+    use_partition = ((graph_parts > 1 or config.mesh.force_partition)
+                     and world % graph_parts == 0)
+    if world > 1 and not use_partition:
+        raise ValueError(
+            f"{world} processes but no partitioned run: set mesh.graph_axis "
+            "(or mesh.force_partition=true for data parallelism alone) to a "
+            "divisor of the process count")
+    if processor == "attention" and use_partition and layout != "diag":
+        raise ValueError(
+            "model.processor='attention' on the partitioned path requires "
+            f"mesh.partition_layout='diag'; got {layout!r}")
 
     fields, verts, s, r = mesh_ensemble_dataset(
         levels=levels, members=members, steps=steps, seed=tcfg.seed)
     n = fields.shape[2]
     kernel = config.mesh.kernel
-    use_diag = diag_path(dev, kernel, processor)
-    perm = kd_patch_order(np.asarray(verts), s, r, n) if use_diag else rcm_order(s, r, n)
+    use_diag = diag_path(dev, kernel, processor) and not use_partition
+    kd = use_diag or (use_partition and layout == "diag")
+    perm = kd_patch_order(np.asarray(verts), s, r, n) if kd else rcm_order(s, r, n)
     s2, r2, _ = apply_order(perm, s, r)
     fields = np.take(fields, perm, axis=2)
     ch = fields.shape[-1]
@@ -162,23 +186,36 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
     )
 
     g = build_graph(s2, r2, n)
-    if use_diag:
-        graph = to_diag_window(g, window_size=config.mesh.diag_window,
-                               dtype=compute_dtype,
-                               transpose_tables=processor == "attention",
-                               packed=kernel == "diag_packed")
-    elif dev.type == "cuda" and kernel != "segment" and processor == "gcn":
-        graph = banded_layout(g, s2, r2, kernel, compute_dtype)
+    mean_loss = tcfg.loss if tcfg.loss in ("mse", "l1") else "mse"
+    mesh = None
+    if use_partition:
+        graph, loss_fn, mesh, pg = _partitioned_task(
+            config, model, s2, r2, n, graph_parts, world, dev, compute_dtype,
+            mean_loss)
+        fields = pg.pad_nodes(fields)
+        # The apply holds the rank's graph; the CRPS task's context is the
+        # replicated noise graph over the padded node space.
+        context = (build_graph(s2, r2, fields.shape[2])
+                   if tcfg.loss == "crps-ensemble" and tcfg.rollout_horizon <= 1
+                   else None)
     else:
-        graph = g
-    if tcfg.rollout_horizon > 1:
-        loss_fn = rollout_loss_fn(model, tcfg.rollout_horizon)
-    elif tcfg.loss == "crps-ensemble":
-        loss_fn = ensemble_crps_loss_fn(
-            model, num_members=tcfg.crps_members, sigma=tcfg.sigma)
-    else:
-        loss_fn = mesh_graph_loss_fn(
-            model, loss=tcfg.loss if tcfg.loss in ("mse", "l1") else "mse")
+        if use_diag:
+            graph = to_diag_window(g, window_size=config.mesh.diag_window,
+                                   dtype=compute_dtype,
+                                   transpose_tables=processor == "attention",
+                                   packed=kernel == "diag_packed")
+        elif dev.type == "cuda" and kernel != "segment" and processor == "gcn":
+            graph = banded_layout(g, s2, r2, kernel, compute_dtype)
+        else:
+            graph = g
+        context = graph
+        if tcfg.rollout_horizon > 1:
+            loss_fn = rollout_loss_fn(model, tcfg.rollout_horizon)
+        elif tcfg.loss == "crps-ensemble":
+            loss_fn = ensemble_crps_loss_fn(
+                model, num_members=tcfg.crps_members, sigma=tcfg.sigma)
+        else:
+            loss_fn = mesh_graph_loss_fn(model, loss=mean_loss)
 
     # Train on all members except the last (held out for skill verification).
     ds = MeshEnsembleDataset(fields=fields[:, :-1])
@@ -193,15 +230,19 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
     )
     state = TrainState(model=model, optimizer=opt)
 
-    registry = Registry(config.run.registry_root)
-    experiment = (config.run.experiment or default_experiment()) + "_MESH"
-    run = registry.create_run(experiment, config.to_dict(), config.run.run_name)
-    ckpt = Checkpointer(
-        Path(config.run.registry_root) / "checkpoints" / run.run_id,
-        max_to_keep=tcfg.max_checkpoints,
-    )
+    # The registry, the checkpoints and the JSON line belong to rank 0.
+    run = ckpt = None
+    if main_rank:
+        registry = Registry(config.run.registry_root)
+        experiment = (config.run.experiment or default_experiment()) + "_MESH"
+        run = registry.create_run(experiment, config.to_dict(),
+                                  config.run.run_name)
+        ckpt = Checkpointer(
+            Path(config.run.registry_root) / "checkpoints" / run.run_id,
+            max_to_keep=tcfg.max_checkpoints,
+        )
     trainer = Trainer(loss_fn, dev, run=run, checkpointer=ckpt,
-                      log_every=tcfg.log_every, context=graph)
+                      log_every=tcfg.log_every, context=context, mesh=mesh)
     if tcfg.rollout_horizon > 1:
         def batches(ep):
             return ds.trajectory_batches(tcfg.batch_size, tcfg.rollout_horizon,
@@ -216,11 +257,84 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
             return ds.batches(tcfg.batch_size, shuffle=True, seed=ep)
     state, best = trainer.fit(state, batches, tcfg.epochs,
                               checkpoint_every=tcfg.checkpoint_every)
+    out = {"best_train_loss": best, "steps": state.step, "nodes": n,
+           "edges": len(s), "device": str(dev),
+           "layout": type(graph).__name__,
+           "packed": getattr(graph, "s_pack", None) is not None}
+    if use_partition:
+        out.update(partition_layout=layout, graph_parts=graph_parts,
+                   world=world)
+    if main_rank:
+        out.update(_finish_run(config, run, model, fields[:, :, :n], g,
+                               trainer.context, members, dev, best,
+                               state.step, data,
+                               pg.padded_nodes if use_partition else None))
+    if world > 1:
+        torch.distributed.barrier()
+        if started_group:
+            torch.distributed.destroy_process_group()
+    return out
+
+
+def _partitioned_task(config: GwenConfig, model, s2, r2, n: int,
+                      graph_parts: int, world: int, dev, compute_dtype,
+                      mean_loss: str):
+    """The partitioned branch: the process mesh, the partition tables, this
+    rank's apply and the task's loss over it. Returns ``(rank's graph,
+    loss_fn, mesh, partitioned graph)``."""
+    from gwen_tpu_torch.parallel import make_partitioned_apply, partition_graph
+    from gwen_tpu_torch.train import (
+        make_mesh,
+        partitioned_ensemble_crps_loss_fn,
+        partitioned_mesh_loss_fn,
+        partitioned_rollout_loss_fn,
+    )
+
+    tcfg = config.train
+    mesh = make_mesh(data=world // graph_parts, graph=graph_parts)
+    if tcfg.batch_size % mesh.data:
+        raise ValueError(
+            f"train.batch_size = {tcfg.batch_size} must divide over the data "
+            f"mesh axis ({mesh.data}) on the partitioned path (for "
+            "CRPS-ensemble training too: a sample's members stay on one rank)")
+    pg = partition_graph(
+        s2, r2, n, num_parts=graph_parts, reorder=False,
+        layout=config.mesh.partition_layout, s_dtype=compute_dtype,
+        diag_window=config.mesh.diag_window)
+    apply_fn = make_partitioned_apply(
+        model, pg, mesh, dev,
+        transpose_tables=config.model.processor == "attention")
+    if tcfg.rollout_horizon > 1:
+        loss_fn = partitioned_rollout_loss_fn(apply_fn, tcfg.rollout_horizon,
+                                              loss=mean_loss)
+    elif tcfg.loss == "crps-ensemble":
+        loss_fn = partitioned_ensemble_crps_loss_fn(
+            apply_fn, num_members=tcfg.crps_members, sigma=tcfg.sigma)
+    else:
+        loss_fn = partitioned_mesh_loss_fn(apply_fn, loss=mean_loss)
+    return apply_fn.graph, loss_fn, mesh, pg
+
+
+def _finish_run(config: GwenConfig, run, model, fields: np.ndarray, g,
+                trained_graph, members: int, dev, best: float, steps: int,
+                data: str, padded_nodes: "int | None") -> dict:
+    """Rank 0's end of a run: save the model, verify the skill, close the
+    run. ``fields`` holds the real nodes only; ``trained_graph`` is the
+    trainer's graph on ``dev`` (read for attention only). ``padded_nodes``
+    is set on the partitioned path, whose attention skill model needs the
+    global diag layout at the partition's padded size (the same window
+    mask) instead."""
+    from gwen_tpu_torch.graph import to_diag_window
+
+    processor = config.model.processor
+    n, ch = fields.shape[2], fields.shape[-1]
+    compute_dtype = (torch.bfloat16 if config.model.compute_dtype == "bfloat16"
+                     else torch.float32)
     run.save_model(
         model.state_dict(),
         {"latent_size": config.model.latent_size,
          "process_steps": config.model.process_steps,
-         "channels": ch, "levels": levels,
+         "channels": ch, "levels": config.graph.refine,
          "processor": processor,
          "attn_heads": config.model.attn_heads,
          "attn_pack": config.model.attn_pack,
@@ -231,16 +345,16 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
          "nodes": n, "data": data or ""},
         best_metric=best,
     )
-    skill = verify_skill(config, model, fields, g, trainer.context, members,
-                         dev, run)
+    if processor == "attention" and padded_nodes is not None:
+        trained_graph = to_diag_window(
+            g, window_size=config.mesh.diag_window, dtype=compute_dtype,
+            n_pad=padded_nodes, transpose_tables=True).to(dev)
+    skill = verify_skill(config, model, fields, g, trained_graph, members, dev,
+                         run)
     run.finish()
-    log.info("mesh training done: best=%.5f steps=%d skill=%s", best,
-             state.step, skill)
-    return {"best_train_loss": best, "run_id": run.run_id,
-            "run_dir": str(run.path), "steps": state.step, "nodes": n,
-            "edges": len(s), "device": str(dev),
-            "layout": type(graph).__name__,
-            "packed": getattr(graph, "s_pack", None) is not None,
+    log.info("mesh training done: best=%.5f steps=%d skill=%s", best, steps,
+             skill)
+    return {"run_id": run.run_id, "run_dir": str(run.path),
             **{f"skill_{k}": v for k, v in skill.items()}}
 
 

@@ -1,12 +1,15 @@
-// Windowed SpMM for the diag-window (B1, B4), banded (B3, B10) and
-// bit-packed (packed B1 and B4, B13) layouts.
+// Windowed SpMM for the diag-window (B1, B4), banded (B3, B10), bit-packed
+// (packed B1 and B4, B13), windowed-dense (B11) and blocked-ELL (B12)
+// layouts.
 //
 // Replaces these Pallas TPU kernels of the reference package:
 //   B1  gwen_tpu/ops/spmm_pallas.py:_diag_kernel     (through _diag_impl)
 //   B3  gwen_tpu/ops/spmm_pallas.py:_sliding_kernel  (through _sliding_impl)
 //   B13 gwen_tpu/ops/spmm_pallas.py:_sliding_packed_kernel
 //       (through _sliding_packed_impl)
-// and, in the batched section below, B4 and B10. All compute, for every
+//   B11 gwen_tpu/ops/spmm_pallas.py:_sdense_kernel   (through _sdense_impl)
+// and, in the batched section below, B4 and B10; B12 (_kernel through
+// _spmm_impl) has a section of its own at the end. All but B12 compute, for every
 // 128-row destination block b with window start ws_b,
 //   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
 // in float32, then (B1 and B4 only) add the block's escape fix rows
@@ -41,10 +44,22 @@
 // GFLOP a call at F = 256, most of it on zero bits; skipping empty
 // sub-tiles is later work.
 //
-// Mixed operands (MIXED = true): a float32 x on a bfloat16 S, as the
+// Mixed operands (MIXED = 1): a float32 x on a bfloat16 S, as the
 // reference's kernels take it (S is cast to x's type per tile; bf16 ->
 // float32 is exact). The S tile is read as bf16 (half the bytes of a float32
 // copy) and widened as it is staged; products and output are float32.
+// MIXED = 2 is the other way round, a bfloat16 x on a float32 S (the
+// partitioned path's dense scatter matrices stay float32): S is read as
+// float32 and rounded to bf16 as it is staged, again as the reference's
+// kernel casts its tile, with no bf16 copy of S in memory.
+//
+// B11 is the streaming kernel below on a window-relative S with an absolute
+// start per block: starts need not be monotone (the kernel never assumed
+// it), there are no escapes, and the source array may be longer than the
+// output (halo-extended partitions). Its window is wide (1,664 columns at L7
+// in RCM order), so the batch rides the grid's second axis as for B13; the
+// same entry serves B10 where a window is too wide for the batched kernel's
+// shared-memory S tile.
 //
 // Plain C interface, loaded with ctypes (gwen_tpu_torch/ops/spmm_cuda.py).
 
@@ -127,11 +142,24 @@ __device__ __forceinline__ void expand_half(uint32_t word, int h,
     reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(tmp)[v];
 }
 
-// One 16-byte vector of S into the staged tile: as it is, or (MIXED) its
-// 8 bf16 values widened to float32.
-template <typename T, bool MIXED>
+// S as it lies in memory for an x of type T: T itself, bf16 under a float32
+// x (MIXED = 1) or float32 under a bf16 x (MIXED = 2).
+template <typename T, int MIXED>
+using s_type = typename std::conditional<
+    MIXED == 1, __nv_bfloat16,
+    typename std::conditional<MIXED == 2, float, T>::type>::type;
+
+// One 16-byte vector of S into the staged tile: as it is, its 8 bf16 values
+// widened to float32 (MIXED = 1), or its 4 float32 values rounded to bf16
+// (MIXED = 2).
+template <typename T, int MIXED>
 __device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
-  if constexpr (MIXED) {
+  if constexpr (MIXED == 2) {
+    const float* v = reinterpret_cast<const float*>(&raw);
+    __align__(8) __nv_bfloat16 h[4] = {from_f32<T>(v[0]), from_f32<T>(v[1]),
+                                       from_f32<T>(v[2]), from_f32<T>(v[3])};
+    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
+  } else if constexpr (MIXED == 1) {
     const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
     *reinterpret_cast<float4*>(dst) =
         make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3]));
@@ -142,10 +170,10 @@ __device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
   }
 }
 
-template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
+template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
 __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   using C = Cfg<T>;
-  using TS = typename std::conditional<MIXED, __nv_bfloat16, T>::type;
+  using TS = s_type<T, MIXED>;
   constexpr int SVEC = 16 / sizeof(TS);          // S elements per vector
   constexpr int SA_VECS = BM * BK / SVEC / NT;   // S vectors per thread
   __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
@@ -337,7 +365,7 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   }
 }
 
-template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
+template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
 int launch(const Args& a, int num_blocks, cudaStream_t stream) {
   const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks, (unsigned)a.batch);
   window_spmm_kernel<T, HAS_ESC, PACKED, MIXED><<<grid, NT, 0, stream>>>(a);
@@ -374,10 +402,10 @@ constexpr int batched_smem_bytes(int window) {
          (PACKED ? window * (int)sizeof(float) : 0);
 }
 
-template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
+template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
 __global__ void __launch_bounds__(NT) window_spmm_batched_kernel(const Args a) {
   using C = Cfg<T>;
-  using TS = typename std::conditional<MIXED, __nv_bfloat16, T>::type;
+  using TS = s_type<T, MIXED>;
   constexpr int SVEC = 16 / sizeof(TS);
   extern __shared__ __align__(128) unsigned char smem[];
   const int window = a.window, f = a.f, x_rows = a.x_rows;
@@ -572,7 +600,7 @@ __global__ void __launch_bounds__(NT) window_spmm_batched_kernel(const Args a) {
   }
 }
 
-template <typename T, bool HAS_ESC, bool PACKED, bool MIXED = false>
+template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
 int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
   const int smem = batched_smem_bytes<T, PACKED>(a.window);
   auto kernel = window_spmm_batched_kernel<T, HAS_ESC, PACKED, MIXED>;
@@ -584,15 +612,17 @@ int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// One launch of either kernel for dtype code 0 (float32), 1 (bfloat16) or
-// 2 (float32 x, fix and output on a bfloat16 S; unpacked forms only), with
-// or without escapes. -1 for arguments the kernels do not take.
+// One launch of either kernel for dtype code 0 (float32), 1 (bfloat16),
+// 2 (float32 x, fix and output on a bfloat16 S; unpacked forms only) or
+// 3 (bfloat16 x and output on a float32 S; the streaming kernel without
+// escapes only), with or without escapes. -1 for arguments the kernels do
+// not take.
 template <bool BATCHED, bool PACKED>
 int dispatch(Args a, int num_blocks, int dtype, void* stream) {
   if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0 ||
       a.batch <= 0)
     return -1;
-  if (PACKED && !BATCHED && a.batch > 65535) return -1;
+  if (!BATCHED && a.batch > 65535) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool esc = a.esc_ptr != nullptr;
   a.n_fc = (a.f + BN - 1) / BN;
@@ -617,10 +647,16 @@ int dispatch(Args a, int num_blocks, int dtype, void* stream) {
     if (dtype == 2) {
       if (a.f % Cfg<float>::VEC) return -1;
       if (BATCHED)
-        return esc ? launch_batched<float, true, false, true>(a, num_blocks, st)
-                   : launch_batched<float, false, false, true>(a, num_blocks, st);
-      return esc ? launch<float, true, false, true>(a, num_blocks, st)
-                 : launch<float, false, false, true>(a, num_blocks, st);
+        return esc ? launch_batched<float, true, false, 1>(a, num_blocks, st)
+                   : launch_batched<float, false, false, 1>(a, num_blocks, st);
+      return esc ? launch<float, true, false, 1>(a, num_blocks, st)
+                 : launch<float, false, false, 1>(a, num_blocks, st);
+    }
+    if constexpr (!BATCHED) {
+      if (dtype == 3 && !esc) {
+        if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
+        return launch<__nv_bfloat16, false, false, 2>(a, num_blocks, st);
+      }
     }
   }
   return -1;
@@ -707,4 +743,128 @@ extern "C" int gwen_window_spmm_packed(
   a.row_scale = static_cast<const float*>(row_scale);
   return batched ? dispatch<true, true>(a, num_blocks, dtype, stream)
                  : dispatch<false, true>(a, num_blocks, dtype, stream);
+}
+
+// Streaming form without escapes, the batch on the grid's second axis: B11
+// (x (batch, x_rows, f) with x_rows up to the layout's source rows, out
+// (batch, num_blocks * 128, f)), and B10 on a window too wide for the
+// batched kernel. dtype as gwen_window_spmm, and 3 = bfloat16 x on a
+// float32 S. Return codes as gwen_window_spmm.
+extern "C" int gwen_window_spmm_streamed(const void* s, const void* x,
+                                         const void* window_start, void* out,
+                                         int num_blocks, int window, int f,
+                                         int x_rows, int batch, int dtype,
+                                         void* stream) {
+  Args a = make_args(x, window_start, nullptr, nullptr, nullptr, out, window,
+                     f, x_rows, batch, 0);
+  a.s = s;
+  return dispatch<false, false>(a, num_blocks, dtype, stream);
+}
+
+// ------------------------------------------------------------ blocked ELL
+//
+// B12, replacing gwen_tpu/ops/spmm_pallas.py:_kernel (through _spmm_impl).
+// The TPU kernel builds the (block, window) scatter tile from the ELL
+// tables with one-hot compares and multiplies it with the window on the
+// MXU, because it cannot gather rows. The math is a gather-scale-sum over
+// each row's at most `deg` sources,
+//   out[i, :] = sum_d T(w[i, d]) * x[ws[i / block] + nbr[i, d], :],
+// and that is what this kernel does: one warp per destination row and
+// batch member, the row's indices and weights read once into lanes and
+// broadcast with shuffles, each source row read with 16-byte loads, float32
+// accumulation in slot order (no atomics, a fixed order of summation), one
+// rounding. Weights are rounded to x's type first, as the reference casts
+// its tile. Slots of weight 0 (padding) and sources at or past x_rows are
+// not read. Slots of one row that name the same source add.
+
+namespace {
+
+constexpr int ELL_WARPS = 8;  // destination rows per CTA
+
+template <typename T>
+__global__ void __launch_bounds__(ELL_WARPS * 32)
+ell_spmm_kernel(const int* __restrict__ nbr, const float* __restrict__ w,
+                const int* __restrict__ window_start, const T* __restrict__ x,
+                T* __restrict__ out, int n_pad, int deg, int block, int f,
+                int x_rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * ELL_WARPS + (threadIdx.x >> 5);
+  if (row >= n_pad) return;
+  const int bi = blockIdx.y;
+  const T* xb = x + (int64_t)bi * x_rows * f;
+  T* ob = out + ((int64_t)bi * n_pad + row) * f;
+  const int64_t ws = window_start[row / block];
+  const int* nbr_row = nbr + row * deg;
+  const float* w_row = w + row * deg;
+
+  // The whole warp walks the column passes together (the shuffles below
+  // need every lane); a lane past F only skips its loads and its store.
+  for (int cb = 0; cb < f; cb += 32 * VEC) {
+    const int c0 = cb + lane * VEC;
+    const bool on = c0 < f;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int d0 = 0; d0 < deg; d0 += 32) {
+      // Lane l holds slot d0 + l; every lane then walks the 32 slots.
+      const int d = d0 + lane;
+      const float my_w = d < deg ? scale_at<T>(w_row, d) : 0.f;
+      const int my_src = d < deg ? nbr_row[d] : 0;
+      const int n_slots = min(32, deg - d0);
+      for (int j = 0; j < n_slots; ++j) {
+        const float wv = __shfl_sync(0xffffffffu, my_w, j);
+        const int64_t src = ws + __shfl_sync(0xffffffffu, my_src, j);
+        if (!on || wv == 0.f || src < 0 || src >= x_rows) continue;
+        const uint4 raw = *reinterpret_cast<const uint4*>(xb + src * f + c0);
+        const T* xv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wv, to_f32(xv[e]), acc[e]);
+      }
+    }
+    __align__(16) T tmp[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) tmp[e] = from_f32<T>(acc[e]);
+    if (on)
+      *reinterpret_cast<uint4*>(ob + c0) = *reinterpret_cast<const uint4*>(tmp);
+  }
+}
+
+template <typename T>
+int launch_ell(const int* nbr, const float* w, const int* window_start,
+               const void* x, void* out, int n_pad, int deg, int block, int f,
+               int x_rows, int batch, cudaStream_t stream) {
+  if (f % (16 / (int)sizeof(T))) return -1;
+  const dim3 grid((unsigned)((n_pad + ELL_WARPS - 1) / ELL_WARPS),
+                  (unsigned)batch);
+  ell_spmm_kernel<T><<<grid, ELL_WARPS * 32, 0, stream>>>(
+      nbr, w, window_start, static_cast<const T*>(x), static_cast<T*>(out),
+      n_pad, deg, block, f, x_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// B12: nbr (n_pad, deg) int32 window-relative, w (n_pad, deg) float32,
+// window_start (n_pad / block,) int32, x (batch, x_rows, f), out (batch,
+// n_pad, f). dtype 0 = float32, 1 = bfloat16 (x and out). Returns 0, a
+// cudaError_t, or -1 for arguments the kernel does not take.
+extern "C" int gwen_ell_spmm(const void* nbr, const void* w,
+                             const void* window_start, const void* x,
+                             void* out, int n_pad, int deg, int block, int f,
+                             int x_rows, int batch, int dtype, void* stream) {
+  if (n_pad <= 0 || deg <= 0 || block <= 0 || n_pad % block || f <= 0 ||
+      x_rows <= 0 || batch <= 0 || batch > 65535)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* nb = static_cast<const int*>(nbr);
+  const float* wp = static_cast<const float*>(w);
+  const int* ws = static_cast<const int*>(window_start);
+  if (dtype == 0)
+    return launch_ell<float>(nb, wp, ws, x, out, n_pad, deg, block, f, x_rows,
+                             batch, st);
+  if (dtype == 1)
+    return launch_ell<__nv_bfloat16>(nb, wp, ws, x, out, n_pad, deg, block, f,
+                                     x_rows, batch, st);
+  return -1;
 }

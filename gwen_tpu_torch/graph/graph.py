@@ -1,8 +1,9 @@
 """Graph containers and the layouts the serving path aggregates over.
 
 Counterpart of ``gwen_tpu.graph.graph``, cut to what the ported paths
-need: the diag-window layout (weighted or bit-packed), the banded layout
-and the bit-packed banded layout. Everything is built on the host with
+need: the diag-window layout (weighted or bit-packed), the banded layout,
+the bit-packed banded layout, and the windowed-dense and blocked-ELL
+layouts of the partitioned path. Everything is built on the host with
 numpy (the same code as the reference, so both packages agree edge for
 edge), then held as plain dataclasses of torch tensors; ``.to(device)``
 moves a container and everything inside it.
@@ -126,6 +127,79 @@ class SlidingDenseGraph:
         return int(self.window_start.shape[0])
 
     def to(self, device) -> "SlidingDenseGraph":
+        return _to(self, device)
+
+
+@dataclass(frozen=True)
+class WindowedDenseGraph:
+    """Dense scatter-matrix layout with an absolute, block-aligned window
+    start per destination block (no monotone order, no escapes): block
+    ``b`` reads source rows ``[window_start[b], window_start[b] + W)`` and
+    ``s_mat[b·block + r, c]`` is the weight of source row
+    ``window_start[b] + c``. Memory is ``N_pad × W`` values (L7 icosphere in
+    RCM order, window 1,664: 0.55 GB in bf16), nearly all zero; the compact
+    form is :class:`BlockEllGraph`.
+
+    ``num_src_rows`` is the row count of the source array: that of the
+    destinations for a plain graph, more for the halo-extended local arrays
+    of a partition, whose product then has ``num_padded_nodes`` rows.
+    """
+
+    s_mat: Tensor  # (N_pad, W) window-relative
+    window_start: Tensor  # (num_blocks,) int32, block-aligned
+    num_nodes: int
+    num_edges: int
+    block_size: int
+    num_src_rows: int
+
+    @property
+    def num_padded_nodes(self) -> int:
+        return int(self.s_mat.shape[0])
+
+    @property
+    def window_size(self) -> int:
+        return int(self.s_mat.shape[1])
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.window_start.shape[0])
+
+    def to(self, device) -> "WindowedDenseGraph":
+        return _to(self, device)
+
+
+@dataclass(frozen=True)
+class BlockEllGraph:
+    """Blocked-ELL layout: every destination row lists its sources, padded
+    to ``max_degree`` slots, as indices relative to the window start of the
+    row's block: ``out[i] = Σ_d nbr_weight[i, d] · x[window_start[i //
+    block] + nbr[i, d]]``. Padding slots carry weight 0 (and index 0);
+    slots of one row that name the same source add. ``num_src_rows`` as in
+    :class:`WindowedDenseGraph`.
+    """
+
+    nbr: Tensor  # (N_pad, max_degree) int32, window-relative
+    nbr_weight: Tensor  # (N_pad, max_degree) float32, 0 on padding
+    window_start: Tensor  # (num_blocks,) int32
+    num_nodes: int
+    num_edges: int
+    block_size: int
+    window_size: int
+    num_src_rows: int
+
+    @property
+    def num_padded_nodes(self) -> int:
+        return int(self.nbr.shape[0])
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.nbr.shape[1])
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.window_start.shape[0])
+
+    def to(self, device) -> "BlockEllGraph":
         return _to(self, device)
 
 
@@ -631,6 +705,52 @@ def _build_s01(cols: np.ndarray, nbr_w: np.ndarray, width: int) -> np.ndarray:
     return s01
 
 
+def to_block_ell(graph: Graph, *, block_size: int = 128,
+                 window_size: Optional[int] = None,
+                 lane_multiple: int = 8) -> BlockEllGraph:
+    """Build the blocked-ELL layout (see :class:`BlockEllGraph`), as the
+    reference's ``to_block_ell``. Needs a locality ordering
+    (:func:`gwen_tpu_torch.graph.reorder.rcm_order`): raises ``ValueError``
+    where a block's sources do not fit ``window_size`` rows."""
+    s_np, r_np, w_np = graph.host_edges()
+    n = graph.num_nodes
+    nbr, nbr_w, win_start, window, src_pad = ell_tables(
+        s_np, r_np, w_np, num_dst=n, num_src=n, block_size=block_size,
+        window_size=window_size, lane_multiple=lane_multiple)
+    return BlockEllGraph(
+        nbr=torch.from_numpy(nbr),
+        nbr_weight=torch.from_numpy(nbr_w),
+        window_start=torch.from_numpy(win_start),
+        num_nodes=n,
+        num_edges=graph.num_edges,
+        block_size=block_size,
+        window_size=window,
+        num_src_rows=src_pad,
+    )
+
+
+def to_windowed_dense(graph: Graph, *, block_size: int = 128,
+                      window_size: Optional[int] = None,
+                      dtype: torch.dtype = torch.float32) -> WindowedDenseGraph:
+    """Build the dense scatter-matrix layout (see
+    :class:`WindowedDenseGraph`) from the blocked-ELL tables, as the
+    reference's ``to_windowed_dense``; needs RCM order like
+    :func:`to_block_ell`."""
+    s_np, r_np, w_np = graph.host_edges()
+    n = graph.num_nodes
+    nbr, nbr_w, win_start, window, src_pad = ell_tables(
+        s_np, r_np, w_np, num_dst=n, num_src=n, block_size=block_size,
+        window_size=window_size)
+    return WindowedDenseGraph(
+        s_mat=_build_s(nbr, nbr_w, window, dtype),
+        window_start=torch.from_numpy(win_start),
+        num_nodes=n,
+        num_edges=graph.num_edges,
+        block_size=block_size,
+        num_src_rows=src_pad,
+    )
+
+
 def to_sliding_packed(graph: Graph, *, block_size: int = 256) -> SlidingPackedGraph:
     """Build the bit-packed banded layout (see :class:`SlidingPackedGraph`)
     for a GCN-normalized graph: the window and starts of the reference's
@@ -725,6 +845,7 @@ def to_diag_window(
     esc2_min_rows: int = 4096,
     transpose_tables: bool = False,
     packed: bool = False,
+    n_pad: Optional[int] = None,
 ) -> DiagWindowGraph:
     """Build the diagonal-window layout (see :class:`DiagWindowGraph`),
     as the reference's ``to_diag_window`` does: same window, same padded
@@ -734,7 +855,11 @@ def to_diag_window(
 
     ``superblock`` only sets the row padding (``N_pad`` is a multiple of
     ``block_size · superblock``, shrunk on tiny graphs as the reference
-    does), so that both packages pad alike. ``transpose_tables`` attaches
+    does), so that both packages pad alike; ``n_pad`` asks for more padded
+    destination rows (a multiple of ``block_size · superblock``, as the
+    partitioned layout needs: every partition the same row count) and
+    leaves the windows and the source rows as they are.
+    ``transpose_tables`` attaches
     the tables windowed attention needs (:func:`diag_transpose_tables`).
     ``packed=True`` stores S as S01 bits and rank-1 scales (exact for GCN
     weights, checked edge by edge by :func:`rank1_scales`); the escape
@@ -752,7 +877,12 @@ def to_diag_window(
     W = min(W, src_alloc)
     while W + (t_sb - 1) * block > src_alloc and t_sb > 1:
         t_sb -= 1
-    n_pad = _round_up(max(n, 1), block * t_sb)
+    if n_pad is None:
+        n_pad = _round_up(max(n, 1), block * t_sb)
+    elif n_pad < n or n_pad % (block * t_sb):
+        raise ValueError(
+            f"n_pad {n_pad} must be >= {n} and a multiple of "
+            f"block_size*superblock = {block * t_sb}")
     num_blocks = n_pad // block
 
     # The global diagonal offset c minimizing escapes, over a few

@@ -3,7 +3,10 @@
 
 Messages are attention-weighted over each node's in-window mesh
 neighbourhood on a :class:`DiagWindowGraph` built with transpose tables
-(:func:`gwen_tpu_torch.ops.attention.windowed_attention`). Parameters are
+(:func:`gwen_tpu_torch.ops.attention.windowed_attention`) or, on one rank
+of a partitioned mesh, on a ``HaloDiagGraph``
+(:func:`gwen_tpu_torch.parallel.halo.attend_halo`: K and V take a halo
+exchange first). Parameters are
 the reference's: ``wq``, ``wk``, ``wv`` and ``wo``, each a linear
 ``{"w": (latent, latent), "b": (latent,)}``, so ``params_from_jax`` loads
 ``process_i.attn.wq.w`` unchanged.
@@ -47,11 +50,14 @@ def graph_attention_apply(params, graph, x: Tensor, heads: int = 2,
     plain reference path. ``pack`` is accepted for the reference's
     signature and ignored (see the module docstring)."""
     del pack
-    if not isinstance(graph, DiagWindowGraph):
+    # Late import: the halo path attends through this package's operators.
+    from gwen_tpu_torch.parallel.halo import HaloDiagGraph, attend_halo
+
+    if not isinstance(graph, (DiagWindowGraph, HaloDiagGraph)):
         raise TypeError(
             "attention processor needs a DiagWindowGraph (diag-window "
-            "layout with transpose tables); the partitioned HaloDiagGraph "
-            f"comes with slice 6 of the port; got {type(graph).__name__}"
+            "layout with transpose tables) or, partitioned, a "
+            f"HaloDiagGraph; got {type(graph).__name__}"
         )
     backend = backend if backend in ("auto", "plain") else "reference"
     latent = x.shape[-1]
@@ -63,8 +69,9 @@ def graph_attention_apply(params, graph, x: Tensor, heads: int = 2,
         return y.reshape(-1, heads, dh).transpose(0, 1).reshape(
             heads, *x.shape[:-1], dh)
 
-    oh = windowed_attention(graph, proj(params["wq"]), proj(params["wk"]),
-                            proj(params["wv"]), backend=backend)
+    attend = attend_halo if isinstance(graph, HaloDiagGraph) else windowed_attention
+    oh = attend(graph, proj(params["wq"]), proj(params["wk"]),
+                proj(params["wv"]), backend=backend)
     wo = params["wo"]
     out = (oh.reshape(heads, -1, dh).transpose(0, 1).reshape(-1, latent)
            @ wo["w"].to(x.dtype) + wo["b"].to(x.dtype))

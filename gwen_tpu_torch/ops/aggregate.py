@@ -14,6 +14,13 @@ path uses. Semantics for every backend::
   versions of the windowed layouts (escapes through the ELL gather; the
   packed layouts with their rank-1 scales outside the product, as the
   reference's plain versions).
+* :func:`aggregate_windowed_dense_reference` and
+  :func:`aggregate_block_ell_reference` — the same for the windowed-dense
+  and blocked-ELL layouts (no escapes; the source array may be longer than
+  the output, as on a partition's halo-extended rows).
+* A :class:`~gwen_tpu_torch.parallel.halo.HaloGraph` or ``HaloDiagGraph``
+  (one rank's partition) goes to
+  :func:`~gwen_tpu_torch.parallel.halo.aggregate_halo`.
 * ``backend="auto"`` on a windowed layout goes through
   :mod:`gwen_tpu_torch.ops.spmm_cuda` (the hand-written kernels on CUDA
   tensors, their plain versions on CPU tensors); ``backend="plain"`` takes
@@ -25,10 +32,12 @@ from __future__ import annotations
 import torch
 
 from gwen_tpu_torch.graph.graph import (
+    BlockEllGraph,
     DiagWindowGraph,
     Graph,
     SlidingDenseGraph,
     SlidingPackedGraph,
+    WindowedDenseGraph,
     window_mask,
 )
 from gwen_tpu_torch.ops import spmm_cuda
@@ -103,13 +112,53 @@ def aggregate_diag_window_reference(graph: DiagWindowGraph,
         graph, x, _window_product(graph, x, graph.s_mat))
 
 
+def aggregate_windowed_dense_reference(graph: WindowedDenseGraph,
+                                       x: Tensor) -> Tensor:
+    """Plain-torch reference for the windowed-dense layout: every block's
+    tile product in one batched matmul, in x's type."""
+    n_pad = graph.num_padded_nodes
+    out = _window_product(graph, _pad_src(graph, x), graph.s_mat)
+    return out[..., :x.shape[-2] if graph.num_src_rows == n_pad else n_pad, :]
+
+
+def aggregate_block_ell_reference(graph: BlockEllGraph, x: Tensor) -> Tensor:
+    """Plain-torch reference for the blocked-ELL layout: gather every slot's
+    source row and contract with the weights, in x's type."""
+    n_pad = graph.num_padded_nodes
+    xp = _pad_src(graph, x)
+    idx = (graph.nbr.long() + graph.window_start.long().repeat_interleave(
+        graph.block_size)[:, None])
+    out = torch.einsum("nd,...ndf->...nf", graph.nbr_weight.to(x.dtype),
+                       xp[..., idx, :])
+    return out[..., :x.shape[-2] if graph.num_src_rows == n_pad else n_pad, :]
+
+
+def _pad_src(graph, x: Tensor) -> Tensor:
+    """x zero-padded to the layout's source rows (after the row check)."""
+    spmm_cuda._check_rows(graph, x)
+    return spmm_cuda._fit_rows(x, graph.num_src_rows)
+
+
 def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
     """Dispatch aggregation by graph container and backend: ``"auto"``
     runs the windowed kernels (on CUDA tensors), ``"plain"`` the same
     composite with the kernels' plain versions, anything else the plain
     references above."""
+    # Late import: the halo composite runs this module's layouts locally.
+    from gwen_tpu_torch.parallel.halo import HaloDiagGraph, HaloGraph, aggregate_halo
+
     plain = backend == "plain"
     kernels = backend in ("auto", "plain")
+    if isinstance(graph, (HaloGraph, HaloDiagGraph)):
+        return aggregate_halo(graph, x, backend=backend)
+    if isinstance(graph, WindowedDenseGraph):
+        if kernels:
+            return spmm_cuda.spmm_windowed_dense(graph, x, plain=plain)
+        return aggregate_windowed_dense_reference(graph, x)
+    if isinstance(graph, BlockEllGraph):
+        if kernels:
+            return spmm_cuda.spmm_block_ell(graph, x, plain=plain)
+        return aggregate_block_ell_reference(graph, x)
     if isinstance(graph, DiagWindowGraph):
         if kernels:
             return spmm_cuda.spmm_diag_window(graph, x, plain=plain)
@@ -125,7 +174,7 @@ def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
     if isinstance(graph, Graph):
         return aggregate_segment(graph, x)
     raise TypeError(
-        f"no aggregation for {type(graph).__name__} yet: the port covers "
-        "Graph, DiagWindowGraph (weighted or packed), SlidingDenseGraph and "
-        "SlidingPackedGraph; the other layouts (dense, block-ELL, block "
-        "tiles, int8 rank-1, halo) come with later slices (ROADMAP queue A)")
+        f"no aggregation for {type(graph).__name__}: the port covers every "
+        "layout of the reference but the dense adjacency, block tiles, the "
+        "int8 rank-1 and the multi-level containers, which come with later "
+        "slices (ROADMAP queue A)")

@@ -1,8 +1,9 @@
 """Windowed SpMM for the diag-window and banded layouts, weighted and
-bit-packed: hand-written Hopper kernels (``csrc/window_spmm.cu``) and their
-plain PyTorch versions.
+bit-packed, and for the windowed-dense and blocked-ELL layouts of the
+partitioned path: hand-written Hopper kernels (``csrc/window_spmm.cu``) and
+their plain PyTorch versions.
 
-Seven kernel wrappers (and :func:`window_matvec`, which counts as B1),
+Nine kernel wrappers (and :func:`window_matvec`, which counts as B1),
 each with a launch count (``.launches``):
 
 * :func:`diag_window_spmm` — kernel B1, replacing
@@ -85,9 +86,11 @@ from typing import Optional
 import torch
 
 from gwen_tpu_torch.graph.graph import (
+    BlockEllGraph,
     DiagWindowGraph,
     SlidingDenseGraph,
     SlidingPackedGraph,
+    WindowedDenseGraph,
     unpack_bits,
 )
 
@@ -161,6 +164,14 @@ def _lib() -> ctypes.CDLL:
         #  dtype, stream)
         lib.gwen_window_spmm_packed.argtypes = [vp] * 9 + [ci] * 8 + [vp]
         lib.gwen_window_spmm_packed.restype = ci
+        # (s, x, window_start, out, num_blocks, window, f, x_rows, batch,
+        #  dtype, stream)
+        lib.gwen_window_spmm_streamed.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+        lib.gwen_window_spmm_streamed.restype = ci
+        # (nbr, w, window_start, x, out, n_pad, deg, block, f, x_rows,
+        #  batch, dtype, stream)
+        lib.gwen_ell_spmm.argtypes = [vp] * 5 + [ci] * 7 + [vp]
+        lib.gwen_ell_spmm.restype = ci
         _LIB = lib
     return _LIB
 
@@ -247,6 +258,28 @@ def sliding_packed_spmm_plain(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
                              row_scale=graph.row_scale)
 
 
+def windowed_dense_spmm_plain(graph: WindowedDenseGraph, x: Tensor) -> Tensor:
+    """Plain version of :func:`windowed_dense_spmm`."""
+    return window_spmm_plain(graph.s_mat, graph.window_start, x,
+                             graph.num_src_rows)
+
+
+def block_ell_spmm_plain(graph: BlockEllGraph, x: Tensor) -> Tensor:
+    """Plain version of :func:`block_ell_spmm`: per slot ``d``, the gathered
+    source rows times the weights (rounded to ``x.dtype``), summed in
+    float32 in slot order and cast once. ``x`` is ``(rows, F)`` or ``(B,
+    rows, F)``; rows at or past ``x.shape[-2]`` read as zero."""
+    x = _fit_rows(x, graph.num_src_rows)
+    start = graph.window_start.long().repeat_interleave(graph.block_size)
+    w = graph.nbr_weight.to(x.dtype).float()
+    acc = torch.zeros(*x.shape[:-2], graph.num_padded_nodes, x.shape[-1],
+                      dtype=torch.float32, device=x.device)
+    for d in range(graph.max_degree):
+        rows = x.index_select(-2, start + graph.nbr[:, d].long()).float()
+        acc += w[:, d, None] * rows
+    return acc.to(x.dtype)
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
@@ -297,15 +330,19 @@ def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
             raise ValueError("window SpMM operands must be 16-byte aligned")
 
 
-def _kernel_code(s_dtype: torch.dtype, x: Tensor) -> int:
+def _kernel_code(s_dtype: torch.dtype, x: Tensor, streamed: bool = False) -> int:
     """The kernels' dtype code for an S of ``s_dtype`` and ``x``: 0 float32,
-    1 bfloat16, 2 float32 x on a bfloat16 S."""
+    1 bfloat16, 2 float32 x on a bfloat16 S, 3 (the streaming launch of
+    B11 only) bfloat16 x on a float32 S."""
     if s_dtype == x.dtype and x.dtype in _DTYPE_CODE:
         return _DTYPE_CODE[x.dtype]
     if s_dtype == torch.bfloat16 and x.dtype == torch.float32:
         return 2
+    if streamed and s_dtype == torch.float32 and x.dtype == torch.bfloat16:
+        return 3
     raise TypeError(f"S is {s_dtype} but x is {x.dtype}: the kernels take S "
-                    "in x's type, or a float32 x on a bfloat16 S")
+                    "in x's type, a float32 x on a bfloat16 S or (B11) a "
+                    "bfloat16 x on a float32 S")
 
 
 def _check_smem(lib: ctypes.CDLL, w: int, code: int, packed: bool) -> None:
@@ -348,6 +385,25 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
         rc = lib.gwen_window_spmm(*ptrs, nb, w, f, x.shape[0], code, stream)
     if rc != 0:
         raise RuntimeError(f"window SpMM launch failed: CUDA error {rc}")
+    return out
+
+
+def _launch_streamed(s_mat: Tensor, window_start: Tensor, x: Tensor) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm_streamed`` (no
+    escapes; x ``(rows, F)`` or ``(B, rows, F)``, the batch on the grid).
+    Raises on anything the kernel does not take."""
+    n_pad, w = s_mat.shape
+    _check(x, window_start, n_pad, w, None, None, None, [s_mat])
+    code = _kernel_code(s_mat.dtype, x, streamed=True)
+    out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
+                      device=x.device)
+    rc = _lib().gwen_window_spmm_streamed(
+        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(),
+        out.data_ptr(), window_start.shape[0], w, x.shape[-1], x.shape[-2],
+        x.shape[0] if x.dim() == 3 else 1, code,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"streamed window SpMM launch failed: CUDA error {rc}")
     return out
 
 
@@ -459,12 +515,74 @@ def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
 
 
 def sliding_spmm_b(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``."""
+    """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``. A window whose
+    S tile does not fit the batched kernel's shared memory (the RCM band of
+    a partition at L7) takes the streaming launch, the batch on the grid."""
     _check_dim(x, 3, "B10")
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
-    out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
+    code = _kernel_code(graph.s_mat.dtype, x)
+    if _lib().gwen_window_spmm_batched_smem(graph.window_size, code, 0) > MAX_SMEM:
+        out = _launch_streamed(graph.s_mat, graph.window_start, x)
+    else:
+        out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
     sliding_spmm_b.launches += 1
+    return out
+
+
+def windowed_dense_spmm(graph: WindowedDenseGraph, x: Tensor) -> Tensor:
+    """Kernel B11: ``S_b @ x[ws_b : ws_b + W]`` per block, x ``(rows, F)`` or
+    ``(B, rows, F)`` with at most ``num_src_rows`` rows (missing rows read
+    as zero). ``(..., N_pad, F)`` in x's type; S in x's type, bfloat16
+    under a float32 x or float32 under a bfloat16 x."""
+    if not _on_cuda(x):
+        return windowed_dense_spmm_plain(graph, x)
+    if x.shape[-2] > graph.num_src_rows:
+        raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
+                         f"{graph.num_src_rows} source rows")
+    out = _launch_streamed(graph.s_mat, graph.window_start, x)
+    windowed_dense_spmm.launches += 1
+    return out
+
+
+def block_ell_spmm(graph: BlockEllGraph, x: Tensor) -> Tensor:
+    """Kernel B12: ``out[i] = Σ_d w[i, d] · x[ws(i) + nbr[i, d]]``, x
+    ``(rows, F)`` or ``(B, rows, F)`` with at most ``num_src_rows`` rows
+    (missing rows read as zero). ``(..., N_pad, F)`` in x's type."""
+    if not _on_cuda(x):
+        return block_ell_spmm_plain(graph, x)
+    n_pad, deg = graph.nbr.shape
+    if x.dim() not in (2, 3) or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"B12 takes a float32 or bfloat16 (rows, F) or (B, "
+                         f"rows, F); got {x.dtype} {tuple(x.shape)}")
+    f = x.shape[-1]
+    if f % (16 // x.element_size()):
+        raise ValueError(f"F={f} must be a multiple of "
+                         f"{16 // x.element_size()} for {x.dtype}")
+    if (graph.nbr.dtype != torch.int32 or graph.window_start.dtype != torch.int32
+            or graph.nbr_weight.dtype != torch.float32
+            or graph.nbr_weight.shape != graph.nbr.shape
+            or graph.window_start.shape[0] * graph.block_size != n_pad):
+        raise ValueError("B12 takes int32 nbr (N_pad, D) and window_start "
+                         "(N_pad / block,), float32 nbr_weight (N_pad, D)")
+    if x.shape[-2] > graph.num_src_rows:
+        raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
+                         f"{graph.num_src_rows} source rows")
+    for t in (graph.nbr, graph.nbr_weight, graph.window_start, x):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("B12 operands must be contiguous, 16-byte "
+                             f"aligned and on {x.device}")
+    out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
+    rc = _lib().gwen_ell_spmm(
+        graph.nbr.data_ptr(), graph.nbr_weight.data_ptr(),
+        graph.window_start.data_ptr(), x.data_ptr(), out.data_ptr(), n_pad,
+        deg, graph.block_size, f, x.shape[-2],
+        x.shape[0] if x.dim() == 3 else 1, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"B12 launch failed: "
+                           f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
+    block_ell_spmm.launches += 1
     return out
 
 
@@ -527,6 +645,8 @@ sliding_spmm_b.launches = 0
 diag_window_spmm_packed.launches = 0
 diag_window_spmm_packed_b.launches = 0
 sliding_packed_spmm.launches = 0
+windowed_dense_spmm.launches = 0
+block_ell_spmm.launches = 0
 
 
 # ------------------------------------------------------------ composites
@@ -606,6 +726,26 @@ def _sliding_packed_composite(graph: SlidingPackedGraph, x: Tensor,
     out_rows = _check_rows(graph, x)
     b13 = sliding_packed_spmm_plain if plain else sliding_packed_spmm
     return b13(graph, x)[..., :out_rows, :]
+
+
+def _ext_rows(graph, x: Tensor) -> int:
+    """Row check and output row count of the windowed-dense and blocked-ELL
+    layouts, as the reference's: a plain graph keeps the caller's row
+    count, halo-extended sources always give the padded destination rows."""
+    _check_rows(graph, x)
+    n_pad = graph.num_padded_nodes
+    return x.shape[-2] if graph.num_src_rows == n_pad else n_pad
+
+
+def _windowed_dense_composite(graph: WindowedDenseGraph, x: Tensor,
+                              plain: bool) -> Tensor:
+    b11 = windowed_dense_spmm_plain if plain else windowed_dense_spmm
+    return b11(graph, x)[..., :_ext_rows(graph, x), :]
+
+
+def _block_ell_composite(graph: BlockEllGraph, x: Tensor, plain: bool) -> Tensor:
+    b12 = block_ell_spmm_plain if plain else block_ell_spmm
+    return b12(graph, x)[..., :_ext_rows(graph, x), :]
 
 
 def _diag_composite(graph: DiagWindowGraph, x: Tensor, plain: bool) -> Tensor:
@@ -693,3 +833,40 @@ def spmm_sliding_packed(graph: SlidingPackedGraph, x: Tensor,
     ``_sliding_packed_bwd``). ``plain=True`` runs the plain version and
     leaves the gradient to autograd."""
     return _aggregate(_sliding_packed_composite, graph, x, plain)
+
+
+def _aggregate_ext(composite, graph, x: Tensor, plain: bool) -> Tensor:
+    """:func:`_aggregate` for a layout whose source array may be longer than
+    its output. Such an operator is not square, so the symmetric backward
+    does not hold: the plain versions leave the gradient to autograd, and
+    on the kernels a gradient is refused (it belongs to the halo composite,
+    :func:`gwen_tpu_torch.parallel.halo.aggregate_halo`)."""
+    if graph.num_src_rows == graph.num_padded_nodes:
+        return _aggregate(composite, graph, x, plain)
+    if (x.requires_grad and torch.is_grad_enabled() and not plain
+            and x.device.type != "cpu"):
+        raise ValueError(
+            f"{type(graph).__name__} with {graph.num_src_rows} source rows "
+            f"for {graph.num_padded_nodes} destination rows is not square: "
+            "its kernel has no gradient of its own (the halo composite "
+            "carries it)")
+    xf, lead, f = _fold(x)
+    return _unfold(composite(graph, xf, plain), lead, f)
+
+
+def spmm_windowed_dense(graph: WindowedDenseGraph, x: Tensor,
+                        plain: bool = False) -> Tensor:
+    """Aggregation over a :class:`WindowedDenseGraph` (kernel B11 on CUDA)
+    on ``(..., N, F)``. On a square graph differentiable in x (the backward
+    is B11 on the cotangent, the reference's ``_sdense_bwd``);
+    ``plain=True`` runs the plain version and leaves the gradient to
+    autograd."""
+    return _aggregate_ext(_windowed_dense_composite, graph, x, plain)
+
+
+def spmm_block_ell(graph: BlockEllGraph, x: Tensor, plain: bool = False) -> Tensor:
+    """Aggregation over a :class:`BlockEllGraph` (kernel B12 on CUDA) on
+    ``(..., N, F)``. On a square graph differentiable in x (the backward is
+    B12 on the cotangent, the reference's ``_spmm_bwd``); ``plain=True``
+    runs the plain version and leaves the gradient to autograd."""
+    return _aggregate_ext(_block_ell_composite, graph, x, plain)

@@ -4,9 +4,18 @@ from gwen_tpu_torch.train.remat import (
     remat_policy_for_budget,
     select_save_agg_steps,
 )
+from gwen_tpu_torch.train.mesh import (
+    ProcessMesh,
+    initialize_distributed,
+    is_main_process,
+    make_mesh,
+)
 from gwen_tpu_torch.train.tasks import (
     ensemble_crps_loss_fn,
     mesh_graph_loss_fn,
+    partitioned_ensemble_crps_loss_fn,
+    partitioned_mesh_loss_fn,
+    partitioned_rollout_loss_fn,
     rollout_loss_fn,
 )
 from gwen_tpu_torch.train.trainer import Trainer, TrainState
@@ -14,12 +23,19 @@ from gwen_tpu_torch.train.trainer import Trainer, TrainState
 __all__ = [
     "Checkpointer",
     "Optimizer",
+    "ProcessMesh",
     "Trainer",
     "TrainState",
     "ensemble_crps_loss_fn",
+    "initialize_distributed",
+    "is_main_process",
+    "make_mesh",
     "make_optimizer",
     "make_schedule",
     "mesh_graph_loss_fn",
+    "partitioned_ensemble_crps_loss_fn",
+    "partitioned_mesh_loss_fn",
+    "partitioned_rollout_loss_fn",
     "remat_policy_for_budget",
     "rollout_loss_fn",
     "select_save_agg_steps",

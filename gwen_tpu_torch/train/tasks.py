@@ -2,7 +2,16 @@
 the ``train-mesh`` path trains: next-step prediction, fair-ensemble-CRPS
 training on perturbed members, and rollout-horizon training. Each
 ``loss_fn(batch, graph) -> (loss, preds)`` closes over the model; the graph
-comes in as the Trainer's context."""
+comes in as the Trainer's context.
+
+The ``partitioned_*`` tasks run through a rank's
+:class:`~gwen_tpu_torch.parallel.apply.PartitionedApply`. Their batches are
+*global* (padded node space, the same on every rank); each rank cuts its
+share (``apply_fn.shard``) and returns ``local_mean / world``: the shards
+are equal, so the sum over ranks is the mean over the global batch and
+nodes (pad rows included, as in the reference's ``shard_map`` mean), and
+the sum of the ranks' parameter gradients is its gradient. The trainer does
+both sums (``Trainer(mesh=...)``); the predictions stay local."""
 
 from __future__ import annotations
 
@@ -78,5 +87,72 @@ def rollout_loss_fn(model, horizon: int, loss: str = "mse") -> Callable:
         preds = ensemble.rollout(lambda x: model(graph, x), x0,
                                  horizon).movedim(0, 1)  # (B, H, N, C)
         return fn(preds, traj), preds
+
+    return loss_fn
+
+
+def _mean_loss(loss: str) -> Callable:
+    if loss not in ("mse", "l1"):
+        raise ValueError(f"unknown mesh loss {loss!r}")
+    return losses.mse_loss if loss == "mse" else losses.l1_loss
+
+
+def partitioned_mesh_loss_fn(apply_fn, loss: str = "mse") -> Callable:
+    """Next-step prediction through the partitioned apply:
+    ``loss_fn((x, y)) -> (local_mean / world, local preds)`` with ``x`` and
+    ``y`` ``(B, padded nodes, channels)``."""
+    fn = _mean_loss(loss)
+
+    def loss_fn(batch):
+        x, y = apply_fn.shard(batch)
+        preds = apply_fn(x)
+        return fn(preds, y) / apply_fn.mesh.world, preds
+
+    return loss_fn
+
+
+def partitioned_rollout_loss_fn(apply_fn, horizon: int,
+                                loss: str = "mse") -> Callable:
+    """Rollout-horizon training through the partitioned apply:
+    ``loss_fn((x0, traj))`` with ``x0`` ``(B, padded nodes, C)`` and ``traj``
+    ``(B, horizon, padded nodes, C)``."""
+    fn = _mean_loss(loss)
+
+    def loss_fn(batch):
+        x0, traj = apply_fn.shard(batch)
+        preds = ensemble.rollout(apply_fn, x0, horizon).movedim(0, 1)
+        return fn(preds, traj) / apply_fn.mesh.world, preds
+
+    return loss_fn
+
+
+def partitioned_ensemble_crps_loss_fn(apply_fn, num_members: int = 4,
+                                      sigma: float = 0.05,
+                                      smoothing_steps: int = 2) -> Callable:
+    """Fair-ensemble-CRPS training through the partitioned apply.
+
+    ``loss_fn((x, y, seed_or_noise), noise_graph)``: the white noise is
+    drawn on the padded *global* node space from one seed, the same on every
+    rank, smoothed on ``noise_graph`` (a COO graph over the padded node
+    space, replicated), and only then cut to the rank's nodes and samples.
+    The K members of a sample stay on one rank, so the batch (not batch ×
+    members) divides over the data axis."""
+
+    def loss_fn(batch, noise_graph):
+        x, y, third = batch
+        if isinstance(third, torch.Tensor) and third.dim() == x.dim() + 1:
+            generator, noise = None, third
+        else:
+            generator = torch.Generator(device=x.device).manual_seed(int(third))
+            noise = None
+        xs = ensemble.sample_perturbed_members(
+            generator, x, num_members, sigma, noise_graph, smoothing_steps,
+            batch_dims=1, noise=noise)  # (B, K, N_pad, C), on every rank
+        xs, y = apply_fn.shard((xs, y))
+        b = xs.shape[0]
+        preds = apply_fn(xs.reshape(b * num_members, *xs.shape[2:]))
+        preds = preds.reshape(b, num_members, *y.shape[1:])
+        value = losses.crps_ensemble(preds, y, ensemble_axis=1, fair=True)
+        return value / apply_fn.mesh.world, preds.mean(dim=1)
 
     return loss_fn

@@ -8,7 +8,11 @@
   steps, checkpoints every ``checkpoint_every`` steps and at each new best,
   ``resume`` from the latest checkpoint, and :meth:`Trainer.evaluate`.
   Host batches are copied to the device ``prefetch_size`` batches ahead of
-  the step that uses them.
+  the step that uses them. With a :class:`~gwen_tpu_torch.train.mesh.
+  ProcessMesh` of several ranks (the partitioned tasks of
+  :mod:`gwen_tpu_torch.train.tasks`) a step also sums the parameter
+  gradients and the reported loss over all ranks; every rank then takes the
+  same optimizer step.
 """
 
 from __future__ import annotations
@@ -73,8 +77,9 @@ class Trainer:
 
     def __init__(self, loss_fn: LossFn, device, run: Optional[Run] = None,
                  checkpointer: Optional[Checkpointer] = None,
-                 log_every: int = 10, context: Any = None):
+                 log_every: int = 10, context: Any = None, mesh=None):
         self.loss_fn = loss_fn
+        self.mesh = mesh
         self.device = torch.device(device)
         self.run = run
         self.checkpointer = checkpointer
@@ -91,9 +96,13 @@ class Trainer:
         state.model.train()
         loss, _ = self._call_loss(batch)
         loss.backward()
+        loss = loss.detach()
+        if self.mesh is not None:
+            self.mesh.all_reduce_gradients(state.model.parameters())
+            loss = self.mesh.all_reduce_sum(loss)
         state.optimizer.step(state.model.parameters())
         state.step += 1
-        return loss.detach()
+        return loss
 
     def fit(self, state: TrainState, batches_per_epoch: Callable[[int], Iterable],
             epochs: int, checkpoint_every: int = 0, prefetch_size: int = 2,
@@ -101,6 +110,10 @@ class Trainer:
         """Run ``epochs`` passes; returns ``(state, best_epoch_loss)``.
         With ``resume=True`` and a checkpoint on disk, training restarts
         from the latest one (parameters, optimizer, step)."""
+        if resume and self.mesh is not None and self.mesh.world > 1:
+            # Rank 0 alone holds the checkpointer; restoring there only
+            # would let the replicas drift apart.
+            raise ValueError("resume is not supported on a multi-rank mesh")
         if resume and self.checkpointer and self.checkpointer.latest_step() is not None:
             self.checkpointer.restore(state)
             log.info("resumed from checkpoint at step %d", state.step)
@@ -139,6 +152,8 @@ class Trainer:
         losses, preds = [], []
         for batch in prefetch(batches, self.device):
             loss, pred = self._call_loss(batch)
+            if self.mesh is not None:
+                loss = self.mesh.all_reduce_sum(loss)
             losses.append(float(loss))
             if collect_preds:
                 preds.append(pred.float().cpu().numpy())

@@ -410,3 +410,67 @@ def test_kernel_dtype_codes():
         spmm_cuda._kernel_code(torch.float32, bf16)
     with pytest.raises(TypeError, match="S is"):
         spmm_cuda._kernel_code(torch.float16, torch.zeros(1, dtype=torch.float16))
+
+
+def test_streamed_kernel_takes_f32_s_under_bf16_x():
+    """B11's launch alone takes a bfloat16 x on a float32 S (code 3: S
+    rounded as it is staged); the other kernels go on refusing it."""
+    bf16 = torch.zeros(1, dtype=torch.bfloat16)
+    assert spmm_cuda._kernel_code(torch.float32, bf16, streamed=True) == 3
+    assert spmm_cuda._kernel_code(torch.bfloat16, bf16, streamed=True) == 1
+    with pytest.raises(TypeError, match="S is"):
+        spmm_cuda._kernel_code(torch.float16, bf16, streamed=True)
+
+
+def _rcm_layouts(block):
+    verts, s, r = J.icosphere_edges(3)
+    n = verts.shape[0]
+    s2, r2, _ = J.apply_order(J.rcm_order(s, r, n), s, r)
+    g = P.build_graph(s2, r2, n)
+    return (P.to_windowed_dense(g, block_size=block),
+            P.to_block_ell(g, block_size=block), g, n)
+
+
+@pytest.mark.parametrize("shape", [(24,), (3, 24)], ids=["unbatched", "batched"])
+@pytest.mark.parametrize("layout", ["dense", "ell"])
+def test_windowed_dense_and_block_ell_plain_versions(layout, shape):
+    """The plain versions of B11 and B12 (what the wrappers run on CPU
+    tensors, with no launch counted) are the segment aggregation; in bf16
+    they round once, from a float32 sum."""
+    wd, ell, g, n = _rcm_layouts(32)
+    graph, wrapper, plain = ((wd, spmm_cuda.windowed_dense_spmm,
+                              spmm_cuda.windowed_dense_spmm_plain) if layout == "dense"
+                             else (ell, spmm_cuda.block_ell_spmm,
+                                   spmm_cuda.block_ell_spmm_plain))
+    lead, f = shape[:-1], shape[-1]
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(*lead, n, f)).astype(np.float32))
+    want = aggregate_segment(g, x)
+    before = wrapper.launches
+    got = wrapper(graph, x)
+    assert wrapper.launches == before
+    assert got.shape == (*lead, graph.num_padded_nodes, f)
+    np.testing.assert_allclose(got[..., :n, :].numpy(), want.numpy(), **TOL)
+    torch.testing.assert_close(got, plain(graph, x))
+    assert got[..., n:, :].abs().sum() == 0  # pad rows have no sources
+    xb = x.bfloat16()
+    want_b = plain(graph, xb.float()) if layout == "ell" else plain(
+        dataclasses.replace(graph, s_mat=graph.s_mat.bfloat16().float()), xb.float())
+    got_b = wrapper(graph, xb)
+    assert got_b.dtype == torch.bfloat16
+    torch.testing.assert_close(got_b.float(), want_b.bfloat16().float(),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_non_square_layout_refuses_a_kernel_gradient():
+    """Halo-extended sources make the operator non-square: the symmetric
+    backward does not hold, so the kernel path (any device but the CPU)
+    refuses a gradient; the CPU path differentiates the plain version."""
+    wd, ell, _, n = _rcm_layouts(32)
+    ext = dataclasses.replace(ell, num_src_rows=ell.num_padded_nodes + 64)
+    x = torch.zeros(ext.num_src_rows, 4, requires_grad=True)
+    out = aggregate(ext, x)
+    assert out.shape == (ext.num_padded_nodes, 4) and out.requires_grad
+    meta = torch.zeros(ext.num_src_rows, 4, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="not square"):
+        spmm_cuda.spmm_block_ell(ext, meta)

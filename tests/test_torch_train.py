@@ -324,10 +324,13 @@ def test_train_mesh_cli_trains_and_feeds_serving(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("args,exc", [
-    (["mesh.force_partition=true"], ValueError),
+    # partitioned attention needs the diag partition layout
+    (["mesh.force_partition=true", "model.processor=attention", "graph.refine=2"],
+     ValueError),
     (["model.processor=attention", "mesh.kernel=packed", "graph.refine=2"],
      ValueError),
-    (["mesh.graph_axis=2"], ValueError),
+    (["mesh.force_partition=true", "mesh.partition_layout=tiles", "graph.refine=2"],
+     ValueError),
     (["mesh.kernel=diag_packed", "model.processor=interaction", "graph.refine=2"],
      ValueError),
     (["--data", "store.zarr"], ValueError),
