@@ -1,6 +1,6 @@
-"""Smoke run of the PyTorch port's serving, training, ensemble and
-partitioned paths on one NVIDIA GPU, for the GCN, attention and interaction
-processors.
+"""Smoke run of the PyTorch port's serving, training, ensemble,
+partitioned, block-tile and member-graph paths on one NVIDIA GPU, for the
+GCN, attention and interaction processors.
 
     python3 chip_smoke.py
 
@@ -107,7 +107,28 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    step under ``torch.profiler``. One rank: the halos are
    zero rows and no collective runs; a last line says whether a 1-rank
    NCCL group on this host carries ``all_reduce`` and ``all_gather``
-   (a child process; logged, not held).
+   (a child process; logged, not held);
+11. the last kernel and the stored-data paths: B14 (block-tile SpMM) on the
+   L7 mesh in RCM and in KD-patch order at F 256, unbatched and at batch 4,
+   bf16 and float32, on a float32 field of F 1 and 3, on a
+   ``num_src``-extended operator, and the x-gradient of
+   ``spmm_block_tiles``, each against its plain version, with times, the
+   bound (x, the output and the tables as stored) and ``torch.sparse.mm``
+   on the same operator, held to the kernel first; the int8 rank-1 form of
+   B3 and B10 on the RCM band against its plain version and
+   ``aggregate_segment``; then the EPD model on the ``BlockTileGraph``:
+   3 x 4 served steps (B14 and B2 4 launches per step), 5 Adam steps at
+   batch 4 through ``Trainer`` (B14 8 per step, B2 and B2b 4), one served
+   step and one train step against the plain versions, no plain version on
+   the card, and one forward on the L7 multimesh (finest level through B12)
+   against the union as one COO graph; ``make-mesh-data`` → ``train-mesh
+   --data`` at ``graph.refine=7`` (launch counts as phase 6, finite skill
+   numbers), again with ``data.lazy=true``, then export and ``predict``
+   with the graph rebuilt from the store; ``preprocess`` → ``train-gnn
+   --no-animate`` on a raw store of 125 members x 16,384 features written
+   here (hidden 1024, batch 4): a finite test loss, the run in the
+   registry, the step's time and peak memory. The stores are written and
+   read with numpy and the standard library alone.
 
 The second-to-last lines are a JSON object of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``,
@@ -206,7 +227,8 @@ def roofline(ins, outs, flops: float, dtype: torch.dtype) -> dict:
     """The least time the card could take for one call: the larger of the
     bytes of ``ins`` and ``outs`` (each read or written once) over the
     memory rate and the useful ``flops`` over the peak rate of ``dtype``.
-    An int among ``ins`` is a byte count (:func:`nonzero_bytes`)."""
+    An int among ``ins`` is a byte count (:func:`nonzero_bytes`,
+    :func:`nonzero_slot_bytes`)."""
     nbytes = sum(t if isinstance(t, int) else t.numel() * t.element_size()
                  for t in (*ins, *outs))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -226,6 +248,22 @@ def nonzero_bytes(s_dense: torch.Tensor, name: str) -> int:
     log(f"    {name}: S holds {nnz} nonzeros, {need / 1e6:.2f} MB with their "
         f"indices (the bound counts these); stored dense {stored / 1e6:.1f} MB, "
         f"{stored / HBM_BYTES_PER_S * 1e3:.4f} ms to stream")
+    return need
+
+
+def nonzero_slot_bytes(index: torch.Tensor, weight: torch.Tensor, name: str) -> int:
+    """Bytes a gather layout's fixed operator needs: each slot with a
+    nonzero weight, with its index as the layout stores it. The padding
+    slots are the design's cost, not the function's, as the zeros of a
+    dense tile are (:func:`nonzero_bytes`); the log states the stored bytes
+    beside the count."""
+    nnz = int((weight != 0).sum())
+    need = nnz * (index.element_size() + weight.element_size())
+    stored = index.nbytes + weight.nbytes
+    log(f"    {name}: {nnz} of {weight.numel()} slots are nonzero, "
+        f"{need / 1e6:.2f} MB with their indices (the bound counts these); "
+        f"stored {stored / 1e6:.1f} MB, {stored / HBM_BYTES_PER_S * 1e3:.4f} ms "
+        "to stream")
     return need
 
 
@@ -1104,7 +1142,7 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
     packed B4 and B10 on ``kernel="diag_packed"``, B13 alone on the
     bit-packed banded layout (``kernel="packed"``); on the partitioned path
     ``kernel`` names the partition layout: ``"sliding"`` B10, ``"dense"``
-    B11, ``"ell"`` B12. Attention (the same on
+    B11, ``"ell"`` B12; ``"tiles"`` is the block-tile graph, B14. Attention (the same on
     either diag layout): each step runs B5 once per forward or recompute, B6
     and B7 once. Each LayerNorm runs B2 once per forward or recompute and
     B2b once. ``save_agg`` keeps the GCN aggregation output (no recompute)
@@ -1121,7 +1159,8 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
     recompute = {"none": 0, "full": s, "save_agg": s,
                  "nested": 2 * s - groups}[kind]
     out = dict.fromkeys(("B1", "B3", "B4", "B10", "B2", "B2b", "B5", "B6", "B7",
-                         "B1p", "B4p", "B13", "B8", "B9", "B11", "B12"), 0)
+                         "B1p", "B4p", "B13", "B8", "B9", "B11", "B12", "B14"),
+                        0)
     if processor == "interaction":  # COO graph, its own LayerNorm: no kernel
         return out
     if processor == "attention":
@@ -1130,7 +1169,8 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
     else:
         agg = 2 * s + recompute - saved
         aggs = {"packed": ("B13",), "diag_packed": ("B4p", "B10"),
-                "sliding": ("B10",), "dense": ("B11",), "ell": ("B12",)}
+                "sliding": ("B10",), "dense": ("B11",), "ell": ("B12",),
+                "tiles": ("B14",)}
         out.update(dict.fromkeys(aggs.get(kernel, ("B4", "B10")), agg),
                    B2=s + recompute, B2b=s)
     return out
@@ -1149,7 +1189,8 @@ def _counters() -> dict:
             "B4p": spmm_cuda.diag_window_spmm_packed_b,
             "B13": spmm_cuda.sliding_packed_spmm,
             "B8": unfused_cuda.sddmm, "B9": unfused_cuda.spmm_t,
-            "B11": spmm_cuda.windowed_dense_spmm, "B12": spmm_cuda.block_ell_spmm}
+            "B11": spmm_cuda.windowed_dense_spmm, "B12": spmm_cuda.block_ell_spmm,
+            "B14": spmm_cuda.block_tiles_spmm}
 
 
 # Calls of a kernel's plain version with a CUDA tensor: the main paths must
@@ -1164,7 +1205,8 @@ def count_plain_calls_on_cuda() -> None:
 
     # window_spmm_plain sits under the plain versions of B1, B3, B4, B10,
     # B11, of the packed forms and B13, and of diag_matvec's forward.
-    plains = ((spmm_cuda, ("window_spmm_plain", "block_ell_spmm_plain")),
+    plains = ((spmm_cuda, ("window_spmm_plain", "block_ell_spmm_plain",
+                           "block_tiles_spmm_plain")),
               (unfused_cuda, ("sddmm_plain", "spmm_t_plain")),
               (fused_ln, ("residual_layernorm_plain",
                           "residual_layernorm_bwd_plain")),
@@ -1294,8 +1336,8 @@ def _run_train_mesh(workdir: Path, device, processor: str = "gcn",
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
     steps = out["steps"]
     log(f"  train-mesh: {json.dumps(out)}")
-    log(f"  wall {wall:.1f} s (synthetic L{LEVELS} data, graph build and "
-        f"{steps} steps)")
+    log(f"  wall {wall:.1f} s ({'stored' if '--data' in extra else 'synthetic'} "
+        f"L{LEVELS} data, graph build and {steps} steps)")
     if steps < 8 or not math.isfinite(out["best_train_loss"]):
         raise AssertionError(f"train-mesh ran {steps} steps, best loss "
                              f"{out['best_train_loss']}")
@@ -1390,13 +1432,6 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
     """Phases 6 and 7: train through the CLI (launch counts per step as
     remat off implies, no plain version on the card), one step against the
     plain versions, step times and peak memory, export and serve."""
-    import contextlib
-    import io
-
-    from gwen_tpu_torch.cli.main import main as cli
-    from gwen_tpu_torch.registry import Run
-    from gwen_tpu_torch.serve import export_model, model_from_metadata
-
     attention = processor == "attention"
     counters = _counters()
     out, launches = _run_train_mesh(workdir, device, processor)
@@ -1457,7 +1492,21 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
             raise AssertionError(f"no remat policy fits batch {DEFAULT_BATCH}")
         del mb, xb
 
-    # Training feeds serving: export the trained run, answer one request.
+    _export_and_predict(out, n, device, workdir, rng, processor)
+    return launches
+
+
+def _export_and_predict(out: dict, n: int, device, workdir: Path, rng,
+                        processor: str) -> None:
+    """Training feeds serving: export the run of the ``train-mesh`` JSON
+    line ``out`` and answer one ``predict`` request from the artifact."""
+    import contextlib
+    import io
+
+    from gwen_tpu_torch.cli.main import main as cli
+    from gwen_tpu_torch.registry import Run
+    from gwen_tpu_torch.serve import export_model, model_from_metadata
+
     params, cfg = Run(Path(out["run_dir"])).load_model()
     trained = model_from_metadata(cfg, device)
     trained.load_state_dict(params)
@@ -1475,8 +1524,9 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
     if rc != 0 or traj.shape != (2, n, CHANNELS) or not np.isfinite(traj).all():
         raise AssertionError(f"predict from the trained run: rc {rc}, "
                              f"{traj.shape}, finite={np.isfinite(traj).all()}")
-    log(f"  predict from the trained {processor} run: {traj.shape}, finite")
-    return launches
+    log(f"  predict from the trained {processor} run"
+        f"{' (graph from ' + cfg['data'] + ')' if cfg.get('data') else ''}: "
+        f"{traj.shape}, finite")
 
 
 def train_packed(graphs: dict, device, workdir: Path) -> dict:
@@ -1737,6 +1787,7 @@ def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> 
     csr = window_csr(wd.s_mat, wd.window_start, wd.block_size, wd.num_src_rows)
     nnz = csr[2].numel()
     s_need = nonzero_bytes(wd.s_mat, "B11")
+    ell_need = nonzero_slot_bytes(ell.nbr, ell.nbr_weight, "B12")
     results = {}
     b11, b11p = spmm_cuda.windowed_dense_spmm, spmm_cuda.windowed_dense_spmm_plain
     b12, b12p = spmm_cuda.block_ell_spmm, spmm_cuda.block_ell_spmm_plain
@@ -1764,7 +1815,7 @@ def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> 
         del want
         ms, plain_ms = timed_pair(lambda: b12(ell, x), lambda: b12p(ell, x), iters)
         row12 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                     **roofline((ell.nbr, ell.nbr_weight, x), (out_like,),
+                     **roofline((ell_need, x), (out_like,),
                                 2.0 * int((ell.nbr_weight != 0).sum()) * f * nb,
                                 torch.bfloat16), library_ms=lib)
         _log_times({f"B11 {tag}": row11, f"B12 {tag}": row12})
@@ -1910,6 +1961,422 @@ def partitioned_paths(device, workdir: Path) -> dict:
         del model, apply_fn, pg, x, y
         torch.cuda.empty_cache()
     return launches
+
+
+def build_tile_layouts(device, kd_perm) -> dict:
+    """The L7 mesh as the block-tile layout in RCM order and in the serving
+    graph's KD-patch order (``kd_perm``), a ``num_src``-extended (non-square)
+    operator, the int8 rank-1 banded layout in RCM order, and the RCM-ordered
+    COO graph they came from."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      rcm_order, to_block_tiles, to_sliding_rank1)
+
+    verts, s, r = icosphere_edges(LEVELS)
+    n = verts.shape[0]
+    g = build_graph(*apply_order(rcm_order(s, r, n), s, r)[:2], n)
+    g_kd = build_graph(*apply_order(kd_perm, s, r)[:2], n)
+    return {"coo": g.to(device), "coo_kd": g_kd.to(device),
+            "rcm": to_block_tiles(g).to(device),
+            "kd": to_block_tiles(g_kd).to(device),
+            "ext": to_block_tiles(g, num_src=n + 1536).to(device),
+            "rank1": to_sliding_rank1(g).to(device)}
+
+
+def coo_csr(graph, rows: int, cols: int) -> tuple:
+    """A COO graph's operator as CSR parts ``(crow, cols, values, size)``
+    with duplicate edges summed."""
+    e = graph.num_edges
+    a = torch.sparse_coo_tensor(
+        torch.stack([graph.receivers[:e], graph.senders[:e]]),
+        graph.weights[:e], size=(rows, cols)).coalesce().to_sparse_csr()
+    return a.crow_indices(), a.col_indices(), a.values(), (rows, cols)
+
+
+def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
+    """Phase 11, first part: B14 against its plain version at L7 in RCM and
+    in KD-patch order (F 256; unbatched and batch 4; bf16 and float32), on a
+    float32 field of F 1 and 3, on a ``num_src``-extended operator, and the
+    x-gradient of ``spmm_block_tiles`` against autograd through the plain
+    version; timed beside the plain version, the bound (x, the output and
+    the tables as the port stores them) and ``torch.sparse.mm`` on the same
+    operator as a bf16 CSR, held to the kernel first. Then the int8 rank-1
+    form of B3 and B10 in RCM order against its plain version and against
+    ``aggregate_segment``."""
+    from gwen_tpu_torch.ops import aggregate_segment, spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    f = LATENT
+    b14, b14p = spmm_cuda.block_tiles_spmm, spmm_cuda.block_tiles_spmm_plain
+    results = {}
+    n = layouts["rcm"].num_nodes
+    for order in ("rcm", "kd"):
+        t = layouts[order]
+        nnz = int((t.tw != 0).sum())
+        log(f"  B14 {order} order: tiles_max {t.tiles_max}, mean n_active "
+            f"{t.n_active.float().mean().item():.2f}, tile_degree {t.tile_degree}, "
+            f"{t.tnbr.shape[1]} slots a row (uint8 index, float32 weight), tile "
+            f"lists {(t.tile_idx.nbytes + t.n_active.nbytes) / 1e6:.2f} MB")
+        need = nonzero_slot_bytes(t.tnbr, t.tw, f"B14 {order}")
+        coo = layouts["coo" if order == "rcm" else "coo_kd"]
+        csr = coo_csr(coo, t.num_padded_nodes, t.num_src_rows)
+        for shape in ((n, f), (batch, n, f)):
+            x = randn(*shape)
+            nb = shape[0] if len(shape) == 3 else 1
+            iters = 5 if nb > 1 else 20
+            tag = f"{order} {tuple(shape)}"
+            want = b14p(t, x.float())
+            got = b14(t, x)
+            err = compare(f"B14 {tag} bf16", got, want, BF16_TOL)
+            compare(f"B14 {tag} f32", b14(t, x.float()), want, F32_TOL)
+            compare(f"B14 {tag} against aggregate_segment", got[..., :n, :],
+                    aggregate_segment(coo, x.float()), BF16_TOL)
+            x2 = spmm_cuda._fit_rows(x, t.num_src_rows)
+            x2 = x2.transpose(0, 1).reshape(t.num_src_rows, -1) if nb > 1 else x2
+            # The same function: held in float32, where the library rounds once.
+            lib_out = torch.sparse.mm(torch.sparse_csr_tensor(
+                csr[0], csr[1], csr[2], size=csr[3]), x2.float().contiguous())
+            if nb > 1:
+                lib_out = lib_out.reshape(-1, nb, f).transpose(0, 1)
+            compare(f"B14 {tag} against torch.sparse.mm", got, lib_out, BF16_TOL)
+            del want, lib_out, x2
+            ms, plain_ms = timed_pair(lambda: b14(t, x), lambda: b14p(t, x), iters)
+            row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       **roofline((t.tile_idx, t.n_active, need, x), (got,),
+                                  2.0 * nnz * f * nb, torch.bfloat16),
+                       library_ms=sparse_mm_ms(csr, x, iters))
+            _log_times({f"B14 {tag}": row})
+            if order == "rcm" and nb == 1:
+                results["B14"] = row
+            del x, got
+            torch.cuda.empty_cache()
+        del csr
+    t = layouts["rcm"]
+    for ch in (1, 3):
+        x = torch.randn(batch, n, ch, generator=gen, device=device)
+        compare(f"spmm_block_tiles on a float32 field (batch {batch}, F {ch})",
+                spmm_cuda.spmm_block_tiles(t, x),
+                spmm_cuda.spmm_block_tiles(t, x, plain=True), F32_TOL)
+    ext = layouts["ext"]
+    x = randn(batch, ext.num_src_rows, f)
+    got = b14(ext, x)
+    if got.shape[-2] != ext.num_padded_nodes or ext.num_src_rows == ext.num_padded_nodes:
+        raise AssertionError(f"B14 extended: {ext.num_src_rows} source rows gave "
+                             f"{tuple(got.shape)}")
+    compare(f"B14 num_src-extended ({ext.num_src_rows} source rows -> "
+            f"{ext.num_padded_nodes}, batch {batch}) bf16", got,
+            b14p(ext, x.float()), BF16_TOL)
+    del x, got
+    for shape in ((n, f), (batch, n, f)):
+        x = randn(*shape).requires_grad_()
+        cot = randn(*shape).float()
+        (gk,) = torch.autograd.grad(
+            (spmm_cuda.spmm_block_tiles(t, x).float() * cot).sum(), x)
+        x32 = x.detach().float().requires_grad_()
+        (gp,) = torch.autograd.grad(
+            (spmm_cuda.spmm_block_tiles(t, x32, plain=True) * cot).sum(), x32)
+        compare(f"spmm_block_tiles x-gradient {tuple(shape)} vs autograd through "
+                "the plain version", gk, gp, BF16_TOL)
+        del x, cot, gk, gp, x32
+    torch.cuda.empty_cache()
+
+    r1, coo = layouts["rank1"], layouts["coo"]
+    core = r1.core
+    log(f"  int8 rank-1 banded layout (RCM): S01 {tuple(core.s_mat.shape)} int8 "
+        f"({core.s_mat.nbytes / 2**20:.0f} MiB; bf16 S would be "
+        f"{core.s_mat.nbytes * 2 / 2**20:.0f} MiB), window {core.window_size}")
+    for shape in ((n, f), (batch, n, f)):
+        x = randn(*shape)
+        nb = shape[0] if len(shape) == 3 else 1
+        name = "B10" if nb > 1 else "B3"
+        before = (spmm_cuda.sliding_spmm_b if nb > 1 else spmm_cuda.sliding_spmm).launches
+        got = spmm_cuda.spmm_sliding_rank1(r1, x)
+        after = (spmm_cuda.sliding_spmm_b if nb > 1 else spmm_cuda.sliding_spmm).launches
+        if after != before + 1:
+            raise AssertionError(f"spmm_sliding_rank1 {tuple(shape)} did not launch {name}")
+        # The composite rounds three times in bf16 (a ⊙ x, the product, the
+        # row scale), so the bf16 result is held to the plain version on the
+        # same bf16 path, and to the float32 segment sum at 3e-2.
+        compare(f"{name} int8 rank-1 form {tuple(shape)} bf16", got,
+                spmm_cuda.spmm_sliding_rank1(r1, x, plain=True), BF16_TOL)
+        want = spmm_cuda.spmm_sliding_rank1(r1, x.float(), plain=True)
+        compare(f"{name} int8 rank-1 form {tuple(shape)} f32",
+                spmm_cuda.spmm_sliding_rank1(r1, x.float()), want, F32_TOL)
+        compare(f"{name} int8 rank-1 form {tuple(shape)} against aggregate_segment "
+                "(float32; three bf16 roundings)", got,
+                aggregate_segment(coo, x.float()), 3 * BF16_TOL)
+        del want, got
+        ms, plain_ms = timed_pair(
+            lambda: spmm_cuda.spmm_sliding_rank1(r1, x),
+            lambda: spmm_cuda.spmm_sliding_rank1(r1, x, plain=True),
+            3 if nb > 1 else 10)
+        kern = spmm_cuda.sliding_spmm_b if nb > 1 else spmm_cuda.sliding_spmm
+        xs = x * r1.col_scale[:n, None].to(x.dtype)
+        core_ms = cuda_ms(lambda: kern(core, xs), 3 if nb > 1 else 10)
+        log(f"  {name} int8 rank-1 form {tuple(shape)}: composite {ms:.4f} ms "
+            f"(the kernel alone {core_ms:.4f} ms), plain {plain_ms:.4f} ms")
+        del x, xs
+        torch.cuda.empty_cache()
+    return results
+
+
+def tile_model_paths(layouts: dict, device) -> dict:
+    """Phase 11, second part: the EPD model on the L7 ``BlockTileGraph`` (RCM
+    order, latent 256, 4 process steps, bf16), driven as its users drive
+    this layout, ``EncodeProcessDecode(...)(to_block_tiles(g), x)``: serves
+    3 x 4 steps under ``inference_mode`` (B14 and B2 4 launches per step),
+    one step against the plain versions; 5 Adam steps at batch 4 through
+    ``Trainer`` and ``mesh_graph_loss_fn`` (B14 8 per step, B2 and B2b 4),
+    one step's loss and gradients against the plain versions, step time and
+    peak memory; no plain version on the card. Then one float32 forward on
+    the L7 multimesh (finest level through B12, the coarse levels through
+    ``index_add_``) against the same model on the union as one COO graph.
+    Returns the launch counts of the served and trained runs."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph,
+                                      build_multilevel_graph,
+                                      icosphere_multilevel_edges, rcm_order)
+    from gwen_tpu_torch.nn import EncodeProcessDecode
+    from gwen_tpu_torch.train import (Trainer, TrainState, make_optimizer,
+                                      mesh_graph_loss_fn)
+
+    graph = layouts["rcm"]
+    n = graph.num_nodes
+    counters = _counters()
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+        PLAIN_ON_CUDA["calls"] = 0
+
+    def held(tag, per_step, steps):
+        got = {k: c.launches for k, c in counters.items()}
+        want = {**dict.fromkeys(counters, 0),
+                **{k: v * steps for k, v in per_step.items()}}
+        log(f"  launches {tag}: { {k: v for k, v in got.items() if v} } (want "
+            f"{ {k: v for k, v in want.items() if v} }); plain versions called "
+            f"on CUDA tensors: {PLAIN_ON_CUDA['calls']}")
+        if got != want or PLAIN_ON_CUDA["calls"]:
+            raise AssertionError(f"{tag}: kernel launch counts {got} != {want}, "
+                                 "or a plain version ran on the card")
+        return got
+
+    # Serving: 3 requests of 4 steps.
+    model = _serving_model(device, "gcn")
+    inputs = [torch.from_numpy(np.random.default_rng(110 + k).normal(
+        size=(n, CHANNELS)).astype(np.float32)).to(device) for k in range(REQUESTS)]
+    reset()
+    step_ms, first = [], None
+    with torch.inference_mode():
+        for x in inputs:
+            for _ in range(ROLLOUT_STEPS):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                x = model(graph, x)
+                end.record()
+                torch.cuda.synchronize()
+                step_ms.append(start.elapsed_time(end))
+                first = x if first is None else first
+            if x.shape != (n, CHANNELS) or not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"block-tile rollout gave {tuple(x.shape)}")
+    served = held("while serving on the block-tile graph",
+                  {"B14": PROCESS_STEPS, "B2": PROCESS_STEPS},
+                  REQUESTS * ROLLOUT_STEPS)
+    with torch.inference_mode():
+        model.backend = "plain"
+        plain = model(graph, inputs[0])
+        model.backend = "auto"
+    compare("served block-tile step vs plain versions", first, plain, BF16_TOL,
+            ulps=STEP_ULPS)
+    log(f"  serve block-tile step ms: median {np.median(step_ms):.3f}, steady "
+        f"median (first step of each request left out) "
+        f"{np.median([v for i, v in enumerate(step_ms) if i % ROLLOUT_STEPS]):.3f}")
+    del model, plain, first
+
+    # Training: 5 Adam steps at batch 4 through the Trainer.
+    rng = np.random.default_rng(111)
+    steps = 5
+    model = _train_model(device, CHANNELS)
+    trainer = Trainer(mesh_graph_loss_fn(model), device, log_every=0,
+                      context=graph)
+
+    def batches(_epoch):
+        for _ in range(steps):
+            x = rng.normal(size=(TRAIN_BATCH, n, CHANNELS)).astype(np.float32)
+            yield x, 0.9 * x + 0.1
+
+    reset()
+    state, best = trainer.fit(
+        TrainState(model, make_optimizer(model.parameters(), 1e-4)), batches, 1)
+    torch.cuda.synchronize()
+    if state.step != steps or not math.isfinite(best):
+        raise AssertionError(f"block-tile training: {state.step} steps, loss {best}")
+    trained = held("while training on the block-tile graph",
+                   expected_launches(False, PROCESS_STEPS, "gcn", "tiles"), steps)
+    log(f"  block-tile training: {steps} steps, mean loss {best:.6g}")
+    x, y = _train_batch(n, device, rng)
+    _check_and_time_step(model, trainer.context, x, y, "block-tile")
+    del model, trainer, state, x, y
+    torch.cuda.empty_cache()
+
+    # The multimesh: finest level as blocked ELL, coarse levels as COO.
+    t0 = time.perf_counter()
+    verts, s, r, lv = icosphere_multilevel_edges(LEVELS)
+    fine = lv == lv.max()
+    s2, r2, _ = apply_order(rcm_order(s[fine], r[fine], n), s, r)
+    ml = build_multilevel_graph(s2, r2, lv, n, fine_layout="ell").to(device)
+    union = build_graph(s2, r2, n).to(device)
+    log(f"  L{LEVELS} multimesh built in {time.perf_counter() - t0:.1f} s: "
+        f"{len(ml.subgraphs)} levels, {ml.num_edges} edges with self loops, "
+        f"finest level {type(ml.subgraphs[-1]).__name__} (window "
+        f"{ml.subgraphs[-1].window_size}), coarse levels "
+        f"{sum(g.num_edges for g in ml.subgraphs[:-1])} edges as COO")
+    # float32: the union's index_add_ in bf16 rounds after every edge.
+    model = EncodeProcessDecode(
+        CHANNELS, CHANNELS, device=device, latent_size=LATENT,
+        process_steps=PROCESS_STEPS, generator=torch.Generator().manual_seed(0)).eval()
+    x = inputs[0]
+    reset()
+    with torch.inference_mode():
+        got = model(ml, x)
+    held("of one forward on the multimesh", {"B12": PROCESS_STEPS, "B2": PROCESS_STEPS}, 1)
+    with torch.inference_mode():
+        want = model(union, x)
+    compare("EPD forward on the multimesh (B12 + index_add_) vs the union as one "
+            "COO graph, float32", got, want, 1e-4)
+    return {"served": served, "trained": trained}
+
+
+def store_paths(device, workdir: Path) -> None:
+    """Phase 11, third part: ``make-mesh-data`` → ``train-mesh --data`` at
+    ``graph.refine=7``, batch 4, default ``mesh.kernel`` (launch counts as
+    phase 6, finite skill numbers), once more with ``data.lazy=true`` on a
+    shorter store, then ``export_model`` on the run and ``predict`` on the
+    artifact, whose graph comes from the store's sidecar."""
+    import contextlib
+    import io
+
+    from gwen_tpu_torch.cli.main import main as cli
+    from gwen_tpu_torch.data import zarrstore
+    from gwen_tpu_torch.graph import icosphere_edges
+
+    n = icosphere_edges(LEVELS)[0].shape[0]
+    rng = np.random.default_rng(112)
+    for name, steps, extra in (("mesh16.zarr", 16, ()),
+                               ("mesh12.zarr", 12, ("data.lazy=true",))):
+        store = workdir / name
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli(["make-mesh-data", "--out", str(store), "--members", "4",
+                      "--steps", str(steps), f"graph.refine={LEVELS}"])
+        made = json.loads(buf.getvalue().strip().splitlines()[-1])
+        arr = zarrstore.open_array(store)
+        on_disk = sum(f.stat().st_size for f in store.iterdir())
+        log(f"  -- make-mesh-data: {made}, {time.perf_counter() - t0:.1f} s, "
+            f"{on_disk / 2**20:.1f} MiB on disk, chunks {arr.chunks}; train-mesh "
+            f"--data {' '.join(extra)}")
+        if rc != 0 or made["fields"] != [steps, 4, n, CHANNELS]:
+            raise AssertionError(f"make-mesh-data returned {rc}: {made}")
+        out, _ = _run_train_mesh(workdir / f"runs-{steps}", device,
+                                 extra=("--data", str(store), *extra))
+        if out["nodes"] != n:
+            raise AssertionError(f"train-mesh --data saw {out['nodes']} nodes")
+        if not extra:
+            _export_and_predict(out, n, device, workdir, rng, "gcn")
+
+
+def member_graph_pipeline(device, workdir: Path) -> None:
+    """Phase 11, fourth part: ``preprocess`` → ``train-gnn --no-animate`` on
+    a raw store written here: 125 members (124 inputs, 1 target), fully
+    connected member graph, a field of height 32 x ncells 512 (16,384
+    features a member node; the original GWEN publishes no field size, this
+    one is this script's), 40 time steps, ``hidden_feats`` 1024, batch 4, 1
+    epoch: a finite test loss and the run in the registry; then the time
+    and peak memory of one train step at those shapes. The aggregation here
+    is ``adj @ x`` on a 125 x 125 matrix, a plain product in the reference
+    too: the path runs no hand-written kernel."""
+    import contextlib
+    import io
+
+    from gwen_tpu_torch.cli.main import main as cli
+    from gwen_tpu_torch.data import zarrstore
+    from gwen_tpu_torch.graph import build_graph, erdos_renyi_edges, to_dense
+    from gwen_tpu_torch.nn import GCNStack
+    from gwen_tpu_torch.registry import Registry
+    from gwen_tpu_torch.train import gnn_loss_fn
+
+    t_len, members, height, ncells, hidden, split = 40, 125, 32, 512, 1024, 124
+    rng = np.random.default_rng(113)
+    t0 = time.perf_counter()
+    tt = np.arange(t_len, dtype=np.float32)[:, None, None, None]
+    mm = np.arange(members, dtype=np.float32)[None, :, None, None]
+    hh = np.arange(height, dtype=np.float32)[None, None, :, None]
+    cc = np.arange(ncells, dtype=np.float32)[None, None, None, :]
+    raw = (280 + 5 * np.sin(0.3 * tt + 0.05 * mm) * np.cos(0.2 * hh + 0.02 * cc)
+           + 0.1 * rng.standard_normal((t_len, members, height, ncells),
+                                       dtype=np.float32)).astype(np.float32)
+    arr = zarrstore.create(workdir / "raw.zarr", raw.shape,
+                           ("time", "member", "height", "ncells"),
+                           chunks=(32, 1, height, ncells),
+                           meta={"variable": "theta_v",
+                                 "members": [f"{m}.0_3000.0_2000.0"
+                                             for m in range(members)]})
+    arr.write(..., raw)
+    log(f"  raw store {raw.shape} ({raw.nbytes / 2**20:.0f} MiB) written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    del raw
+    cfg = {"data": {"zarr_path": str(workdir / "raw.zarr"),
+                    "data_train": str(workdir / "train.zarr"),
+                    "data_test": str(workdir / "test.zarr"),
+                    "scaling_path": str(workdir / "scaling.json"),
+                    "boundary_cells": 0},
+           "model": {"hidden_feats": hidden},
+           "train": {"member_split": split, "batch_size": TRAIN_BATCH,
+                     "epochs": 1},
+           "run": {"registry_root": str(workdir / "runs"), "experiment": "GWEN"}}
+    (workdir / "cfg.json").write_text(json.dumps(cfg))
+    outs = []
+    for argv in (["preprocess"], ["train-gnn", "--no-animate", "--device", str(device)]):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli([*argv, "--config", str(workdir / "cfg.json")])
+        torch.cuda.synchronize()
+        outs.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
+        log(f"  {argv[0]}: {outs[-1]}, {time.perf_counter() - t0:.1f} s")
+        if rc != 0:
+            raise AssertionError(f"{argv[0]} returned {rc}")
+    out = outs[1]
+    runs = Registry(workdir / "runs").get_runs("GWEN")
+    if (not math.isfinite(out["test_loss"]) or not math.isfinite(out["best_train_loss"])
+            or [r.run_id for r in runs] != [out["run_id"]]
+            or runs[0].meta.get("status") != "FINISHED"
+            or not out["device"].startswith("cuda")):
+        raise AssertionError(f"train-gnn: {out}, runs {[r.run_id for r in runs]}")
+    params, mcfg = runs[0].load_model()
+    feats = height * ncells
+    if mcfg != {"hidden_feats": hidden, "channels": feats} or \
+            params["gcn_0.w"].shape != (feats, hidden):
+        raise AssertionError(f"train-gnn saved {mcfg}, gcn_0.w "
+                             f"{tuple(params['gcn_0.w'].shape)}")
+
+    # One train step at the run's shapes.
+    s, r = erdos_renyi_edges(members, 1.0, seed=42)
+    graph = to_dense(build_graph(s, r, members)).to(device)
+    model = GCNStack(feats, feats, device=device, hidden_feats=hidden,
+                     generator=torch.Generator().manual_seed(0))
+    mask = torch.zeros(members, dtype=torch.bool, device=device)
+    mask[split:] = True
+    batch = {"x": torch.randn(TRAIN_BATCH, members, feats, device=device),
+             "mask": mask}
+    loss_fn = gnn_loss_fn(model, graph)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  GCNStack widths {model.widths}, {n_params / 1e6:.1f} M parameters")
+    _task_step(model, lambda b, _: loss_fn(b), None, batch,
+               f"batch-{TRAIN_BATCH} member-graph GCNStack (125 members x "
+               f"{feats} features, hidden {hidden}, float32)")
 
 
 NCCL_PROBE = r"""
@@ -2062,6 +2529,24 @@ def main() -> int:
         launches.update(partitioned_paths(device, Path(tmp)))
     nccl_one_rank_probe()
 
+    log("== phase 11: B14 (block tiles) and the int8 form of B3/B10 against "
+        "their plain versions; the EPD model on a BlockTileGraph and on the "
+        "multimesh; `make-mesh-data` -> `train-mesh --data`; `preprocess` -> "
+        "`train-gnn`")
+    t0 = time.perf_counter()
+    layouts = build_tile_layouts(device, perm)
+    log(f"  L{LEVELS} block-tile and rank-1 layouts built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    results.update(check_tile_kernels(layouts, device))
+    tile_runs = tile_model_paths(layouts, device)
+    launches["B14"] = tile_runs["served"]["B14"] + tile_runs["trained"]["B14"]
+    del layouts
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        store_paths(device, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        member_graph_pipeline(device, Path(tmp))
+
     spmm, ln = "gwen_tpu/ops/spmm_pallas.py", "gwen_tpu/ops/fused_ln.py"
     att = "gwen_tpu/ops/attention_pallas.py"
     cu, tr = "gwen_tpu_torch/csrc/window_spmm.cu", "gwen_tpu_torch/ops/fused_ln.py"
@@ -2070,13 +2555,13 @@ def main() -> int:
     one = "; one kernel for both forms, one count"
     sources = {"B1": ("diag-window SpMM with escape placement", "cuda", cu,
                       f"{spmm}:909"),
-               "B3": ("banded SpMM (esc2 contraction)", "cuda", cu,
-                      f"{spmm}:476"),
+               "B3": ("banded SpMM (esc2 contraction; its int8 S01 form is held "
+                      "in phase 11)", "cuda", cu, f"{spmm}:476"),
                "B2": ("residual + LayerNorm forward", "triton", tr, f"{ln}:42"),
                "B4": ("batched diag-window SpMM with escape placement", "cuda",
                       cu, f"{spmm}:1138"),
-               "B10": ("batched banded SpMM (esc2 contraction)", "cuda", cu,
-                       f"{spmm}:609"),
+               "B10": ("batched banded SpMM (esc2 contraction; its int8 S01 "
+                       "form is held in phase 11)", "cuda", cu, f"{spmm}:609"),
                "B2b": ("residual + LayerNorm backward", "triton", tr,
                        f"{ln}:59"),
                "B5": (f"windowed attention forward (nb = 1{one})", "cuda",
@@ -2107,7 +2592,10 @@ def main() -> int:
                "B11": ("windowed-dense SpMM, absolute starts (RCM order, F "
                        "256, unbatched)", "cuda", cu, f"{spmm}:353"),
                "B12": ("blocked-ELL SpMM: gather, scale, sum (RCM order, F "
-                       "256, unbatched)", "cuda", cu, f"{spmm}:46")}
+                       "256, unbatched)", "cuda", cu, f"{spmm}:46"),
+               "B14": ("block-tile (BSR) SpMM: gather, scale, sum over the "
+                       "active tiles' slots (RCM order, F 256, unbatched)",
+                       "cuda", cu, f"{spmm}:194")}
     kernels = [{"name": f"{key} {name}", "route": route, "source": src,
                 "replaces": rep,
                 "launches": launches[key[:-1] if key in ("B5b", "B6b", "B7b", "B9b")

@@ -1,17 +1,29 @@
-"""Command-line interface of the port::
+"""Command-line interface of the port. Every pipeline stage is a subcommand
+with ``section.key=value`` config overrides, each printing one JSON line::
 
+    python -m gwen_tpu_torch ingest      [--config cfg.json] [overrides...]
+    python -m gwen_tpu_torch preprocess  [--config cfg.json] [overrides...]
+    python -m gwen_tpu_torch train-gnn   [--config cfg.json] [--no-animate]
+        [--out-dir output] [--device cuda] [overrides...]
+    python -m gwen_tpu_torch make-mesh-data --out store.zarr [--members M]
+        [--steps T] [--config cfg.json] [overrides...]
     python -m gwen_tpu_torch train-mesh [--config cfg.json] [--members M]
-        [--steps T] [--device cuda] [section.key=value ...]
+        [--steps T] [--data store.zarr] [--device cuda] [overrides...]
     python -m gwen_tpu_torch predict --artifact DIR --input x0.npy \
         [--steps N] [--out predictions.npy] [--device cuda]
+    python -m gwen_tpu_torch gif --input data.zarr [--var theta_v]
+        [--out output] [--member M]
 
 ``train-mesh`` partitioned over several devices is one process per device::
 
     python -m torch.distributed.run --nproc-per-node 2 -m gwen_tpu_torch \
         train-mesh --device cpu mesh.graph_axis=2
 
-The port trains and serves; the other ``gwen-tpu`` subcommands come with
-later slices (ROADMAP queue A).
+``ingest`` needs ``h5py`` and ``gif`` (and ``train-gnn`` without
+``--no-animate``) matplotlib and Pillow, each imported where it is used;
+everything else runs on numpy and torch. Of the reference's subcommands
+``train-cnn``, ``export``, ``runs`` and ``bench`` are not in the port
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -20,21 +32,32 @@ import argparse
 import json
 import sys
 
+_CONFIGURED = ("ingest", "preprocess", "train-gnn", "train-mesh",
+               "make-mesh-data")
+
 
 def main(argv: "list[str] | None" = None) -> int:
     parser = argparse.ArgumentParser(prog="gwen_tpu_torch", description=__doc__)
     sub = parser.add_subparsers(dest="cmd", required=True)
-    trn = sub.add_parser("train-mesh")
-    trn.add_argument("--config", default=None,
-                     help="config JSON (nested or reference-flat)")
-    trn.add_argument("overrides", nargs="*", help="section.key=value overrides")
-    trn.add_argument("--members", type=int, default=4)
-    trn.add_argument("--steps", type=int, default=16)
-    trn.add_argument("--data", default="",
-                     help="mesh-ensemble store (not ported yet; synthetic "
-                          "data when empty)")
-    trn.add_argument("--device", default="cuda",
-                     help="torch device (default cuda; fails without CUDA)")
+    for name in _CONFIGURED:
+        p = sub.add_parser(name)
+        p.add_argument("--config", default=None,
+                       help="config JSON (nested or reference-flat)")
+        p.add_argument("overrides", nargs="*", help="section.key=value overrides")
+        if name == "train-gnn":
+            p.add_argument("--no-animate", action="store_true")
+            p.add_argument("--out-dir", default="output")
+        if name == "make-mesh-data":
+            p.add_argument("--out", required=True)
+        if name in ("make-mesh-data", "train-mesh"):
+            p.add_argument("--members", type=int, default=4)
+            p.add_argument("--steps", type=int, default=16)
+        if name == "train-mesh":
+            p.add_argument("--data", default="",
+                           help="mesh-ensemble zarr store (default: synthetic)")
+        if name in ("train-gnn", "train-mesh"):
+            p.add_argument("--device", default="cuda",
+                           help="torch device (default cuda; fails without CUDA)")
     prd = sub.add_parser("predict")
     prd.add_argument("--artifact", required=True, help="exported artifact dir")
     prd.add_argument("--input", required=True,
@@ -43,31 +66,97 @@ def main(argv: "list[str] | None" = None) -> int:
     prd.add_argument("--out", default="predictions.npy")
     prd.add_argument("--device", default="cuda",
                      help="torch device (default cuda; fails without CUDA)")
+    g = sub.add_parser("gif")
+    g.add_argument("--input", default=None,
+                   help="zarr store with (time, member, height, ncells); "
+                        "prompted interactively when omitted")
+    g.add_argument("--var", default="theta_v")
+    g.add_argument("--out", default="output")
+    g.add_argument("--member", default=None,
+                   help="member index or id (default: all)")
     # Overrides may also follow an option (``--device cpu mesh.graph_axis=2``),
     # where argparse no longer collects the positional.
     args, extra = parser.parse_known_args(argv)
     stray = [a for a in extra if a.startswith("-") or "=" not in a]
-    if stray or (extra and args.cmd != "train-mesh"):
+    if stray or (extra and args.cmd not in _CONFIGURED):
         parser.error(f"unrecognized arguments: {' '.join(stray or extra)}")
 
-    if args.cmd == "train-mesh":
-        from gwen_tpu_torch.cli.train_mesh import main as run
+    cfg = None
+    if args.cmd in _CONFIGURED:
         from gwen_tpu_torch.config import load_config
         from gwen_tpu_torch.logging_utils import setup_logger
-        from gwen_tpu_torch.train.mesh import is_main_process
 
         setup_logger()
         cfg = load_config(args.config).apply_overrides([*args.overrides, *extra])
+
+    if args.cmd == "ingest":
+        from gwen_tpu_torch.data.ingest import ingest
+
+        arch = ingest(cfg.data)
+        print(json.dumps({"zarr": str(arch.path), "shape": list(arch.shape)}))
+    elif args.cmd == "preprocess":
+        from gwen_tpu_torch.data.preprocess import preprocess
+
+        train, test = preprocess(cfg.data)
+        print(json.dumps({"train": str(train), "test": str(test)}))
+    elif args.cmd == "train-gnn":
+        from gwen_tpu_torch.cli.train_gnn import main as run
+
+        out = run(cfg, animate=not args.no_animate, out_dir=args.out_dir,
+                  device=args.device)
+        print(json.dumps(out))
+    elif args.cmd == "train-mesh":
+        from gwen_tpu_torch.cli.train_mesh import main as run
+        from gwen_tpu_torch.train.mesh import is_main_process
+
         out = run(cfg, members=args.members, steps=args.steps, data=args.data,
                   device=args.device)
         if is_main_process():  # rank 0 of a partitioned run speaks for it
             print(json.dumps(out))
+    elif args.cmd == "make-mesh-data":
+        from gwen_tpu_torch.data.meshstore import save_mesh_dataset
+        from gwen_tpu_torch.data.synthetic import mesh_ensemble_dataset
+
+        fields, verts, s, r = mesh_ensemble_dataset(
+            levels=cfg.graph.refine, members=args.members, steps=args.steps,
+            seed=cfg.train.seed,
+        )
+        path = save_mesh_dataset(args.out, fields, s, r, verts)
+        print(json.dumps({"path": str(path), "fields": list(fields.shape)}))
     elif args.cmd == "predict":
         from gwen_tpu_torch.cli.export_cli import predict_main
 
         out = predict_main(args.artifact, args.input, args.steps, args.out,
                            device=args.device)
         print(json.dumps(out))
+    elif args.cmd == "gif":
+        import numpy as np
+
+        from gwen_tpu_torch import viz
+        from gwen_tpu_torch.data import zarrstore
+
+        if args.input is None:
+            # Interactive fallback of a bare invocation: prompts for the
+            # store, the variable and the output directory.
+            args.input = input("Enter the path to the input zarr store: ").strip()
+            var = input(f"Enter the variable name [{args.var}]: ").strip()
+            out = input(f"Enter the output directory [{args.out}]: ").strip()
+            args.var = var or args.var
+            args.out = out or args.out
+        arr = zarrstore.open_array(args.input)
+        data = arr.read()
+        members = arr.meta.get("members") or [str(i) for i in range(data.shape[1])]
+        idxs = range(data.shape[1])
+        if args.member is not None:
+            idxs = [int(args.member)] if args.member.isdigit() else [
+                members.index(args.member)
+            ]
+        paths = []
+        for m in idxs:
+            paths.append(str(viz.create_animation(
+                np.asarray(data[:, m]), members[m], args.out, var_name=args.var
+            )))
+        print(json.dumps({"gifs": paths}))
     return 0
 
 

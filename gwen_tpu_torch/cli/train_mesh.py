@@ -48,7 +48,14 @@ the checkpoints, the skill verification (on the global graph; attention: the
 global diag layout rebuilt at the partition's padded size) and the JSON
 line belong to rank 0.
 
-Not ported yet, refused with a ``ValueError``: ``--data`` input.
+``--data store.zarr`` trains on a mesh-ensemble store
+(:mod:`gwen_tpu_torch.data.meshstore`, as ``make-mesh-data`` writes one)
+instead of the synthetic ensemble, on the global and the partitioned path:
+the fields and the graph come from the store, ``members`` is the store's
+member count, and the store's path is recorded in the run's metadata
+(``data``), from which a serving artifact rebuilds its graph. With
+``data.lazy=true`` the fields stay on disk: the node reorder (and the
+partition's padding) composes onto each time step as it is read.
 """
 
 from __future__ import annotations
@@ -63,12 +70,6 @@ from gwen_tpu_torch.logging_utils import get_logger
 from gwen_tpu_torch.registry import Registry, default_experiment
 
 log = get_logger()
-
-
-def _refuse_later_slices(data: str) -> None:
-    if data:
-        raise ValueError("--data (mesh-ensemble stores) is not ported yet; "
-                         "train on the synthetic ensemble")
 
 
 def resolve_device(device: str) -> torch.device:
@@ -136,7 +137,6 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
     )
     from gwen_tpu_torch.train import mesh as pmesh
 
-    _refuse_later_slices(data)
     started_group = not torch.distributed.is_initialized()
     dev = pmesh.initialize_distributed(resolve_device(device))
     world = pmesh.world_size()
@@ -158,15 +158,27 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
             "model.processor='attention' on the partitioned path requires "
             f"mesh.partition_layout='diag'; got {layout!r}")
 
-    fields, verts, s, r = mesh_ensemble_dataset(
-        levels=levels, members=members, steps=steps, seed=tcfg.seed)
+    lazy = bool(data) and config.data.lazy
+    if data:
+        from gwen_tpu_torch.data.meshstore import load_mesh_dataset
+
+        fields, s, r, verts, _ = load_mesh_dataset(data, lazy=lazy)
+        members = fields.shape[1]
+    else:
+        fields, verts, s, r = mesh_ensemble_dataset(
+            levels=levels, members=members, steps=steps, seed=tcfg.seed)
     n = fields.shape[2]
     kernel = config.mesh.kernel
     use_diag = diag_path(dev, kernel, processor) and not use_partition
     kd = use_diag or (use_partition and layout == "diag")
     perm = kd_patch_order(np.asarray(verts), s, r, n) if kd else rcm_order(s, r, n)
     s2, r2, _ = apply_order(perm, s, r)
-    fields = np.take(fields, perm, axis=2)
+    if lazy:
+        # Streaming: the node reorder composes onto each step read; the
+        # archive never lies in host memory whole.
+        fields = fields.map(lambda step: np.take(step, perm, axis=1))
+    else:
+        fields = np.take(fields, perm, axis=2)
     ch = fields.shape[-1]
 
     compute_dtype = (torch.bfloat16 if config.model.compute_dtype == "bfloat16"
@@ -192,7 +204,8 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
         graph, loss_fn, mesh, pg = _partitioned_task(
             config, model, s2, r2, n, graph_parts, world, dev, compute_dtype,
             mean_loss)
-        fields = pg.pad_nodes(fields)
+        fields = (fields.map(lambda step: pg.pad_nodes(step, node_axis=-2))
+                  if lazy else pg.pad_nodes(fields))
         # The apply holds the rank's graph; the CRPS task's context is the
         # replicated noise graph over the padded node space.
         context = (build_graph(s2, r2, fields.shape[2])
@@ -218,7 +231,8 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
             loss_fn = mesh_graph_loss_fn(model, loss=mean_loss)
 
     # Train on all members except the last (held out for skill verification).
-    ds = MeshEnsembleDataset(fields=fields[:, :-1])
+    ds = MeshEnsembleDataset(
+        fields=fields.map(lambda step: step[:-1]) if lazy else fields[:, :-1])
     opt = make_optimizer(
         model.parameters(),
         tcfg.lr * tcfg.lr_multiplier,
@@ -265,7 +279,9 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
         out.update(partition_layout=layout, graph_parts=graph_parts,
                    world=world)
     if main_rank:
-        out.update(_finish_run(config, run, model, fields[:, :, :n], g,
+        real = (fields.map(lambda step: step[:, :n]) if lazy
+                else fields[:, :, :n])
+        out.update(_finish_run(config, run, model, real, g,
                                trainer.context, members, dev, best,
                                state.step, data,
                                pg.padded_nodes if use_partition else None))

@@ -1,6 +1,6 @@
 // Windowed SpMM for the diag-window (B1, B4), banded (B3, B10), bit-packed
-// (packed B1 and B4, B13), windowed-dense (B11) and blocked-ELL (B12)
-// layouts.
+// (packed B1 and B4, B13), windowed-dense (B11), blocked-ELL (B12) and
+// block-tile (B14) layouts.
 //
 // Replaces these Pallas TPU kernels of the reference package:
 //   B1  gwen_tpu/ops/spmm_pallas.py:_diag_kernel     (through _diag_impl)
@@ -9,7 +9,8 @@
 //       (through _sliding_packed_impl)
 //   B11 gwen_tpu/ops/spmm_pallas.py:_sdense_kernel   (through _sdense_impl)
 // and, in the batched section below, B4 and B10; B12 (_kernel through
-// _spmm_impl) has a section of its own at the end. All but B12 compute, for every
+// _spmm_impl) and B14 (_tile_kernel through _spmm_tiles_impl) have sections
+// of their own at the end. All but B12 and B14 compute, for every
 // 128-row destination block b with window start ws_b,
 //   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
 // in float32, then (B1 and B4 only) add the block's escape fix rows
@@ -52,6 +53,10 @@
 // partitioned path's dense scatter matrices stay float32): S is read as
 // float32 and rounded to bf16 as it is staged, again as the reference's
 // kernel casts its tile, with no bf16 copy of S in memory.
+// MIXED = 3 is the int8 form of B3 and B10: S holds the 0/1 pattern of a
+// rank-1 banded layout as int8 (half the bytes of a bf16 S) and is widened
+// to x's type as it is staged; the rank-1 scales are applied outside the
+// kernel, as in the reference (a . K(a . x)).
 //
 // B11 is the streaming kernel below on a window-relative S with an absolute
 // start per block: starts need not be monotone (the kernel never assumed
@@ -143,18 +148,28 @@ __device__ __forceinline__ void expand_half(uint32_t word, int h,
 }
 
 // S as it lies in memory for an x of type T: T itself, bf16 under a float32
-// x (MIXED = 1) or float32 under a bf16 x (MIXED = 2).
+// x (MIXED = 1), float32 under a bf16 x (MIXED = 2) or int8 (MIXED = 3).
 template <typename T, int MIXED>
 using s_type = typename std::conditional<
     MIXED == 1, __nv_bfloat16,
-    typename std::conditional<MIXED == 2, float, T>::type>::type;
+    typename std::conditional<
+        MIXED == 2, float,
+        typename std::conditional<MIXED == 3, int8_t, T>::type>::type>::type;
 
 // One 16-byte vector of S into the staged tile: as it is, its 8 bf16 values
 // widened to float32 (MIXED = 1), or its 4 float32 values rounded to bf16
-// (MIXED = 2).
+// (MIXED = 2), or its 16 int8 values widened to T (MIXED = 3).
 template <typename T, int MIXED>
 __device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
-  if constexpr (MIXED == 2) {
+  if constexpr (MIXED == 3) {
+    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
+    __align__(16) T tmp[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) tmp[e] = from_f32<T>((float)v[e]);
+#pragma unroll
+    for (int q = 0; q < 16 * (int)sizeof(T) / 16; ++q)
+      reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(tmp)[q];
+  } else if constexpr (MIXED == 2) {
     const float* v = reinterpret_cast<const float*>(&raw);
     __align__(8) __nv_bfloat16 h[4] = {from_f32<T>(v[0]), from_f32<T>(v[1]),
                                        from_f32<T>(v[2]), from_f32<T>(v[3])};
@@ -615,8 +630,8 @@ int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
 // One launch of either kernel for dtype code 0 (float32), 1 (bfloat16),
 // 2 (float32 x, fix and output on a bfloat16 S; unpacked forms only) or
 // 3 (bfloat16 x and output on a float32 S; the streaming kernel without
-// escapes only), with or without escapes. -1 for arguments the kernels do
-// not take.
+// escapes only), 4 or 5 (float32 or bfloat16 x on an int8 S; no escapes),
+// with or without escapes. -1 for arguments the kernels do not take.
 template <bool BATCHED, bool PACKED>
 int dispatch(Args a, int num_blocks, int dtype, void* stream) {
   if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0 ||
@@ -652,6 +667,17 @@ int dispatch(Args a, int num_blocks, int dtype, void* stream) {
       return esc ? launch<float, true, false, 1>(a, num_blocks, st)
                  : launch<float, false, false, 1>(a, num_blocks, st);
     }
+    if (dtype == 4 && !esc) {
+      if (a.f % Cfg<float>::VEC) return -1;
+      if (BATCHED) return launch_batched<float, false, false, 3>(a, num_blocks, st);
+      return launch<float, false, false, 3>(a, num_blocks, st);
+    }
+    if (dtype == 5 && !esc) {
+      if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
+      if (BATCHED)
+        return launch_batched<__nv_bfloat16, false, false, 3>(a, num_blocks, st);
+      return launch<__nv_bfloat16, false, false, 3>(a, num_blocks, st);
+    }
     if constexpr (!BATCHED) {
       if (dtype == 3 && !esc) {
         if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
@@ -684,7 +710,8 @@ Args make_args(const void* x, const void* window_start, const void* esc_ptr,
 
 // Returns 0 on success, a cudaError_t from the launch, or -1 for arguments
 // the kernel does not take. esc_ptr == NULL means no escapes (B3).
-// dtype: 0 = float32, 1 = bfloat16, 2 = float32 x on a bfloat16 S.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float32 x on a bfloat16 S, 4 and 5
+// = float32 and bfloat16 x on an int8 S (no escapes).
 extern "C" int gwen_window_spmm(const void* s, const void* x,
                                 const void* window_start, const void* esc_ptr,
                                 const void* esc_rows, const void* fix,
@@ -700,7 +727,10 @@ extern "C" int gwen_window_spmm(const void* s, const void* x,
 // form) needs for a window of `window` rows (dtype as below); the wrapper
 // refuses windows over the 232,448 bytes a block may use.
 extern "C" int gwen_window_spmm_batched_smem(int window, int dtype, int packed) {
-  if (dtype == 2 && !packed) return batched_smem_bytes<float, false>(window);
+  if ((dtype == 2 || dtype == 4) && !packed)
+    return batched_smem_bytes<float, false>(window);
+  if (dtype == 5 && !packed)
+    return batched_smem_bytes<__nv_bfloat16, false>(window);
   if (dtype == 0)
     return packed ? batched_smem_bytes<float, true>(window)
                   : batched_smem_bytes<float, false>(window);
@@ -866,5 +896,148 @@ extern "C" int gwen_ell_spmm(const void* nbr, const void* w,
   if (dtype == 1)
     return launch_ell<__nv_bfloat16>(nb, wp, ws, x, out, n_pad, deg, block, f,
                                      x_rows, batch, st);
+  return -1;
+}
+
+// ------------------------------------------------------------ block tiles
+//
+// B14, replacing gwen_tpu/ops/spmm_pallas.py:_tile_kernel (through
+// _spmm_tiles_impl). The TPU kernel copies each active 128-row source tile
+// of a destination block into VMEM, builds a 128 x 128 scatter matrix per
+// tile from the (tnbr, tw) slots with one-hot compares and multiplies the
+// two on the MXU, because it cannot gather rows. The math is a
+// gather-scale-sum with one indirection more than B12,
+//   out[i, :] = sum_{t < n_active[b]} sum_{d < D}
+//       T(tw[i, t*D + d]) * x[tile_idx[b, t]*block + tnbr[i, t*D + d], :]
+// with b = i / block, and that is what this kernel does, reading the BSR
+// tables as they are: one warp per destination row and batch member; the
+// warp reads the row's slots of the block's ACTIVE tiles only (n_active[b]
+// * D of the tiles_max * D stored), 32 at a time, one per lane, each lane
+// resolving its slot's tile base from tile_idx; a ballot picks the slots
+// with a nonzero weight (about 7 of 56 on an icosphere) and only those are
+// broadcast and gathered, each source row with 16-byte loads, float32
+// accumulation in slot order (no atomics, a fixed order of summation), one
+// rounding. Each slot's weight is rounded to x's type first, as the
+// reference casts its tile; the reference's tile holds the sum of the slots
+// of one row that name the same source and rounds that sum, so for a bf16 x
+// the two differ on a graph with duplicate edges (no mesh has any). Sources
+// at or past x_rows read as zero.
+//
+// Why not one CTA per block staging its active tiles in shared memory (the
+// reuse the layout was made for on the TPU): on a mesh a block's 128 rows
+// make about 900 gathers from about 8 tiles of 128 rows, so a staged row is
+// used about once; staging reads as much as gathering and adds a barrier
+// per tile. L2 already serves the rows that neighbours share.
+//
+// What bounds it: bytes. Per row it reads n_active * D slots of 5 bytes
+// (uint8 index, float32 weight), gathers about 7 rows of x (mostly from L2)
+// and writes one row.
+
+namespace {
+
+constexpr int TILE_WARPS = 8;  // destination rows per CTA
+
+template <typename T>
+__global__ void __launch_bounds__(TILE_WARPS * 32)
+tile_spmm_kernel(const int* __restrict__ tile_idx,
+                 const int* __restrict__ n_active,
+                 const uint8_t* __restrict__ tnbr, const float* __restrict__ tw,
+                 const T* __restrict__ x, T* __restrict__ out, int n_pad,
+                 int tiles_max, int tile_degree, int block, int f, int x_rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
+  if (row >= n_pad) return;
+  const int bi = blockIdx.y;
+  const T* xb = x + (int64_t)bi * x_rows * f;
+  T* ob = out + ((int64_t)bi * n_pad + row) * f;
+  const int b = (int)(row / block);
+  const int flat = tiles_max * tile_degree;
+  const int n_slots = min(n_active[b], tiles_max) * tile_degree;
+  const int* tiles = tile_idx + (int64_t)b * tiles_max;
+  const uint8_t* nbr_row = tnbr + row * flat;
+  const float* w_row = tw + row * flat;
+
+  // The whole warp walks the column passes together (the ballot and the
+  // shuffles below need every lane); a lane past F only skips its loads
+  // and its store.
+  for (int cb = 0; cb < f; cb += 32 * VEC) {
+    const int c0 = cb + lane * VEC;
+    const bool on = c0 < f;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int k0 = 0; k0 < n_slots; k0 += 32) {
+      // Lane l holds slot k0 + l of the row.
+      const int k = k0 + lane;
+      float my_w = 0.f;
+      int my_src = 0;
+      if (k < n_slots) {
+        my_w = scale_at<T>(w_row, k);
+        my_src = tiles[k / tile_degree] * block + (int)nbr_row[k];
+      }
+      unsigned live =
+          __ballot_sync(0xffffffffu, my_w != 0.f && my_src < x_rows);
+      while (live) {  // ascending slots: a fixed order of summation
+        const int j = __ffs(live) - 1;
+        live &= live - 1;
+        const float wv = __shfl_sync(0xffffffffu, my_w, j);
+        const int64_t src = __shfl_sync(0xffffffffu, my_src, j);
+        if (!on) continue;
+        const uint4 raw = *reinterpret_cast<const uint4*>(xb + src * f + c0);
+        const T* xv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wv, to_f32(xv[e]), acc[e]);
+      }
+    }
+    __align__(16) T tmp[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) tmp[e] = from_f32<T>(acc[e]);
+    if (on)
+      *reinterpret_cast<uint4*>(ob + c0) = *reinterpret_cast<const uint4*>(tmp);
+  }
+}
+
+template <typename T>
+int launch_tiles(const int* tile_idx, const int* n_active, const uint8_t* tnbr,
+                 const float* tw, const void* x, void* out, int n_pad,
+                 int tiles_max, int tile_degree, int block, int f, int x_rows,
+                 int batch, cudaStream_t stream) {
+  if (f % (16 / (int)sizeof(T))) return -1;
+  const dim3 grid((unsigned)((n_pad + TILE_WARPS - 1) / TILE_WARPS),
+                  (unsigned)batch);
+  tile_spmm_kernel<T><<<grid, TILE_WARPS * 32, 0, stream>>>(
+      tile_idx, n_active, tnbr, tw, static_cast<const T*>(x),
+      static_cast<T*>(out), n_pad, tiles_max, tile_degree, block, f, x_rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// B14: tile_idx (n_pad / block, tiles_max) int32, n_active (n_pad / block,)
+// int32, tnbr (n_pad, tiles_max * tile_degree) uint8 within-tile indices, tw
+// the same shape float32, x (batch, x_rows, f), out (batch, n_pad, f).
+// dtype 0 = float32, 1 = bfloat16 (x and out). Returns 0, a cudaError_t, or
+// -1 for arguments the kernel does not take.
+extern "C" int gwen_tile_spmm(const void* tile_idx, const void* n_active,
+                              const void* tnbr, const void* tw, const void* x,
+                              void* out, int n_pad, int tiles_max,
+                              int tile_degree, int block, int f, int x_rows,
+                              int batch, int dtype, void* stream) {
+  if (n_pad <= 0 || tiles_max <= 0 || tile_degree <= 0 || block <= 0 ||
+      block > 256 || n_pad % block || f <= 0 || x_rows <= 0 || batch <= 0 ||
+      batch > 65535)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ti = static_cast<const int*>(tile_idx);
+  const int* na = static_cast<const int*>(n_active);
+  const uint8_t* nb = static_cast<const uint8_t*>(tnbr);
+  const float* wp = static_cast<const float*>(tw);
+  if (dtype == 0)
+    return launch_tiles<float>(ti, na, nb, wp, x, out, n_pad, tiles_max,
+                               tile_degree, block, f, x_rows, batch, st);
+  if (dtype == 1)
+    return launch_tiles<__nv_bfloat16>(ti, na, nb, wp, x, out, n_pad, tiles_max,
+                                       tile_degree, block, f, x_rows, batch, st);
   return -1;
 }

@@ -28,6 +28,17 @@ def process_slice(total: int, axis_procs: Optional[int] = None) -> slice:
     return slice(start, start + base + (1 if pid < rem else 0))
 
 
+def load_member_shard(zarr_array, time_idx: Optional[slice] = None) -> np.ndarray:
+    """Read this process's member slice from a ``(time, member, ...)``
+    store (a range read: only the chunks of that slice are touched)."""
+    sl = process_slice(zarr_array.shape[zarr_array.axis("member")])
+    idx = [slice(None)] * len(zarr_array.dims)
+    idx[zarr_array.axis("member")] = sl
+    if time_idx is not None:
+        idx[zarr_array.axis("time")] = time_idx
+    return zarr_array[tuple(idx)]
+
+
 def all_gather_from_hosts(x) -> np.ndarray:
     """Every process's ``x`` (same shape on each), stacked on a new leading
     axis, on every process. One process: ``x`` itself as an array."""

@@ -1,9 +1,10 @@
 """Graph containers and the layouts the serving path aggregates over.
 
-Counterpart of ``gwen_tpu.graph.graph``, cut to what the ported paths
-need: the diag-window layout (weighted or bit-packed), the banded layout,
-the bit-packed banded layout, and the windowed-dense and blocked-ELL
-layouts of the partitioned path. Everything is built on the host with
+Counterpart of ``gwen_tpu.graph.graph``: the COO graph, the dense
+adjacency of the member graph, the diag-window layout (weighted or
+bit-packed), the banded layout (weighted, int8 rank-1 or bit-packed), the
+windowed-dense, blocked-ELL and block-tile layouts, and the multi-level
+union. Everything is built on the host with
 numpy (the same code as the reference, so both packages agree edge for
 edge), then held as plain dataclasses of torch tensors; ``.to(device)``
 moves a container and everything inside it.
@@ -21,7 +22,10 @@ The port keeps the math and drops the TPU's layout workarounds:
   :class:`SlidingPackedGraph`) pack S01 along the window, 32 columns to an
   int32 word (:func:`pack_bits`), instead of the reference's 8 rows to a
   byte in ``pltpu.repeat`` tile order, and :class:`SlidingPackedGraph` is
-  window-relative like :class:`SlidingDenseGraph` (no ring).
+  window-relative like :class:`SlidingDenseGraph` (no ring);
+* :class:`BlockTileGraph` keeps the reference's tables slot for slot but
+  not its padding of the slot axis to 128 lanes, and stores the
+  within-tile index in one byte (see the class).
 """
 
 from __future__ import annotations
@@ -73,6 +77,72 @@ class Graph:
         return (self.senders[:e].cpu().numpy().astype(np.int64),
                 self.receivers[:e].cpu().numpy().astype(np.int64),
                 self.weights[:e].cpu().numpy().astype(np.float32))
+
+
+@dataclass(frozen=True)
+class DenseGraph:
+    """Dense normalized adjacency; aggregation is ``adj @ x``. For small
+    graphs such as the fully connected graph over the ensemble members."""
+
+    adj: Tensor  # (N, N) float32; row r holds the coefficients feeding node r
+    num_nodes: int
+    num_edges: int
+
+    def to(self, device) -> "DenseGraph":
+        return _to(self, device)
+
+
+@dataclass(frozen=True)
+class BlockTileGraph:
+    """Block-sparse-row layout: destinations in ``block_size``-row blocks,
+    each listing its *active* source tiles (``block_size``-row chunks of
+    the source array that hold at least one of its neighbours).
+
+    ``tile_idx[b, t]`` is the source tile of slot ``t < n_active[b]`` of
+    block ``b``. Row ``i`` of block ``b`` has ``tile_degree`` entries per
+    tile slot: entry ``k = t·tile_degree + d`` names source row
+    ``tile_idx[b, t]·block_size + tnbr[i, k]`` with weight ``tw[i, k]`` (0
+    on padding; entries of one row that name the same source add)::
+
+        out[i] = Σ_{t < n_active[b]} Σ_d tw[i, tD + d] · x[tile_idx[b, t]·block + tnbr[i, tD + d]]
+
+    The tables hold the reference's content, tile slot for tile slot and
+    in the same order within a slot. The port drops both of the
+    reference's lane paddings (``tile_degree`` rounded up to 8, the slot
+    axis padded to 128): ``tile_degree`` is the most entries any row has
+    in one tile, and ``tnbr`` is stored as uint8 (an index below
+    ``block_size ≤ 256``), 5 bytes a slot instead of 8, since the kernel's
+    table reads are of the size of its reads of x. One deviation in
+    rounding: for a bfloat16 ``x`` the port rounds each slot's weight to
+    bfloat16 and then sums in float32, while the reference first sums the
+    slots of one row that name the same source and rounds that sum; the
+    two differ only on a graph with duplicate edges, which no mesh and no
+    builder of this package produces. ``num_src_rows`` is the padded row count of
+    the source array (more than ``num_padded_nodes`` for a
+    ``num_src``-extended operator).
+    """
+
+    tile_idx: Tensor  # (num_blocks, tiles_max) int32
+    n_active: Tensor  # (num_blocks,) int32
+    tnbr: Tensor  # (N_pad, tiles_max * tile_degree) uint8, within-tile index
+    tw: Tensor  # (N_pad, tiles_max * tile_degree) float32, 0 on padding
+    num_nodes: int
+    num_edges: int
+    block_size: int
+    tiles_max: int
+    tile_degree: int
+    num_src_rows: int
+
+    @property
+    def num_padded_nodes(self) -> int:
+        return int(self.tnbr.shape[0])
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.tile_idx.shape[0])
+
+    def to(self, device) -> "BlockTileGraph":
+        return _to(self, device)
 
 
 @dataclass(frozen=True)
@@ -310,6 +380,55 @@ class SlidingPackedGraph:
         return _to(self, device)
 
 
+@dataclass(frozen=True)
+class SlidingRank1Graph:
+    """int8 rank-1 banded layout. GCN weights are exactly rank-1, ``w_e =
+    a[r]·a[s]`` with ``a = 1/sqrt(d̂)``, so ``S = diag(a)·S01·diag(a)``:
+    ``core`` is a :class:`SlidingDenseGraph` whose ``s_mat`` holds the 0/1
+    pattern as int8 (half the bytes of a bf16 S), and aggregation is
+    ``row_scale ⊙ core(col_scale ⊙ x)`` with the scales applied outside
+    the kernel."""
+
+    core: SlidingDenseGraph
+    row_scale: Tensor  # (N_pad,) float32, a on destination rows
+    col_scale: Tensor  # (num_src_rows,) float32, a on source rows
+
+    @property
+    def num_nodes(self) -> int:
+        return self.core.num_nodes
+
+    @property
+    def num_edges(self) -> int:
+        return self.core.num_edges
+
+    @property
+    def num_padded_nodes(self) -> int:
+        return self.core.num_padded_nodes
+
+    @property
+    def num_src_rows(self) -> int:
+        return self.core.num_src_rows
+
+    def to(self, device) -> "SlidingRank1Graph":
+        return _to(self, device)
+
+
+@dataclass(frozen=True)
+class MultiLevelGraph:
+    """Union of the levels of a multimesh: aggregation is the sum of the
+    subgraphs' aggregations, each through its own layout. The weights are
+    normalized once over the union, so the sum equals one GCN aggregation
+    on the union graph."""
+
+    subgraphs: tuple  # graph containers, coarsest level first
+    num_nodes: int
+    num_edges: int
+
+    def to(self, device) -> "MultiLevelGraph":
+        return dataclasses.replace(
+            self, subgraphs=tuple(g.to(device) for g in self.subgraphs))
+
+
 def pack_bits(s01: np.ndarray) -> Tensor:
     """(rows, W) 0/1 → (rows, W // 32) int32: bit ``j`` of word ``k`` is
     column ``32k + j``. ``W`` must be a multiple of 32."""
@@ -434,6 +553,16 @@ def build_graph(
         num_nodes=int(num_nodes),
         num_edges=int(e),
     )
+
+
+def to_dense(graph: Graph) -> DenseGraph:
+    """Densify a (small) graph into its normalized adjacency matrix."""
+    n = graph.num_nodes
+    s, r, w = graph.host_edges()
+    adj = np.zeros((n, n), np.float32)
+    np.add.at(adj, (r, s), w)
+    return DenseGraph(adj=torch.from_numpy(adj), num_nodes=n,
+                      num_edges=graph.num_edges)
 
 
 def ell_tables(
@@ -751,6 +880,73 @@ def to_windowed_dense(graph: Graph, *, block_size: int = 128,
     )
 
 
+def to_block_tiles(graph: Graph, *, block_size: int = 128,
+                   num_src: Optional[int] = None) -> BlockTileGraph:
+    """Build the block-tile (BSR) layout (see :class:`BlockTileGraph`) with
+    the reference's ``to_block_tiles`` tables: per destination block the
+    sorted list of its active source tiles, per row and tile slot the
+    row's sources in that tile in ascending order. Bandwidth only sets how
+    many tiles a block touches (``tiles_max``), so any ordering builds; a
+    locality ordering keeps the tables small. ``num_src`` gives a source
+    array longer than the destinations (a halo-extended partition)."""
+    if block_size > 256:
+        raise ValueError(f"block_size {block_size} > 256: the within-tile "
+                         "index is stored in one byte")
+    n, e = graph.num_nodes, graph.num_edges
+    s, r, w = graph.host_edges()
+    n_src = int(num_src) if num_src is not None else n
+    n_pad = _round_up(max(n, 1), block_size)
+    src_pad = _round_up(max(n_src, 1), block_size)
+    num_blocks = n_pad // block_size
+
+    order = np.lexsort((s, r))
+    s, r, w = s[order], r[order], w[order]
+    blk = r // block_size
+    tile = s // block_size
+
+    # Active tile list per destination block.
+    stride = src_pad // block_size + 1
+    pair_key = blk * stride + tile
+    uniq_pairs = np.unique(pair_key)
+    u_blk, u_tile = uniq_pairs // stride, uniq_pairs % stride
+    counts = np.bincount(u_blk, minlength=num_blocks)
+    tiles_max = int(counts.max()) if e else 1
+    tile_idx = np.zeros((num_blocks, tiles_max), np.int32)
+    starts = np.zeros(num_blocks + 1, np.int64)
+    np.cumsum(counts, out=starts[1:])
+    slot_of_pair = np.arange(len(u_blk)) - starts[u_blk]
+    tile_idx[u_blk, slot_of_pair] = u_tile
+    e_slot = slot_of_pair[np.searchsorted(uniq_pairs, pair_key)]
+
+    # Per (row, tile slot) sub-lists.
+    key2 = r * tiles_max + e_slot
+    counts2 = np.bincount(key2, minlength=n_pad * tiles_max)
+    tile_degree = max(int(counts2.max()), 1) if e else 1
+    starts2 = np.zeros(n_pad * tiles_max + 1, np.int64)
+    np.cumsum(counts2, out=starts2[1:])
+    order2 = np.argsort(key2, kind="stable")
+    d_slot = np.empty(e, np.int64)
+    d_slot[order2] = np.arange(e) - starts2[key2[order2]]
+
+    tnbr = np.zeros((n_pad, tiles_max * tile_degree), np.uint8)
+    tw = np.zeros((n_pad, tiles_max * tile_degree), np.float32)
+    col = e_slot * tile_degree + d_slot
+    tnbr[r, col] = (s % block_size).astype(np.uint8)
+    tw[r, col] = w
+    return BlockTileGraph(
+        tile_idx=torch.from_numpy(tile_idx),
+        n_active=torch.from_numpy(counts.astype(np.int32)),
+        tnbr=torch.from_numpy(tnbr),
+        tw=torch.from_numpy(tw),
+        num_nodes=n,
+        num_edges=e,
+        block_size=block_size,
+        tiles_max=tiles_max,
+        tile_degree=tile_degree,
+        num_src_rows=src_pad,
+    )
+
+
 def to_sliding_packed(graph: Graph, *, block_size: int = 256) -> SlidingPackedGraph:
     """Build the bit-packed banded layout (see :class:`SlidingPackedGraph`)
     for a GCN-normalized graph: the window and starts of the reference's
@@ -782,6 +978,34 @@ def to_sliding_packed(graph: Graph, *, block_size: int = 256) -> SlidingPackedGr
         window_size=window,
         num_src_rows=src_pad,
     )
+
+
+def to_sliding_rank1(graph: Graph, *, block_size: int = 128) -> SlidingRank1Graph:
+    """Build the int8 rank-1 banded layout (see :class:`SlidingRank1Graph`)
+    for a GCN-normalized graph: the window and starts of the reference's
+    ``to_sliding_rank1``, S01 window-relative as int8. Raises
+    ``ValueError`` on weights that are not rank-1 (:func:`rank1_scales`)."""
+    a = rank1_scales(graph)
+    n = graph.num_nodes
+    s_np, r_np, w_np = graph.host_edges()
+    ws, rel, nbr_w, window, src_pad = _banded_tables(
+        s_np, r_np, w_np, n, block_size, None, None)
+    n_pad = rel.shape[0]
+    row_scale = np.zeros(n_pad, np.float32)
+    row_scale[:n] = a
+    col_scale = np.zeros(src_pad, np.float32)
+    col_scale[:n] = a
+    core = SlidingDenseGraph(
+        s_mat=torch.from_numpy(_build_s01(rel, nbr_w, window).astype(np.int8)),
+        window_start=torch.from_numpy(ws.astype(np.int32)),
+        num_nodes=n,
+        num_edges=graph.num_edges,
+        block_size=block_size,
+        window_size=window,
+        num_src_rows=src_pad,
+    )
+    return SlidingRank1Graph(core=core, row_scale=torch.from_numpy(row_scale),
+                             col_scale=torch.from_numpy(col_scale))
 
 
 def to_sliding_dense(
@@ -1037,3 +1261,40 @@ def diag_transpose_tables(graph: DiagWindowGraph) -> DiagWindowGraph:
         t_max=int(max(1, t_cnt.max(initial=0))),
         attn_nbr=torch.from_numpy(attn_nbr).to(device),
         attn_nbr_t=torch.from_numpy(attn_nbr_t).to(device))
+
+
+def build_multilevel_graph(
+    senders: np.ndarray,
+    receivers: np.ndarray,
+    edge_level: np.ndarray,
+    num_nodes: int,
+    *,
+    self_loops: bool = True,
+    fine_layout: str = "coo",  # "coo" | "ell" | "windowed" | "sliding"
+    block_size: int = 128,
+) -> MultiLevelGraph:
+    """Normalize over the edge union, split by level, pick layouts, as the
+    reference's ``build_multilevel_graph``. The finest level (with the
+    self loops) holds most of the edges and is banded under an RCM order
+    of that level, so it may take a windowed layout; the coarser levels'
+    long edges stay on the COO path."""
+    senders = np.asarray(senders, np.int64)
+    receivers = np.asarray(receivers, np.int64)
+    edge_level = np.asarray(edge_level)
+    s_all, r_all, w_all = gcn_normalize(senders, receivers, num_nodes, self_loops)
+    # gcn_normalize appends the self loops at the end: the finest level's.
+    max_lv = int(edge_level.max()) if edge_level.size else 0
+    lv_all = np.concatenate(
+        [edge_level, np.full(len(s_all) - len(edge_level), max_lv)])
+    layouts = {"ell": to_block_ell, "windowed": to_windowed_dense,
+               "sliding": to_sliding_dense}
+    subgraphs = []
+    for lv in sorted(set(lv_all.tolist())):
+        m = lv_all == lv
+        g = build_graph(s_all[m], r_all[m], num_nodes, normalize=False,
+                        weights=w_all[m])
+        if lv == max_lv and fine_layout in layouts:
+            g = layouts[fine_layout](g, block_size=block_size)
+        subgraphs.append(g)
+    return MultiLevelGraph(subgraphs=tuple(subgraphs), num_nodes=num_nodes,
+                           num_edges=int(len(s_all)))

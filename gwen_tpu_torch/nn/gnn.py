@@ -1,5 +1,9 @@
-"""Counterpart of ``gwen_tpu.nn.gnn.EncodeProcessDecode`` (GCN, attention
-and interaction processors).
+"""GNN model family: counterpart of ``gwen_tpu.nn.gnn``.
+
+:class:`GCNStack` is the encoder-decoder GCN over the ensemble-member
+graph: widths ``ch_in → h → h/2 → h/4 → h/2 → h → ch_out``, ReLU between
+the layers and none after the last. :class:`EncodeProcessDecode` is the
+mesh-scale model (GCN, attention and interaction processors):
 
 Encoder MLP → K processor steps → decoder MLP, on ``(N, F)`` or batched
 ``(..., N, F)`` node fields. A GCN step is ``h ← h + LayerNorm(Â·relu(h)·W
@@ -46,11 +50,55 @@ from gwen_tpu_torch.graph.graph import DiagWindowGraph
 from gwen_tpu_torch.nn import core
 from gwen_tpu_torch.nn.attention import graph_attention_apply, graph_attention_init
 from gwen_tpu_torch.nn.interaction import interaction_apply, interaction_init
-from gwen_tpu_torch.nn.layers import gcn_init, gcn_post, gcn_pre
+from gwen_tpu_torch.nn.layers import gcn_apply, gcn_init, gcn_post, gcn_pre
 from gwen_tpu_torch.ops.aggregate import aggregate
 from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
 
 Tensor = torch.Tensor
+
+
+def _width_schedule(ch_in: int, hidden: int, ch_out: int, down: int,
+                    up: int) -> list[int]:
+    """The reference's width schedule, generalized to depth."""
+    downs = [hidden // (2 ** i) for i in range(down)]  # h, h/2, h/4, ...
+    ups = [hidden // (2 ** i) for i in reversed(range(up - 1))]  # ..., h/2, h
+    return [ch_in] + downs + ups + [ch_out]
+
+
+class GCNStack(nn.Module):
+    """Encoder-decoder GCN on ``(N, F)`` or batched ``(..., N, F)`` node
+    features over any graph container :func:`aggregate` takes (the member
+    graph is a :class:`~gwen_tpu_torch.graph.graph.DenseGraph`).
+
+    Parameters are named as the reference's param tree (``gcn_0.w``,
+    ``gcn_0.b``, ...) and drawn on the CPU from ``generator``, then placed
+    on ``device``."""
+
+    def __init__(self, channels_in: int, channels_out: int, *, device,
+                 hidden_feats: int = 1024, down_layers: int = 3,
+                 up_layers: int = 3,
+                 compute_dtype: torch.dtype = torch.float32,
+                 backend: str = "auto",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.widths = _width_schedule(channels_in, hidden_feats, channels_out,
+                                      down_layers, up_layers)
+        self.compute_dtype = compute_dtype
+        self.backend = backend
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        for i in range(len(self.widths) - 1):
+            self.add_module(f"gcn_{i}", gcn_init(self.widths[i],
+                                                 self.widths[i + 1], gen, device))
+
+    def forward(self, graph, x: Tensor) -> Tensor:
+        h = x.to(self.compute_dtype)
+        n = len(self.widths) - 1
+        for i in range(n):
+            h = gcn_apply(getattr(self, f"gcn_{i}"), graph, h,
+                          backend=self.backend)
+            if i < n - 1:  # no activation after the final layer
+                h = torch.relu(h)
+        return h.to(x.dtype)
 
 
 def parse_remat(remat: "bool | str", process_steps: int

@@ -1,13 +1,16 @@
 """Sparse neighbourhood aggregation.
 
-Counterpart of ``gwen_tpu.ops.aggregate`` for the containers the serving
-path uses. Semantics for every backend::
+Counterpart of ``gwen_tpu.ops.aggregate``, for every container it takes.
+Semantics for every backend::
 
     out[r, :] = sum over edges e with receivers[e] == r
                 of weights[e] * x[senders[e], :]
 
 * :func:`aggregate_segment` — gather + ``index_add_``: the baseline, any
   device.
+* :func:`aggregate_dense` — ``adj @ x`` for the dense adjacency of a small
+  graph (the member graph): a plain matrix product, outside any kernel, as
+  in the reference.
 * :func:`aggregate_diag_window_reference`,
   :func:`aggregate_sliding_dense_reference` and
   :func:`aggregate_sliding_packed_reference` — vectorised plain-torch
@@ -17,7 +20,12 @@ path uses. Semantics for every backend::
 * :func:`aggregate_windowed_dense_reference` and
   :func:`aggregate_block_ell_reference` — the same for the windowed-dense
   and blocked-ELL layouts (no escapes; the source array may be longer than
-  the output, as on a partition's halo-extended rows).
+  the output, as on a partition's halo-extended rows), and
+  :func:`aggregate_block_tiles_reference` for the block-tile layout.
+* A :class:`~gwen_tpu_torch.graph.graph.MultiLevelGraph` sums its
+  subgraphs' aggregations, each dispatched on its own container; a
+  :class:`~gwen_tpu_torch.graph.graph.SlidingRank1Graph` is ``a ⊙ K(a ⊙
+  x)`` with K the banded product on its int8 S01.
 * A :class:`~gwen_tpu_torch.parallel.halo.HaloGraph` or ``HaloDiagGraph``
   (one rank's partition) goes to
   :func:`~gwen_tpu_torch.parallel.halo.aggregate_halo`.
@@ -33,10 +41,14 @@ import torch
 
 from gwen_tpu_torch.graph.graph import (
     BlockEllGraph,
+    BlockTileGraph,
+    DenseGraph,
     DiagWindowGraph,
     Graph,
+    MultiLevelGraph,
     SlidingDenseGraph,
     SlidingPackedGraph,
+    SlidingRank1Graph,
     WindowedDenseGraph,
     window_mask,
 )
@@ -56,6 +68,11 @@ def aggregate_segment(graph: Graph, x: Tensor) -> Tensor:
     msgs = xm[graph.senders] * w
     out = torch.zeros_like(xm).index_add_(0, graph.receivers, msgs)
     return out.movedim(0, -2)
+
+
+def aggregate_dense(graph: DenseGraph, x: Tensor) -> Tensor:
+    """Dense normalized-adjacency product, ``(N, N) @ (..., N, F)``."""
+    return torch.matmul(graph.adj.to(x.dtype), x)
 
 
 def _window_product(graph, x: Tensor, s_mat: Tensor) -> Tensor:
@@ -133,6 +150,32 @@ def aggregate_block_ell_reference(graph: BlockEllGraph, x: Tensor) -> Tensor:
     return out[..., :x.shape[-2] if graph.num_src_rows == n_pad else n_pad, :]
 
 
+def aggregate_block_tiles_reference(graph: BlockTileGraph, x: Tensor) -> Tensor:
+    """Plain-torch reference for the block-tile layout: the absolute source
+    row of every slot (its tile's base plus the within-tile index), one
+    gather and a contraction with the weights, in x's type. Slots of
+    inactive tiles carry weight 0."""
+    n_pad, block = graph.num_padded_nodes, graph.block_size
+    xp = _pad_src(graph, x)
+    flat = graph.tnbr.shape[1]
+    slot_tile = torch.arange(flat, device=x.device) // graph.tile_degree
+    blk = torch.arange(n_pad, device=x.device) // block
+    idx = (graph.tile_idx.long()[blk[:, None], slot_tile[None, :]] * block
+           + graph.tnbr.long())
+    out = torch.einsum("nk,...nkf->...nf", graph.tw.to(x.dtype),
+                       xp[..., idx, :])
+    return out[..., :x.shape[-2] if graph.num_src_rows == n_pad else n_pad, :]
+
+
+def aggregate_sliding_rank1_reference(graph: SlidingRank1Graph,
+                                      x: Tensor) -> Tensor:
+    """Plain-torch reference for the int8 rank-1 banded layout: ``a ⊙
+    S01·(a ⊙ x)`` with the scales outside the banded product."""
+    xs = x * graph.col_scale[: x.shape[-2], None].to(x.dtype)
+    out = aggregate_sliding_dense_reference(graph.core, xs)
+    return out * graph.row_scale[: out.shape[-2], None].to(out.dtype)
+
+
 def _pad_src(graph, x: Tensor) -> Tensor:
     """x zero-padded to the layout's source rows (after the row check)."""
     spmm_cuda._check_rows(graph, x)
@@ -149,6 +192,13 @@ def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
 
     plain = backend == "plain"
     kernels = backend in ("auto", "plain")
+    if isinstance(graph, MultiLevelGraph):
+        out = aggregate(graph.subgraphs[0], x, backend=backend)
+        for sub in graph.subgraphs[1:]:
+            out = out + aggregate(sub, x, backend=backend)
+        return out
+    if isinstance(graph, DenseGraph):
+        return aggregate_dense(graph, x)
     if isinstance(graph, (HaloGraph, HaloDiagGraph)):
         return aggregate_halo(graph, x, backend=backend)
     if isinstance(graph, WindowedDenseGraph):
@@ -163,6 +213,10 @@ def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
         if kernels:
             return spmm_cuda.spmm_diag_window(graph, x, plain=plain)
         return aggregate_diag_window_reference(graph, x)
+    if isinstance(graph, SlidingRank1Graph):
+        if kernels:
+            return spmm_cuda.spmm_sliding_rank1(graph, x, plain=plain)
+        return aggregate_sliding_rank1_reference(graph, x)
     if isinstance(graph, SlidingDenseGraph):
         if kernels:
             return spmm_cuda.spmm_sliding_dense(graph, x, plain=plain)
@@ -171,10 +225,10 @@ def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
         if kernels:
             return spmm_cuda.spmm_sliding_packed(graph, x, plain=plain)
         return aggregate_sliding_packed_reference(graph, x)
+    if isinstance(graph, BlockTileGraph):
+        if kernels:
+            return spmm_cuda.spmm_block_tiles(graph, x, plain=plain)
+        return aggregate_block_tiles_reference(graph, x)
     if isinstance(graph, Graph):
         return aggregate_segment(graph, x)
-    raise TypeError(
-        f"no aggregation for {type(graph).__name__}: the port covers every "
-        "layout of the reference but the dense adjacency, block tiles, the "
-        "int8 rank-1 and the multi-level containers, which come with later "
-        "slices (ROADMAP queue A)")
+    raise TypeError(f"no aggregation for graph type {type(graph).__name__}")

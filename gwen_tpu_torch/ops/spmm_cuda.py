@@ -1,9 +1,9 @@
-"""Windowed SpMM for the diag-window and banded layouts, weighted and
-bit-packed, and for the windowed-dense and blocked-ELL layouts of the
-partitioned path: hand-written Hopper kernels (``csrc/window_spmm.cu``) and
-their plain PyTorch versions.
+"""Windowed SpMM for the diag-window and banded layouts, weighted,
+int8 rank-1 and bit-packed, for the windowed-dense and blocked-ELL layouts
+of the partitioned path, and for the block-tile layout: hand-written Hopper
+kernels (``csrc/window_spmm.cu``) and their plain PyTorch versions.
 
-Nine kernel wrappers (and :func:`window_matvec`, which counts as B1),
+Ten kernel wrappers (and :func:`window_matvec`, which counts as B1),
 each with a launch count (``.launches``):
 
 * :func:`diag_window_spmm` — kernel B1, replacing
@@ -35,6 +35,13 @@ each with a launch count (``.launches``):
   128-row kernel blocks with its start. The batch is the launch grid's
   second axis (each CTA one member; the wide window leaves no room to keep
   the expanded tile), not folded into the feature axis.
+* :func:`block_tiles_spmm` — kernel B14, replacing ``_tile_kernel``
+  (through ``_spmm_tiles_impl``): the block-tile (BSR) product as a
+  gather-scale-sum over the slots of each block's active tiles.
+
+B3 and B10 also take the int8 S01 of a :class:`SlidingRank1Graph`'s core
+(widened to x's type as it is staged); :func:`spmm_sliding_rank1` applies
+the rank-1 scales outside, ``a ⊙ K(a ⊙ x)``, as the reference's.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
@@ -87,9 +94,11 @@ import torch
 
 from gwen_tpu_torch.graph.graph import (
     BlockEllGraph,
+    BlockTileGraph,
     DiagWindowGraph,
     SlidingDenseGraph,
     SlidingPackedGraph,
+    SlidingRank1Graph,
     WindowedDenseGraph,
     unpack_bits,
 )
@@ -172,6 +181,10 @@ def _lib() -> ctypes.CDLL:
         #  batch, dtype, stream)
         lib.gwen_ell_spmm.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         lib.gwen_ell_spmm.restype = ci
+        # (tile_idx, n_active, tnbr, tw, x, out, n_pad, tiles_max,
+        #  tile_degree, block, f, x_rows, batch, dtype, stream)
+        lib.gwen_tile_spmm.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+        lib.gwen_tile_spmm.restype = ci
         _LIB = lib
     return _LIB
 
@@ -280,6 +293,32 @@ def block_ell_spmm_plain(graph: BlockEllGraph, x: Tensor) -> Tensor:
     return acc.to(x.dtype)
 
 
+def block_tiles_spmm_plain(graph: BlockTileGraph, x: Tensor) -> Tensor:
+    """Plain version of :func:`block_tiles_spmm`: per slot, the gathered
+    source row (tile base from ``tile_idx``, plus the within-tile index)
+    times the weight (rounded to ``x.dtype``), summed in float32 in slot
+    order over the slots of active tiles, and cast once. ``x`` is ``(rows,
+    F)`` or ``(B, rows, F)``; rows at or past ``x.shape[-2]`` read as
+    zero."""
+    x = _fit_rows(x, graph.num_src_rows)
+    block, deg = graph.block_size, graph.tile_degree
+    n_pad = graph.num_padded_nodes
+    blk = torch.arange(n_pad, device=x.device) // block
+    w = graph.tw.to(x.dtype).float()
+    acc = torch.zeros(*x.shape[:-2], n_pad, x.shape[-1], dtype=torch.float32,
+                      device=x.device)
+    for t in range(int(graph.n_active.max()) if graph.n_active.numel() else 0):
+        active = (t < graph.n_active.long())[blk]
+        base = graph.tile_idx[:, t].long()[blk] * block
+        for k in range(t * deg, (t + 1) * deg):
+            wk = torch.where(active, w[:, k], w.new_zeros(()))
+            if not bool(wk.any()):
+                continue
+            rows = x.index_select(-2, base + graph.tnbr[:, k].long()).float()
+            acc += wk[:, None] * rows
+    return acc.to(x.dtype)
+
+
 # ------------------------------------------------------------ kernel wrappers
 
 
@@ -333,16 +372,19 @@ def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
 def _kernel_code(s_dtype: torch.dtype, x: Tensor, streamed: bool = False) -> int:
     """The kernels' dtype code for an S of ``s_dtype`` and ``x``: 0 float32,
     1 bfloat16, 2 float32 x on a bfloat16 S, 3 (the streaming launch of
-    B11 only) bfloat16 x on a float32 S."""
+    B11 only) bfloat16 x on a float32 S, 4 and 5 float32 and bfloat16 x on
+    an int8 S (the 0/1 pattern of a rank-1 layout; no escapes)."""
     if s_dtype == x.dtype and x.dtype in _DTYPE_CODE:
         return _DTYPE_CODE[x.dtype]
+    if s_dtype == torch.int8 and x.dtype in _DTYPE_CODE:
+        return 4 + _DTYPE_CODE[x.dtype]
     if s_dtype == torch.bfloat16 and x.dtype == torch.float32:
         return 2
     if streamed and s_dtype == torch.float32 and x.dtype == torch.bfloat16:
         return 3
     raise TypeError(f"S is {s_dtype} but x is {x.dtype}: the kernels take S "
-                    "in x's type, a float32 x on a bfloat16 S or (B11) a "
-                    "bfloat16 x on a float32 S")
+                    "in x's type, a float32 x on a bfloat16 S, (B11) a "
+                    "bfloat16 x on a float32 S, or (B3, B10) an int8 S")
 
 
 def _check_smem(lib: ctypes.CDLL, w: int, code: int, packed: bool) -> None:
@@ -368,6 +410,8 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
     n_pad, w = s_mat.shape
     _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat])
     code = _kernel_code(s_mat.dtype, x)
+    if code >= 4 and fix is not None:
+        raise ValueError("an int8 S takes no escape rows")
     batched = x.dim() == 3
     nb, f = window_start.shape[0], x.shape[-1]
     lib = _lib()
@@ -586,6 +630,54 @@ def block_ell_spmm(graph: BlockEllGraph, x: Tensor) -> Tensor:
     return out
 
 
+def block_tiles_spmm(graph: BlockTileGraph, x: Tensor) -> Tensor:
+    """Kernel B14: ``out[i] = Σ_{t < n_active[b]} Σ_d tw[i, tD+d] ·
+    x[tile_idx[b, t]·block + tnbr[i, tD+d]]`` with ``b = i // block``, x
+    ``(rows, F)`` or ``(B, rows, F)`` with at most ``num_src_rows`` rows
+    (missing rows read as zero). ``(..., N_pad, F)`` in x's type."""
+    if not _on_cuda(x):
+        return block_tiles_spmm_plain(graph, x)
+    n_pad, flat = graph.tnbr.shape
+    if x.dim() not in (2, 3) or x.dtype not in _DTYPE_CODE:
+        raise ValueError(f"B14 takes a float32 or bfloat16 (rows, F) or (B, "
+                         f"rows, F); got {x.dtype} {tuple(x.shape)}")
+    f = x.shape[-1]
+    if f % (16 // x.element_size()):
+        raise ValueError(f"F={f} must be a multiple of "
+                         f"{16 // x.element_size()} for {x.dtype}")
+    nb = n_pad // graph.block_size
+    if (graph.tile_idx.dtype != torch.int32 or graph.n_active.dtype != torch.int32
+            or graph.tnbr.dtype != torch.uint8 or graph.tw.dtype != torch.float32
+            or graph.tw.shape != graph.tnbr.shape
+            or flat != graph.tiles_max * graph.tile_degree
+            or tuple(graph.tile_idx.shape) != (nb, graph.tiles_max)
+            or tuple(graph.n_active.shape) != (nb,)
+            or nb * graph.block_size != n_pad):
+        raise ValueError(
+            "B14 takes int32 tile_idx (N_pad / block, tiles_max) and n_active "
+            "(N_pad / block,), uint8 tnbr and float32 tw (N_pad, tiles_max · "
+            "tile_degree)")
+    if x.shape[-2] > graph.num_src_rows:
+        raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
+                         f"{graph.num_src_rows} source rows")
+    for t in (graph.tile_idx, graph.n_active, graph.tnbr, graph.tw, x):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("B14 operands must be contiguous, 16-byte "
+                             f"aligned and on {x.device}")
+    out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
+    rc = _lib().gwen_tile_spmm(
+        graph.tile_idx.data_ptr(), graph.n_active.data_ptr(),
+        graph.tnbr.data_ptr(), graph.tw.data_ptr(), x.data_ptr(),
+        out.data_ptr(), n_pad, graph.tiles_max, graph.tile_degree,
+        graph.block_size, f, x.shape[-2], x.shape[0] if x.dim() == 3 else 1,
+        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"B14 launch failed: "
+                           f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
+    block_tiles_spmm.launches += 1
+    return out
+
+
 def diag_window_spmm_packed(graph: DiagWindowGraph, x: Tensor,
                             fix: Optional[Tensor] = None) -> Tensor:
     """Packed B1: the diag-window product from the S01 bits and rank-1
@@ -647,6 +739,7 @@ diag_window_spmm_packed_b.launches = 0
 sliding_packed_spmm.launches = 0
 windowed_dense_spmm.launches = 0
 block_ell_spmm.launches = 0
+block_tiles_spmm.launches = 0
 
 
 # ------------------------------------------------------------ composites
@@ -746,6 +839,12 @@ def _windowed_dense_composite(graph: WindowedDenseGraph, x: Tensor,
 def _block_ell_composite(graph: BlockEllGraph, x: Tensor, plain: bool) -> Tensor:
     b12 = block_ell_spmm_plain if plain else block_ell_spmm
     return b12(graph, x)[..., :_ext_rows(graph, x), :]
+
+
+def _block_tiles_composite(graph: BlockTileGraph, x: Tensor,
+                           plain: bool) -> Tensor:
+    b14 = block_tiles_spmm_plain if plain else block_tiles_spmm
+    return b14(graph, x)[..., :_ext_rows(graph, x), :]
 
 
 def _diag_composite(graph: DiagWindowGraph, x: Tensor, plain: bool) -> Tensor:
@@ -870,3 +969,26 @@ def spmm_block_ell(graph: BlockEllGraph, x: Tensor, plain: bool = False) -> Tens
     B12 on the cotangent, the reference's ``_spmm_bwd``); ``plain=True``
     runs the plain version and leaves the gradient to autograd."""
     return _aggregate_ext(_block_ell_composite, graph, x, plain)
+
+
+def spmm_block_tiles(graph: BlockTileGraph, x: Tensor, plain: bool = False) -> Tensor:
+    """Aggregation over a :class:`BlockTileGraph` (kernel B14 on CUDA) on
+    ``(..., N, F)``. On a square graph differentiable in x (the backward is
+    B14 on the cotangent, the reference's ``_spmm_tiles_bwd``);
+    ``plain=True`` runs the plain version and leaves the gradient to
+    autograd."""
+    return _aggregate_ext(_block_tiles_composite, graph, x, plain)
+
+
+def spmm_sliding_rank1(graph: SlidingRank1Graph, x: Tensor,
+                       plain: bool = False) -> Tensor:
+    """int8 rank-1 banded aggregation ``a ⊙ K(a ⊙ x)`` on ``(..., N, F)``:
+    K is B3 (B10 with leading axes) on the int8 S01 of ``graph.core``, and
+    the scales, rounded to x's type, are applied outside the kernel as the
+    reference's ``spmm_sliding_rank1`` does. Differentiable in x: K carries
+    its own backward (K on the cotangent, S01 is symmetric) and autograd
+    composes the scales."""
+    n = x.shape[-2]
+    xs = x * graph.col_scale[:n, None].to(x.dtype)
+    out = spmm_sliding_dense(graph.core, xs, plain=plain)
+    return out * graph.row_scale[: out.shape[-2], None].to(out.dtype)

@@ -6,8 +6,10 @@ input shape and the training run's hyperparameters under ``metadata``),
 as written by the reference's ``gwen-tpu export`` or by
 :func:`export_model` here. The reference's ``model.stablehlo`` is a JAX
 program and is not read: :class:`ServingModel` rebuilds the model from the
-stored hyperparameters and the graph from the stored mesh level (the
-reference's ``export_cli.py`` recipe: icosphere, KD-patch order,
+stored hyperparameters and the graph from the stored mesh level or, for a
+run trained from a mesh-ensemble store (``metadata["data"]``), from that
+store's graph sidecar (the
+reference's ``export_cli.py`` recipe: icosphere or stored mesh, KD-patch order,
 ``to_diag_window``, with transpose tables for the attention processor; an
 interaction artifact takes RCM order and the COO graph, the only container
 its edge MLP runs on), then loads the stored weights.
@@ -165,14 +167,20 @@ class ServingModel:
             raise ValueError(f"artifact uses an unknown processor "
                              f"{processor!r}")
         if md.get("data"):
-            raise ValueError(
-                f"artifact was trained on the mesh dataset {md['data']!r}; the "
-                "port rebuilds icosphere graphs only")
-        verts, s, r = icosphere_edges(int(md["levels"]))
-        n = verts.shape[0]
+            # Trained from a mesh-ensemble store: its sidecar holds the
+            # mesh (a missing store raises FileNotFoundError).
+            from gwen_tpu_torch.data.meshstore import load_mesh_graph
+
+            s, r, verts = load_mesh_graph(md["data"])
+            n = int(max(s.max(), r.max())) + 1
+            mesh_name = f"the mesh of {md['data']}"
+        else:
+            verts, s, r = icosphere_edges(int(md["levels"]))
+            n = verts.shape[0]
+            mesh_name = f"the L{md['levels']} icosphere"
         if md.get("nodes") is not None and int(md["nodes"]) != n:
             raise ValueError(f"artifact was trained on {md['nodes']} nodes; "
-                             f"the L{md['levels']} icosphere has {n}")
+                             f"{mesh_name} has {n}")
         interaction = processor == "interaction"
         perm = rcm_order(s, r, n) if interaction else kd_patch_order(verts, s, r, n)
         s2, r2, _ = apply_order(perm, s, r)

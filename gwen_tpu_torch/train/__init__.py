@@ -12,6 +12,7 @@ from gwen_tpu_torch.train.mesh import (
 )
 from gwen_tpu_torch.train.tasks import (
     ensemble_crps_loss_fn,
+    gnn_loss_fn,
     mesh_graph_loss_fn,
     partitioned_ensemble_crps_loss_fn,
     partitioned_mesh_loss_fn,
@@ -27,6 +28,7 @@ __all__ = [
     "Trainer",
     "TrainState",
     "ensemble_crps_loss_fn",
+    "gnn_loss_fn",
     "initialize_distributed",
     "is_main_process",
     "make_mesh",

@@ -1,8 +1,10 @@
-"""Task definitions: counterpart of ``gwen_tpu.train.tasks`` for the tasks
-the ``train-mesh`` path trains: next-step prediction, fair-ensemble-CRPS
-training on perturbed members, and rollout-horizon training. Each
-``loss_fn(batch, graph) -> (loss, preds)`` closes over the model; the graph
-comes in as the Trainer's context.
+"""Task definitions: counterpart of ``gwen_tpu.train.tasks``: the
+member-graph GNN task of ``train-gnn`` (:func:`gnn_loss_fn`, which closes
+over its small graph) and the tasks the ``train-mesh`` path trains:
+next-step prediction, fair-ensemble-CRPS training on perturbed members, and
+rollout-horizon training. Each mesh ``loss_fn(batch, graph) -> (loss,
+preds)`` closes over the model; the graph comes in as the Trainer's
+context.
 
 The ``partitioned_*`` tasks run through a rank's
 :class:`~gwen_tpu_torch.parallel.apply.PartitionedApply`. Their batches are
@@ -20,6 +22,42 @@ from typing import Callable
 import torch
 
 from gwen_tpu_torch import ensemble, losses
+
+
+def gnn_loss_fn(model, graph, loss: str = "l1-masked",
+                mask_threshold_mask=None, var_reg_alpha: float = 0.1) -> Callable:
+    """Member-graph GNN task. ``loss_fn(batch) -> (loss, preds)`` with
+    ``batch = {"x": (B, members, features), "mask": (members,)}`` and,
+    from datasets that zero the target rows of the input, ``"target"``
+    (the unmasked truth). The model applies to the whole batch at once.
+    The loss is L1 over the target-masked member nodes, composed with the
+    spatial variance mask ``mask_threshold_mask`` (one value per feature)
+    when given; or the ensemble-variance regularizer; or the Gaussian CRPS
+    surrogate. ``graph`` must lie on the model's device."""
+    if mask_threshold_mask is None and loss not in (
+            "l1-masked", "ensemble-var-reg", "crps"):
+        raise ValueError(f"unknown GNN loss {loss!r}")
+
+    def loss_fn(batch):
+        x, target_mask = batch["x"], batch["mask"]
+        target = batch.get("target", x)
+        preds = model(graph, x)
+        if mask_threshold_mask is not None:
+            # Count only the active cells of target members.
+            fmask = torch.as_tensor(mask_threshold_mask, dtype=preds.dtype,
+                                    device=preds.device).reshape(1, 1, -1)
+            nmask = target_mask.to(preds.dtype).reshape(1, -1, 1)
+            value = losses.masked_loss(preds, target, fmask * nmask)
+        elif loss == "l1-masked":
+            value = losses.masked_node_l1(preds, target, target_mask)
+        elif loss == "ensemble-var-reg":
+            value = losses.ensemble_variance_regularized_l1(
+                preds, target, alpha=var_reg_alpha, ensemble_axis=1)
+        else:
+            value = losses.crps_gaussian_surrogate(preds, target, ensemble_axis=1)
+        return value, preds
+
+    return loss_fn
 
 
 def mesh_graph_loss_fn(model, loss: str = "mse") -> Callable:

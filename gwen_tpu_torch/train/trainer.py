@@ -7,7 +7,8 @@
   the epoch loop with per-epoch best, registry metrics every ``log_every``
   steps, checkpoints every ``checkpoint_every`` steps and at each new best,
   ``resume`` from the latest checkpoint, and :meth:`Trainer.evaluate`.
-  Host batches are copied to the device ``prefetch_size`` batches ahead of
+  Host batches are made on a background thread (in pinned memory for a
+  CUDA device) and copied to the device ``prefetch_size`` batches ahead of
   the step that uses them. With a :class:`~gwen_tpu_torch.train.mesh.
   ProcessMesh` of several ranks (the partitioned tasks of
   :mod:`gwen_tpu_torch.train.tasks`) a step also sums the parameter
@@ -25,6 +26,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from gwen_tpu_torch.data.pipeline import prefetch as host_prefetch
 from gwen_tpu_torch.logging_utils import get_logger
 from gwen_tpu_torch.registry import Run
 from gwen_tpu_torch.train.checkpoint import Checkpointer
@@ -45,10 +47,12 @@ LossFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 
 
 def to_device(batch: Any, device) -> Any:
-    """A batch (numpy arrays or tensors, alone or in a tuple or list) on
-    ``device``; plain numbers (a seed) pass through."""
+    """A batch (numpy arrays or tensors, alone or in a tuple, list or
+    dict) on ``device``; plain numbers (a seed) pass through."""
     if isinstance(batch, (int, float)):
         return batch
+    if isinstance(batch, dict):
+        return {k: to_device(v, device) for k, v in batch.items()}
     if isinstance(batch, np.ndarray):
         batch = torch.from_numpy(np.ascontiguousarray(batch))
     if isinstance(batch, torch.Tensor):
@@ -121,8 +125,11 @@ class Trainer:
         for epoch in range(epochs):
             t0 = time.perf_counter()
             losses = []
-            for batch in prefetch(batches_per_epoch(epoch), self.device,
-                                  prefetch_size):
+            # Host batches are made (read, stacked, pinned) on a thread
+            # ahead of the step, then copied to the device ahead of it.
+            host = host_prefetch(batches_per_epoch(epoch), prefetch_size,
+                                 pin_memory=self.device.type == "cuda")
+            for batch in prefetch(host, self.device, prefetch_size):
                 losses.append(self.train_step(state, batch))
                 step = state.step
                 if (checkpoint_every and self.checkpointer

@@ -119,14 +119,16 @@ def test_pack_tree_bf16_and_struct_leaves():
     assert unpack_tree({"k": "struct", "c": "Graph", "v": {}}, leaves) is None
 
 
-@pytest.mark.parametrize("key,val,match", [
-    ("processor", "mlp", "unknown processor"),
-    ("data", "mesh.zarr", "icosphere graphs only"),
+@pytest.mark.parametrize("key,val,exc,match", [
+    ("processor", "mlp", ValueError, "unknown processor"),
+    # A run trained from a store rebuilds its graph from that store's
+    # sidecar: a store that is gone is a missing file.
+    ("data", "mesh.zarr", FileNotFoundError, "missing graph sidecar"),
 ])
-def test_load_rejects_what_the_port_cannot_serve(tmp_path, key, val, match):
+def test_load_rejects_what_the_port_cannot_serve(tmp_path, key, val, exc, match):
     model = EncodeProcessDecode(CH, CH, device="cpu", latent_size=32,
                                 process_steps=1)
     path = export_model(model, np.zeros((642, CH), np.float32), tmp_path,
                         metadata={**_run_meta(), key: val})
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(exc, match=match):
         ServingModel.load(path, "cpu")

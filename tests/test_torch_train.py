@@ -333,7 +333,7 @@ def test_train_mesh_cli_trains_and_feeds_serving(tmp_path, capsys):
      ValueError),
     (["mesh.kernel=diag_packed", "model.processor=interaction", "graph.refine=2"],
      ValueError),
-    (["--data", "store.zarr"], ValueError),
+    (["--data", "store.zarr"], FileNotFoundError),
     (["--device", "cuda"], RuntimeError),
 ])
 def test_train_mesh_refuses_what_is_not_ported(args, exc, tmp_path, monkeypatch):
