@@ -24,7 +24,11 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    and checks packed B1 (F 256), packed B4 (batch 4) and B13 (F 256 and
    batch 4), the packed composites' x-gradients against autograd through
    the plain versions, and the packed diag composite against the unpacked
-   one; then the unfused operators: B8, B9 (nb 1), B9b (nb 2 and 8) and
+   one; then the row gathers on two L5 graphs in RCM order (correctness
+   only): B13 and B11 in its six operand modes on a hub graph (a row of
+   601 nonzeros) and on a graph with an empty destination block (B11 also
+   with the blocks reversed: starts not monotone), on fewer x rows than
+   the layout's sources and at batch 5; then the unfused operators: B8, B9 (nb 1), B9b (nb 2 and 8) and
    ``diag_matvec`` (B1 on a runtime S) at f 128 and 256, the gradients of
    ``diag_matvec`` and ``diag_sddmm`` against autograd through the plain
    versions, and ``aggregate`` on a float32 ``(4, N, 1)`` field over the
@@ -41,7 +45,9 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    on a dense mask and its backward for B5 to B7; the port never calls
    them). A
    fixed sparse operator counts in its kernel's bound as its nonzeros with
-   their indices, not as the dense tile the layout stores;
+   their indices, not as the dense tile the layout stores; the time to
+   read the operator as stored (a floor for a kernel that must read it
+   whole) is printed beside the bound;
 4. serves the GCN model: exports a seeded random-weight model (the default
    ``train-mesh graph.refine=7`` model: 1 channel, latent 256, 4 process
    steps, bf16), answers 3 ``predict`` requests of 4 steps through the CLI
@@ -90,11 +96,13 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    with the run's;
 10. the partitioned path on one rank: B11 (windowed-dense SpMM) and B12
    (blocked-ELL SpMM) on the L7 mesh in RCM order at F 256, unbatched and
-   at batch 4, bf16 and float32 (B11 also with a float32 S under a bf16
-   x), and on one partition's halo-extended, non-square operator, each
+   at batch 4, B12 in bf16 and float32, B11 in its six operand modes
+   (float32, bf16, each S type under the other x, int8 S01 under either),
+   and on one partition's halo-extended, non-square operator, each
    against its plain version, with times, bound and ``torch.sparse.mm`` on
    the same operator, and B12 once more in the serving graph's KD-patch
-   order; then ``train-mesh graph.refine=7 train.batch_size=4
+   order; B10 on the ``sliding`` partition's wide window at batch 4 (B11's
+   row gather), checked and timed the same way; then ``train-mesh graph.refine=7 train.batch_size=4
    mesh.force_partition=true`` with ``mesh.partition_layout`` ``sliding``
    (B10 8 times per step), ``diag`` (B4 and B10 8), ``dense`` (B11 8),
    ``ell`` (B12 8) and ``model.processor=attention`` on ``diag`` (B5, B6,
@@ -115,8 +123,9 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    ``spmm_block_tiles``, each against its plain version, with times, the
    bound (x, the output and the tables as stored) and ``torch.sparse.mm``
    on the same operator, held to the kernel first; the int8 rank-1 form of
-   B3 and B10 on the RCM band against its plain version and
-   ``aggregate_segment``; then the EPD model on the ``BlockTileGraph``:
+   B3 and B10 on the RCM band (B11's row gather) against its plain version
+   and ``aggregate_segment``, the kernel alone timed beside its bound and
+   ``torch.sparse.mm``; then the EPD model on the ``BlockTileGraph``:
    3 x 4 served steps (B14 and B2 4 launches per step), 5 Adam steps at
    batch 4 through ``Trainer`` (B14 8 per step, B2 and B2b 4), one served
    step and one train step against the plain versions, no plain version on
@@ -454,7 +463,7 @@ def check_kernels(graph, device) -> dict:
         **roofline((nonzero_bytes(graph.s_mat, "B1"), x[: graph.num_src_rows], fix),
                    (x,),
                    2.0 * (nnz + u) * f, torch.bfloat16),
-        library_ms=sparse_mm_ms(csr, x))
+        library_ms=sparse_mm_ms(csr, x), floor_ms=stored_floor_ms(graph.s_mat))
 
     # B3: banded SpMM on the esc2 graph (x compacted to the U endpoints).
     x2 = randn(g2.num_nodes, f)
@@ -469,7 +478,8 @@ def check_kernels(graph, device) -> dict:
                    (spmm_cuda.sliding_spmm(g2, x2),),
                    2.0 * int((g2.s_mat != 0).sum()) * f, torch.bfloat16),
         library_ms=sparse_mm_ms(window_csr(g2.s_mat, g2.window_start,
-                                           g2.block_size, g2.num_src_rows), x2))
+                                           g2.block_size, g2.num_src_rows), x2),
+        floor_ms=stored_floor_ms(g2.s_mat))
 
     # B2: residual + LayerNorm at the padded state's shape.
     m, h = randn(graph.num_padded_nodes, f), randn(graph.num_padded_nodes, f)
@@ -496,10 +506,20 @@ def check_kernels(graph, device) -> dict:
 def _log_times(results: dict) -> None:
     for name, r in results.items():
         lib = r["library_ms"]
+        floor = (f", floor (the operator as stored) {r['floor_ms']:.4f} ms"
+                 if "floor_ms" in r else "")
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
-            f"{r['bound_ms'] / r['ms']:.0%} of it reached), library "
+            f"{r['bound_ms'] / r['ms']:.0%} of it reached){floor}, library "
             f"{'none' if lib is None else f'{lib:.4f} ms'}")
+
+
+def stored_floor_ms(*tensors) -> float:
+    """Time to read a layout's operator as it is stored (dense S with its
+    zeros, the bit words and scales) at the memory rate: a floor for a
+    kernel that must read it whole, printed beside the bound, which counts
+    the nonzeros only."""
+    return sum(t.numel() * t.element_size() for t in tensors) / HBM_BYTES_PER_S * 1e3
 
 
 def _serving_model(device, processor: str):
@@ -643,7 +663,8 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
                    2.0 * (nnz + u) * f * batch, torch.bfloat16),
         library_ms=sparse_mm_ms(window_csr(graph.s_mat, graph.window_start,
                                            graph.block_size,
-                                           graph.num_src_rows), x, 5))
+                                           graph.num_src_rows), x, 5),
+        floor_ms=stored_floor_ms(graph.s_mat))
     del want
 
     # B10: batched banded SpMM on the esc2 graph.
@@ -659,7 +680,8 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
                    (spmm_cuda.sliding_spmm_b(g2, x2),),
                    2.0 * int((g2.s_mat != 0).sum()) * f * batch, torch.bfloat16),
         library_ms=sparse_mm_ms(window_csr(g2.s_mat, g2.window_start,
-                                           g2.block_size, g2.num_src_rows), x2))
+                                           g2.block_size, g2.num_src_rows), x2),
+        floor_ms=stored_floor_ms(g2.s_mat))
 
     # B2b: LayerNorm backward over the batch's padded rows.
     rows = batch * graph.num_padded_nodes
@@ -927,8 +949,8 @@ def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
         ("B4p", spmm_cuda.diag_window_spmm_packed_b,
          spmm_cuda.diag_window_spmm_packed_plain, pg, p32, (batch, rows, f),
          (batch, u, f), True),
-        ("B13", spmm_cuda.sliding_packed_spmm, spmm_cuda.sliding_packed_spmm_plain,
-         sg, s32, (n, f), None, False),
+        ("B13u", spmm_cuda.sliding_packed_spmm, spmm_cuda.sliding_packed_spmm_plain,
+         sg, s32, (n, f), None, True),
         ("B13", spmm_cuda.sliding_packed_spmm, spmm_cuda.sliding_packed_spmm_plain,
          sg, s32, (batch, n, f), None, True),
     )
@@ -964,7 +986,9 @@ def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
                 **roofline((g.s_pack, col, row, x[..., : g.num_src_rows, :],
                             *extra), (x[..., : g.num_padded_nodes, :],),
                            2.0 * csr[2].numel() * f * nb, torch.bfloat16),
-                library_ms=sparse_mm_ms(csr, x, 5 if len(shape) == 3 else 20))
+                library_ms=sparse_mm_ms(csr, x, 5 if len(shape) == 3 else 20),
+                floor_ms=stored_floor_ms(g.s_pack, col, row))
+            _log_times({tag: results[key]})
             del csr
         del x, extra, extra32
         torch.cuda.empty_cache()
@@ -992,6 +1016,68 @@ def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
             2 * BF16_TOL)
     torch.cuda.empty_cache()
     return results
+
+
+def build_wide_window_graphs(device) -> dict:
+    """Two L5 graphs in RCM order that the row gathers (B13, B11) must get
+    right, each as the bit-packed banded layout and the float32
+    windowed-dense layout: ``hub``, the mesh plus one node joined to every
+    node within 300 rows of it (a row of 601 nonzeros, a window of 1,024
+    columns), and ``empty``, the mesh with one destination block's rows
+    cleared (no nonzero in the block), its dense layout also with the
+    blocks in reverse order (starts not monotone)."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      rcm_order, to_sliding_packed, to_windowed_dense)
+
+    verts, s, r = icosphere_edges(5)
+    n = verts.shape[0]
+    s2, r2, _ = apply_order(rcm_order(s, r, n), s, r)
+    h = n // 2
+    near = set(s2[r2 == h].tolist())
+    others = np.array([c for c in range(h - 300, h + 301) if c != h and c not in near])
+    hub = build_graph(np.concatenate([s2, others, np.full(others.size, h)]),
+                      np.concatenate([r2, np.full(others.size, h), others]), n)
+    mesh = build_graph(s2, r2, n)
+    sp, wd = to_sliding_packed(mesh), to_windowed_dense(mesh)
+    bits, sm = sp.s_pack.clone(), wd.s_mat.clone()
+    bp, bd = sp.num_blocks // 2, wd.num_blocks // 2
+    bits[bp * sp.block_size:(bp + 1) * sp.block_size] = 0
+    sm[bd * wd.block_size:(bd + 1) * wd.block_size] = 0
+    rev = torch.arange(wd.num_blocks - 1, -1, -1)
+    reverse = dataclasses.replace(
+        wd, s_mat=sm.reshape(wd.num_blocks, wd.block_size, -1)[rev].reshape(sm.shape),
+        window_start=wd.window_start[rev].contiguous())
+    graphs = {"hub": (to_sliding_packed(hub), to_windowed_dense(hub)),
+              "empty": (dataclasses.replace(sp, s_pack=bits),
+                        dataclasses.replace(wd, s_mat=sm), reverse)}
+    return {k: tuple(g.to(device) for g in v) for k, v in graphs.items()}
+
+
+def check_wide_window_graphs(graphs: dict, device) -> None:
+    """Phase 3, correctness only: B13 (bf16 and float32) and B11 (its six
+    operand modes) on the L5 hub and empty-block graphs
+    (:func:`build_wide_window_graphs`) against their plain versions,
+    unbatched on fewer rows than the layout's sources (F 24: lanes past F)
+    and at batch 5 (a batch group of four and one of one) at F 256."""
+    from gwen_tpu_torch.ops import spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    for name, (sp, *dense) in graphs.items():
+        s32 = dataclasses.replace(sp, col_scale=sp.col_scale.bfloat16().float(),
+                                  row_scale=sp.row_scale.bfloat16().float())
+        for shape in ((sp.num_nodes - 100, 24), (5, sp.num_nodes, LATENT)):
+            x = torch.randn(*shape, generator=gen, device=device).bfloat16()
+            tag = f"{name} graph {tuple(shape)}"
+            want = spmm_cuda.sliding_packed_spmm_plain(s32, x.float())
+            compare(f"B13 {tag} bf16", spmm_cuda.sliding_packed_spmm(sp, x), want,
+                    BF16_TOL)
+            compare(f"B13 {tag} f32", spmm_cuda.sliding_packed_spmm(s32, x.float()),
+                    want, F32_TOL)
+            for g in dense:
+                starts = ("not monotone"
+                          if bool((g.window_start.diff() < 0).any()) else "monotone")
+                check_b11_modes(g, x, f"{tag}, window {g.window_size}, starts {starts}")
+    torch.cuda.synchronize()
 
 
 def check_unfused_kernels(graph, packed_diag, device) -> dict:
@@ -1533,8 +1619,8 @@ def train_packed(graphs: dict, device, workdir: Path) -> dict:
     """Phase 8: ``train-mesh`` on the bit-packed layouts (``diag_packed``
     for GCN and attention, ``packed`` for GCN): launch counts per step and
     no plain version on the card, one step against the plain versions, step
-    time and peak memory; then the unbatched 256-channel EPD step on
-    ``diag_packed`` (packed B1). Returns the packed kernels' launch counts
+    time and peak memory (the ``packed`` step also under ``torch.profiler``);
+    then the unbatched 256-channel EPD step on ``diag_packed`` (packed B1). Returns the packed kernels' launch counts
     on these paths."""
     launches = {}
     rng = np.random.default_rng(6)
@@ -1549,6 +1635,9 @@ def train_packed(graphs: dict, device, workdir: Path) -> dict:
         x, y = _train_batch(graph.num_nodes, device, rng)
         model = _train_model(device, CHANNELS, processor=processor)
         _check_and_time_step(model, graph, x, y, f"{kernel} {processor}")
+        if kernel == "packed":
+            _profile_step(_adam_step(model, graph, x, y),
+                          f"batch-{TRAIN_BATCH} {kernel} {processor}")
         del model, x, y
         torch.cuda.empty_cache()
     log("  -- the unbatched step on mesh.kernel=diag_packed")
@@ -1737,11 +1826,12 @@ def ensemble_paths(graph, device, workdir: Path) -> None:
 
 
 def build_partition_layouts(device, kd_perm) -> dict:
-    """The L7 mesh in RCM order as the windowed-dense layout (S in float32
-    and in bf16) and the blocked-ELL layout, one partition's local,
-    halo-extended (non-square) operators of both, and the blocked-ELL
-    layout in the serving graph's KD-patch order (``kd_perm``), the order
-    B1 and B4 are timed in."""
+    """The L7 mesh in RCM order as the windowed-dense layout (S in float32)
+    and the blocked-ELL layout, one partition's local, halo-extended
+    (non-square) operators of both and its banded operator (the ``sliding``
+    layout, B10's wide window), and the blocked-ELL layout in the serving
+    graph's KD-patch order (``kd_perm``), the order B1 and B4 are timed
+    in."""
     from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
                                       rcm_order, to_block_ell, to_windowed_dense)
     from gwen_tpu_torch.parallel import local_graph, partition_graph
@@ -1750,25 +1840,67 @@ def build_partition_layouts(device, kd_perm) -> dict:
     n = verts.shape[0]
     s2, r2, _ = apply_order(rcm_order(s, r, n), s, r)
     g = build_graph(s2, r2, n)
-    wd32 = to_windowed_dense(g).to(device)
     halo = local_graph(partition_graph(s2, r2, n, 1, reorder=False,
                                        layout="dense"), 0).to(device)
-    return {"dense32": wd32,
-            "dense": dataclasses.replace(wd32, s_mat=wd32.s_mat.bfloat16()),
+    sliding = local_graph(partition_graph(s2, r2, n, 1, reorder=False,
+                                          layout="sliding",
+                                          s_dtype=torch.bfloat16), 0).to(device)
+    return {"dense32": to_windowed_dense(g).to(device),
             "ell": to_block_ell(g).to(device),
             "ell_kd": to_block_ell(build_graph(
                 *apply_order(kd_perm, s, r)[:2], n)).to(device),
             "halo_dense": halo.local_windowed_dense(),
-            "halo_ell": halo.local_block_ell()}
+            "halo_ell": halo.local_block_ell(),
+            "halo_sliding": sliding.local_sliding_dense()}
+
+
+def b11_modes(g32) -> list:
+    """B11's six operand modes on the float32 layout ``g32``: ``(name, the
+    layout the kernel takes, x's type, the float32 layout holding the
+    values the kernel reads, tolerance)``. The kernel casts S to x's type,
+    so the bf16 modes are held to S rounded to bf16."""
+    r16 = dataclasses.replace(g32, s_mat=g32.s_mat.bfloat16())
+    rr = dataclasses.replace(g32, s_mat=r16.s_mat.float())
+    i8 = dataclasses.replace(g32, s_mat=(g32.s_mat != 0).to(torch.int8))
+    i8f = dataclasses.replace(g32, s_mat=i8.s_mat.float())
+    f32, b16 = torch.float32, torch.bfloat16
+    return [("float32 S, float32 x", g32, f32, g32, F32_TOL),
+            ("bf16 S, bf16 x", r16, b16, rr, BF16_TOL),
+            ("bf16 S, float32 x", r16, f32, rr, F32_TOL),
+            ("float32 S, bf16 x", g32, b16, rr, BF16_TOL),
+            ("int8 S01, float32 x", i8, f32, i8f, F32_TOL),
+            ("int8 S01, bf16 x", i8, b16, i8f, BF16_TOL)]
+
+
+def check_b11_modes(g32, x: torch.Tensor, tag: str, timed: bool = False) -> dict:
+    """B11 in each operand mode (:func:`b11_modes`) on ``x`` (bf16 values)
+    against its plain version in float32; with ``timed``, each mode's time.
+    Returns ``{mode name: (max abs error, ms or None)}``."""
+    from gwen_tpu_torch.ops import spmm_cuda
+
+    out = {}
+    for name, g, dt, want_g, tol in b11_modes(g32):
+        xt = x.to(dt)
+        err = compare(f"B11 {tag} {name}", spmm_cuda.windowed_dense_spmm(g, xt),
+                      spmm_cuda.windowed_dense_spmm_plain(want_g, x.float()), tol)
+        ms = (cuda_ms(lambda: spmm_cuda.windowed_dense_spmm(g, xt),
+                      5 if x.dim() == 3 else 20) if timed else None)
+        if timed:
+            log(f"    B11 {tag} {name}: {ms:.4f} ms")
+        out[name] = (err, ms)
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
     """Phase 10, first part: B11 and B12 against their plain versions at L7
-    (F 256; unbatched and batch 4; bf16, float32, and B11 with a float32 S
-    under a bf16 x; then on the halo-extended operator), timed beside the
-    plain versions, the bound and ``torch.sparse.mm`` on the same operator
-    as a bf16 CSR. B12's bound counts its tables as they are stored (8 bytes
-    a slot), B11's its nonzeros with their indices."""
+    (F 256; unbatched and batch 4; B12 in bf16 and float32, B11 in its six
+    operand modes), timed beside the plain versions, the bound, the
+    operator as stored and ``torch.sparse.mm`` on the same operator as a
+    bf16 CSR; B11 in every mode and B12 on the halo-extended operator; B10
+    on the ``sliding`` partition's wide window (the row gather) at batch 4,
+    timed the same way. The bounds count a fixed operator as its nonzeros
+    with their indices (B12: its nonzero slots)."""
     from gwen_tpu_torch.ops import spmm_cuda
 
     gen = torch.Generator(device=device).manual_seed(10)
@@ -1777,8 +1909,8 @@ def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> 
         return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
 
     f = LATENT
-    wd, wd32, ell = layouts["dense"], layouts["dense32"], layouts["ell"]
-    wd32r = dataclasses.replace(wd32, s_mat=wd.s_mat.float())  # bf16 values
+    wd32, ell = layouts["dense32"], layouts["ell"]
+    wd = dataclasses.replace(wd32, s_mat=wd32.s_mat.bfloat16())
     n = wd.num_nodes
     log(f"  RCM L{LEVELS}: windowed-dense S {tuple(wd.s_mat.shape)} "
         f"({wd.s_mat.nbytes / 2**20:.0f} MiB bf16, {wd32.s_mat.nbytes / 2**20:.0f} "
@@ -1796,19 +1928,17 @@ def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> 
         nb = shape[0] if len(shape) == 3 else 1
         iters = 5 if nb > 1 else 20
         tag = f"{tuple(shape)}"
-        want = b11p(wd32r, x.float())
-        err = compare(f"B11 {tag} bf16", b11(wd, x), want, BF16_TOL)
-        compare(f"B11 {tag} float32 S under bf16 x", b11(wd32, x), want, BF16_TOL)
-        compare(f"B11 {tag} f32", b11(wd32r, x.float()), want, F32_TOL)
-        del want
+        modes = check_b11_modes(wd32, x, tag, timed=True)
         ms, plain_ms = timed_pair(lambda: b11(wd, x), lambda: b11p(wd, x), iters)
-        mixed_ms = cuda_ms(lambda: b11(wd32, x), iters)
         lib = sparse_mm_ms(csr, x, iters)
         out_like = x.new_empty(*shape[:-2], wd.num_padded_nodes, f)
-        row11 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        row11 = dict(max_abs_err=modes["bf16 S, bf16 x"][0], ms=ms,
+                     plain_ms=plain_ms,
                      **roofline((s_need, x), (out_like,), 2.0 * nnz * f * nb,
-                                torch.bfloat16), library_ms=lib)
-        log(f"    B11 {tag} with a float32 S under the bf16 x: {mixed_ms:.4f} ms")
+                                torch.bfloat16), library_ms=lib,
+                     floor_ms=stored_floor_ms(wd.s_mat))
+        log(f"    B11 {tag} float32 S under the bf16 x: floor (S as stored) "
+            f"{stored_floor_ms(wd32.s_mat):.4f} ms")
         want = b12p(ell, x.float())
         err = compare(f"B12 {tag} bf16", b12(ell, x), want, BF16_TOL)
         compare(f"B12 {tag} f32", b12(ell, x.float()), want, F32_TOL)
@@ -1817,13 +1947,14 @@ def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> 
         row12 = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                      **roofline((ell_need, x), (out_like,),
                                 2.0 * int((ell.nbr_weight != 0).sum()) * f * nb,
-                                torch.bfloat16), library_ms=lib)
+                                torch.bfloat16), library_ms=lib,
+                     floor_ms=stored_floor_ms(ell.nbr, ell.nbr_weight))
         _log_times({f"B11 {tag}": row11, f"B12 {tag}": row12})
         if nb == 1:
             results.update(B11=row11, B12=row12)
         del x, out_like
         torch.cuda.empty_cache()
-    del csr
+    del csr, wd
     # B12 on the same mesh in KD-patch order, where a block's sources span
     # nearly the whole array: the ordering B1 and B4 run in.
     kd = layouts["ell_kd"]
@@ -1838,19 +1969,44 @@ def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> 
         del x
         torch.cuda.empty_cache()
     # One partition's local operator: ext_rows source rows, n_local outputs.
-    for key, kern, plain in (("halo_dense", b11, b11p), ("halo_ell", b12, b12p)):
+    for key in ("halo_dense", "halo_ell"):
         g = layouts[key]
         x = randn(batch, g.num_src_rows, f)
-        g32 = g if key == "halo_ell" else dataclasses.replace(
-            g, s_mat=g.s_mat.bfloat16().float())
-        got = kern(g, x)
-        if got.shape[-2] != g.num_padded_nodes or g.num_src_rows == g.num_padded_nodes:
-            raise AssertionError(f"{key}: {g.num_src_rows} source rows gave "
-                                 f"{tuple(got.shape)}")
-        compare(f"{key} ({g.num_src_rows} source rows -> {g.num_padded_nodes}, "
-                f"batch {batch}) bf16", got, plain(g32, x.float()), BF16_TOL)
-        del x, got
+        tag = (f"{key} ({g.num_src_rows} source rows -> {g.num_padded_nodes}, "
+               f"batch {batch})")
+        if key == "halo_dense":
+            check_b11_modes(g, x, tag)
+        else:
+            got = b12(g, x)
+            if got.shape[-2] != g.num_padded_nodes:
+                raise AssertionError(f"{key}: {g.num_src_rows} source rows gave "
+                                     f"{tuple(got.shape)}")
+            compare(f"{tag} bf16", got, b12p(g, x.float()), BF16_TOL)
+            del got
+        if g.num_src_rows == g.num_padded_nodes:
+            raise AssertionError(f"{key} is not halo-extended")
+        del x
         torch.cuda.empty_cache()
+    # B10 on the `sliding` partition's band: a window too wide for the
+    # batched kernel's S tile, so the row gather, at the train shape.
+    g = layouts["halo_sliding"]
+    x = randn(batch, g.num_src_rows, f)
+    tag = f"B10 wide window ({g.window_size}, batch {batch}, {g.num_src_rows} rows)"
+    want = spmm_cuda.sliding_spmm_plain(
+        dataclasses.replace(g, s_mat=g.s_mat.float()), x.float())
+    err = compare(f"{tag} bf16", spmm_cuda.sliding_spmm_b(g, x), want, BF16_TOL)
+    del want
+    ms, plain_ms = timed_pair(lambda: spmm_cuda.sliding_spmm_b(g, x),
+                              lambda: spmm_cuda.sliding_spmm_plain(g, x), 5)
+    csr = window_csr(g.s_mat, g.window_start, g.block_size, g.num_src_rows)
+    _log_times({tag: dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        **roofline((nonzero_bytes(g.s_mat, "B10 wide window"), x),
+                   (x[:, : g.num_padded_nodes],),
+                   2.0 * csr[2].numel() * f * batch, torch.bfloat16),
+        library_ms=sparse_mm_ms(csr, x, 5), floor_ms=stored_floor_ms(g.s_mat))})
+    del x, csr
+    torch.cuda.empty_cache()
     return results
 
 
@@ -2088,6 +2244,9 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
     log(f"  int8 rank-1 banded layout (RCM): S01 {tuple(core.s_mat.shape)} int8 "
         f"({core.s_mat.nbytes / 2**20:.0f} MiB; bf16 S would be "
         f"{core.s_mat.nbytes * 2 / 2**20:.0f} MiB), window {core.window_size}")
+    core_csr = window_csr(core.s_mat, core.window_start, core.block_size,
+                          core.num_src_rows)
+    core_need = nonzero_bytes(core.s_mat, "int8 S01")
     for shape in ((n, f), (batch, n, f)):
         x = randn(*shape)
         nb = shape[0] if len(shape) == 3 else 1
@@ -2115,11 +2274,20 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
             3 if nb > 1 else 10)
         kern = spmm_cuda.sliding_spmm_b if nb > 1 else spmm_cuda.sliding_spmm
         xs = x * r1.col_scale[:n, None].to(x.dtype)
-        core_ms = cuda_ms(lambda: kern(core, xs), 3 if nb > 1 else 10)
-        log(f"  {name} int8 rank-1 form {tuple(shape)}: composite {ms:.4f} ms "
-            f"(the kernel alone {core_ms:.4f} ms), plain {plain_ms:.4f} ms")
+        core_ms, core_plain_ms = timed_pair(
+            lambda: kern(core, xs), lambda: spmm_cuda.sliding_spmm_plain(core, xs),
+            3 if nb > 1 else 10)
+        log(f"  {name} int8 rank-1 form {tuple(shape)}: composite {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms")
+        _log_times({f"{name} int8 rank-1 form {tuple(shape)}, the kernel alone": dict(
+            ms=core_ms, plain_ms=core_plain_ms,
+            **roofline((core_need, xs), (xs,), 2.0 * core_csr[2].numel() * f * nb,
+                       torch.bfloat16),
+            library_ms=sparse_mm_ms(core_csr, xs, 3 if nb > 1 else 10),
+            floor_ms=stored_floor_ms(core.s_mat))})
         del x, xs
         torch.cuda.empty_cache()
+    del core_csr
     return results
 
 
@@ -2479,6 +2647,8 @@ def main() -> int:
         f"{tuple(sg.s_pack.shape)} ({sg.s_pack.nbytes / 2**20:.2f} MiB)")
     log("  bit-packed layouts (packed B1, packed B4, B13):")
     results.update(check_packed_kernels(graph, packed, device, results))
+    log("  the row gathers (B13, B11) on an L5 hub graph and an empty-block graph:")
+    check_wide_window_graphs(build_wide_window_graphs(device), device)
     log("  unfused operators (B8, B9, B9b, diag_matvec) and aggregate on a "
         "float32 field:")
     results.update(check_unfused_kernels(graph, pg, device))
@@ -2581,26 +2751,30 @@ def main() -> int:
                        f"{spmm}:998"),
                "B4p": ("batched packed diag-window SpMM (the packed branch of "
                        "_diag_kernel_b)", "cuda", cu, f"{spmm}:1224"),
-               "B13": ("bit-packed banded SpMM (batch 4, the train-mesh "
-                       "shape)", "cuda", cu, f"{spmm}:1556"),
+               "B13": ("bit-packed banded SpMM, a row gather over the set "
+                       "bits (batch 4, the train-mesh shape)", "cuda", cu,
+                       f"{spmm}:1556"),
+               "B13u": (f"bit-packed banded SpMM (unbatched{one})", "cuda",
+                        cu, f"{spmm}:1556"),
                "B8": ("SDDMM: window-relative score tile (one item, f 128)",
                       "cuda", ucu, f"{att}:78"),
                "B9": (f"transpose SpMM on a runtime S (nb = 1, f 128{one})",
                       "cuda", ucu, f"{att}:171"),
                "B9b": (f"batched transpose SpMM (nb = 2, f 128{one})", "cuda",
                        ucu, f"{att}:1393"),
-               "B11": ("windowed-dense SpMM, absolute starts (RCM order, F "
-                       "256, unbatched)", "cuda", cu, f"{spmm}:353"),
+               "B11": ("windowed-dense SpMM, absolute starts: a row gather "
+                       "over S's nonzeros (RCM order, F 256, unbatched)",
+                       "cuda", cu, f"{spmm}:353"),
                "B12": ("blocked-ELL SpMM: gather, scale, sum (RCM order, F "
                        "256, unbatched)", "cuda", cu, f"{spmm}:46"),
                "B14": ("block-tile (BSR) SpMM: gather, scale, sum over the "
                        "active tiles' slots (RCM order, F 256, unbatched)",
                        "cuda", cu, f"{spmm}:194")}
+    counted_as = {"B5b": "B5", "B6b": "B6", "B7b": "B7", "B9b": "B9", "B13u": "B13"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": f"{key} {name}", "route": route, "source": src,
-                "replaces": rep,
-                "launches": launches[key[:-1] if key in ("B5b", "B6b", "B7b", "B9b")
-                                     else key],
-                **results[key]}
+                "replaces": rep, "launches": launches[counted_as.get(key, key)],
+                **{k: results[key][k] for k in keys}}
                for key, (name, route, src, rep) in sources.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)

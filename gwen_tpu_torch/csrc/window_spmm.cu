@@ -5,66 +5,54 @@
 // Replaces these Pallas TPU kernels of the reference package:
 //   B1  gwen_tpu/ops/spmm_pallas.py:_diag_kernel     (through _diag_impl)
 //   B3  gwen_tpu/ops/spmm_pallas.py:_sliding_kernel  (through _sliding_impl)
-//   B13 gwen_tpu/ops/spmm_pallas.py:_sliding_packed_kernel
-//       (through _sliding_packed_impl)
-//   B11 gwen_tpu/ops/spmm_pallas.py:_sdense_kernel   (through _sdense_impl)
-// and, in the batched section below, B4 and B10; B12 (_kernel through
-// _spmm_impl) and B14 (_tile_kernel through _spmm_tiles_impl) have sections
-// of their own at the end. All but B12 and B14 compute, for every
+// and, in the batched section below, B4 and B10; B13
+// (_sliding_packed_kernel through _sliding_packed_impl) and B11
+// (_sdense_kernel through _sdense_impl) are the row gathers, B12 (_kernel
+// through _spmm_impl) and B14 (_tile_kernel through _spmm_tiles_impl) have
+// sections of their own at the end. The window kernels compute, for every
 // 128-row destination block b with window start ws_b,
 //   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
 // in float32, then (B1 and B4 only) add the block's escape fix rows
 //   out[esc_rows[j], :] += fix[j, :]   for j in [esc_ptr[b], esc_ptr[b+1])
 // and cast once to the output type. The TPU kernels stage x in VMEM (a
-// superblock union window for B1, a ring buffer for B3 and B13) and place
-// escapes with a one-hot matmul; here each CTA reads its own window and
-// places the (row-unique) escape rows directly in its shared-memory output
-// tile.
+// superblock union window for B1, a ring buffer for B3) and place escapes
+// with a one-hot matmul; here each CTA reads its own window and places the
+// (row-unique) escape rows directly in its shared-memory output tile.
 //
-// Packed form (PACKED = true; packed B1 and B4, and B13): S is not read.
-// For rank-1 GCN weights S = a_r a_s (.) S01, and the kernel rebuilds it:
-// bit j of word k of row i (bits: (N_pad, W / 32) uint32) is S01[i, 32k+j];
-// the S tile entry is S01 * T(a_s[ws_b + c]) (the column scale rounded to
-// the input type, as the reference's in-kernel S tile), and each output row
-// is multiplied by T(a_r[row]) after the escape rows are added (the escape
+// Packed form (PACKED = true; packed B1 and B4): S is not read. For rank-1
+// GCN weights S = a_r a_s (.) S01, and the kernel rebuilds it: bit j of
+// word k of row i (bits: (N_pad, W / 32) uint32) is S01[i, 32k+j]; the S
+// tile entry is S01 * T(a_s[ws_b + c]) (the column scale rounded to the
+// input type, as the reference's in-kernel S tile), and each output row is
+// multiplied by T(a_r[row]) after the escape rows are added (the escape
 // tables of packed graphs carry w = a_s), before the single rounding. The
-// bits are 1/16 of bf16 S. B13 is this kernel without escapes on the
-// banded packed layout: its 256-row graph blocks run as two 128-row kernel
-// blocks that share a start, and the reference's outside scales
-// (a . K01(a . x)) are folded in the same way.
+// bits are 1/16 of bf16 S.
 //
-// What bounds it on an H100: bytes, not flops. At L7 (S 164864 x 384,
-// F = 256, bf16) one B1 call is 32 GFLOP against ~300 MB of S, x and
-// output, about 108 flop/byte, a third of the ridge point. So bf16
-// products run on the tensor cores (WMMA -> mma.sync, float32
+// What bounds the window kernels on an H100: bytes, not flops. At L7 (S
+// 164864 x 384, F = 256, bf16) one B1 call is 32 GFLOP against ~300 MB of
+// S, x and output, about 108 flop/byte, a third of the ridge point. So
+// bf16 products run on the tensor cores (WMMA -> mma.sync, float32
 // accumulators) to stay far below the memory time, the next chunk's loads
 // are issued into registers before the current chunk's products, and the
 // grid walks the 64-column tiles of one block consecutively so they share
 // its S tile in L2. float32 inputs take a CUDA-core FMA path (full float32,
-// no TF32). B13's window is wide (1,792 rows at L7 in RCM order): ~150
-// GFLOP a call at F = 256, most of it on zero bits; skipping empty
-// sub-tiles is later work.
+// no TF32). That holds for the diag window (384 columns, ~7 nonzeros a
+// row): the banded layouts of RCM order have windows of 1,664-1,792
+// columns, where a tile product is > 99.5 % zeros, and take the row
+// gathers instead (B13, B11, and B3 and B10 on such a window).
 //
 // Mixed operands (MIXED = 1): a float32 x on a bfloat16 S, as the
 // reference's kernels take it (S is cast to x's type per tile; bf16 ->
 // float32 is exact). The S tile is read as bf16 (half the bytes of a float32
 // copy) and widened as it is staged; products and output are float32.
 // MIXED = 2 is the other way round, a bfloat16 x on a float32 S (the
-// partitioned path's dense scatter matrices stay float32): S is read as
-// float32 and rounded to bf16 as it is staged, again as the reference's
-// kernel casts its tile, with no bf16 copy of S in memory.
+// partitioned path's dense scatter matrices stay float32), taken by the
+// row gather alone: S is read as float32 and each nonzero rounded to bf16,
+// again as the reference's kernel casts its tile, with no bf16 copy of S.
 // MIXED = 3 is the int8 form of B3 and B10: S holds the 0/1 pattern of a
 // rank-1 banded layout as int8 (half the bytes of a bf16 S) and is widened
-// to x's type as it is staged; the rank-1 scales are applied outside the
+// to x's type as it is read; the rank-1 scales are applied outside the
 // kernel, as in the reference (a . K(a . x)).
-//
-// B11 is the streaming kernel below on a window-relative S with an absolute
-// start per block: starts need not be monotone (the kernel never assumed
-// it), there are no escapes, and the source array may be longer than the
-// output (halo-extended partitions). Its window is wide (1,664 columns at L7
-// in RCM order), so the batch rides the grid's second axis as for B13; the
-// same entry serves B10 where a window is too wide for the batched kernel's
-// shared-memory S tile.
 //
 // Plain C interface, loaded with ctypes (gwen_tpu_torch/ops/spmm_cuda.py).
 
@@ -148,7 +136,8 @@ __device__ __forceinline__ void expand_half(uint32_t word, int h,
 }
 
 // S as it lies in memory for an x of type T: T itself, bf16 under a float32
-// x (MIXED = 1), float32 under a bf16 x (MIXED = 2) or int8 (MIXED = 3).
+// x (MIXED = 1), float32 under a bf16 x (MIXED = 2, row gather only) or
+// int8 (MIXED = 3).
 template <typename T, int MIXED>
 using s_type = typename std::conditional<
     MIXED == 1, __nv_bfloat16,
@@ -157,8 +146,8 @@ using s_type = typename std::conditional<
         typename std::conditional<MIXED == 3, int8_t, T>::type>::type>::type;
 
 // One 16-byte vector of S into the staged tile: as it is, its 8 bf16 values
-// widened to float32 (MIXED = 1), or its 4 float32 values rounded to bf16
-// (MIXED = 2), or its 16 int8 values widened to T (MIXED = 3).
+// widened to float32 (MIXED = 1), or its 16 int8 values widened to T
+// (MIXED = 3).
 template <typename T, int MIXED>
 __device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
   if constexpr (MIXED == 3) {
@@ -169,11 +158,6 @@ __device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
 #pragma unroll
     for (int q = 0; q < 16 * (int)sizeof(T) / 16; ++q)
       reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(tmp)[q];
-  } else if constexpr (MIXED == 2) {
-    const float* v = reinterpret_cast<const float*>(&raw);
-    __align__(8) __nv_bfloat16 h[4] = {from_f32<T>(v[0]), from_f32<T>(v[1]),
-                                       from_f32<T>(v[2]), from_f32<T>(v[3])};
-    *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(h);
   } else if constexpr (MIXED == 1) {
     const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
     *reinterpret_cast<float4*>(dst) =
@@ -628,10 +612,9 @@ int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
 }
 
 // One launch of either kernel for dtype code 0 (float32), 1 (bfloat16),
-// 2 (float32 x, fix and output on a bfloat16 S; unpacked forms only) or
-// 3 (bfloat16 x and output on a float32 S; the streaming kernel without
-// escapes only), 4 or 5 (float32 or bfloat16 x on an int8 S; no escapes),
-// with or without escapes. -1 for arguments the kernels do not take.
+// 2 (float32 x, fix and output on a bfloat16 S; unpacked forms only), 4 or
+// 5 (float32 or bfloat16 x on an int8 S; no escapes), with or without
+// escapes. -1 for arguments the kernels do not take.
 template <bool BATCHED, bool PACKED>
 int dispatch(Args a, int num_blocks, int dtype, void* stream) {
   if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0 ||
@@ -677,12 +660,6 @@ int dispatch(Args a, int num_blocks, int dtype, void* stream) {
       if (BATCHED)
         return launch_batched<__nv_bfloat16, false, false, 3>(a, num_blocks, st);
       return launch<__nv_bfloat16, false, false, 3>(a, num_blocks, st);
-    }
-    if constexpr (!BATCHED) {
-      if (dtype == 3 && !esc) {
-        if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
-        return launch<__nv_bfloat16, false, false, 2>(a, num_blocks, st);
-      }
     }
   }
   return -1;
@@ -757,9 +734,9 @@ extern "C" int gwen_window_spmm_batched(
 // Packed forms: bits (num_blocks * 128, window / 32) uint32, col_scale and
 // row_scale float32 (a on source and destination rows). `batched` != 0
 // takes the batched kernel (packed B4: the S tile expanded once per CTA);
-// otherwise the batch is the grid's second axis (packed B1 at batch 1, and
-// B13, whose wide window does not fit shared memory whole). Shapes and
-// return codes as gwen_window_spmm_batched.
+// otherwise the unbatched kernel, any batch on the grid's second axis
+// (packed B1, at batch 1). Shapes and return codes as
+// gwen_window_spmm_batched.
 extern "C" int gwen_window_spmm_packed(
     const void* bits, const void* col_scale, const void* row_scale,
     const void* x, const void* window_start, const void* esc_ptr,
@@ -775,20 +752,326 @@ extern "C" int gwen_window_spmm_packed(
                  : dispatch<false, true>(a, num_blocks, dtype, stream);
 }
 
-// Streaming form without escapes, the batch on the grid's second axis: B11
-// (x (batch, x_rows, f) with x_rows up to the layout's source rows, out
-// (batch, num_blocks * 128, f)), and B10 on a window too wide for the
-// batched kernel. dtype as gwen_window_spmm, and 3 = bfloat16 x on a
-// float32 S. Return codes as gwen_window_spmm.
+// ------------------------------------------------------------ row gathers
+//
+// B13, replacing gwen_tpu/ops/spmm_pallas.py:_sliding_packed_kernel
+// (through _sliding_packed_impl), and B11, replacing _sdense_kernel (through
+// _sdense_impl); B10 and B3 take the B11 kernel on a window too wide for
+// the batched kernel's shared-memory S tile (the RCM band of a partition,
+// the int8 rank-1 band). These layouts are banded: at L7 in RCM order a
+// block's window is 1,664 (B11, B10) or 1,792 (B13) columns wide and a row
+// holds about 7 nonzeros of them, so the tile products of the window
+// kernels above spend > 99.5 % of their work on zeros (~150 GFLOP a call at
+// F 256). The TPU kernels multiply the whole window on the MXU because they
+// cannot gather rows; the math is the gather-scale-sum of B12,
+//   B13: out[i] = T(a_r[i]) * sum_{bit j of row i set} T(a_s[ws + j]) * x[ws + j]
+//   B11: out[i] = sum_{c < W, S[i, c] != 0} T(S[i, c]) * x[ws + c]
+// with ws the start of row i's block (the graph's own block size; B11's
+// starts are absolute and need not be monotone), float32 sums in ascending
+// column order, one rounding, and sources at or past x_rows read as zero.
+// T() rounds to x's type first, as the reference casts its tile.
+//
+// The design: one warp per destination row, which walks the nonzeros
+// instead of the window. B13 reads the row's W / 32 bit words once, one
+// word a lane (56 words at L7); B11 streams its S row once with coalesced
+// 16-byte loads, evict-first, four vectors a lane issued together (208
+// vectors of bf16 S at L7, 416 of float32, 104 of int8), and a lane masks
+// its vectors' nonzeros. A ballot picks the lanes (words, vectors)
+// with a nonzero; the warp walks them in ascending order, broadcasts each
+// one's word or vector with shuffles and walks its nonzeros, so a row with
+// any number of nonzeros (a hub) is right and nothing is staged in shared
+// memory. Each nonzero's x row is read with one 16-byte load a lane for
+// every batch item (up to four held in registers), so the bits, scales and
+// S are decoded once per call for a batch of up to four, not once per
+// item, and S leaves device memory once (a larger batch, or F over one
+// pass of 32 vectors, 256 bf16 or 128 float32 values, decodes the row
+// again per group of four and per pass, mostly from L2). No product is
+// taken on a zero.
+//
+// What bounds it: bytes. B13 reads 35 MB of bits, the scales, x (mostly
+// from L2: a row is gathered by its ~7 neighbours) and writes the output;
+// B11 must read S as stored (545.7 MB bf16, 1.09 GB float32, 273 MB int8
+// at L7), a floor no kernel on this layout can pass, plus x and the output.
+
+namespace {
+
+// Destination rows per CTA: small CTAs fit more warps on an SM at the
+// ~90 registers a thread of the batch-4 kernels takes.
+constexpr int ROW_WARPS = 4;
+constexpr unsigned FULL = 0xffffffffu;
+
+// Adds one nonzero, weight w on the source row whose 16-byte column vector
+// (item 0) is at xr, for the nb (<= NB) batch items, item stride `item`.
+// The items' loads are issued together.
+template <typename T, int NB>
+__device__ __forceinline__ void add_row(float (&acc)[NB][16 / sizeof(T)],
+                                        float w, const T* __restrict__ xr,
+                                        int64_t item, int nb) {
+  constexpr int VEC = 16 / sizeof(T);
+  uint4 raw[NB];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+    if (b < nb) raw[b] = __ldg(reinterpret_cast<const uint4*>(xr + b * item));
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (b < nb) {
+      const T* xv = reinterpret_cast<const T*>(&raw[b]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[b][e] = fmaf(w, to_f32(xv[e]), acc[b][e]);
+    }
+  }
+}
+
+// The accumulators times the row scale, rounded once, into the nb items'
+// output rows (`out` at item 0, this row and column c0; item stride `item`).
+template <typename T, int NB>
+__device__ __forceinline__ void store_row(const float (&acc)[NB][16 / sizeof(T)],
+                                          float rs, T* __restrict__ out,
+                                          int64_t item, int nb) {
+  constexpr int VEC = 16 / sizeof(T);
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    if (b < nb) {
+      __align__(16) T tmp[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) tmp[e] = from_f32<T>(acc[b][e] * rs);
+      *reinterpret_cast<uint4*>(out + b * item) = *reinterpret_cast<const uint4*>(tmp);
+    }
+  }
+}
+
+// B13: bits (n_pad, words) S01, window-relative, as the packed kernels read
+// them; col_scale and row_scale a on source and destination rows.
+template <typename T, int NB>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+packed_rows_kernel(const uint32_t* __restrict__ bits,
+                   const float* __restrict__ col_scale,
+                   const float* __restrict__ row_scale,
+                   const int* __restrict__ window_start,
+                   const T* __restrict__ x, T* __restrict__ out, int n_pad,
+                   int words, int block, int f, int x_rows, int batch) {
+  constexpr int VEC = 16 / sizeof(T);
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (row >= n_pad) return;  // the whole warp
+  const int ws = window_start[row / block];
+  const uint32_t* brow = bits + row * words;
+  const float rs = scale_at<T>(row_scale, row);
+  const int64_t item = (int64_t)x_rows * f, out_item = (int64_t)n_pad * f;
+
+  // The whole warp walks the column passes and batch groups together (the
+  // ballots and shuffles need every lane); a lane past F skips its loads
+  // and its store.
+  for (int cb = 0; cb < f; cb += 32 * VEC) {
+    const int c0 = cb + lane * VEC;
+    const bool on = c0 < f;
+    for (int b0 = 0; b0 < batch; b0 += NB) {
+      const int nb = min(NB, batch - b0);
+      const T* xb = x + b0 * item + c0;
+      float acc[NB][VEC];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[b][e] = 0.f;
+      for (int k0 = 0; k0 < words; k0 += 32) {
+        const uint32_t word = k0 + lane < words ? brow[k0 + lane] : 0u;
+        // Words with a set bit, ascending, then their bits, ascending.
+        for (unsigned live = __ballot_sync(FULL, word != 0u); live; live &= live - 1) {
+          const int j = __ffs(live) - 1;
+          const int col0 = ws + (k0 + j) * 32;
+          for (uint32_t m = __shfl_sync(FULL, word, j); m; m &= m - 1) {
+            const int src = col0 + __ffs(m) - 1;
+            if (on && src < x_rows)
+              add_row<T, NB>(acc, scale_at<T>(col_scale, src),
+                             xb + (int64_t)src * f, item, nb);
+          }
+        }
+      }
+      if (on) store_row<T, NB>(acc, rs, out + b0 * out_item + row * f + c0, out_item, nb);
+    }
+  }
+}
+
+// Entry e of a 16-byte vector of S as a weight for an x of type T: S cast
+// to T (as the reference casts its tile), then float32. Selects and
+// shifts, so a runtime e stays in registers.
+template <typename T, int MIXED>
+__device__ __forceinline__ float s_entry(const uint4& v, int e) {
+  using TS = s_type<T, MIXED>;
+  constexpr int PER = 4 / (int)sizeof(TS);  // entries per 32-bit word
+  const int q = e / PER;
+  const uint32_t word = q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+  const uint32_t bits = word >> (32 / PER * (e % PER));
+  if constexpr (MIXED == 3) {
+    return to_f32(from_f32<T>((float)(int8_t)(bits & 0xffu)));
+  } else if constexpr (sizeof(TS) == 2) {  // bf16 S: under a bf16 or float32 x, exact
+    return to_f32(__ushort_as_bfloat16((unsigned short)(bits & 0xffffu)));
+  } else {
+    const float s = __uint_as_float(bits);
+    return MIXED == 2 ? to_f32(from_f32<T>(s)) : s;
+  }
+}
+
+// B11 (and B10, B3 on a wide window): S (n_pad, window) window-relative in
+// the type the operand mode names (s_type).
+template <typename T, int MIXED, int NB>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_start,
+                  const T* __restrict__ x, T* __restrict__ out, int n_pad,
+                  int window, int block, int f, int x_rows, int batch) {
+  using TS = s_type<T, MIXED>;
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int SVEC = 16 / sizeof(TS);  // S entries per 16-byte vector
+  constexpr int GROUP = 4;  // S vectors a lane loads at once
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
+  if (row >= n_pad) return;  // the whole warp
+  const int ws = window_start[row / block];
+  const int vpr = window / SVEC;  // S vectors per row
+  const uint4* srow =
+      reinterpret_cast<const uint4*>(static_cast<const TS*>(s) + row * window);
+  const int64_t item = (int64_t)x_rows * f, out_item = (int64_t)n_pad * f;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+
+  for (int cb = 0; cb < f; cb += 32 * VEC) {
+    const int c0 = cb + lane * VEC;
+    const bool on = c0 < f;
+    for (int b0 = 0; b0 < batch; b0 += NB) {
+      const int nb = min(NB, batch - b0);
+      const T* xb = x + b0 * item + c0;
+      float acc[NB][VEC];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[b][e] = 0.f;
+      for (int v0 = 0; v0 < vpr; v0 += 32 * GROUP) {
+        uint4 raw[GROUP];  // issued together: GROUP loads in flight a lane
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+          const int v = v0 + 32 * g + lane;
+          raw[g] = v < vpr ? __ldcs(srow + v) : zero;
+        }
+#pragma unroll
+        for (int g = 0; g < GROUP; ++g) {
+          if (v0 + 32 * g >= vpr) break;
+          unsigned mask = 0;  // this lane's nonzero entries
+#pragma unroll
+          for (int e = 0; e < SVEC; ++e)
+            mask |= (s_entry<T, MIXED>(raw[g], e) != 0.f ? 1u : 0u) << e;
+          // Vectors with a nonzero, ascending, then their entries, ascending.
+          for (unsigned live = __ballot_sync(FULL, mask != 0u); live; live &= live - 1) {
+            const int j = __ffs(live) - 1;
+            const uint4 v = make_uint4(
+                __shfl_sync(FULL, raw[g].x, j), __shfl_sync(FULL, raw[g].y, j),
+                __shfl_sync(FULL, raw[g].z, j), __shfl_sync(FULL, raw[g].w, j));
+            const int col0 = ws + (v0 + 32 * g + j) * SVEC;
+            for (unsigned m = __shfl_sync(FULL, mask, j); m; m &= m - 1) {
+              const int e = __ffs(m) - 1;
+              if (on && col0 + e < x_rows)
+                add_row<T, NB>(acc, s_entry<T, MIXED>(v, e),
+                               xb + (int64_t)(col0 + e) * f, item, nb);
+            }
+          }
+        }
+      }
+      if (on) store_row<T, NB>(acc, 1.f, out + b0 * out_item + row * f + c0, out_item, nb);
+    }
+  }
+}
+
+// The batch rides inside the warp: up to NB = 4 items a pass (one pass
+// for the train-mesh shape), 1 for an unbatched call.
+template <typename T, int MIXED>
+int launch_dense_rows(const void* s, const int* ws, const void* x, void* out,
+                      int n_pad, int window, int block, int f, int x_rows,
+                      int batch, cudaStream_t st) {
+  if (f % (16 / (int)sizeof(T))) return -1;
+  const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (batch == 1)
+    dense_rows_kernel<T, MIXED, 1><<<grid, ROW_WARPS * 32, 0, st>>>(
+        s, ws, xt, ot, n_pad, window, block, f, x_rows, batch);
+  else
+    dense_rows_kernel<T, MIXED, 4><<<grid, ROW_WARPS * 32, 0, st>>>(
+        s, ws, xt, ot, n_pad, window, block, f, x_rows, batch);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_packed_rows(const uint32_t* bits, const float* col_scale,
+                       const float* row_scale, const int* ws, const void* x,
+                       void* out, int n_pad, int words, int block, int f,
+                       int x_rows, int batch, cudaStream_t st) {
+  if (f % (16 / (int)sizeof(T))) return -1;
+  const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (batch == 1)
+    packed_rows_kernel<T, 1><<<grid, ROW_WARPS * 32, 0, st>>>(
+        bits, col_scale, row_scale, ws, xt, ot, n_pad, words, block, f, x_rows,
+        batch);
+  else
+    packed_rows_kernel<T, 4><<<grid, ROW_WARPS * 32, 0, st>>>(
+        bits, col_scale, row_scale, ws, xt, ot, n_pad, words, block, f, x_rows,
+        batch);
+  return (int)cudaGetLastError();
+}
+
+bool rows_args_ok(int n_pad, int window, int block, int f, int x_rows,
+                  int batch) {
+  return n_pad > 0 && block > 0 && n_pad % block == 0 && window > 0 &&
+         window % 32 == 0 && f > 0 && x_rows > 0 && batch > 0;
+}
+
+}  // namespace
+
+// B11, and B10 and B3 on a wide window: S (n_pad, window) window-relative,
+// window_start (n_pad / block,) int32 absolute starts, x (batch, x_rows, f)
+// with x_rows up to the layout's source rows, out (batch, n_pad, f).
+// dtype as gwen_window_spmm, and 3 = bfloat16 x on a float32 S. Return
+// codes as gwen_window_spmm.
 extern "C" int gwen_window_spmm_streamed(const void* s, const void* x,
                                          const void* window_start, void* out,
-                                         int num_blocks, int window, int f,
-                                         int x_rows, int batch, int dtype,
-                                         void* stream) {
-  Args a = make_args(x, window_start, nullptr, nullptr, nullptr, out, window,
-                     f, x_rows, batch, 0);
-  a.s = s;
-  return dispatch<false, false>(a, num_blocks, dtype, stream);
+                                         int n_pad, int window, int block,
+                                         int f, int x_rows, int batch,
+                                         int dtype, void* stream) {
+  if (!rows_args_ok(n_pad, window, block, f, x_rows, batch)) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ws = static_cast<const int*>(window_start);
+  switch (dtype) {
+    case 0: return launch_dense_rows<float, 0>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
+    case 1: return launch_dense_rows<__nv_bfloat16, 0>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
+    case 2: return launch_dense_rows<float, 1>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
+    case 3: return launch_dense_rows<__nv_bfloat16, 2>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
+    case 4: return launch_dense_rows<float, 3>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
+    case 5: return launch_dense_rows<__nv_bfloat16, 3>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
+  }
+  return -1;
+}
+
+// B13: bits (n_pad, words) int32 S01, col_scale and row_scale float32,
+// window_start (n_pad / block,) int32, x (batch, x_rows, f), out (batch,
+// n_pad, f). dtype 0 = float32, 1 = bfloat16. Return codes as
+// gwen_window_spmm.
+extern "C" int gwen_sliding_packed_spmm(const void* bits, const void* col_scale,
+                                        const void* row_scale, const void* x,
+                                        const void* window_start, void* out,
+                                        int n_pad, int words, int block, int f,
+                                        int x_rows, int batch, int dtype,
+                                        void* stream) {
+  if (words <= 0 || !rows_args_ok(n_pad, words * 32, block, f, x_rows, batch))
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t* b = static_cast<const uint32_t*>(bits);
+  const float* cs = static_cast<const float*>(col_scale);
+  const float* rs = static_cast<const float*>(row_scale);
+  const int* ws = static_cast<const int*>(window_start);
+  if (dtype == 0)
+    return launch_packed_rows<float>(b, cs, rs, ws, x, out, n_pad, words, block, f, x_rows, batch, st);
+  if (dtype == 1)
+    return launch_packed_rows<__nv_bfloat16>(b, cs, rs, ws, x, out, n_pad, words, block, f, x_rows, batch, st);
+  return -1;
 }
 
 // ------------------------------------------------------------ blocked ELL

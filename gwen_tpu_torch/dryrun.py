@@ -45,11 +45,12 @@ def entry(device="cuda"):
     return fn, (x,)
 
 
-def train_step_rank(device="cpu") -> float:
+def train_step_rank(device="cuda") -> float:
     """One partitioned training step on this rank of the default process
-    group (one process: a 1 × 1 mesh). Every rank builds the same tiny
-    model, data and partition tables from fixed seeds. Returns the global
-    loss; raises unless it is finite."""
+    group (one process: a 1 × 1 mesh), on ``device``: the card unless the
+    caller asks for the CPU. Every rank builds the same tiny model, data and
+    partition tables from fixed seeds. Returns the global loss; raises
+    unless it is finite."""
     from gwen_tpu_torch.graph import apply_order, icosphere_edges, kd_patch_order
     from gwen_tpu_torch.nn import EncodeProcessDecode
     from gwen_tpu_torch.parallel import make_partitioned_apply, partition_graph

@@ -20,7 +20,8 @@ each with a launch count (``.launches``):
   tile once and loops over the batch.
 * :func:`sliding_spmm_b` — kernel B10, replacing ``_sliding_kernel_b``
   (through ``_sliding_impl_b``): B3 on ``(B, N, F)``, the batched kernel
-  without escapes.
+  without escapes. B3 and B10 on a window too wide for the batched
+  kernel's shared-memory S tile (an RCM band) take B11's row gather.
 * :func:`diag_window_spmm_packed` and :func:`diag_window_spmm_packed_b` —
   the packed form of B1 and B4 (the ``packed`` branch of ``_diag_kernel``
   and ``_diag_kernel_b``): S01 bits expanded in the kernel, times the
@@ -31,10 +32,15 @@ each with a launch count (``.launches``):
   product on :class:`SlidingPackedGraph`, no escapes. The reference scales
   outside (``a ⊙ K01(a ⊙ x)``, x rounded after its scale); the port folds
   both scales into the kernel as packed B1 does (one rounding, and no pass
-  over x or the output for them). A 256-row graph block runs as two
-  128-row kernel blocks with its start. The batch is the launch grid's
-  second axis (each CTA one member; the wide window leaves no room to keep
-  the expanded tile), not folded into the feature axis.
+  over x or the output for them). A row gather: one warp per destination
+  row walks the set bits of its 1,792-column window (at L7) and gathers
+  only those source rows, for every batch item at once.
+* :func:`windowed_dense_spmm` — kernel B11, replacing ``_sdense_kernel``
+  (through ``_sdense_impl``): the dense scatter-matrix product with an
+  absolute start per block. A row gather: each warp streams its S row once
+  and gathers the source rows of its nonzeros for every batch item.
+* :func:`block_ell_spmm` — kernel B12, replacing ``_kernel`` (through
+  ``_spmm_impl``): the blocked-ELL gather-scale-sum.
 * :func:`block_tiles_spmm` — kernel B14, replacing ``_tile_kernel``
   (through ``_spmm_tiles_impl``): the block-tile (BSR) product as a
   gather-scale-sum over the slots of each block's active tiles.
@@ -55,15 +61,18 @@ The packed kernels build their S tile in x's type whatever it is.
 ``diag_matvec``).
 
 What bounds the kernels on an H100: bytes. At L7 (W = 384, F = 256, bf16)
-one aggregation does 32 GFLOP on the tensor cores but must stream S
-(127 MB), x (84 MB, re-read by overlapping windows mostly from L2) and the
-output (84 MB) — about 108 flop/byte, well under the ~295 flop/byte at
-which an H100 turns compute-bound. The design therefore keeps the products
-on the tensor cores (``mma.sync`` through WMMA, float32 accumulation) and
-lays the grid out so the four 64-column tiles of one destination block run
-next to each other and share its S tile in L2; the batched kernels read S
-once per block and tile for the whole batch. Further work (TMA, ``wgmma``,
-one CTA per block over all F) is for later PRs.
+one diag-window aggregation does 32 GFLOP on the tensor cores but must
+stream S (127 MB), x (84 MB, re-read by overlapping windows mostly from L2)
+and the output (84 MB) — about 108 flop/byte, well under the ~295
+flop/byte at which an H100 turns compute-bound. The window kernels (B1, B3,
+B4, B10, packed B1 and B4) therefore keep the products on the tensor cores
+(``mma.sync`` through WMMA, float32 accumulation) and lay the grid out so
+the four 64-column tiles of one destination block run next to each other
+and share its S tile in L2; the batched kernels read S once per block and
+tile for the whole batch. The RCM bands (W 1,664–1,792, ~7 nonzeros a row)
+would be > 99.5 % zero products there, so B13, B11 and the wide-window B3
+and B10 take the row gathers, which read each nonzero once and multiply
+no zero.
 
 The graph-level composites :func:`spmm_diag_window`,
 :func:`spmm_sliding_dense` and :func:`spmm_sliding_packed` follow
@@ -173,10 +182,14 @@ def _lib() -> ctypes.CDLL:
         #  dtype, stream)
         lib.gwen_window_spmm_packed.argtypes = [vp] * 9 + [ci] * 8 + [vp]
         lib.gwen_window_spmm_packed.restype = ci
-        # (s, x, window_start, out, num_blocks, window, f, x_rows, batch,
+        # (s, x, window_start, out, n_pad, window, block, f, x_rows, batch,
         #  dtype, stream)
-        lib.gwen_window_spmm_streamed.argtypes = [vp] * 4 + [ci] * 6 + [vp]
+        lib.gwen_window_spmm_streamed.argtypes = [vp] * 4 + [ci] * 7 + [vp]
         lib.gwen_window_spmm_streamed.restype = ci
+        # (bits, col_scale, row_scale, x, window_start, out, n_pad, words,
+        #  block, f, x_rows, batch, dtype, stream)
+        lib.gwen_sliding_packed_spmm.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+        lib.gwen_sliding_packed_spmm.restype = ci
         # (nbr, w, window_start, x, out, n_pad, deg, block, f, x_rows,
         #  batch, dtype, stream)
         lib.gwen_ell_spmm.argtypes = [vp] * 5 + [ci] * 7 + [vp]
@@ -324,9 +337,11 @@ def block_tiles_spmm_plain(graph: BlockTileGraph, x: Tensor) -> Tensor:
 
 def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
            esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-           fix: Optional[Tensor], layout: list) -> None:
+           fix: Optional[Tensor], layout: list, block: int = BLOCK) -> None:
     """Raise on operands the kernels do not take. ``layout`` holds the
-    graph's tensors besides ``window_start`` (S, or the bits and scales)."""
+    graph's tensors besides ``window_start`` (S, or the bits and scales);
+    ``block`` is the rows per window start (the window kernels take 128,
+    the row gathers the graph's own)."""
     if x.dim() not in (2, 3):
         raise ValueError(f"x must be (rows, F) or (B, rows, F); got shape "
                          f"{tuple(x.shape)} (fold other batched inputs into "
@@ -337,8 +352,8 @@ def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
     nb = window_start.shape[0]
     f = x.shape[-1]
     vec = 16 // x.element_size()
-    if n_pad != nb * BLOCK:
-        raise ValueError(f"the kernel takes {BLOCK}-row blocks; S has "
+    if n_pad != nb * block:
+        raise ValueError(f"the kernel takes {block}-row blocks; S has "
                          f"{n_pad} rows for {nb} blocks")
     if w % 32:
         raise ValueError(f"window {w} is not a multiple of 32")
@@ -432,35 +447,35 @@ def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
     return out
 
 
-def _launch_streamed(s_mat: Tensor, window_start: Tensor, x: Tensor) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm_streamed`` (no
-    escapes; x ``(rows, F)`` or ``(B, rows, F)``, the batch on the grid).
-    Raises on anything the kernel does not take."""
+def _launch_failed(name: str, rc: int) -> RuntimeError:
+    return RuntimeError(f"{name} launch failed: "
+                        f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
+
+
+def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
+                     x: Tensor) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm_streamed``, the row
+    gather on a dense S (no escapes; ``block`` rows per start; x ``(rows,
+    F)`` or ``(B, rows, F)``, the batch inside the kernel). Raises on
+    anything the kernel does not take."""
     n_pad, w = s_mat.shape
-    _check(x, window_start, n_pad, w, None, None, None, [s_mat])
+    _check(x, window_start, n_pad, w, None, None, None, [s_mat], block)
     code = _kernel_code(s_mat.dtype, x, streamed=True)
     out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
                       device=x.device)
     rc = _lib().gwen_window_spmm_streamed(
         s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(),
-        out.data_ptr(), window_start.shape[0], w, x.shape[-1], x.shape[-2],
+        out.data_ptr(), n_pad, w, block, x.shape[-1], x.shape[-2],
         x.shape[0] if x.dim() == 3 else 1, code,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"streamed window SpMM launch failed: CUDA error {rc}")
+        raise _launch_failed("dense-row gather", rc)
     return out
 
 
-def _launch_packed(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
-                   window_start: Tensor, src_rows: int, x: Tensor,
-                   esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-                   fix: Optional[Tensor], batched_kernel: bool) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm_packed``: the
-    batched kernel (x ``(B, rows, F)``, the S tile expanded once per CTA)
-    or the streaming one with the batch as a grid axis (x ``(rows, F)`` or
-    ``(B, rows, F)``). Raises on anything the kernel does not take."""
-    n_pad, words = bits.shape
-    w = words * 32
+def _check_scales(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
+                  src_rows: int) -> None:
+    n_pad = bits.shape[0]
     if bits.dtype != torch.int32:
         raise TypeError(f"the S01 bits must be int32, not {bits.dtype}")
     if col_scale.dtype != torch.float32 or row_scale.dtype != torch.float32:
@@ -469,6 +484,19 @@ def _launch_packed(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
         raise ValueError(f"scales of {col_scale.shape[0]} source and "
                          f"{row_scale.shape[0]} destination rows; the graph "
                          f"has {src_rows} and {n_pad}")
+
+
+def _launch_packed(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
+                   window_start: Tensor, src_rows: int, x: Tensor,
+                   esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
+                   fix: Optional[Tensor], batched_kernel: bool) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm_packed``: the
+    batched kernel (x ``(B, rows, F)``, the S tile expanded once per CTA)
+    or the unbatched one (x ``(rows, F)``). Raises on anything the kernel
+    does not take."""
+    n_pad, words = bits.shape
+    w = words * 32
+    _check_scales(bits, col_scale, row_scale, src_rows)
     _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix,
            [bits, col_scale, row_scale])
     if batched_kernel and x.dim() != 3:
@@ -548,28 +576,36 @@ def window_matvec(s_mat: Tensor, graph: DiagWindowGraph, x: Tensor) -> Tensor:
     return out
 
 
+def _banded(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
+    """B3 or B10 on a CUDA tensor: the window kernels where the window's S
+    tile fits the batched kernel's shared memory (the diag shapes, the esc2
+    contraction); else (the RCM band of a partition or of the int8 rank-1
+    layout at L7) the row gather of B11, which walks the nonzeros."""
+    code = _kernel_code(graph.s_mat.dtype, x)
+    if _lib().gwen_window_spmm_batched_smem(graph.window_size, code, 0) > MAX_SMEM:
+        return _launch_streamed(graph.s_mat, graph.window_start,
+                                graph.block_size, x)
+    return _launch(graph.s_mat, graph.window_start, x, None, None, None)
+
+
 def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """Kernel B3: the banded product (no escapes). ``(N_pad, F)``."""
+    """Kernel B3: the banded product (no escapes). ``(N_pad, F)``. A wide
+    window takes the row gather (:func:`_banded`)."""
     _check_dim(x, 2, "B3")
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
-    out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
+    out = _banded(graph, x)
     sliding_spmm.launches += 1
     return out
 
 
 def sliding_spmm_b(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``. A window whose
-    S tile does not fit the batched kernel's shared memory (the RCM band of
-    a partition at L7) takes the streaming launch, the batch on the grid."""
+    """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``. A wide window
+    takes the row gather, the batch inside the kernel (:func:`_banded`)."""
     _check_dim(x, 3, "B10")
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
-    code = _kernel_code(graph.s_mat.dtype, x)
-    if _lib().gwen_window_spmm_batched_smem(graph.window_size, code, 0) > MAX_SMEM:
-        out = _launch_streamed(graph.s_mat, graph.window_start, x)
-    else:
-        out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
+    out = _banded(graph, x)
     sliding_spmm_b.launches += 1
     return out
 
@@ -584,7 +620,7 @@ def windowed_dense_spmm(graph: WindowedDenseGraph, x: Tensor) -> Tensor:
     if x.shape[-2] > graph.num_src_rows:
         raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
                          f"{graph.num_src_rows} source rows")
-    out = _launch_streamed(graph.s_mat, graph.window_start, x)
+    out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size, x)
     windowed_dense_spmm.launches += 1
     return out
 
@@ -624,8 +660,7 @@ def block_ell_spmm(graph: BlockEllGraph, x: Tensor) -> Tensor:
         x.shape[0] if x.dim() == 3 else 1, _DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"B12 launch failed: "
-                           f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
+        raise _launch_failed("B12", rc)
     block_ell_spmm.launches += 1
     return out
 
@@ -672,8 +707,7 @@ def block_tiles_spmm(graph: BlockTileGraph, x: Tensor) -> Tensor:
         graph.block_size, f, x.shape[-2], x.shape[0] if x.dim() == 3 else 1,
         _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"B14 launch failed: "
-                           f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
+        raise _launch_failed("B14", rc)
     block_tiles_spmm.launches += 1
     return out
 
@@ -714,18 +748,28 @@ def diag_window_spmm_packed_b(graph: DiagWindowGraph, x: Tensor,
 
 def sliding_packed_spmm(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
     """Kernel B13: ``a ⊙ S01·(a ⊙ x)`` on the bit-packed banded layout, x
-    ``(rows, F)`` or ``(B, rows, F)``. ``(..., N_pad, F)``."""
+    ``(rows, F)`` or ``(B, rows, F)`` with at most ``num_src_rows`` rows
+    (missing rows read as zero). ``(..., N_pad, F)``."""
     if not _on_cuda(x):
         return sliding_packed_spmm_plain(graph, x)
-    if graph.block_size % BLOCK:
-        raise ValueError(f"block_size {graph.block_size} is not a multiple "
-                         f"of the kernel's {BLOCK}-row blocks")
-    per = graph.block_size // BLOCK
-    starts = (graph.window_start if per == 1
-              else graph.window_start.repeat_interleave(per))
-    out = _launch_packed(graph.s_pack, graph.col_scale, graph.row_scale,
-                         starts, graph.num_src_rows, x, None, None, None,
-                         batched_kernel=False)
+    bits, ws = graph.s_pack, graph.window_start
+    n_pad, words = bits.shape
+    _check_scales(bits, graph.col_scale, graph.row_scale, graph.num_src_rows)
+    _check(x, ws, n_pad, words * 32, None, None, None,
+           [bits, graph.col_scale, graph.row_scale], graph.block_size)
+    if x.shape[-2] > graph.num_src_rows:
+        raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
+                         f"{graph.num_src_rows} source rows")
+    out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
+                      device=x.device)
+    rc = _lib().gwen_sliding_packed_spmm(
+        bits.data_ptr(), graph.col_scale.data_ptr(), graph.row_scale.data_ptr(),
+        x.data_ptr(), ws.data_ptr(), out.data_ptr(), n_pad, words,
+        graph.block_size, x.shape[-1], x.shape[-2],
+        x.shape[0] if x.dim() == 3 else 1, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise _launch_failed("B13", rc)
     sliding_packed_spmm.launches += 1
     return out
 
