@@ -28,7 +28,13 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    only): B13 and B11 in its six operand modes on a hub graph (a row of
    601 nonzeros) and on a graph with an empty destination block (B11 also
    with the blocks reversed: starts not monotone), on fewer x rows than
-   the layout's sources and at batch 5; then the unfused operators: B8, B9 (nb 1), B9b (nb 2 and 8) and
+   the layout's sources and at batch 5; then B4, packed B4 and B10 (the row
+   gathers with the escape epilogue; correctness only) on an L5 graph in
+   KD-patch order with a hub row (~280 in-window nonzeros), a block of 100
+   escape rows and an empty block, at batch 1, 3, 5 and 16, F 8 and 264 in
+   bf16 and F 4 and 132 in float32, a float32 x on the bf16 S at F 4, with
+   no fix rows, and B4 on a halo-diag local graph (``n_pad`` rows, the
+   halo-extended sources); then the unfused operators: B8, B9 (nb 1), B9b (nb 2 and 8) and
    ``diag_matvec`` (B1 on a runtime S) at f 128 and 256, the gradients of
    ``diag_matvec`` and ``diag_sddmm`` against autograd through the plain
    versions, and ``aggregate`` on a float32 ``(4, N, 1)`` field over the
@@ -666,6 +672,14 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
                                            graph.num_src_rows), x, 5),
         floor_ms=stored_floor_ms(graph.s_mat))
     del want
+    # What the escape epilogue costs, and the CRPS step's 16-item shape (four
+    # groups of four: each row's S walked four times).
+    no_fix = cuda_ms(lambda: spmm_cuda.diag_window_spmm_b(graph, x), 10)
+    x16, fix16 = randn(16, graph.num_padded_nodes, f), randn(16, u, f)
+    b16 = cuda_ms(lambda: spmm_cuda.diag_window_spmm_b(graph, x16, fix16), 5)
+    log(f"    B4 batch {batch}: {ms:.4f} ms, with no fix rows (no epilogue) "
+        f"{no_fix:.4f} ms; batch 16: {b16:.4f} ms ({b16 / 4:.4f} a group of four)")
+    del x16, fix16
 
     # B10: batched banded SpMM on the esc2 graph.
     x2 = randn(batch, g2.num_nodes, f)
@@ -970,6 +984,9 @@ def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
         ref = unpacked["B4" if len(shape) == 3 else "B1"]["ms"]
         log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unpacked "
             f"{'B4' if len(shape) == 3 else 'B1'} {ref:.4f} ms")
+        if key == "B4p":
+            log(f"    B4p with no fix rows (no epilogue): "
+                f"{cuda_ms(lambda: kern(g, x), 10):.4f} ms")
         if keep:
             # The operator the kernel rebuilds, a_r a_s ⊙ S01, as CSR.
             packed_diag = g is pg
@@ -1077,6 +1094,134 @@ def check_wide_window_graphs(graphs: dict, device) -> None:
                 starts = ("not monotone"
                           if bool((g.window_start.diff() < 0).any()) else "monotone")
                 check_b11_modes(g, x, f"{tag}, window {g.window_size}, starts {starts}")
+    torch.cuda.synchronize()
+
+
+def build_diag_gather_graphs(device) -> dict:
+    """An L5 graph in KD-patch order that B4, packed B4 and B10 (the row
+    gathers with the escape epilogue) must get right: the mesh, a hub joined
+    both ways to every node within 150 rows of it (~300 nonzeros in its
+    window) and to 100 nodes of one block far outside its window (a block of
+    > 32 escape rows), and 300 appended nodes with self loops only, whose
+    first whole block is cleared (no nonzero, no escape). As the weighted
+    bf16 diag layout (window 384, block 128) with the esc2 contraction (B10),
+    its packed form, and one rank's halo-diag local graph of the mesh in two
+    partitions (``n_pad`` rows, a window over the halo-extended sources)."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      kd_patch_order, to_diag_window, window_mask)
+    from gwen_tpu_torch.parallel import local_graph, partition_graph
+
+    verts, s, r = icosphere_edges(5)
+    n0 = verts.shape[0]
+    s2, r2, _ = apply_order(kd_patch_order(verts, s, r, n0), s, r)
+    s2, r2 = np.asarray(s2, np.int64), np.asarray(r2, np.int64)
+    h, block = n0 // 4, 128
+    far0 = (3 * n0 // 4) // block * block
+    near = set(s2[r2 == h].tolist())
+    others = np.array([c for c in (*range(h - 150, h + 150), *range(far0, far0 + 100))
+                       if c != h and c not in near])
+    n = n0 + 300
+    g = build_graph(np.concatenate([s2, others, np.full(others.size, h)]),
+                    np.concatenate([r2, np.full(others.size, h), others]), n)
+    kw = dict(window_size=WINDOW, esc2_min_rows=1)
+    diag = to_diag_window(g, dtype=torch.bfloat16, **kw)
+    packed = to_diag_window(g, packed=True, **kw)
+    empty = -(-n0 // block)
+    rows = slice(empty * block, (empty + 1) * block)
+    sm, bits = diag.s_mat.clone(), packed.s_pack.clone()
+    sm[rows], bits[rows] = 0, 0
+    diag = dataclasses.replace(diag, s_mat=sm)
+    packed = dataclasses.replace(packed, s_pack=bits)
+    per_row, per_block = window_mask(diag).sum(1), diag.esc_ptr.diff()
+    if not (int(per_row.max()) > 32 and int(per_block.max()) > 32
+            and int(per_row[rows].sum()) == 0 and int(per_block[empty]) == 0
+            and rows.stop <= n < diag.num_src_rows):
+        raise AssertionError("the L5 gather graph lacks a hub row, a block of "
+                             "> 32 escapes or an empty block of real rows")
+    pg = partition_graph(s2, r2, n0, 2, reorder=False, layout="diag",
+                         s_dtype=torch.bfloat16, diag_window=WINDOW)
+    halo = local_graph(pg, 1).local
+    log(f"  L5 gather graphs: nodes {n}, padded {diag.num_padded_nodes}, src rows "
+        f"{diag.num_src_rows}, hub row {int(per_row.max())} in-window nonzeros, "
+        f"at most {int(per_block.max())} escape rows a block, block {empty} empty, "
+        f"esc2 S {tuple(diag.esc2_graph.s_mat.shape)}; halo-diag local S "
+        f"{tuple(halo.s_mat.shape)} over {halo.num_src_rows} extended rows, "
+        f"{0 if halo.escape is None else halo.escape.rows.shape[0]} escape rows")
+    return {k: v.to(device) for k, v in
+            {"diag": diag, "packed": packed, "halo": halo}.items()}
+
+
+def check_diag_gather_graphs(graphs: dict, device) -> None:
+    """Phase 3, correctness only: B4 (a bf16 S, its float32 copy, and a
+    float32 x on the bf16 S), packed B4 and B10 (on the esc2 graph) on the
+    graphs of :func:`build_diag_gather_graphs` against their plain versions,
+    at batch 1, 3, 5 and 16 (groups of four and a remainder), F 8 and 264 in
+    bf16 (lanes past F, a second column pass) and F 4 and 132 in float32,
+    the float32-on-bf16 mode at F 4, x with fewer rows than the sources;
+    B4 and packed B4 with no fix rows; B4 on the halo-diag local graph. Each
+    call must launch its wrapper's kernel once."""
+    from gwen_tpu_torch.ops import spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(9)
+    counters = _counters()
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    def held(key, tag, kernel, want, tol):
+        before = counters[key].launches
+        got = kernel()
+        if counters[key].launches != before + 1:
+            raise AssertionError(f"{key} {tag}: its kernel did not launch once")
+        compare(f"{key} {tag}", got, want, tol)
+
+    dg, pg, halo = graphs["diag"], graphs["packed"], graphs["halo"]
+    g2 = dg.esc2_graph
+    d32 = dataclasses.replace(dg, s_mat=dg.s_mat.float())
+    g2_32 = dataclasses.replace(g2, s_mat=g2.s_mat.float())
+    p_bf = dataclasses.replace(pg, r1_col=pg.r1_col.bfloat16().float(),
+                               r1_row=pg.r1_row.bfloat16().float())
+    n, u = dg.num_nodes, dg.escape.rows.shape[0]
+    modes = ((torch.bfloat16, 8), (torch.bfloat16, 264), (torch.float32, 4),
+             (torch.float32, 132))
+    for batch in (1, 3, 5, 16):
+        for dtype, f in modes:
+            bf = dtype == torch.bfloat16
+            tol = BF16_TOL if bf else F32_TOL
+            tag = f"batch {batch} F {f} {'bf16' if bf else 'f32'}"
+            x, fix = randn(batch, n, f, dtype=dtype), randn(batch, u, f, dtype=dtype)
+            xf, ff = x.float(), fix.float()
+            held("B4", tag, lambda: spmm_cuda.diag_window_spmm_b(dg if bf else d32, x, fix),
+                 spmm_cuda.diag_window_spmm_plain(d32, xf, ff), tol)
+            held("B4p", tag, lambda: spmm_cuda.diag_window_spmm_packed_b(pg, x, fix),
+                 spmm_cuda.diag_window_spmm_packed_plain(p_bf if bf else pg, xf, ff),
+                 tol)
+            x2 = randn(batch, g2.num_nodes, f, dtype=dtype)
+            held("B10", tag, lambda: spmm_cuda.sliding_spmm_b(g2 if bf else g2_32, x2),
+                 spmm_cuda.sliding_spmm_plain(g2_32, x2.float()), tol)
+            if f == 4:  # a float32 x on the bf16 S
+                held("B4", f"{tag} on the bf16 S",
+                     lambda: spmm_cuda.diag_window_spmm_b(dg, x, fix),
+                     spmm_cuda.diag_window_spmm_plain(d32, x, fix), F32_TOL)
+                held("B10", f"{tag} on the bf16 S",
+                     lambda: spmm_cuda.sliding_spmm_b(g2, x2),
+                     spmm_cuda.sliding_spmm_plain(g2_32, x2), F32_TOL)
+    x = randn(3, n, 264)
+    held("B4", "batch 3 F 264 bf16, no fix rows",
+         lambda: spmm_cuda.diag_window_spmm_b(dg, x),
+         spmm_cuda.diag_window_spmm_plain(d32, x.float(), None), BF16_TOL)
+    held("B4p", "batch 3 F 264 bf16, no fix rows",
+         lambda: spmm_cuda.diag_window_spmm_packed_b(pg, x),
+         spmm_cuda.diag_window_spmm_packed_plain(p_bf, x.float(), None), BF16_TOL)
+    h32 = dataclasses.replace(halo, s_mat=halo.s_mat.float())
+    k = 0 if halo.escape is None else halo.escape.rows.shape[0]
+    for batch in (1, 5):
+        x = randn(batch, halo.num_src_rows, 264)
+        fix = randn(batch, k, 264) if k else None
+        held("B4", f"halo-diag local graph, batch {batch} F 264 bf16",
+             lambda: spmm_cuda.diag_window_spmm_b(halo, x, fix),
+             spmm_cuda.diag_window_spmm_plain(
+                 h32, x.float(), None if fix is None else fix.float()), BF16_TOL)
     torch.cuda.synchronize()
 
 
@@ -1201,6 +1346,8 @@ def check_unfused_kernels(graph, packed_diag, device) -> dict:
                 got, aggregate(g, x, backend="plain"), F32_TOL)
         ms = cuda_ms(lambda: aggregate(g, x))
         log(f"  aggregate (4, N, 1) float32 on the {name} graph: {ms:.4f} ms")
+        _profile_step(lambda: aggregate(g, x),
+                      f"aggregate (4, N, 1) float32 on the {name} graph", top=6)
     torch.cuda.empty_cache()
     return results
 
@@ -1987,8 +2134,8 @@ def check_partition_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> 
             raise AssertionError(f"{key} is not halo-extended")
         del x
         torch.cuda.empty_cache()
-    # B10 on the `sliding` partition's band: a window too wide for the
-    # batched kernel's S tile, so the row gather, at the train shape.
+    # B10 on the `sliding` partition's band (the row gather, as at every
+    # width), at the train shape.
     g = layouts["halo_sliding"]
     x = randn(batch, g.num_src_rows, f)
     tag = f"B10 wide window ({g.window_size}, batch {batch}, {g.num_src_rows} rows)"
@@ -2028,8 +2175,7 @@ def check_halo_operators(graph, processor: str, device,
     """The partitioned path's operators on one rank's halo graph, at the
     shapes ``train-mesh`` gives them (batch 4, the halo-extended source
     rows), against their plain versions on the same path: for GCN
-    ``aggregate_halo`` (``sliding``: B10, whose window here takes the
-    streaming launch; ``diag``: B4 over the extended rows with the fix rows
+    ``aggregate_halo`` (``sliding``: B10 on the band; ``diag``: B4 over the extended rows with the fix rows
     of the gathered contraction, B10; ``dense``: B11; ``ell``: B12) in bf16
     and in float32; for attention ``attend_halo`` (B5 on the extended K/V,
     B6 and B7 through its gradients) in bf16 against autograd through the
@@ -2649,6 +2795,9 @@ def main() -> int:
     results.update(check_packed_kernels(graph, packed, device, results))
     log("  the row gathers (B13, B11) on an L5 hub graph and an empty-block graph:")
     check_wide_window_graphs(build_wide_window_graphs(device), device)
+    log("  the batched diag forms on the row gathers (B4, packed B4, B10) on an "
+        "L5 hub graph with a block of > 32 escape rows and an empty block:")
+    check_diag_gather_graphs(build_diag_gather_graphs(device), device)
     log("  unfused operators (B8, B9, B9b, diag_matvec) and aggregate on a "
         "float32 field:")
     results.update(check_unfused_kernels(graph, pg, device))
@@ -2728,10 +2877,12 @@ def main() -> int:
                "B3": ("banded SpMM (esc2 contraction; its int8 S01 form is held "
                       "in phase 11)", "cuda", cu, f"{spmm}:476"),
                "B2": ("residual + LayerNorm forward", "triton", tr, f"{ln}:42"),
-               "B4": ("batched diag-window SpMM with escape placement", "cuda",
-                      cu, f"{spmm}:1138"),
-               "B10": ("batched banded SpMM (esc2 contraction; its int8 S01 "
-                       "form is held in phase 11)", "cuda", cu, f"{spmm}:609"),
+               "B4": ("batched diag-window SpMM: a row gather over S's "
+                      "nonzeros with the escape rows added in its epilogue "
+                      "(dense_rows_kernel, batch 4)", "cuda", cu, f"{spmm}:1138"),
+               "B10": ("batched banded SpMM on the esc2 contraction: the row "
+                       "gather over S's nonzeros (dense_rows_kernel; its int8 "
+                       "S01 form is held in phase 11)", "cuda", cu, f"{spmm}:609"),
                "B2b": ("residual + LayerNorm backward", "triton", tr,
                        f"{ln}:59"),
                "B5": (f"windowed attention forward (nb = 1{one})", "cuda",
@@ -2750,7 +2901,9 @@ def main() -> int:
                        "(the packed branch of _diag_kernel)", "cuda", cu,
                        f"{spmm}:998"),
                "B4p": ("batched packed diag-window SpMM (the packed branch of "
-                       "_diag_kernel_b)", "cuda", cu, f"{spmm}:1224"),
+                       "_diag_kernel_b): a row gather over the set bits with "
+                       "the escape rows added before the row scale "
+                       "(packed_rows_kernel, batch 4)", "cuda", cu, f"{spmm}:1224"),
                "B13": ("bit-packed banded SpMM, a row gather over the set "
                        "bits (batch 4, the train-mesh shape)", "cuda", cu,
                        f"{spmm}:1556"),

@@ -5,30 +5,32 @@
 // Replaces these Pallas TPU kernels of the reference package:
 //   B1  gwen_tpu/ops/spmm_pallas.py:_diag_kernel     (through _diag_impl)
 //   B3  gwen_tpu/ops/spmm_pallas.py:_sliding_kernel  (through _sliding_impl)
-// and, in the batched section below, B4 and B10; B13
+// with the window kernel below; B4 (_diag_kernel_b through _diag_impl_b),
+// B10 (_sliding_kernel_b through _sliding_impl_b), B13
 // (_sliding_packed_kernel through _sliding_packed_impl) and B11
-// (_sdense_kernel through _sdense_impl) are the row gathers, B12 (_kernel
-// through _spmm_impl) and B14 (_tile_kernel through _spmm_tiles_impl) have
-// sections of their own at the end. The window kernels compute, for every
-// 128-row destination block b with window start ws_b,
+// (_sdense_kernel through _sdense_impl) with the row gathers after it; B12
+// (_kernel through _spmm_impl) and B14 (_tile_kernel through
+// _spmm_tiles_impl) have sections of their own at the end. The window
+// kernel computes, for every 128-row destination block b with window start
+// ws_b,
 //   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
-// in float32, then (B1 and B4 only) add the block's escape fix rows
+// in float32, then (B1 only) adds the block's escape fix rows
 //   out[esc_rows[j], :] += fix[j, :]   for j in [esc_ptr[b], esc_ptr[b+1])
-// and cast once to the output type. The TPU kernels stage x in VMEM (a
+// and casts once to the output type. The TPU kernels stage x in VMEM (a
 // superblock union window for B1, a ring buffer for B3) and place escapes
 // with a one-hot matmul; here each CTA reads its own window and places the
 // (row-unique) escape rows directly in its shared-memory output tile.
 //
-// Packed form (PACKED = true; packed B1 and B4): S is not read. For rank-1
-// GCN weights S = a_r a_s (.) S01, and the kernel rebuilds it: bit j of
-// word k of row i (bits: (N_pad, W / 32) uint32) is S01[i, 32k+j]; the S
-// tile entry is S01 * T(a_s[ws_b + c]) (the column scale rounded to the
-// input type, as the reference's in-kernel S tile), and each output row is
+// Packed form (PACKED = true; packed B1): S is not read. For rank-1 GCN
+// weights S = a_r a_s (.) S01, and the kernel rebuilds it: bit j of word k
+// of row i (bits: (N_pad, W / 32) uint32) is S01[i, 32k+j]; the S tile
+// entry is S01 * T(a_s[ws_b + c]) (the column scale rounded to the input
+// type, as the reference's in-kernel S tile), and each output row is
 // multiplied by T(a_r[row]) after the escape rows are added (the escape
 // tables of packed graphs carry w = a_s), before the single rounding. The
 // bits are 1/16 of bf16 S.
 //
-// What bounds the window kernels on an H100: bytes, not flops. At L7 (S
+// What bounds the window kernel on an H100: bytes, not flops. At L7 (S
 // 164864 x 384, F = 256, bf16) one B1 call is 32 GFLOP against ~300 MB of
 // S, x and output, about 108 flop/byte, a third of the ridge point. So
 // bf16 products run on the tensor cores (WMMA -> mma.sync, float32
@@ -36,10 +38,10 @@
 // are issued into registers before the current chunk's products, and the
 // grid walks the 64-column tiles of one block consecutively so they share
 // its S tile in L2. float32 inputs take a CUDA-core FMA path (full float32,
-// no TF32). That holds for the diag window (384 columns, ~7 nonzeros a
-// row): the banded layouts of RCM order have windows of 1,664-1,792
-// columns, where a tile product is > 99.5 % zeros, and take the row
-// gathers instead (B13, B11, and B3 and B10 on such a window).
+// no TF32). Yet a row holds about 7 nonzeros of its 384 columns, so 98 % of
+// those products are on zeros; the batched forms (B4, packed B4, B10) and
+// the RCM bands (1,664-1,792 columns) take the row gathers instead, which
+// multiply no zero.
 //
 // Mixed operands (MIXED = 1): a float32 x on a bfloat16 S, as the
 // reference's kernels take it (S is cast to x's type per tile; bf16 ->
@@ -88,18 +90,17 @@ constexpr int SMEM_BYTES =
 
 // Everything a launch passes; pointers the form does not use are null.
 struct Args {
-  const void* s;             // (N_pad, W) S, unpacked forms
-  const uint32_t* bits;      // (N_pad, W / 32) S01, packed forms
-  const float* col_scale;    // a on source rows, packed forms
-  const float* row_scale;    // a on destination rows, packed forms
-  const void* x;             // (batch, x_rows, f)
+  const void* s;             // (N_pad, W) S, unpacked form
+  const uint32_t* bits;      // (N_pad, W / 32) S01, packed form
+  const float* col_scale;    // a on source rows, packed form
+  const float* row_scale;    // a on destination rows, packed form
+  const void* x;             // (x_rows, f)
   const int* window_start;   // (num_blocks,)
   const int* esc_ptr;        // (num_blocks + 1,) or null
   const int64_t* esc_rows;   // (n_fix,)
-  const void* fix;           // (batch, n_fix, f)
-  void* out;                 // (batch, num_blocks * 128, f)
-  int n_fc, window, f, x_rows, batch, n_fix;
-  int64_t n_pad;
+  const void* fix;           // (n_fix, f)
+  void* out;                 // (num_blocks * 128, f)
+  int n_fc, window, f, x_rows;
 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -183,15 +184,14 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   const int tid = threadIdx.x;
   const int fc = blockIdx.x % a.n_fc;  // column tile: fastest, shares S in L2
   const int b = blockIdx.x / a.n_fc;   // destination block
-  const int bi = blockIdx.y;           // batch member
   const int window = a.window, f = a.f, x_rows = a.x_rows;
   const int c0 = fc * BN;
   const int64_t row0 = (int64_t)b * BM;
   const int64_t ws = a.window_start[b];
   const TS* s_blk =
       PACKED ? nullptr : static_cast<const TS*>(a.s) + row0 * window;
-  const T* x = static_cast<const T*>(a.x) + (int64_t)bi * x_rows * f;
-  T* out = static_cast<T*>(a.out) + (int64_t)bi * a.n_pad * f;
+  const T* x = static_cast<const T*>(a.x);
+  T* out = static_cast<T*>(a.out);
   // Packed: thread (pr, ph) expands half ph of row pr's word of each chunk.
   const int pr = tid >> 1, ph = tid & 1;
   const int wpr = window / BK;  // bit words per row
@@ -336,7 +336,7 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
 
   if constexpr (HAS_ESC) {
     // Escape receivers are unique, so no two threads add to one element.
-    const T* fix = static_cast<const T*>(a.fix) + (int64_t)bi * a.n_fix * f;
+    const T* fix = static_cast<const T*>(a.fix);
     const int j0 = a.esc_ptr[b], j1 = a.esc_ptr[b + 1];
     for (int idx = tid; idx < (j1 - j0) * BN; idx += NT) {
       const int j = j0 + idx / BN, c = idx % BN;
@@ -366,299 +366,43 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
 
 template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
 int launch(const Args& a, int num_blocks, cudaStream_t stream) {
-  const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks, (unsigned)a.batch);
+  const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks);
   window_spmm_kernel<T, HAS_ESC, PACKED, MIXED><<<grid, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------- batched
-//
-// B4 and B10 (and packed B4): the same product on x (B, x_rows, F) -> out
-// (B, N_pad, F), replacing gwen_tpu/ops/spmm_pallas.py:_diag_kernel_b
-// (through _diag_impl_b) and _sliding_kernel_b (through _sliding_impl_b).
-// What the batched TPU kernels buy is that S is streamed once per
-// destination block and reused for every batch member. Here each CTA copies
-// its whole S tile (128 x W) into shared memory once (packed: expands it
-// from the bits and column scales once), then loops over the batch,
-// streaming only x chunks. The escape rows of a block are the same
-// fix-array range for every member; fix is (B, U, F).
-//
-// Shared memory: the S tile (row padded by one 16-byte vector), one x chunk,
-// for bf16 the float32 output tile the escape rows are added into before
-// the single rounding, and, packed, the window's rounded column scales
-// (read once from global memory, then by every row's expansion). float32 outputs need no rounding, so they are
-// stored straight from registers and the escape rows added in place after a
-// barrier (the CTA owns those rows and columns); that keeps the float32 tile
-// at W = 384 inside the 227 KB a block may use. Packed float32 stores
-// a_r * acc and adds a_r * fix, equal to a_r * (acc + fix) to float32
-// rounding.
-
-template <typename T, bool PACKED>
-constexpr int batched_smem_bytes(int window) {
-  using C = Cfg<T>;
-  return BM * (window + C::VEC) * (int)sizeof(T) + BK * C::LDB * (int)sizeof(T) +
-         (std::is_same<T, float>::value ? 0 : BM * LDC * (int)sizeof(float)) +
-         (PACKED ? window * (int)sizeof(float) : 0);
-}
-
-template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
-__global__ void __launch_bounds__(NT) window_spmm_batched_kernel(const Args a) {
-  using C = Cfg<T>;
-  using TS = s_type<T, MIXED>;
-  constexpr int SVEC = 16 / sizeof(TS);
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int window = a.window, f = a.f, x_rows = a.x_rows;
-  const int lds = window + C::VEC;             // padded S-tile row
-  T* Ss = reinterpret_cast<T*>(smem);          // [BM][lds] whole S tile
-  T* Bs = Ss + BM * lds;                       // [BK][LDB] x chunk
-  float* Cs = reinterpret_cast<float*>(Bs + BK * C::LDB);  // [BM][LDC], bf16
-  float* Sc = Cs + (std::is_same<T, float>::value ? 0 : BM * LDC);  // [window]
-
-  const int tid = threadIdx.x;
-  const int fc = blockIdx.x % a.n_fc;
-  const int b = blockIdx.x / a.n_fc;
-  const int c0 = fc * BN;
-  const int64_t row0 = (int64_t)b * BM;
-  const int64_t ws = a.window_start[b];
-
-  // Stage the S tile once.
-  if constexpr (PACKED) {
-    for (int c = tid; c < window; c += NT) Sc[c] = scale_at<T>(a.col_scale, ws + c);
-    __syncthreads();
-    // Consecutive threads take consecutive rows of one half word, so a warp
-    // reads the same 16 scales (a shared-memory broadcast).
-    const int wpr = window / BK;
-    for (int v = tid; v < BM * wpr * 2; v += NT) {
-      const int r = v % BM, hw = v / BM;
-      const uint32_t word = a.bits[(row0 + r) * wpr + hw / 2];
-      expand_half<T>(word, hw & 1, Sc + hw * HALF, Ss + r * lds + hw * HALF);
-    }
-  } else {
-    const TS* s_blk = static_cast<const TS*>(a.s) + row0 * window;
-    const int vpr = window / SVEC;
-    for (int v = tid; v < BM * vpr; v += NT) {
-      const int r = v / vpr, cv = v % vpr;
-      store_s<T, MIXED>(Ss + r * lds + cv * SVEC,
-                        *reinterpret_cast<const uint4*>(
-                            s_blk + (int64_t)r * window + cv * SVEC));
-    }
-  }
-
-  int j0 = 0, j1 = 0;
-  if constexpr (HAS_ESC) {
-    j0 = a.esc_ptr[b];
-    j1 = a.esc_ptr[b + 1];
-  }
-
-  for (int bi = 0; bi < a.batch; ++bi) {
-    const T* xb = static_cast<const T*>(a.x) + (int64_t)bi * x_rows * f;
-    T* ob = static_cast<T*>(a.out) + (int64_t)bi * a.n_pad * f;
-    const T* fb = static_cast<const T*>(a.fix) + (int64_t)bi * a.n_fix * f;
-    uint4 rb[C::B_VECS];
-    auto load = [&](int k0) {
-#pragma unroll
-      for (int i = 0; i < C::B_VECS; ++i) {
-        const int v = tid + i * NT;
-        const int r = v / (BN / C::VEC), cv = v % (BN / C::VEC);
-        const int64_t xr = ws + k0 + r;
-        const int col = c0 + cv * C::VEC;
-        rb[i] = (xr < x_rows && col < f)
-                    ? *reinterpret_cast<const uint4*>(xb + xr * f + col)
-                    : make_uint4(0u, 0u, 0u, 0u);
-      }
-    };
-    auto stage = [&]() {
-#pragma unroll
-      for (int i = 0; i < C::B_VECS; ++i) {
-        const int v = tid + i * NT;
-        const int r = v / (BN / C::VEC), cv = v % (BN / C::VEC);
-        *reinterpret_cast<uint4*>(Bs + r * C::LDB + cv * C::VEC) = rb[i];
-      }
-    };
-
-    if constexpr (std::is_same<T, float>::value) {
-      const int tx = tid & 15, ty = tid >> 4;
-      float acc[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      load(0);
-      for (int k0 = 0; k0 < window; k0 += BK) {
-        stage();
-        __syncthreads();
-        if (k0 + BK < window) load(k0 + BK);
-#pragma unroll 8
-        for (int k = 0; k < BK; ++k) {
-          const float4 bv =
-              *reinterpret_cast<const float4*>(Bs + k * C::LDB + tx * 4);
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            const float av = Ss[(ty * 8 + i) * lds + k0 + k];
-            acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-            acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-            acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-            acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-          }
-        }
-        __syncthreads();
-      }
-      const int col = c0 + tx * 4;
-      if (col < f) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float rs =
-              PACKED ? scale_at<T>(a.row_scale, row0 + ty * 8 + i) : 1.f;
-          *reinterpret_cast<float4*>(ob + (row0 + ty * 8 + i) * f + col) =
-              make_float4(acc[i][0] * rs, acc[i][1] * rs, acc[i][2] * rs,
-                          acc[i][3] * rs);
-        }
-      }
-      if constexpr (HAS_ESC) {
-        __syncthreads();  // the tile's stores are visible to the block
-        for (int idx = tid; idx < (j1 - j0) * BN; idx += NT) {
-          const int j = j0 + idx / BN, c = idx % BN;
-          const int64_t row = a.esc_rows[j];
-          const float rs = PACKED ? scale_at<T>(a.row_scale, row) : 1.f;
-          if (c0 + c < f)
-            ob[row * f + c0 + c] += fb[(int64_t)j * f + c0 + c] * rs;
-        }
-      }
-    } else {
-      using namespace nvcuda;
-      const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      load(0);
-      for (int k0 = 0; k0 < window; k0 += BK) {
-        stage();
-        __syncthreads();
-        if (k0 + BK < window) load(k0 + BK);
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              fa[2];
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major>
-              fbf[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(fa[i], Ss + (wm * 32 + i * 16) * lds + k0 + kk,
-                                   lds);
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::load_matrix_sync(fbf[j], Bs + kk * C::LDB + wn * 32 + j * 16,
-                                   C::LDB);
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc[i][j], fa[i], fbf[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(
-              Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16, acc[i][j], LDC,
-              wmma::mem_row_major);
-      __syncthreads();
-      if constexpr (HAS_ESC) {
-        for (int idx = tid; idx < (j1 - j0) * BN; idx += NT) {
-          const int j = j0 + idx / BN, c = idx % BN;
-          if (c0 + c < f)
-            Cs[(int)(a.esc_rows[j] - row0) * LDC + c] +=
-                to_f32(fb[(int64_t)j * f + c0 + c]);
-        }
-        __syncthreads();
-      }
-      constexpr int OV = BN / C::VEC;
-      for (int v = tid; v < BM * OV; v += NT) {
-        const int r = v / OV, cv = v % OV;
-        const int col = c0 + cv * C::VEC;
-        if (col < f) {
-          const float rs = PACKED ? scale_at<T>(a.row_scale, row0 + r) : 1.f;
-          __align__(16) T tmp[C::VEC];
-#pragma unroll
-          for (int e = 0; e < C::VEC; ++e)
-            tmp[e] = from_f32<T>(PACKED ? Cs[r * LDC + cv * C::VEC + e] * rs
-                                        : Cs[r * LDC + cv * C::VEC + e]);
-          *reinterpret_cast<uint4*>(ob + (row0 + r) * f + col) =
-              *reinterpret_cast<const uint4*>(tmp);
-        }
-      }
-      // The next member's first stores into Cs come after its k-loop,
-      // whose barriers order them after these reads.
-    }
-  }
-}
-
-template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
-int launch_batched(const Args& a, int num_blocks, cudaStream_t stream) {
-  const int smem = batched_smem_bytes<T, PACKED>(a.window);
-  auto kernel = window_spmm_batched_kernel<T, HAS_ESC, PACKED, MIXED>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks);
-  kernel<<<grid, NT, smem, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// One launch of either kernel for dtype code 0 (float32), 1 (bfloat16),
-// 2 (float32 x, fix and output on a bfloat16 S; unpacked forms only), 4 or
-// 5 (float32 or bfloat16 x on an int8 S; no escapes), with or without
-// escapes. -1 for arguments the kernels do not take.
-template <bool BATCHED, bool PACKED>
+// One launch for dtype code 0 (float32), 1 (bfloat16), 2 (float32 x, fix
+// and output on a bfloat16 S; unpacked form only), 4 or 5 (float32 or
+// bfloat16 x on an int8 S; no escapes), with or without escapes. -1 for
+// arguments the kernel does not take.
+template <bool PACKED>
 int dispatch(Args a, int num_blocks, int dtype, void* stream) {
-  if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0 ||
-      a.batch <= 0)
-    return -1;
-  if (!BATCHED && a.batch > 65535) return -1;
+  if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool esc = a.esc_ptr != nullptr;
   a.n_fc = (a.f + BN - 1) / BN;
-  a.n_pad = (int64_t)num_blocks * BM;
   if (dtype == 0) {
     if (a.f % Cfg<float>::VEC) return -1;
-    if (BATCHED)
-      return esc ? launch_batched<float, true, PACKED>(a, num_blocks, st)
-                 : launch_batched<float, false, PACKED>(a, num_blocks, st);
     return esc ? launch<float, true, PACKED>(a, num_blocks, st)
                : launch<float, false, PACKED>(a, num_blocks, st);
   }
   if (dtype == 1) {
     if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
-    if (BATCHED)
-      return esc ? launch_batched<__nv_bfloat16, true, PACKED>(a, num_blocks, st)
-                 : launch_batched<__nv_bfloat16, false, PACKED>(a, num_blocks, st);
     return esc ? launch<__nv_bfloat16, true, PACKED>(a, num_blocks, st)
                : launch<__nv_bfloat16, false, PACKED>(a, num_blocks, st);
   }
   if constexpr (!PACKED) {
     if (dtype == 2) {
       if (a.f % Cfg<float>::VEC) return -1;
-      if (BATCHED)
-        return esc ? launch_batched<float, true, false, 1>(a, num_blocks, st)
-                   : launch_batched<float, false, false, 1>(a, num_blocks, st);
       return esc ? launch<float, true, false, 1>(a, num_blocks, st)
                  : launch<float, false, false, 1>(a, num_blocks, st);
     }
     if (dtype == 4 && !esc) {
       if (a.f % Cfg<float>::VEC) return -1;
-      if (BATCHED) return launch_batched<float, false, false, 3>(a, num_blocks, st);
       return launch<float, false, false, 3>(a, num_blocks, st);
     }
     if (dtype == 5 && !esc) {
       if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
-      if (BATCHED)
-        return launch_batched<__nv_bfloat16, false, false, 3>(a, num_blocks, st);
       return launch<__nv_bfloat16, false, false, 3>(a, num_blocks, st);
     }
   }
@@ -667,7 +411,7 @@ int dispatch(Args a, int num_blocks, int dtype, void* stream) {
 
 Args make_args(const void* x, const void* window_start, const void* esc_ptr,
                const void* esc_rows, const void* fix, void* out, int window,
-               int f, int x_rows, int batch, int n_fix) {
+               int f, int x_rows) {
   Args a{};
   a.x = x;
   a.window_start = static_cast<const int*>(window_start);
@@ -678,13 +422,12 @@ Args make_args(const void* x, const void* window_start, const void* esc_ptr,
   a.window = window;
   a.f = f;
   a.x_rows = x_rows;
-  a.batch = batch;
-  a.n_fix = n_fix;
   return a;
 }
 
 }  // namespace
 
+// B1 and B3 (x (x_rows, f), out (num_blocks * 128, f), fix (n_fix, f)).
 // Returns 0 on success, a cudaError_t from the launch, or -1 for arguments
 // the kernel does not take. esc_ptr == NULL means no escapes (B3).
 // dtype: 0 = float32, 1 = bfloat16, 2 = float32 x on a bfloat16 S, 4 and 5
@@ -695,103 +438,84 @@ extern "C" int gwen_window_spmm(const void* s, const void* x,
                                 void* out, int num_blocks, int window, int f,
                                 int x_rows, int dtype, void* stream) {
   Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
-                     x_rows, 1, 0);
+                     x_rows);
   a.s = s;
-  return dispatch<false, false>(a, num_blocks, dtype, stream);
+  return dispatch<false>(a, num_blocks, dtype, stream);
 }
 
-// Shared memory one CTA of the batched kernel (packed != 0: its packed
-// form) needs for a window of `window` rows (dtype as below); the wrapper
-// refuses windows over the 232,448 bytes a block may use.
-extern "C" int gwen_window_spmm_batched_smem(int window, int dtype, int packed) {
-  if ((dtype == 2 || dtype == 4) && !packed)
-    return batched_smem_bytes<float, false>(window);
-  if (dtype == 5 && !packed)
-    return batched_smem_bytes<__nv_bfloat16, false>(window);
-  if (dtype == 0)
-    return packed ? batched_smem_bytes<float, true>(window)
-                  : batched_smem_bytes<float, false>(window);
-  if (dtype == 1)
-    return packed ? batched_smem_bytes<__nv_bfloat16, true>(window)
-                  : batched_smem_bytes<__nv_bfloat16, false>(window);
-  return -1;
-}
-
-// Batched form (B4 with escapes, B10 without): x is (batch, x_rows, f),
-// out (batch, num_blocks * 128, f), fix (batch, n_fix, f). Return codes as
-// gwen_window_spmm.
-extern "C" int gwen_window_spmm_batched(
-    const void* s, const void* x, const void* window_start,
-    const void* esc_ptr, const void* esc_rows, const void* fix, void* out,
-    int num_blocks, int window, int f, int x_rows, int batch, int n_fix,
-    int dtype, void* stream) {
-  Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
-                     x_rows, batch, n_fix);
-  a.s = s;
-  return dispatch<true, false>(a, num_blocks, dtype, stream);
-}
-
-// Packed forms: bits (num_blocks * 128, window / 32) uint32, col_scale and
-// row_scale float32 (a on source and destination rows). `batched` != 0
-// takes the batched kernel (packed B4: the S tile expanded once per CTA);
-// otherwise the unbatched kernel, any batch on the grid's second axis
-// (packed B1, at batch 1). Shapes and return codes as
-// gwen_window_spmm_batched.
+// Packed B1: bits (num_blocks * 128, window / 32) uint32, col_scale and
+// row_scale float32 (a on source and destination rows); dtype 0 or 1. Shapes
+// and return codes as gwen_window_spmm.
 extern "C" int gwen_window_spmm_packed(
     const void* bits, const void* col_scale, const void* row_scale,
     const void* x, const void* window_start, const void* esc_ptr,
     const void* esc_rows, const void* fix, void* out, int num_blocks,
-    int window, int f, int x_rows, int batch, int n_fix, int batched,
-    int dtype, void* stream) {
+    int window, int f, int x_rows, int dtype, void* stream) {
   Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
-                     x_rows, batch, n_fix);
+                     x_rows);
   a.bits = static_cast<const uint32_t*>(bits);
   a.col_scale = static_cast<const float*>(col_scale);
   a.row_scale = static_cast<const float*>(row_scale);
-  return batched ? dispatch<true, true>(a, num_blocks, dtype, stream)
-                 : dispatch<false, true>(a, num_blocks, dtype, stream);
+  return dispatch<true>(a, num_blocks, dtype, stream);
 }
 
 // ------------------------------------------------------------ row gathers
 //
-// B13, replacing gwen_tpu/ops/spmm_pallas.py:_sliding_packed_kernel
-// (through _sliding_packed_impl), and B11, replacing _sdense_kernel (through
-// _sdense_impl); B10 and B3 take the B11 kernel on a window too wide for
-// the batched kernel's shared-memory S tile (the RCM band of a partition,
-// the int8 rank-1 band). These layouts are banded: at L7 in RCM order a
-// block's window is 1,664 (B11, B10) or 1,792 (B13) columns wide and a row
-// holds about 7 nonzeros of them, so the tile products of the window
-// kernels above spend > 99.5 % of their work on zeros (~150 GFLOP a call at
-// F 256). The TPU kernels multiply the whole window on the MXU because they
-// cannot gather rows; the math is the gather-scale-sum of B12,
-//   B13: out[i] = T(a_r[i]) * sum_{bit j of row i set} T(a_s[ws + j]) * x[ws + j]
-//   B11: out[i] = sum_{c < W, S[i, c] != 0} T(S[i, c]) * x[ws + c]
-// with ws the start of row i's block (the graph's own block size; B11's
-// starts are absolute and need not be monotone), float32 sums in ascending
-// column order, one rounding, and sources at or past x_rows read as zero.
-// T() rounds to x's type first, as the reference casts its tile.
+// B4 and packed B4, replacing gwen_tpu/ops/spmm_pallas.py:_diag_kernel_b
+// (through _diag_impl_b, both branches of its `packed` flag); B10, replacing
+// _sliding_kernel_b (through _sliding_impl_b); B13, replacing
+// _sliding_packed_kernel (through _sliding_packed_impl); and B11, replacing
+// _sdense_kernel (through _sdense_impl). B3 takes the dense gather too on a
+// wide window (the RCM band of a partition, the int8 rank-1 band). The TPU
+// kernels multiply the whole window on the MXU because they cannot gather
+// rows, and at L7 a row holds about 7 nonzeros of a window of 384 (KD
+// order: B4, B10 on the esc2 graph), 1,664 (B11, B10 on an RCM band) or
+// 1,792 (B13) columns, so > 98 % of those products are on zeros. The math
+// is the gather-scale-sum of B12,
+//   dense:  acc[i] = sum_{c < W, S[i, c] != 0} T(S[i, c]) * x[ws + c]
+//   packed: acc[i] = sum_{bit c of row i set} T(a_s[ws + c]) * x[ws + c]
+//   acc[i] += fix[j]  if esc_rows[j] == i, j in [esc_ptr[b], esc_ptr[b+1])
+//   out[i] = round(acc[i] * (packed ? T(a_r[i]) : 1))
+// with b = i / block and ws = window_start[b] (the graph's own block size;
+// B11's starts are absolute and need not be monotone), float32 sums in
+// ascending column order, the fix added before the row scale (the escape
+// tables of packed graphs carry w = a_s), one rounding, and sources at or
+// past x_rows read as zero. T() rounds to x's type first, as the reference
+// casts its tile. A row with no nonzero and no escape writes zeros.
 //
 // The design: one warp per destination row, which walks the nonzeros
-// instead of the window. B13 reads the row's W / 32 bit words once, one
-// word a lane (56 words at L7); B11 streams its S row once with coalesced
-// 16-byte loads, evict-first, four vectors a lane issued together (208
-// vectors of bf16 S at L7, 416 of float32, 104 of int8), and a lane masks
-// its vectors' nonzeros. A ballot picks the lanes (words, vectors)
-// with a nonzero; the warp walks them in ascending order, broadcasts each
-// one's word or vector with shuffles and walks its nonzeros, so a row with
-// any number of nonzeros (a hub) is right and nothing is staged in shared
-// memory. Each nonzero's x row is read with one 16-byte load a lane for
-// every batch item (up to four held in registers), so the bits, scales and
-// S are decoded once per call for a batch of up to four, not once per
-// item, and S leaves device memory once (a larger batch, or F over one
-// pass of 32 vectors, 256 bf16 or 128 float32 values, decodes the row
-// again per group of four and per pass, mostly from L2). No product is
-// taken on a zero.
+// instead of the window. The packed gather reads the row's W / 32 bit words
+// once, one word a lane (12 at L7 on the diag layout, 56 on the band); the
+// dense gather streams its S row once with coalesced 16-byte loads,
+// evict-first, four vectors a lane issued together (48 vectors of bf16 S on
+// the diag layout, 208 on the band), and a lane masks its vectors'
+// nonzeros. A ballot picks the lanes (words, vectors) with a nonzero; the
+// warp walks them in ascending order, broadcasts each one's word or vector
+// with shuffles and walks its nonzeros, so a row with any number of
+// nonzeros (a hub) is right and nothing is staged in shared memory. Each
+// nonzero's x row is read with one 16-byte load a lane for every batch item
+// (up to four held in registers), so the bits, scales and S are decoded
+// once per call for a batch of up to four, not once per item, and S leaves
+// device memory once (a larger batch, or F over one pass of 32 vectors, 256
+// bf16 or 128 float32 values, decodes the row again per group of four and
+// per pass, mostly from L2). No product is taken on a zero. The escape
+// epilogue (HAS_ESC) finds the row's slot once: a block's receivers are
+// unique and sorted (about 8 a block at L7), and the warp compares 32 of
+// them a round with one ballot; the row's fix row is then added for each
+// item like one more nonzero of weight 1. The escape instantiations take
+// more registers a thread than the others, so fewer CTAs fit an SM; capping
+// them with launch bounds trades that for spills and was not faster at
+// every batch size.
 //
-// What bounds it: bytes. B13 reads 35 MB of bits, the scales, x (mostly
-// from L2: a row is gathered by its ~7 neighbours) and writes the output;
-// B11 must read S as stored (545.7 MB bf16, 1.09 GB float32, 273 MB int8
-// at L7), a floor no kernel on this layout can pass, plus x and the output.
+// What bounds it: bytes. The packed gather reads the bits (7.9 MB on the L7
+// diag layout, 35 MB on the band), the scales and x (mostly from L2: a row
+// is gathered by its ~7 neighbours, once per batch item) and writes the
+// output; the dense gather must read S as stored (126.6 MB bf16 on the L7
+// diag layout, 545.7 MB bf16, 1.09 GB float32 and 273 MB int8 on the band),
+// a floor no kernel on such a layout can pass, plus x, the fix rows and the
+// output. On the diag layout S is the smaller part: the gathered x rows
+// (about 2.3 GB a batch-4 call, from L2) and the warps in flight set the
+// time.
 
 namespace {
 
@@ -799,6 +523,29 @@ namespace {
 // ~90 registers a thread of the batch-4 kernels takes.
 constexpr int ROW_WARPS = 4;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The escape fix rows a gather adds: block b's receivers are rows[ptr[b]]
+// .. rows[ptr[b+1] - 1], unique and sorted; fix holds one row per receiver
+// and batch item, in x's type. ptr == null: no escapes.
+struct Escapes {
+  const int* ptr;       // (n_pad / block + 1,)
+  const int64_t* rows;  // (n_fix,)
+  const void* fix;      // (batch, n_fix, f)
+  int n_fix;
+};
+
+// The slot j of destination `row` (esc.rows[j] == row) in its block's range,
+// or -1. The whole warp takes part: 32 receivers a round, one ballot each.
+__device__ __forceinline__ int escape_slot(const Escapes& esc, int64_t row,
+                                           int64_t b, int lane) {
+  const int j0 = esc.ptr[b], j1 = esc.ptr[b + 1];
+  for (int k = j0; k < j1; k += 32) {
+    const int j = k + lane;
+    const unsigned hit = __ballot_sync(FULL, j < j1 && esc.rows[j] == row);
+    if (hit) return k + __ffs(hit) - 1;
+  }
+  return -1;
+}
 
 // Adds one nonzero, weight w on the source row whose 16-byte column vector
 // (item 0) is at xr, for the nb (<= NB) batch items, item stride `item`.
@@ -822,34 +569,48 @@ __device__ __forceinline__ void add_row(float (&acc)[NB][16 / sizeof(T)],
   }
 }
 
-// The accumulators times the row scale, rounded once, into the nb items'
-// output rows (`out` at item 0, this row and column c0; item stride `item`).
-template <typename T, int NB>
-__device__ __forceinline__ void store_row(const float (&acc)[NB][16 / sizeof(T)],
-                                          float rs, T* __restrict__ out,
-                                          int64_t item, int nb) {
+// The row's fix rows (slot >= 0) into the accumulators, then the
+// accumulators times the row scale, rounded once, into the nb items' output
+// rows (`out` at item 0, this row and column c0; item stride `out_item`).
+template <typename T, int NB, bool HAS_ESC>
+__device__ __forceinline__ void finish_row(float (&acc)[NB][16 / sizeof(T)],
+                                           const Escapes& esc, int slot,
+                                           int b0, int c0, int f, float rs,
+                                           T* __restrict__ out,
+                                           int64_t out_item, int nb) {
   constexpr int VEC = 16 / sizeof(T);
+  if constexpr (HAS_ESC) {
+    if (slot >= 0) {
+      const int64_t fix_item = (int64_t)esc.n_fix * f;
+      add_row<T, NB>(acc, 1.f,
+                     static_cast<const T*>(esc.fix) + b0 * fix_item +
+                         (int64_t)slot * f + c0,
+                     fix_item, nb);
+    }
+  }
 #pragma unroll
   for (int b = 0; b < NB; ++b) {
     if (b < nb) {
       __align__(16) T tmp[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) tmp[e] = from_f32<T>(acc[b][e] * rs);
-      *reinterpret_cast<uint4*>(out + b * item) = *reinterpret_cast<const uint4*>(tmp);
+      *reinterpret_cast<uint4*>(out + b * out_item) = *reinterpret_cast<const uint4*>(tmp);
     }
   }
 }
 
-// B13: bits (n_pad, words) S01, window-relative, as the packed kernels read
-// them; col_scale and row_scale a on source and destination rows.
-template <typename T, int NB>
+// B13 and packed B4: bits (n_pad, words) S01, window-relative, as the
+// packed window kernel reads them; col_scale and row_scale a on source and
+// destination rows.
+template <typename T, int NB, bool HAS_ESC>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 packed_rows_kernel(const uint32_t* __restrict__ bits,
                    const float* __restrict__ col_scale,
                    const float* __restrict__ row_scale,
                    const int* __restrict__ window_start,
-                   const T* __restrict__ x, T* __restrict__ out, int n_pad,
-                   int words, int block, int f, int x_rows, int batch) {
+                   const T* __restrict__ x, T* __restrict__ out,
+                   const Escapes esc, int n_pad, int words, int block, int f,
+                   int x_rows, int batch) {
   constexpr int VEC = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
   const int64_t row = (int64_t)blockIdx.x * ROW_WARPS + (threadIdx.x >> 5);
@@ -857,6 +618,7 @@ packed_rows_kernel(const uint32_t* __restrict__ bits,
   const int ws = window_start[row / block];
   const uint32_t* brow = bits + row * words;
   const float rs = scale_at<T>(row_scale, row);
+  const int slot = HAS_ESC ? escape_slot(esc, row, row / block, lane) : -1;
   const int64_t item = (int64_t)x_rows * f, out_item = (int64_t)n_pad * f;
 
   // The whole warp walks the column passes and batch groups together (the
@@ -887,7 +649,9 @@ packed_rows_kernel(const uint32_t* __restrict__ bits,
           }
         }
       }
-      if (on) store_row<T, NB>(acc, rs, out + b0 * out_item + row * f + c0, out_item, nb);
+      if (on)
+        finish_row<T, NB, HAS_ESC>(acc, esc, slot, b0, c0, f, rs,
+                                   out + b0 * out_item + row * f + c0, out_item, nb);
     }
   }
 }
@@ -912,13 +676,13 @@ __device__ __forceinline__ float s_entry(const uint4& v, int e) {
   }
 }
 
-// B11 (and B10, B3 on a wide window): S (n_pad, window) window-relative in
-// the type the operand mode names (s_type).
-template <typename T, int MIXED, int NB>
+// B4, B10, B11 (and B3 on a wide window): S (n_pad, window) window-relative
+// in the type the operand mode names (s_type).
+template <typename T, int MIXED, int NB, bool HAS_ESC>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_start,
-                  const T* __restrict__ x, T* __restrict__ out, int n_pad,
-                  int window, int block, int f, int x_rows, int batch) {
+                  const T* __restrict__ x, T* __restrict__ out, const Escapes esc,
+                  int n_pad, int window, int block, int f, int x_rows, int batch) {
   using TS = s_type<T, MIXED>;
   constexpr int VEC = 16 / sizeof(T);
   constexpr int SVEC = 16 / sizeof(TS);  // S entries per 16-byte vector
@@ -930,6 +694,7 @@ dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
   const int vpr = window / SVEC;  // S vectors per row
   const uint4* srow =
       reinterpret_cast<const uint4*>(static_cast<const TS*>(s) + row * window);
+  const int slot = HAS_ESC ? escape_slot(esc, row, row / block, lane) : -1;
   const int64_t item = (int64_t)x_rows * f, out_item = (int64_t)n_pad * f;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
@@ -974,93 +739,141 @@ dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
           }
         }
       }
-      if (on) store_row<T, NB>(acc, 1.f, out + b0 * out_item + row * f + c0, out_item, nb);
+      if (on)
+        finish_row<T, NB, HAS_ESC>(acc, esc, slot, b0, c0, f, 1.f,
+                                   out + b0 * out_item + row * f + c0, out_item, nb);
     }
   }
 }
 
 // The batch rides inside the warp: up to NB = 4 items a pass (one pass
 // for the train-mesh shape), 1 for an unbatched call.
-template <typename T, int MIXED>
+template <typename T, int MIXED, bool HAS_ESC>
 int launch_dense_rows(const void* s, const int* ws, const void* x, void* out,
-                      int n_pad, int window, int block, int f, int x_rows,
-                      int batch, cudaStream_t st) {
-  if (f % (16 / (int)sizeof(T))) return -1;
+                      const Escapes& esc, int n_pad, int window, int block,
+                      int f, int x_rows, int batch, cudaStream_t st) {
   const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   if (batch == 1)
-    dense_rows_kernel<T, MIXED, 1><<<grid, ROW_WARPS * 32, 0, st>>>(
-        s, ws, xt, ot, n_pad, window, block, f, x_rows, batch);
+    dense_rows_kernel<T, MIXED, 1, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
+        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows, batch);
   else
-    dense_rows_kernel<T, MIXED, 4><<<grid, ROW_WARPS * 32, 0, st>>>(
-        s, ws, xt, ot, n_pad, window, block, f, x_rows, batch);
+    dense_rows_kernel<T, MIXED, 4, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
+        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows, batch);
+  return (int)cudaGetLastError();
+}
+
+// Escapes in the modes B4 takes: S in x's type, or bf16 S under a float32
+// x (MIXED 0 and 1); the other modes take none.
+template <typename T, int MIXED>
+int dense_rows(const void* s, const int* ws, const void* x, void* out,
+               const Escapes& esc, int n_pad, int window, int block, int f,
+               int x_rows, int batch, cudaStream_t st) {
+  if (f % (16 / (int)sizeof(T))) return -1;
+  if (esc.ptr == nullptr)
+    return launch_dense_rows<T, MIXED, false>(s, ws, x, out, esc, n_pad, window,
+                                              block, f, x_rows, batch, st);
+  if constexpr (MIXED <= 1)
+    return launch_dense_rows<T, MIXED, true>(s, ws, x, out, esc, n_pad, window,
+                                             block, f, x_rows, batch, st);
+  return -1;
+}
+
+template <typename T, bool HAS_ESC>
+int launch_packed_rows(const uint32_t* bits, const float* col_scale,
+                       const float* row_scale, const int* ws, const void* x,
+                       void* out, const Escapes& esc, int n_pad, int words,
+                       int block, int f, int x_rows, int batch, cudaStream_t st) {
+  const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (batch == 1)
+    packed_rows_kernel<T, 1, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
+        bits, col_scale, row_scale, ws, xt, ot, esc, n_pad, words, block, f,
+        x_rows, batch);
+  else
+    packed_rows_kernel<T, 4, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
+        bits, col_scale, row_scale, ws, xt, ot, esc, n_pad, words, block, f,
+        x_rows, batch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_packed_rows(const uint32_t* bits, const float* col_scale,
-                       const float* row_scale, const int* ws, const void* x,
-                       void* out, int n_pad, int words, int block, int f,
-                       int x_rows, int batch, cudaStream_t st) {
+int packed_rows(const uint32_t* bits, const float* col_scale,
+                const float* row_scale, const int* ws, const void* x, void* out,
+                const Escapes& esc, int n_pad, int words, int block, int f,
+                int x_rows, int batch, cudaStream_t st) {
   if (f % (16 / (int)sizeof(T))) return -1;
-  const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
-  const T* xt = static_cast<const T*>(x);
-  T* ot = static_cast<T*>(out);
-  if (batch == 1)
-    packed_rows_kernel<T, 1><<<grid, ROW_WARPS * 32, 0, st>>>(
-        bits, col_scale, row_scale, ws, xt, ot, n_pad, words, block, f, x_rows,
-        batch);
-  else
-    packed_rows_kernel<T, 4><<<grid, ROW_WARPS * 32, 0, st>>>(
-        bits, col_scale, row_scale, ws, xt, ot, n_pad, words, block, f, x_rows,
-        batch);
-  return (int)cudaGetLastError();
+  return esc.ptr == nullptr
+             ? launch_packed_rows<T, false>(bits, col_scale, row_scale, ws, x,
+                                            out, esc, n_pad, words, block, f,
+                                            x_rows, batch, st)
+             : launch_packed_rows<T, true>(bits, col_scale, row_scale, ws, x,
+                                           out, esc, n_pad, words, block, f,
+                                           x_rows, batch, st);
 }
 
 bool rows_args_ok(int n_pad, int window, int block, int f, int x_rows,
-                  int batch) {
+                  int batch, const Escapes& esc) {
   return n_pad > 0 && block > 0 && n_pad % block == 0 && window > 0 &&
-         window % 32 == 0 && f > 0 && x_rows > 0 && batch > 0;
+         window % 32 == 0 && f > 0 && x_rows > 0 && batch > 0 &&
+         (esc.ptr == nullptr || (esc.rows != nullptr && esc.fix != nullptr &&
+                                 esc.n_fix > 0));
+}
+
+Escapes make_escapes(const void* esc_ptr, const void* esc_rows,
+                     const void* fix, int n_fix) {
+  return Escapes{static_cast<const int*>(esc_ptr),
+                 static_cast<const int64_t*>(esc_rows), fix, n_fix};
 }
 
 }  // namespace
 
-// B11, and B10 and B3 on a wide window: S (n_pad, window) window-relative,
+// B4, B10, B11, and B3 on a wide window: S (n_pad, window) window-relative,
 // window_start (n_pad / block,) int32 absolute starts, x (batch, x_rows, f)
-// with x_rows up to the layout's source rows, out (batch, n_pad, f).
-// dtype as gwen_window_spmm, and 3 = bfloat16 x on a float32 S. Return
-// codes as gwen_window_spmm.
+// with x_rows up to the layout's source rows, out (batch, n_pad, f). B4's
+// escapes: esc_ptr (n_pad / block + 1,) int32, esc_rows (n_fix,) int64,
+// fix (batch, n_fix, f) in x's type; esc_ptr == NULL means none. dtype as
+// gwen_window_spmm, and 3 = bfloat16 x on a float32 S; escapes with dtype 0,
+// 1 and 2 only. Return codes as gwen_window_spmm.
 extern "C" int gwen_window_spmm_streamed(const void* s, const void* x,
-                                         const void* window_start, void* out,
-                                         int n_pad, int window, int block,
-                                         int f, int x_rows, int batch,
-                                         int dtype, void* stream) {
-  if (!rows_args_ok(n_pad, window, block, f, x_rows, batch)) return -1;
+                                         const void* window_start,
+                                         const void* esc_ptr,
+                                         const void* esc_rows, const void* fix,
+                                         void* out, int n_pad, int window,
+                                         int block, int f, int x_rows,
+                                         int batch, int n_fix, int dtype,
+                                         void* stream) {
+  const Escapes esc = make_escapes(esc_ptr, esc_rows, fix, n_fix);
+  if (!rows_args_ok(n_pad, window, block, f, x_rows, batch, esc)) return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ws = static_cast<const int*>(window_start);
   switch (dtype) {
-    case 0: return launch_dense_rows<float, 0>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
-    case 1: return launch_dense_rows<__nv_bfloat16, 0>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
-    case 2: return launch_dense_rows<float, 1>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
-    case 3: return launch_dense_rows<__nv_bfloat16, 2>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
-    case 4: return launch_dense_rows<float, 3>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
-    case 5: return launch_dense_rows<__nv_bfloat16, 3>(s, ws, x, out, n_pad, window, block, f, x_rows, batch, st);
+    case 0: return dense_rows<float, 0>(s, ws, x, out, esc, n_pad, window, block, f, x_rows, batch, st);
+    case 1: return dense_rows<__nv_bfloat16, 0>(s, ws, x, out, esc, n_pad, window, block, f, x_rows, batch, st);
+    case 2: return dense_rows<float, 1>(s, ws, x, out, esc, n_pad, window, block, f, x_rows, batch, st);
+    case 3: return dense_rows<__nv_bfloat16, 2>(s, ws, x, out, esc, n_pad, window, block, f, x_rows, batch, st);
+    case 4: return dense_rows<float, 3>(s, ws, x, out, esc, n_pad, window, block, f, x_rows, batch, st);
+    case 5: return dense_rows<__nv_bfloat16, 3>(s, ws, x, out, esc, n_pad, window, block, f, x_rows, batch, st);
   }
   return -1;
 }
 
-// B13: bits (n_pad, words) int32 S01, col_scale and row_scale float32,
-// window_start (n_pad / block,) int32, x (batch, x_rows, f), out (batch,
-// n_pad, f). dtype 0 = float32, 1 = bfloat16. Return codes as
-// gwen_window_spmm.
+// B13 and packed B4: bits (n_pad, words) int32 S01, col_scale and row_scale
+// float32, window_start (n_pad / block,) int32, x (batch, x_rows, f), out
+// (batch, n_pad, f); escapes as gwen_window_spmm_streamed. dtype 0 =
+// float32, 1 = bfloat16. Return codes as gwen_window_spmm.
 extern "C" int gwen_sliding_packed_spmm(const void* bits, const void* col_scale,
                                         const void* row_scale, const void* x,
-                                        const void* window_start, void* out,
-                                        int n_pad, int words, int block, int f,
-                                        int x_rows, int batch, int dtype,
+                                        const void* window_start,
+                                        const void* esc_ptr, const void* esc_rows,
+                                        const void* fix, void* out, int n_pad,
+                                        int words, int block, int f, int x_rows,
+                                        int batch, int n_fix, int dtype,
                                         void* stream) {
-  if (words <= 0 || !rows_args_ok(n_pad, words * 32, block, f, x_rows, batch))
+  const Escapes esc = make_escapes(esc_ptr, esc_rows, fix, n_fix);
+  if (words <= 0 || !rows_args_ok(n_pad, words * 32, block, f, x_rows, batch, esc))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* b = static_cast<const uint32_t*>(bits);
@@ -1068,9 +881,9 @@ extern "C" int gwen_sliding_packed_spmm(const void* bits, const void* col_scale,
   const float* rs = static_cast<const float*>(row_scale);
   const int* ws = static_cast<const int*>(window_start);
   if (dtype == 0)
-    return launch_packed_rows<float>(b, cs, rs, ws, x, out, n_pad, words, block, f, x_rows, batch, st);
+    return packed_rows<float>(b, cs, rs, ws, x, out, esc, n_pad, words, block, f, x_rows, batch, st);
   if (dtype == 1)
-    return launch_packed_rows<__nv_bfloat16>(b, cs, rs, ws, x, out, n_pad, words, block, f, x_rows, batch, st);
+    return packed_rows<__nv_bfloat16>(b, cs, rs, ws, x, out, esc, n_pad, words, block, f, x_rows, batch, st);
   return -1;
 }
 

@@ -16,17 +16,19 @@ each with a launch count (``.launches``):
   escapes. The reference keeps x in a VMEM ring buffer; the math is
   ``out_b = Σ_{s ∈ [ws_b, ws_b + W)} S_b[:, s − ws_b] x[s]``.
 * :func:`diag_window_spmm_b` — kernel B4, replacing ``_diag_kernel_b``
-  (through ``_diag_impl_b``): B1 on ``(B, N, F)``; each CTA stages its S
-  tile once and loops over the batch.
+  (through ``_diag_impl_b``): B1 on ``(B, N, F)``. A row gather (B11's,
+  with an escape epilogue): one warp per destination row streams its S row
+  once, gathers the source rows of its nonzeros for every batch item and
+  adds the row's fix row before the single rounding.
 * :func:`sliding_spmm_b` — kernel B10, replacing ``_sliding_kernel_b``
-  (through ``_sliding_impl_b``): B3 on ``(B, N, F)``, the batched kernel
-  without escapes. B3 and B10 on a window too wide for the batched
-  kernel's shared-memory S tile (an RCM band) take B11's row gather.
+  (through ``_sliding_impl_b``): B3 on ``(B, N, F)``, B11's row gather at
+  every window width. B3 takes it too on a wide window (an RCM band).
 * :func:`diag_window_spmm_packed` and :func:`diag_window_spmm_packed_b` —
   the packed form of B1 and B4 (the ``packed`` branch of ``_diag_kernel``
   and ``_diag_kernel_b``): S01 bits expanded in the kernel, times the
   column scales ``a_s`` rounded to x's type; the row scale ``a_r`` after
-  the escape rows are added.
+  the escape rows are added. Packed B4 is B13's row gather over the set
+  bits, with the same escape epilogue.
 * :func:`sliding_packed_spmm` — kernel B13, replacing
   ``_sliding_packed_kernel`` (through ``_sliding_packed_impl``): the packed
   product on :class:`SlidingPackedGraph`, no escapes. The reference scales
@@ -55,24 +57,22 @@ launches the kernel or raises. There is no fallback.
 Mixed operands: a float32 ``x`` on a bfloat16 ``S`` is taken as the
 reference's kernels take it (S cast to x's type per tile, which is exact,
 then a float32 product): an instantiation of the unpacked kernels that
-reads S as bf16 and widens it as it is staged, with no float32 copy of S.
-The packed kernels build their S tile in x's type whatever it is.
+reads S as bf16 and widens it as it is read, with no float32 copy of S.
+The packed kernels build their weights in x's type whatever it is.
 :func:`window_matvec` is B1 on a runtime S with no escapes (the forward of
 ``diag_matvec``).
 
 What bounds the kernels on an H100: bytes. At L7 (W = 384, F = 256, bf16)
-one diag-window aggregation does 32 GFLOP on the tensor cores but must
-stream S (127 MB), x (84 MB, re-read by overlapping windows mostly from L2)
-and the output (84 MB) — about 108 flop/byte, well under the ~295
-flop/byte at which an H100 turns compute-bound. The window kernels (B1, B3,
-B4, B10, packed B1 and B4) therefore keep the products on the tensor cores
-(``mma.sync`` through WMMA, float32 accumulation) and lay the grid out so
-the four 64-column tiles of one destination block run next to each other
-and share its S tile in L2; the batched kernels read S once per block and
-tile for the whole batch. The RCM bands (W 1,664–1,792, ~7 nonzeros a row)
-would be > 99.5 % zero products there, so B13, B11 and the wide-window B3
-and B10 take the row gathers, which read each nonzero once and multiply
-no zero.
+one diag-window aggregation must stream S (127 MB), x (84 MB, re-read by
+overlapping windows mostly from L2) and the output (84 MB). The window
+kernels (B1, B3 on a narrow window, packed B1) multiply the whole window on
+the tensor cores (``mma.sync`` through WMMA, float32 accumulation), 98 % of
+it on zeros, and lay the grid out so the four 64-column tiles of one
+destination block run next to each other and share its S tile in L2. The
+batched forms (B4, packed B4, B10) and the RCM bands (W 1,664–1,792) take
+the row gathers, which read each row's S or bits once for a batch of up to
+four, gather only the source rows of its nonzeros (about 7 a row) and
+multiply no zero.
 
 The graph-level composites :func:`spmm_diag_window`,
 :func:`spmm_sliding_dense` and :func:`spmm_sliding_packed` follow
@@ -114,8 +114,11 @@ from gwen_tpu_torch.graph.graph import (
 
 Tensor = torch.Tensor
 
-BLOCK = 128  # destination rows per graph block, fixed in the kernel
-MAX_SMEM = 232_448  # dynamic shared memory one H100 block may use
+BLOCK = 128  # destination rows per graph block, fixed in the window kernel
+# The widest window B3 (a 2-d x) takes on the window kernel: the esc2
+# contraction's 384 columns; an RCM band (1,664 columns and more) takes the
+# row gather, which walks the nonzeros instead of the window.
+NARROW_WINDOW = 736
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "window_spmm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -170,25 +173,18 @@ def _lib() -> ctypes.CDLL:
         lib.gwen_window_spmm.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                          ci, ci, ci, ci, ci, vp]
         lib.gwen_window_spmm.restype = ci
-        # (..., num_blocks, window, f, x_rows, batch, n_fix, dtype, stream)
-        lib.gwen_window_spmm_batched.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                                 ci, ci, ci, ci, ci, ci, ci,
-                                                 vp]
-        lib.gwen_window_spmm_batched.restype = ci
-        lib.gwen_window_spmm_batched_smem.argtypes = [ci, ci, ci]
-        lib.gwen_window_spmm_batched_smem.restype = ci
         # (bits, col_scale, row_scale, x, window_start, esc_ptr, esc_rows,
-        #  fix, out, num_blocks, window, f, x_rows, batch, n_fix, batched,
-        #  dtype, stream)
-        lib.gwen_window_spmm_packed.argtypes = [vp] * 9 + [ci] * 8 + [vp]
+        #  fix, out, num_blocks, window, f, x_rows, dtype, stream)
+        lib.gwen_window_spmm_packed.argtypes = [vp] * 9 + [ci] * 5 + [vp]
         lib.gwen_window_spmm_packed.restype = ci
-        # (s, x, window_start, out, n_pad, window, block, f, x_rows, batch,
-        #  dtype, stream)
-        lib.gwen_window_spmm_streamed.argtypes = [vp] * 4 + [ci] * 7 + [vp]
+        # (s, x, window_start, esc_ptr, esc_rows, fix, out, n_pad, window,
+        #  block, f, x_rows, batch, n_fix, dtype, stream)
+        lib.gwen_window_spmm_streamed.argtypes = [vp] * 7 + [ci] * 8 + [vp]
         lib.gwen_window_spmm_streamed.restype = ci
-        # (bits, col_scale, row_scale, x, window_start, out, n_pad, words,
-        #  block, f, x_rows, batch, dtype, stream)
-        lib.gwen_sliding_packed_spmm.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+        # (bits, col_scale, row_scale, x, window_start, esc_ptr, esc_rows,
+        #  fix, out, n_pad, words, block, f, x_rows, batch, n_fix, dtype,
+        #  stream)
+        lib.gwen_sliding_packed_spmm.argtypes = [vp] * 9 + [ci] * 8 + [vp]
         lib.gwen_sliding_packed_spmm.restype = ci
         # (nbr, w, window_start, x, out, n_pad, deg, block, f, x_rows,
         #  batch, dtype, stream)
@@ -402,49 +398,16 @@ def _kernel_code(s_dtype: torch.dtype, x: Tensor, streamed: bool = False) -> int
                     "bfloat16 x on a float32 S, or (B3, B10) an int8 S")
 
 
-def _check_smem(lib: ctypes.CDLL, w: int, code: int, packed: bool) -> None:
-    smem = lib.gwen_window_spmm_batched_smem(w, code, int(packed))
-    if smem > MAX_SMEM:
-        raise ValueError(f"window {w} needs {smem} bytes of shared memory "
-                         f"per block in the batched kernel (at most "
-                         f"{MAX_SMEM})")
-
-
-def _escape_ptrs(esc_ptr, esc_rows, fix) -> tuple:
+def _escape_args(esc_ptr, esc_rows, fix) -> tuple:
+    """The escape pointers and ``n_fix`` a launch passes: null pointers
+    and 0 where there is no fix array."""
     if fix is None:
-        return None, None, None
-    return esc_ptr.data_ptr(), esc_rows.data_ptr(), fix.data_ptr()
+        return None, None, None, 0
+    return esc_ptr.data_ptr(), esc_rows.data_ptr(), fix.data_ptr(), fix.shape[-2]
 
 
-def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
-            esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-            fix: Optional[Tensor]) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm`` (x ``(rows, F)``)
-    or ``gwen_window_spmm_batched`` (x ``(B, rows, F)``) on the current
-    stream. Raises on anything the kernels do not take."""
-    n_pad, w = s_mat.shape
-    _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat])
-    code = _kernel_code(s_mat.dtype, x)
-    if code >= 4 and fix is not None:
-        raise ValueError("an int8 S takes no escape rows")
-    batched = x.dim() == 3
-    nb, f = window_start.shape[0], x.shape[-1]
-    lib = _lib()
-    if batched:
-        _check_smem(lib, w, code, packed=False)
-    out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    ptrs = (s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(),
-            *_escape_ptrs(esc_ptr, esc_rows, fix), out.data_ptr())
-    if batched:
-        rc = lib.gwen_window_spmm_batched(
-            *ptrs, nb, w, f, x.shape[1], x.shape[0],
-            0 if fix is None else fix.shape[1], code, stream)
-    else:
-        rc = lib.gwen_window_spmm(*ptrs, nb, w, f, x.shape[0], code, stream)
-    if rc != 0:
-        raise RuntimeError(f"window SpMM launch failed: CUDA error {rc}")
-    return out
+def _batch(x: Tensor) -> int:
+    return x.shape[0] if x.dim() == 3 else 1
 
 
 def _launch_failed(name: str, rc: int) -> RuntimeError:
@@ -452,22 +415,52 @@ def _launch_failed(name: str, rc: int) -> RuntimeError:
                         f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
 
 
-def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
-                     x: Tensor) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm_streamed``, the row
-    gather on a dense S (no escapes; ``block`` rows per start; x ``(rows,
-    F)`` or ``(B, rows, F)``, the batch inside the kernel). Raises on
+def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
+            esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
+            fix: Optional[Tensor]) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm``, the window kernel
+    (x ``(rows, F)``; 128-row blocks), on the current stream. Raises on
     anything the kernel does not take."""
     n_pad, w = s_mat.shape
-    _check(x, window_start, n_pad, w, None, None, None, [s_mat], block)
-    code = _kernel_code(s_mat.dtype, x, streamed=True)
+    _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat])
+    if x.dim() != 2:
+        raise ValueError("the window kernel takes a 2-d x (rows, F)")
+    code = _kernel_code(s_mat.dtype, x)
+    if code >= 4 and fix is not None:
+        raise ValueError("an int8 S takes no escape rows")
+    out = torch.empty(n_pad, x.shape[-1], dtype=x.dtype, device=x.device)
+    esc_p, rows_p, fix_p, _ = _escape_args(esc_ptr, esc_rows, fix)
+    rc = _lib().gwen_window_spmm(
+        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(), esc_p, rows_p,
+        fix_p, out.data_ptr(), window_start.shape[0], w, x.shape[-1],
+        x.shape[0], code, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise _launch_failed("window SpMM", rc)
+    return out
+
+
+def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
+                     x: Tensor, esc_ptr: Optional[Tensor] = None,
+                     esc_rows: Optional[Tensor] = None,
+                     fix: Optional[Tensor] = None) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm_streamed``, the row
+    gather on a dense S (``block`` rows per start; x ``(rows, F)`` or ``(B,
+    rows, F)``, the batch inside the kernel), with B4's escape fix rows
+    (``fix`` ``(..., U, F)`` with x's leading axes) where given. Raises on
+    anything the kernel does not take."""
+    n_pad, w = s_mat.shape
+    _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat], block)
+    # Escape rows with S in x's type or a bf16 S under a float32 x only.
+    code = _kernel_code(s_mat.dtype, x, streamed=fix is None)
+    if code >= 4 and fix is not None:
+        raise ValueError("an int8 S takes no escape rows")
     out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
                       device=x.device)
+    esc_p, rows_p, fix_p, n_fix = _escape_args(esc_ptr, esc_rows, fix)
     rc = _lib().gwen_window_spmm_streamed(
-        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(),
-        out.data_ptr(), n_pad, w, block, x.shape[-1], x.shape[-2],
-        x.shape[0] if x.dim() == 3 else 1, code,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(), esc_p, rows_p,
+        fix_p, out.data_ptr(), n_pad, w, block, x.shape[-1], x.shape[-2],
+        _batch(x), n_fix, code, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise _launch_failed("dense-row gather", rc)
     return out
@@ -489,33 +482,53 @@ def _check_scales(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
 def _launch_packed(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
                    window_start: Tensor, src_rows: int, x: Tensor,
                    esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-                   fix: Optional[Tensor], batched_kernel: bool) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm_packed``: the
-    batched kernel (x ``(B, rows, F)``, the S tile expanded once per CTA)
-    or the unbatched one (x ``(rows, F)``). Raises on anything the kernel
-    does not take."""
+                   fix: Optional[Tensor]) -> Tensor:
+    """Check the operands and launch ``gwen_window_spmm_packed``, the packed
+    window kernel (packed B1: x ``(rows, F)``, 128-row blocks). Raises on
+    anything the kernel does not take."""
     n_pad, words = bits.shape
-    w = words * 32
     _check_scales(bits, col_scale, row_scale, src_rows)
-    _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix,
+    _check(x, window_start, n_pad, words * 32, esc_ptr, esc_rows, fix,
            [bits, col_scale, row_scale])
-    if batched_kernel and x.dim() != 3:
-        raise ValueError("the batched packed kernel takes (B, rows, F)")
-    nb, f = window_start.shape[0], x.shape[-1]
-    lib = _lib()
-    code = _DTYPE_CODE[x.dtype]
-    if batched_kernel:
-        _check_smem(lib, w, code, packed=True)
-    out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.gwen_window_spmm_packed(
+    if x.dim() != 2:
+        raise ValueError("the packed window kernel takes a 2-d x (rows, F)")
+    out = torch.empty(n_pad, x.shape[-1], dtype=x.dtype, device=x.device)
+    esc_p, rows_p, fix_p, _ = _escape_args(esc_ptr, esc_rows, fix)
+    rc = _lib().gwen_window_spmm_packed(
         bits.data_ptr(), col_scale.data_ptr(), row_scale.data_ptr(),
-        x.data_ptr(), window_start.data_ptr(),
-        *_escape_ptrs(esc_ptr, esc_rows, fix), out.data_ptr(),
-        nb, w, f, x.shape[-2], x.shape[0] if x.dim() == 3 else 1,
-        0 if fix is None else fix.shape[-2], int(batched_kernel), code, stream)
+        x.data_ptr(), window_start.data_ptr(), esc_p, rows_p, fix_p,
+        out.data_ptr(), window_start.shape[0], words * 32, x.shape[-1],
+        x.shape[0], _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"packed window SpMM launch failed: CUDA error {rc}")
+        raise _launch_failed("packed window SpMM", rc)
+    return out
+
+
+def _launch_packed_rows(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
+                        window_start: Tensor, block: int, src_rows: int,
+                        x: Tensor, esc_ptr: Optional[Tensor] = None,
+                        esc_rows: Optional[Tensor] = None,
+                        fix: Optional[Tensor] = None) -> Tensor:
+    """Check the operands and launch ``gwen_sliding_packed_spmm``, the row
+    gather over the set bits (``block`` rows per start; x ``(rows, F)`` or
+    ``(B, rows, F)``, the batch inside the kernel), with packed B4's escape
+    fix rows where given. Raises on anything the kernel does not take."""
+    n_pad, words = bits.shape
+    _check_scales(bits, col_scale, row_scale, src_rows)
+    _check(x, window_start, n_pad, words * 32, esc_ptr, esc_rows, fix,
+           [bits, col_scale, row_scale], block)
+    out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
+                      device=x.device)
+    esc_p, rows_p, fix_p, n_fix = _escape_args(esc_ptr, esc_rows, fix)
+    rc = _lib().gwen_sliding_packed_spmm(
+        bits.data_ptr(), col_scale.data_ptr(), row_scale.data_ptr(),
+        x.data_ptr(), window_start.data_ptr(), esc_p, rows_p, fix_p,
+        out.data_ptr(), n_pad, words, block, x.shape[-1], x.shape[-2],
+        _batch(x), n_fix, _DTYPE_CODE[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise _launch_failed("bit-row gather", rc)
     return out
 
 
@@ -548,13 +561,14 @@ def diag_window_spmm(graph: DiagWindowGraph, x: Tensor,
 
 def diag_window_spmm_b(graph: DiagWindowGraph, x: Tensor,
                        fix: Optional[Tensor] = None) -> Tensor:
-    """Kernel B4: B1 on ``(B, rows, F)`` with fix ``(B, U, F)``.
-    ``(B, N_pad, F)``."""
+    """Kernel B4: B1 on ``(B, rows, F)`` with fix ``(B, U, F)``, on the
+    dense row gather with the graph's own block size. ``(B, N_pad, F)``."""
     _check_dim(x, 3, "B4")
     if not _on_cuda(x):
         return diag_window_spmm_plain(graph, x, fix)
-    out = _launch(graph.s_mat, graph.window_start, x, graph.esc_ptr,
-                  None if fix is None else graph.escape.rows, fix)
+    out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size,
+                           x, graph.esc_ptr,
+                           None if fix is None else graph.escape.rows, fix)
     diag_window_spmm_b.launches += 1
     return out
 
@@ -576,36 +590,30 @@ def window_matvec(s_mat: Tensor, graph: DiagWindowGraph, x: Tensor) -> Tensor:
     return out
 
 
-def _banded(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """B3 or B10 on a CUDA tensor: the window kernels where the window's S
-    tile fits the batched kernel's shared memory (the diag shapes, the esc2
-    contraction); else (the RCM band of a partition or of the int8 rank-1
-    layout at L7) the row gather of B11, which walks the nonzeros."""
-    code = _kernel_code(graph.s_mat.dtype, x)
-    if _lib().gwen_window_spmm_batched_smem(graph.window_size, code, 0) > MAX_SMEM:
-        return _launch_streamed(graph.s_mat, graph.window_start,
-                                graph.block_size, x)
-    return _launch(graph.s_mat, graph.window_start, x, None, None, None)
-
-
 def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """Kernel B3: the banded product (no escapes). ``(N_pad, F)``. A wide
-    window takes the row gather (:func:`_banded`)."""
+    """Kernel B3: the banded product (no escapes). ``(N_pad, F)``. The
+    window kernel on a window of at most :data:`NARROW_WINDOW` columns (the
+    esc2 contraction); else B11's row gather (the RCM band of a partition
+    or of the int8 rank-1 layout)."""
     _check_dim(x, 2, "B3")
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
-    out = _banded(graph, x)
+    if graph.window_size <= NARROW_WINDOW:
+        out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
+    else:
+        out = _launch_streamed(graph.s_mat, graph.window_start,
+                               graph.block_size, x)
     sliding_spmm.launches += 1
     return out
 
 
 def sliding_spmm_b(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``. A wide window
-    takes the row gather, the batch inside the kernel (:func:`_banded`)."""
+    """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``. B11's row
+    gather at every window width, the batch inside the kernel."""
     _check_dim(x, 3, "B10")
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
-    out = _banded(graph, x)
+    out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size, x)
     sliding_spmm_b.launches += 1
     return out
 
@@ -723,25 +731,23 @@ def diag_window_spmm_packed(graph: DiagWindowGraph, x: Tensor,
     out = _launch_packed(graph.s_pack, graph.r1_col, graph.r1_row,
                          graph.window_start, graph.num_src_rows, x,
                          graph.esc_ptr,
-                         None if fix is None else graph.escape.rows, fix,
-                         batched_kernel=False)
+                         None if fix is None else graph.escape.rows, fix)
     diag_window_spmm_packed.launches += 1
     return out
 
 
 def diag_window_spmm_packed_b(graph: DiagWindowGraph, x: Tensor,
                               fix: Optional[Tensor] = None) -> Tensor:
-    """Packed B4: packed B1 on ``(B, rows, F)`` with fix ``(B, U, F)``;
-    each CTA expands its S tile once and loops over the batch.
-    ``(B, N_pad, F)``."""
+    """Packed B4: packed B1 on ``(B, rows, F)`` with fix ``(B, U, F)``, on
+    the row gather over the set bits (B13's) with the graph's own block
+    size. ``(B, N_pad, F)``."""
     _check_dim(x, 3, "packed B4")
     if not _on_cuda(x):
         return diag_window_spmm_packed_plain(graph, x, fix)
-    out = _launch_packed(graph.s_pack, graph.r1_col, graph.r1_row,
-                         graph.window_start, graph.num_src_rows, x,
-                         graph.esc_ptr,
-                         None if fix is None else graph.escape.rows, fix,
-                         batched_kernel=True)
+    out = _launch_packed_rows(graph.s_pack, graph.r1_col, graph.r1_row,
+                              graph.window_start, graph.block_size,
+                              graph.num_src_rows, x, graph.esc_ptr,
+                              None if fix is None else graph.escape.rows, fix)
     diag_window_spmm_packed_b.launches += 1
     return out
 
@@ -752,24 +758,12 @@ def sliding_packed_spmm(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
     (missing rows read as zero). ``(..., N_pad, F)``."""
     if not _on_cuda(x):
         return sliding_packed_spmm_plain(graph, x)
-    bits, ws = graph.s_pack, graph.window_start
-    n_pad, words = bits.shape
-    _check_scales(bits, graph.col_scale, graph.row_scale, graph.num_src_rows)
-    _check(x, ws, n_pad, words * 32, None, None, None,
-           [bits, graph.col_scale, graph.row_scale], graph.block_size)
     if x.shape[-2] > graph.num_src_rows:
         raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
                          f"{graph.num_src_rows} source rows")
-    out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
-                      device=x.device)
-    rc = _lib().gwen_sliding_packed_spmm(
-        bits.data_ptr(), graph.col_scale.data_ptr(), graph.row_scale.data_ptr(),
-        x.data_ptr(), ws.data_ptr(), out.data_ptr(), n_pad, words,
-        graph.block_size, x.shape[-1], x.shape[-2],
-        x.shape[0] if x.dim() == 3 else 1, _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise _launch_failed("B13", rc)
+    out = _launch_packed_rows(graph.s_pack, graph.col_scale, graph.row_scale,
+                              graph.window_start, graph.block_size,
+                              graph.num_src_rows, x)
     sliding_packed_spmm.launches += 1
     return out
 

@@ -134,11 +134,11 @@ class PartitionedApply:
 
 
 def make_partitioned_apply(model, pg: PartitionedGraph, mesh: ProcessMesh,
-                           device="cpu",
+                           device="cuda",
                            transpose_tables: bool = False) -> PartitionedApply:
     """The per-rank apply of ``model`` over ``pg`` on ``mesh``: this rank's
-    slice of every stacked table, moved to ``device`` once, on the rank's
-    graph group."""
+    slice of every stacked table, moved to ``device`` once (the card unless
+    the caller asks for the CPU), on the rank's graph group."""
     if pg.num_parts != mesh.graph:
         raise ValueError(f"{pg.num_parts} partitions for a graph axis of "
                          f"{mesh.graph}")

@@ -1,0 +1,297 @@
+"""The batched diag-window forms on the row gathers (kernel B4, weighted and
+packed, and B10 on the esc2 contraction) against the reference package
+(CPU).
+
+On CUDA tensors ``diag_window_spmm_b`` launches the dense row gather and
+``diag_window_spmm_packed_b`` the bit-row gather, each with an escape
+epilogue that adds the row's fix row before the row scale and the single
+rounding, and ``sliding_spmm_b`` the dense row gather at every window
+width (``csrc/window_spmm.cu``); on the CPU they run their plain versions,
+which these tests hold against ``gwen_tpu``'s ``spmm_diag_window`` (Pallas
+in interpret mode) on a graph built to reach every branch of the gathers:
+a hub row with more than 32 in-window nonzeros (several ballot rounds), a
+destination block with more than 32 escape rows (the hub's out-of-window
+neighbours: two rounds of the slot search), a block with no nonzero and no
+escape, and fewer x rows than the layout's sources. Leading axes ``(5,)``
+and ``(2, 3)`` (folded into one batch: groups of four and a remainder), F 8,
+24 and 264 (lanes past F, and a second column pass), weighted and packed,
+the escape rows by the ELL gather and by the esc2 contraction, bf16, and a
+float32 x on a bf16 graph. Forward and x-gradient, float32 at ``rtol = atol
+= 1e-4``, bf16 at ``1e-2·max|ref|``. A fake library stands in for the built
+one to hold the wrappers' dispatch and argument packing. L3 icosphere in
+KD-patch order, block 64, window 128 (the packages' own RCM is pinned where
+the esc2 graph is built).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import gwen_tpu.graph as J
+import gwen_tpu_torch.graph as P
+from gwen_tpu.ops.spmm_pallas import spmm_diag_window as j_diag
+from gwen_tpu_torch.ops import spmm_cuda
+from test_torch_ops import same_rcm  # noqa: F401 (fixture)
+from test_torch_wide_windows import fake_lib  # noqa: F401 (fixture)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+LEVEL, BLOCK, WINDOW = 3, 64, 128
+HUB_SPAN = 60  # the hub is joined to every node within this many rows
+FAR = 48  # and to this many nodes of a block far outside its window
+ISOLATED = 100  # nodes appended with self loops only: block 11 holds no edge
+EMPTY = 11  # the block whose rows are cleared (rows 704..767, 704..741 real)
+
+
+def _bf16_close(got, want):
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
+                               atol=1e-2 * np.abs(want).max())
+
+
+def _edges():
+    """KD-ordered L3 icosphere edges, a hub joined both ways to every node
+    within ``HUB_SPAN`` rows of it and to ``FAR`` nodes of one block far
+    away, and ``ISOLATED`` appended nodes; the node count."""
+    verts, s, r = J.icosphere_edges(LEVEL)
+    n = verts.shape[0]
+    s, r, _ = J.apply_order(J.kd_patch_order(verts, s, r, n, leaf_size=64), s, r)
+    s, r = np.asarray(s, np.int64), np.asarray(r, np.int64)
+    h = n // 4
+    near = set(s[r == h].tolist())
+    far0 = (3 * n // 4) // BLOCK * BLOCK
+    others = np.array([c for c in (*range(h - HUB_SPAN, h + HUB_SPAN),
+                                   *range(far0, far0 + FAR))
+                       if c != h and c not in near])
+    s = np.concatenate([s, others, np.full(others.size, h)])
+    r = np.concatenate([r, np.full(others.size, h), others])
+    return s, r, n + ISOLATED
+
+
+def _pair(packed: bool, esc2: bool = False, dtype=np.float32):
+    """The reference's and the port's diag layout of :func:`_edges`, block
+    ``EMPTY`` cleared in both (its nodes' self loops: the operator stays
+    symmetric)."""
+    s, r, n = _edges()
+    kw = dict(window_size=WINDOW, block_size=BLOCK, superblock=4, packed=packed)
+    if esc2:
+        kw["esc2_min_rows"] = 1
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    dj = J.to_diag_window(J.build_graph(s, r, n), dtype=dtype, **kw)
+    dp = P.to_diag_window(P.build_graph(s, r, n), dtype=tdt, **kw)
+    rows = slice(EMPTY * BLOCK, (EMPTY + 1) * BLOCK)
+    if packed:
+        bits = dp.s_pack.clone()
+        bits[rows] = 0
+        dp = dataclasses.replace(dp, s_pack=bits)
+        # The reference packs 8 rows a byte, tile by tile: a block's rows
+        # are its BLOCK // 8 packed rows, every bit.
+        pk = np.array(dj.s_pack)
+        pk[EMPTY * BLOCK // 8:(EMPTY + 1) * BLOCK // 8] = 0
+        dj = dj.replace(s_pack=jnp.asarray(pk))
+    else:
+        sm = dp.s_mat.clone()
+        sm[rows] = 0
+        dp = dataclasses.replace(dp, s_mat=sm)
+        sj = np.array(dj.s_mat)
+        sj[rows] = 0
+        dj = dj.replace(s_mat=jnp.asarray(sj))
+    assert (dp.esc2_graph is not None) == esc2
+    return dj, dp, n
+
+
+def test_the_graph_reaches_every_branch_of_the_gathers():
+    _, dp, n = _pair(packed=False)
+    per_row = P.window_mask(dp).sum(1)
+    per_block = np.diff(dp.esc_ptr.numpy())
+    assert int(per_row.max()) > 32  # the hub: several ballot rounds
+    assert per_block.max() > 32  # two rounds of the escape-slot search
+    assert int(per_row[EMPTY * BLOCK:(EMPTY + 1) * BLOCK].sum()) == 0
+    assert per_block[EMPTY] == 0 and EMPTY * BLOCK < n  # real rows, no edge
+    assert n < dp.num_src_rows  # x has fewer rows than the sources
+    assert np.all(np.diff(dp.escape.rows.numpy()) > 0)  # unique, sorted
+
+
+def _check(dj, dp, shape, seed, dtype=None):
+    """Forward and x-gradient of the port's ``spmm_diag_window`` against
+    ``jax.vjp`` of the reference's, and against autograd through the plain
+    versions. ``dtype`` None: float32 throughout; else both in bf16."""
+    rng = np.random.default_rng(seed)
+    x, cot = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if dtype == "bf16"
+                else (jnp.float32, torch.float32))
+    want, vjp = jax.vjp(lambda v: j_diag(dj, v), jnp.asarray(x, jdt))
+    (want_gx,) = vjp(jnp.asarray(cot, jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    before = (spmm_cuda.diag_window_spmm_b.launches,
+              spmm_cuda.diag_window_spmm_packed_b.launches)
+    got = spmm_cuda.spmm_diag_window(dp, xt)
+    (gx,) = torch.autograd.grad(got, xt, torch.from_numpy(cot).to(tdt))
+    assert (spmm_cuda.diag_window_spmm_b.launches,
+            spmm_cuda.diag_window_spmm_packed_b.launches) == before  # CPU: plain
+    assert got.shape == x.shape and got.dtype == gx.dtype == tdt
+    if dtype == "bf16":
+        _bf16_close(got.detach().float(), want.astype(jnp.float32))
+        _bf16_close(gx.float(), want_gx.astype(jnp.float32))
+        return
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(gx.numpy(), np.asarray(want_gx), **TOL)
+    xp = torch.from_numpy(x).requires_grad_()
+    (gp,) = torch.autograd.grad(spmm_cuda.spmm_diag_window(dp, xp, plain=True),
+                                xp, torch.from_numpy(cot))
+    np.testing.assert_allclose(gp.numpy(), np.asarray(want_gx), **TOL)
+
+
+@pytest.mark.parametrize("lead,f", [((5,), 8), ((2, 3), 24), ((5,), 264)],
+                         ids=["5-F8", "2x3-F24", "5-F264"])
+@pytest.mark.parametrize("packed", [False, True], ids=["weighted", "packed"])
+def test_batched_diag_forms_match_reference(packed, lead, f):
+    """B4 and packed B4 (their plain versions) behind ``spmm_diag_window``,
+    the escape rows from the ELL gather."""
+    dj, dp, n = _pair(packed)
+    assert dp.esc2_graph is None
+    _check(dj, dp, (*lead, n, f), seed=f + len(lead))
+
+
+@pytest.mark.parametrize("lead,f", [((2, 3), 24), ((5,), 264)],
+                         ids=["2x3-F24", "5-F264"])
+@pytest.mark.parametrize("packed", [False, True], ids=["weighted", "packed"])
+def test_batched_diag_forms_on_the_esc2_contraction_match_reference(packed, lead,
+                                                                     f, same_rcm):
+    """The escape rows from the esc2 contraction: B10 (its plain version)
+    on the RCM-ordered escape graph, then B4 or packed B4."""
+    dj, dp, n = _pair(packed, esc2=True)
+    _check(dj, dp, (*lead, n, f), seed=3 * f)
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["weighted", "packed"])
+def test_batched_diag_forms_bf16_match_reference(packed, same_rcm):
+    dj, dp, n = _pair(packed, esc2=True, dtype=jnp.bfloat16)
+    _check(dj, dp, (5, n, 24), seed=17, dtype="bf16")
+
+
+@pytest.mark.parametrize("esc2", [False, True], ids=["ell", "esc2"])
+def test_float32_x_on_a_bf16_graph_matches_reference(esc2, same_rcm):
+    """A float32 field on the bf16 layout (the ensemble's noise smoothing):
+    S widens exactly, the product and the escape rows are float32."""
+    dj, dp, n = _pair(False, esc2=esc2, dtype=jnp.bfloat16)
+    assert dp.s_mat.dtype == torch.bfloat16
+    _check(dj, dp, (2, 3, n, 8), seed=19 + esc2)
+
+
+# ------------------------------------------------- dispatch to the kernels
+
+
+@pytest.mark.parametrize("with_fix", [True, False], ids=["fix", "no-fix"])
+@pytest.mark.parametrize("s_dtype,x_dtype,code", [
+    (torch.float32, torch.float32, 0), (torch.bfloat16, torch.bfloat16, 1),
+    (torch.bfloat16, torch.float32, 2)])
+def test_b4_launches_the_dense_gather_with_its_escapes(s_dtype, x_dtype, code,
+                                                       with_fix, fake_lib):
+    """B4 takes the dense row gather with the graph's own block, the
+    escape pointers, ``n_fix`` and the batch inside the kernel; no fix
+    passes null pointers and ``n_fix`` 0."""
+    _, dp, n = _pair(False)
+    dp = dataclasses.replace(dp, s_mat=dp.s_mat.to(s_dtype))
+    u = dp.escape.rows.shape[0]
+    x = torch.zeros(3, n, 16, dtype=x_dtype)
+    fix = torch.zeros(3, u, 16, dtype=x_dtype) if with_fix else None
+    before = spmm_cuda.diag_window_spmm_b.launches
+    out = spmm_cuda.diag_window_spmm_b(dp, x, fix)
+    assert spmm_cuda.diag_window_spmm_b.launches == before + 1
+    assert out.shape == (3, dp.num_padded_nodes, 16) and out.dtype == x_dtype
+    (name, args), = fake_lib.calls
+    assert name == "gwen_window_spmm_streamed"
+    assert args[:3] == (dp.s_mat.data_ptr(), x.data_ptr(), dp.window_start.data_ptr())
+    assert args[3:6] == ((dp.esc_ptr.data_ptr(), dp.escape.rows.data_ptr(),
+                          fix.data_ptr()) if with_fix else (None, None, None))
+    assert args[6] == out.data_ptr()
+    assert args[7:] == (dp.num_padded_nodes, WINDOW, BLOCK, 16, n, 3,
+                        u if with_fix else 0, code, 0)
+
+
+@pytest.mark.parametrize("with_fix", [True, False], ids=["fix", "no-fix"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_b4_launches_the_bit_gather_with_its_escapes(dtype, with_fix,
+                                                            fake_lib):
+    _, dp, n = _pair(True)
+    u = dp.escape.rows.shape[0]
+    x = torch.zeros(5, n, 16, dtype=dtype)
+    fix = torch.zeros(5, u, 16, dtype=dtype) if with_fix else None
+    before = spmm_cuda.diag_window_spmm_packed_b.launches
+    out = spmm_cuda.diag_window_spmm_packed_b(dp, x, fix)
+    assert spmm_cuda.diag_window_spmm_packed_b.launches == before + 1
+    (name, args), = fake_lib.calls
+    assert name == "gwen_sliding_packed_spmm"
+    assert args[:5] == (dp.s_pack.data_ptr(), dp.r1_col.data_ptr(),
+                        dp.r1_row.data_ptr(), x.data_ptr(),
+                        dp.window_start.data_ptr())
+    assert args[5:8] == ((dp.esc_ptr.data_ptr(), dp.escape.rows.data_ptr(),
+                          fix.data_ptr()) if with_fix else (None, None, None))
+    assert args[8] == out.data_ptr()
+    assert args[9:] == (dp.num_padded_nodes, WINDOW // 32, BLOCK, 16, n, 5,
+                        u if with_fix else 0, 0 if dtype == torch.float32 else 1, 0)
+
+
+def _esc2_graph():
+    """The esc2 graph of the L7-like shape: 128-row blocks, a 384-column
+    window."""
+    verts, s, r = J.icosphere_edges(LEVEL)
+    n = verts.shape[0]
+    s, r, _ = J.apply_order(J.rcm_order(s, r, n), s, r)
+    g = P.build_graph(np.asarray(s, np.int64), np.asarray(r, np.int64), n)
+    return P.to_sliding_dense(g, dtype=torch.bfloat16, window_size=384), n
+
+
+def test_b10_takes_the_dense_gather_on_the_diag_window(fake_lib):
+    g2, n = _esc2_graph()
+    assert g2.window_size == 384 and g2.window_size <= spmm_cuda.NARROW_WINDOW
+    x = torch.zeros(4, n, 16, dtype=torch.bfloat16)
+    spmm_cuda.sliding_spmm_b(g2, x)
+    (name, args), = fake_lib.calls
+    assert name == "gwen_window_spmm_streamed"
+    assert args[3:6] == (None, None, None)
+    assert args[7:] == (g2.num_padded_nodes, 384, 128, 16, n, 4, 0, 1, 0)
+
+
+def test_unbatched_forms_keep_the_window_kernels(fake_lib):
+    """B1, B3 on a narrow window and packed B1 (2-d x) still launch the
+    window kernels, with the escape pointers where B1 has a fix array."""
+    g2, n2 = _esc2_graph()
+    spmm_cuda.sliding_spmm(g2, torch.zeros(n2, 16, dtype=torch.bfloat16))
+    s, r, n = _edges()
+    g = P.build_graph(s, r, n)
+    kw = dict(window_size=256)
+    for packed in (False, True):
+        dp = P.to_diag_window(g, packed=packed, **kw)
+        u = dp.escape.rows.shape[0]
+        x, fix = torch.zeros(n, 8), torch.zeros(u, 8)
+        b1 = spmm_cuda.diag_window_spmm_packed if packed else spmm_cuda.diag_window_spmm
+        b1(dp, x, fix)
+    names = [name for name, _ in fake_lib.calls]
+    assert names == ["gwen_window_spmm", "gwen_window_spmm", "gwen_window_spmm_packed"]
+    _, b1_args = fake_lib.calls[1]
+    assert b1_args[3] is not None and b1_args[7:] == (dp.num_blocks, 256, 8, n, 0, 0)
+    _, p_args = fake_lib.calls[2]
+    assert p_args[5] == dp.esc_ptr.data_ptr()
+    assert p_args[9:] == (dp.num_blocks, 256, 8, n, 0, 0)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "leading", "width", "rows"])
+def test_b4_wrappers_refuse_a_fix_that_does_not_match(bad, fake_lib):
+    for packed in (False, True):
+        _, dp, n = _pair(packed)
+        u = dp.escape.rows.shape[0]
+        x = torch.zeros(2, n, 8)
+        fix = {"dtype": torch.zeros(2, u, 8, dtype=torch.bfloat16),
+               "leading": torch.zeros(u, 8),
+               "width": torch.zeros(2, u, 16),
+               "rows": torch.zeros(2, u + 1, 8)}[bad]
+        wrapper = (spmm_cuda.diag_window_spmm_packed_b if packed
+                   else spmm_cuda.diag_window_spmm_b)
+        with pytest.raises(ValueError, match="fix must be|esc_rows must be"):
+            wrapper(dp, x, fix)
+    assert fake_lib.calls == []

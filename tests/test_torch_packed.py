@@ -267,28 +267,28 @@ def test_packed_plain_kernels_batched_equal_stacked_calls(same_rcm):
     ("bits", TypeError, "int32"),
     ("scale_dtype", TypeError, "float32"),
     ("scale_rows", ValueError, "source"),
-    ("batched_2d", ValueError, "batched packed"),
+    ("batched_3d", ValueError, "2-d x"),
     ("rows", ValueError, "128-row blocks"),
 ])
 def test_packed_launch_rejects_bad_operands(bad, exc, match):
+    """The packed window kernel (packed B1) refuses what it does not take,
+    a batched x among them: packed B4 runs on the row gather."""
     bits = torch.zeros(256, 2, dtype=torch.int32)
     col, row = torch.zeros(512), torch.zeros(256)
     ws = torch.zeros(2, dtype=torch.int32)
     x = torch.zeros(300, 8)
-    batched = False
     if bad == "bits":
         bits = bits.long()
     elif bad == "scale_dtype":
         col = col.double()
     elif bad == "scale_rows":
         col = torch.zeros(100)
-    elif bad == "batched_2d":
-        batched = True
+    elif bad == "batched_3d":
+        x = x[None]
     elif bad == "rows":
         bits, row = torch.zeros(200, 2, dtype=torch.int32), torch.zeros(200)
     with pytest.raises(exc, match=match):
-        spmm_cuda._launch_packed(bits, col, row, ws, 300, x, None, None, None,
-                                 batched)
+        spmm_cuda._launch_packed(bits, col, row, ws, 300, x, None, None, None)
 
 
 # ---------------------------------------------------------------- B13

@@ -332,3 +332,22 @@ def test_one_process_mesh_needs_no_group():
     for kw in (dict(data=2, graph=1), dict(data=-1, graph=2)):
         with pytest.raises(ValueError, match="ranks"):
             make_mesh(**kw)
+
+
+def test_make_partitioned_apply_runs_on_the_card_by_default():
+    """The per-rank apply moves its tables to the card unless the caller
+    asks for the CPU, as every entry point of the port does; asked for the
+    CPU, the tables stay there."""
+    import inspect
+
+    from gwen_tpu_torch.nn import EncodeProcessDecode
+    from gwen_tpu_torch.parallel import make_partitioned_apply
+    from gwen_tpu_torch.train import make_mesh
+
+    params = inspect.signature(make_partitioned_apply).parameters
+    assert params["device"].default == "cuda"
+    _, s, r = J.icosphere_edges(2)
+    pg = partition_graph(s, r, 162, 1, reorder=False, layout="ell")
+    model = EncodeProcessDecode(1, 1, device="cpu", latent_size=8, process_steps=1)
+    apply_fn = make_partitioned_apply(model, pg, make_mesh(), "cpu")
+    assert apply_fn.graph.nbr.device.type == "cpu"

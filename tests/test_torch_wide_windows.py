@@ -304,18 +304,10 @@ def test_wrappers_read_rows_past_x_as_zero(layout, same_rcm):
 
 class _FakeLib:
     """Stands in for the built library: records each entry point's
-    arguments, and answers the batched kernel's shared-memory query as the
-    library does (a 128-row bf16 or float32 S tile, one x chunk, the output
-    tile)."""
+    arguments."""
 
     def __init__(self):
         self.calls = []
-
-    def gwen_window_spmm_batched_smem(self, window, dtype, packed):
-        elem = 4 if dtype in (0, 2, 4) else 2
-        vec = 16 // elem
-        return (128 * (window + vec) * elem + 32 * (64 + vec) * elem
-                + (0 if elem == 4 else 128 * 68 * 4))
 
     def __getattr__(self, name):
         def entry(*args):
@@ -356,8 +348,9 @@ def test_b13_launches_the_bit_gather_with_the_graph_block(dtype, lead, fake_lib)
     (name, args), = fake_lib.calls
     assert name == "gwen_sliding_packed_spmm"
     assert args[0] == sp.s_pack.data_ptr() and args[4] == sp.window_start.data_ptr()
-    assert args[6:13] == (sp.num_padded_nodes, sp.window_size // 32, 256, 16, n,
-                          lead[0] if lead else 1, 0 if dtype == torch.float32 else 1)
+    assert args[5:8] == (None, None, None)  # no escapes
+    assert args[9:17] == (sp.num_padded_nodes, sp.window_size // 32, 256, 16, n,
+                          lead[0] if lead else 1, 0, 0 if dtype == torch.float32 else 1)
 
 
 @pytest.mark.parametrize("s_dtype,x_dtype,code", [
@@ -373,29 +366,32 @@ def test_b11_launches_the_dense_gather_in_each_operand_mode(s_dtype, x_dtype, co
     spmm_cuda.windowed_dense_spmm(wd, x)
     (name, args), = fake_lib.calls
     assert name == "gwen_window_spmm_streamed"
-    assert args[4:] == (wd.num_padded_nodes, wd.window_size, 128, 16, n, 4, code, 0)
+    assert args[3:6] == (None, None, None)  # no escapes
+    assert args[7:] == (wd.num_padded_nodes, wd.window_size, 128, 16, n, 4, 0, code, 0)
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["B3", "B10"])
 @pytest.mark.parametrize("window", [None, 768], ids=["narrow", "wide"])
 def test_banded_kernels_take_the_gather_on_a_wide_window(window, batched, fake_lib):
-    """B3 and B10 keep the window kernels where the 128-row S tile fits the
-    batched kernel's shared memory (a bf16 window up to 736 columns), and
-    take the dense gather where it does not."""
+    """B3 keeps the window kernel on a window of at most ``NARROW_WINDOW``
+    columns and takes the dense gather on a wider one; B10 takes the dense
+    gather at every width, the batch inside the kernel."""
     g, n = _rcm_graph()
     sd = P.to_sliding_dense(g, dtype=torch.bfloat16, window_size=window)
-    wide = fake_lib.gwen_window_spmm_batched_smem(sd.window_size, 1, 0) > spmm_cuda.MAX_SMEM
+    wide = sd.window_size > spmm_cuda.NARROW_WINDOW
     assert wide == (window is not None)
     x = torch.zeros(*((2,) if batched else ()), n, 16, dtype=torch.bfloat16)
     wrapper = spmm_cuda.sliding_spmm_b if batched else spmm_cuda.sliding_spmm
     before = wrapper.launches
     wrapper(sd, x)
     assert wrapper.launches == before + 1
-    names = [name for name, _ in fake_lib.calls]
-    if wide:
-        assert names == ["gwen_window_spmm_streamed"]
+    (name, args), = fake_lib.calls
+    if wide or batched:
+        assert name == "gwen_window_spmm_streamed"
+        assert args[7:14] == (sd.num_padded_nodes, sd.window_size, 128, 16, n,
+                              2 if batched else 1, 0)
     else:
-        assert names == ["gwen_window_spmm_batched" if batched else "gwen_window_spmm"]
+        assert name == "gwen_window_spmm"
 
 
 def test_gather_wrappers_refuse_what_the_kernels_do_not_take(fake_lib):
