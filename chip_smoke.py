@@ -14,15 +14,16 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    LayerNorm forward and backward);
 3. builds the L7 graph (with the attention tables) and checks each kernel
    against its plain PyTorch version at the shapes serving gives it (B1,
-   B3, B2), at the train shapes, batch 4 (B4, B10, B2b on dm, dscale and
+   also timed with no fix rows, B3, B2), at the train shapes, batch 4 (B4, B10, B2b on dm, dscale and
    dbias, and the diag composite's x-gradient against autograd through
    the plain versions, batched and unbatched), and for attention (B5, B6
    with its row stats, B7) at nb = 1 (a direct 2-D call), 2 and 8 (dh 128)
    and 4 (dh 64), with the attention Function's gradients against autograd
    through the plain forward; then builds the bit-packed L7 graphs (the
    diag layout in the same KD order, the RCM banded layout at block 256)
-   and checks packed B1 (F 256), packed B4 (batch 4) and B13 (F 256 and
-   batch 4), the packed composites' x-gradients against autograd through
+   and checks packed B1 (F 256, also timed with no fix rows), packed B4
+   (batch 4) and B13 (F 256 and batch 4), the packed composites'
+   x-gradients against autograd through
    the plain versions, and the packed diag composite against the unpacked
    one; then the row gathers on two L5 graphs in RCM order (correctness
    only): B13 and B11 in its six operand modes on a hub graph (a row of
@@ -34,8 +35,11 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    escape rows and an empty block, at batch 1, 3, 5 and 16, F 8 and 264 in
    bf16 and F 4 and 132 in float32, a float32 x on the bf16 S at F 4, with
    no fix rows, and B4 on a halo-diag local graph (``n_pad`` rows, the
-   halo-extended sources); then the unfused operators: B8, B9 (nb 1), B9b (nb 2 and 8) and
-   ``diag_matvec`` (B1 on a runtime S) at f 128 and 256, the gradients of
+   halo-extended sources); the same for B1, packed B1 and B1 on a runtime
+   S (``window_matvec``, on the graph's mask and on every window column)
+   with a 2-d x (the gathers' batch-1 walk); then the unfused operators:
+   B8, B9 (nb 1), B9b (nb 2 and 8) and ``diag_matvec`` (B1 on a runtime S,
+   timed on the window mask's pattern) at f 128 and 256, the gradients of
    ``diag_matvec`` and ``diag_sddmm`` against autograd through the plain
    versions, and ``aggregate`` on a float32 ``(4, N, 1)`` field over the
    bf16 and the packed diag graph: bf16 ``max|err| ≤ 1e-2·max|plain|``, the
@@ -60,7 +64,8 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    entry point, checks the launch counts (each kernel 3 × 4 × 4 = 48) and
    that no plain version ran on the card, the trajectories, and one served
    step against the plain versions (within 2.5 bf16 ulps at max|plain|),
-   and times the served steps;
+   times the served steps and profiles one (``torch.profiler``: the busy
+   share and the kernels by device time);
 5. the same for the attention model (2 heads): B5 and B2 48 times each;
 6. trains the GCN model: ``train-mesh graph.refine=7 train.batch_size=4``
    through the CLI entry point (11 Adam steps at full width, remat off),
@@ -470,6 +475,9 @@ def check_kernels(graph, device) -> dict:
                    (x,),
                    2.0 * (nnz + u) * f, torch.bfloat16),
         library_ms=sparse_mm_ms(csr, x), floor_ms=stored_floor_ms(graph.s_mat))
+    # What the escape epilogue costs with one item.
+    no_fix = cuda_ms(lambda: spmm_cuda.diag_window_spmm(graph, x))
+    log(f"    B1: {ms:.4f} ms, with no fix rows (no epilogue) {no_fix:.4f} ms")
 
     # B3: banded SpMM on the esc2 graph (x compacted to the U endpoints).
     x2 = randn(g2.num_nodes, f)
@@ -629,6 +637,7 @@ def serve(graph, perm, device, workdir: Path, processor: str = "gcn") -> dict:
     log(f"  serve {processor} step ms: median {np.median(step_ms):.3f}, "
         f"steady median (first step of each request left out) "
         f"{np.median([v for i, v in enumerate(step_ms) if i % ROLLOUT_STEPS]):.3f}")
+    _profile_step(lambda: sm.step(x), f"served {processor}")
     return launches
 
 
@@ -984,8 +993,8 @@ def check_packed_kernels(graph, packed: dict, device, unpacked: dict,
         ref = unpacked["B4" if len(shape) == 3 else "B1"]["ms"]
         log(f"  {tag}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unpacked "
             f"{'B4' if len(shape) == 3 else 'B1'} {ref:.4f} ms")
-        if key == "B4p":
-            log(f"    B4p with no fix rows (no epilogue): "
+        if key in ("B1p", "B4p"):
+            log(f"    {key} with no fix rows (no epilogue): "
                 f"{cuda_ms(lambda: kern(g, x), 10):.4f} ms")
         if keep:
             # The operator the kernel rebuilds, a_r a_s ⊙ S01, as CSR.
@@ -1158,8 +1167,14 @@ def check_diag_gather_graphs(graphs: dict, device) -> None:
     at batch 1, 3, 5 and 16 (groups of four and a remainder), F 8 and 264 in
     bf16 (lanes past F, a second column pass) and F 4 and 132 in float32,
     the float32-on-bf16 mode at F 4, x with fewer rows than the sources;
-    B4 and packed B4 with no fix rows; B4 on the halo-diag local graph. Each
-    call must launch its wrapper's kernel once."""
+    the same for the unbatched forms on a 2-d x (the gathers' batch-1 walk):
+    B1, packed B1, and B1 on a runtime S (``window_matvec``) with the
+    graph's mask (the hub's ~300 nonzeros fill the walk's list several
+    times) and with every window column nonzero; B4, packed B4, B1 and
+    packed B1 with no fix rows; B4, B1 and ``window_matvec`` on the
+    halo-diag local graph. Each call must launch its wrapper's kernel
+    once."""
+    from gwen_tpu_torch.graph import window_mask
     from gwen_tpu_torch.ops import spmm_cuda
 
     gen = torch.Generator(device=device).manual_seed(9)
@@ -1206,35 +1221,77 @@ def check_diag_gather_graphs(graphs: dict, device) -> None:
                 held("B10", f"{tag} on the bf16 S",
                      lambda: spmm_cuda.sliding_spmm_b(g2, x2),
                      spmm_cuda.sliding_spmm_plain(g2_32, x2), F32_TOL)
-    x = randn(3, n, 264)
-    held("B4", "batch 3 F 264 bf16, no fix rows",
-         lambda: spmm_cuda.diag_window_spmm_b(dg, x),
-         spmm_cuda.diag_window_spmm_plain(d32, x.float(), None), BF16_TOL)
-    held("B4p", "batch 3 F 264 bf16, no fix rows",
-         lambda: spmm_cuda.diag_window_spmm_packed_b(pg, x),
-         spmm_cuda.diag_window_spmm_packed_plain(p_bf, x.float(), None), BF16_TOL)
+    def runtime_s(graph, dtype):
+        """A runtime S on ``graph``'s window: random values on its mask (as
+        attention probabilities lie), and random in every column."""
+        shape = (graph.num_padded_nodes, graph.window_size)
+        masked = torch.rand(*shape, generator=gen, device=device) * window_mask(graph)
+        return {"masked": masked.to(dtype), "dense": randn(*shape, dtype=dtype)}
+
+    for dtype, f in modes:
+        bf = dtype == torch.bfloat16
+        tol = BF16_TOL if bf else F32_TOL
+        tag = f"2-d x F {f} {'bf16' if bf else 'f32'}"
+        x, fix = randn(n, f, dtype=dtype), randn(u, f, dtype=dtype)
+        xf, ff = x.float(), fix.float()
+        held("B1", tag, lambda: spmm_cuda.diag_window_spmm(dg if bf else d32, x, fix),
+             spmm_cuda.diag_window_spmm_plain(d32, xf, ff), tol)
+        held("B1p", tag, lambda: spmm_cuda.diag_window_spmm_packed(pg, x, fix),
+             spmm_cuda.diag_window_spmm_packed_plain(p_bf if bf else pg, xf, ff),
+             tol)
+        for kind, sm in runtime_s(dg, dtype).items():
+            held("B1", f"window_matvec, {kind} S, {tag}",
+                 lambda: spmm_cuda.window_matvec(sm, dg, x),
+                 spmm_cuda.window_spmm_plain(sm.float(), dg.window_start, xf,
+                                             dg.num_src_rows), tol)
+        if f == 4:  # a float32 x on the bf16 S
+            held("B1", f"{tag} on the bf16 S",
+                 lambda: spmm_cuda.diag_window_spmm(dg, x, fix),
+                 spmm_cuda.diag_window_spmm_plain(d32, x, fix), F32_TOL)
+    for lead in ((3,), ()):
+        x = randn(*lead, n, 264)
+        tag = f"{'batch 3' if lead else '2-d x'} F 264 bf16, no fix rows"
+        held("B4" if lead else "B1", tag,
+             lambda: (spmm_cuda.diag_window_spmm_b if lead
+                      else spmm_cuda.diag_window_spmm)(dg, x),
+             spmm_cuda.diag_window_spmm_plain(d32, x.float(), None), BF16_TOL)
+        held("B4p" if lead else "B1p", tag,
+             lambda: (spmm_cuda.diag_window_spmm_packed_b if lead
+                      else spmm_cuda.diag_window_spmm_packed)(pg, x),
+             spmm_cuda.diag_window_spmm_packed_plain(p_bf, x.float(), None), BF16_TOL)
     h32 = dataclasses.replace(halo, s_mat=halo.s_mat.float())
     k = 0 if halo.escape is None else halo.escape.rows.shape[0]
-    for batch in (1, 5):
-        x = randn(batch, halo.num_src_rows, 264)
-        fix = randn(batch, k, 264) if k else None
-        held("B4", f"halo-diag local graph, batch {batch} F 264 bf16",
-             lambda: spmm_cuda.diag_window_spmm_b(halo, x, fix),
+    for lead in ((), (1,), (5,)):
+        x = randn(*lead, halo.num_src_rows, 264)
+        fix = randn(*lead, k, 264) if k else None
+        tag = f"halo-diag local graph, {f'batch {lead[0]}' if lead else '2-d x'} F 264 bf16"
+        held("B4" if lead else "B1", tag,
+             lambda: (spmm_cuda.diag_window_spmm_b if lead
+                      else spmm_cuda.diag_window_spmm)(halo, x, fix),
              spmm_cuda.diag_window_spmm_plain(
                  h32, x.float(), None if fix is None else fix.float()), BF16_TOL)
+    x = randn(halo.num_src_rows, 264)
+    for kind, sm in runtime_s(halo, torch.bfloat16).items():
+        held("B1", f"window_matvec on the halo-diag local graph, {kind} S, F 264",
+             lambda: spmm_cuda.window_matvec(sm, halo, x),
+             spmm_cuda.window_spmm_plain(sm.float(), halo.window_start, x.float(),
+                                         halo.num_src_rows), BF16_TOL)
     torch.cuda.synchronize()
 
 
 def check_unfused_kernels(graph, packed_diag, device) -> dict:
     """Phase 3 for the unfused attention operators: B8 (SDDMM), B9 and B9b
     (transpose SpMM at nb 1, 2 and 8) and ``diag_matvec``'s forward (B1 on a
-    runtime S) against their plain versions at f 128 and 256; the gradients
+    runtime S: random in every window column, and random on the window's
+    mask as the unfused backend gives it, the pattern it is timed on)
+    against their plain versions at f 128 and 256; the gradients
     of ``diag_matvec`` (in s and x) and ``diag_sddmm`` (in a and b) against
     autograd through the plain versions; ``aggregate`` on a float32
     ``(4, N, 1)`` field over the bf16 and the packed diag graph. Times at
     f 128, the attention head width, beside the library's calls on the full
     window pattern as CSR: ``torch.sparse.sampled_addmm`` for B8,
     ``torch.sparse.mm`` on the transposed operator for B9 and B9b."""
+    from gwen_tpu_torch.graph import window_mask
     from gwen_tpu_torch.ops import aggregate, spmm_cuda, unfused_cuda
     from gwen_tpu_torch.ops.attention import diag_matvec, diag_sddmm
 
@@ -1266,16 +1323,27 @@ def check_unfused_kernels(graph, packed_diag, device) -> dict:
                     unfused_cuda.spmm_t(graph, s.float(), g.float()), want, F32_TOL)
             del want
             if nb == 1:
+                # B1 on a runtime S: the random tile (every window column
+                # nonzero) and, as the unfused backend gives it, random
+                # probabilities on the window's mask; timed on both.
                 x = randn(n, f)
-                want = unfused_cuda.matvec_plain(graph, s.float(), x.float())
-                compare(f"diag_matvec forward (B1 on a runtime S) bf16 f={f}",
-                        unfused_cuda.matvec(graph, s, x), want, BF16_TOL)
-                compare(f"diag_matvec forward f32 f={f}",
-                        unfused_cuda.matvec(graph, s.float(), x.float()), want,
-                        F32_TOL)
-                del want
-                ms = cuda_ms(lambda: unfused_cuda.matvec(graph, s, x))
-                log(f"  diag_matvec forward f={f}: B1 on a runtime S {ms:.4f} ms")
+                p_mat = (torch.rand(n_pad, w, generator=gen, device=device)
+                         * window_mask(graph)).bfloat16()
+                for kind, sm in (("dense", s), ("masked", p_mat)):
+                    want = unfused_cuda.matvec_plain(graph, sm.float(), x.float())
+                    compare(f"diag_matvec forward (B1 on a runtime {kind} S) bf16 "
+                            f"f={f}", unfused_cuda.matvec(graph, sm, x), want,
+                            BF16_TOL)
+                    compare(f"diag_matvec forward ({kind} S) f32 f={f}",
+                            unfused_cuda.matvec(graph, sm.float(), x.float()), want,
+                            F32_TOL)
+                    del want
+                ms = cuda_ms(lambda: unfused_cuda.matvec(graph, p_mat, x))
+                dense_ms = cuda_ms(lambda: unfused_cuda.matvec(graph, s, x), 3, 1)
+                log(f"  diag_matvec forward f={f}: B1 on a runtime S, the mask's "
+                    f"pattern (as the unfused backend gives it) {ms:.4f} ms; every "
+                    f"window column nonzero {dense_ms:.4f} ms")
+                del p_mat
             iters = 20 if nb < 8 else 5
             pairs = {"B8": (lambda: unfused_cuda.sddmm(graph, a, b),
                             lambda: unfused_cuda.sddmm_plain(graph, a, b)),
@@ -2872,10 +2940,14 @@ def main() -> int:
     acu = "gwen_tpu_torch/csrc/window_attention.cu"
     ucu = "gwen_tpu_torch/csrc/window_unfused.cu"
     one = "; one kernel for both forms, one count"
-    sources = {"B1": ("diag-window SpMM with escape placement", "cuda", cu,
+    sources = {"B1": ("diag-window SpMM with escape placement: the row "
+                      "gather's batch-1 walk over S's nonzeros (listed, then "
+                      "gathered eight at a time) with the escape rows added in "
+                      "its epilogue (dense_row1_kernel)", "cuda", cu,
                       f"{spmm}:909"),
-               "B3": ("banded SpMM (esc2 contraction; its int8 S01 form is held "
-                      "in phase 11)", "cuda", cu, f"{spmm}:476"),
+               "B3": ("banded SpMM on the esc2 contraction: the window kernel "
+                      "(window_spmm_kernel; its int8 S01 form is held in phase "
+                      "11)", "cuda", cu, f"{spmm}:476"),
                "B2": ("residual + LayerNorm forward", "triton", tr, f"{ln}:42"),
                "B4": ("batched diag-window SpMM: a row gather over S's "
                       "nonzeros with the escape rows added in its epilogue "
@@ -2898,7 +2970,9 @@ def main() -> int:
                "B7b": (f"batched attention dK and dV (nb = 8{one})", "cuda",
                        acu, f"{att}:1216"),
                "B1p": ("packed diag-window SpMM: S01 bits, rank-1 scales "
-                       "(the packed branch of _diag_kernel)", "cuda", cu,
+                       "(the packed branch of _diag_kernel): the bit-row "
+                       "gather's batch-1 walk with the escape rows added "
+                       "before the row scale (packed_row1_kernel)", "cuda", cu,
                        f"{spmm}:998"),
                "B4p": ("batched packed diag-window SpMM (the packed branch of "
                        "_diag_kernel_b): a row gather over the set bits with "
@@ -2907,7 +2981,8 @@ def main() -> int:
                "B13": ("bit-packed banded SpMM, a row gather over the set "
                        "bits (batch 4, the train-mesh shape)", "cuda", cu,
                        f"{spmm}:1556"),
-               "B13u": (f"bit-packed banded SpMM (unbatched{one})", "cuda",
+               "B13u": ("bit-packed banded SpMM (unbatched: the batch-1 walk, "
+                        "packed_row1_kernel; one count with B13)", "cuda",
                         cu, f"{spmm}:1556"),
                "B8": ("SDDMM: window-relative score tile (one item, f 128)",
                       "cuda", ucu, f"{att}:78"),
@@ -2916,7 +2991,8 @@ def main() -> int:
                "B9b": (f"batched transpose SpMM (nb = 2, f 128{one})", "cuda",
                        ucu, f"{att}:1393"),
                "B11": ("windowed-dense SpMM, absolute starts: a row gather "
-                       "over S's nonzeros (RCM order, F 256, unbatched)",
+                       "over S's nonzeros (RCM order, F 256, unbatched: the "
+                       "batch-1 walk, dense_row1_kernel)",
                        "cuda", cu, f"{spmm}:353"),
                "B12": ("blocked-ELL SpMM: gather, scale, sum (RCM order, F "
                        "256, unbatched)", "cuda", cu, f"{spmm}:46"),

@@ -2,58 +2,37 @@
 // (packed B1 and B4, B13), windowed-dense (B11), blocked-ELL (B12) and
 // block-tile (B14) layouts.
 //
-// Replaces these Pallas TPU kernels of the reference package:
-//   B1  gwen_tpu/ops/spmm_pallas.py:_diag_kernel     (through _diag_impl)
-//   B3  gwen_tpu/ops/spmm_pallas.py:_sliding_kernel  (through _sliding_impl)
-// with the window kernel below; B4 (_diag_kernel_b through _diag_impl_b),
-// B10 (_sliding_kernel_b through _sliding_impl_b), B13
-// (_sliding_packed_kernel through _sliding_packed_impl) and B11
-// (_sdense_kernel through _sdense_impl) with the row gathers after it; B12
-// (_kernel through _spmm_impl) and B14 (_tile_kernel through
-// _spmm_tiles_impl) have sections of their own at the end. The window
-// kernel computes, for every 128-row destination block b with window start
-// ws_b,
-//   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
-// in float32, then (B1 only) adds the block's escape fix rows
-//   out[esc_rows[j], :] += fix[j, :]   for j in [esc_ptr[b], esc_ptr[b+1])
-// and casts once to the output type. The TPU kernels stage x in VMEM (a
-// superblock union window for B1, a ring buffer for B3) and place escapes
-// with a one-hot matmul; here each CTA reads its own window and places the
-// (row-unique) escape rows directly in its shared-memory output tile.
+// Which kernel computes which form:
+//   window_spmm_kernel   B3 (gwen_tpu/ops/spmm_pallas.py:_sliding_kernel,
+//                        through _sliding_impl) on a window of at most 736
+//                        columns (the esc2 contraction), a 2-d x, no escapes;
+//   dense_row1_kernel    batch 1 on a dense S: B1 (_diag_kernel through
+//                        _diag_impl) with its escape fix rows, B1 on a runtime
+//                        S (diag_matvec's forward), and B11, B3 on a wide
+//                        window, B4 and B10 called with one item;
+//   dense_rows_kernel    a batch of two or more: B4 (_diag_kernel_b through
+//                        _diag_impl_b) with its fix rows, B10
+//                        (_sliding_kernel_b through _sliding_impl_b) at every
+//                        width, B11 (_sdense_kernel through _sdense_impl);
+//   packed_row1_kernel   batch 1 on the S01 bits: packed B1 (the packed branch
+//                        of _diag_kernel) with its fix rows, B13 unbatched;
+//   packed_rows_kernel   a batch of two or more: packed B4 (the packed branch
+//                        of _diag_kernel_b), B13 (_sliding_packed_kernel
+//                        through _sliding_packed_impl);
+//   ell_spmm_kernel      B12 (_kernel through _spmm_impl);
+//   tile_spmm_kernel     B14 (_tile_kernel through _spmm_tiles_impl).
+// Each has its section below, with what bounds it and what its design does
+// about that.
 //
-// Packed form (PACKED = true; packed B1): S is not read. For rank-1 GCN
-// weights S = a_r a_s (.) S01, and the kernel rebuilds it: bit j of word k
-// of row i (bits: (N_pad, W / 32) uint32) is S01[i, 32k+j]; the S tile
-// entry is S01 * T(a_s[ws_b + c]) (the column scale rounded to the input
-// type, as the reference's in-kernel S tile), and each output row is
-// multiplied by T(a_r[row]) after the escape rows are added (the escape
-// tables of packed graphs carry w = a_s), before the single rounding. The
-// bits are 1/16 of bf16 S.
-//
-// What bounds the window kernel on an H100: bytes, not flops. At L7 (S
-// 164864 x 384, F = 256, bf16) one B1 call is 32 GFLOP against ~300 MB of
-// S, x and output, about 108 flop/byte, a third of the ridge point. So
-// bf16 products run on the tensor cores (WMMA -> mma.sync, float32
-// accumulators) to stay far below the memory time, the next chunk's loads
-// are issued into registers before the current chunk's products, and the
-// grid walks the 64-column tiles of one block consecutively so they share
-// its S tile in L2. float32 inputs take a CUDA-core FMA path (full float32,
-// no TF32). Yet a row holds about 7 nonzeros of its 384 columns, so 98 % of
-// those products are on zeros; the batched forms (B4, packed B4, B10) and
-// the RCM bands (1,664-1,792 columns) take the row gathers instead, which
-// multiply no zero.
-//
-// Mixed operands (MIXED = 1): a float32 x on a bfloat16 S, as the
-// reference's kernels take it (S is cast to x's type per tile; bf16 ->
-// float32 is exact). The S tile is read as bf16 (half the bytes of a float32
-// copy) and widened as it is staged; products and output are float32.
-// MIXED = 2 is the other way round, a bfloat16 x on a float32 S (the
-// partitioned path's dense scatter matrices stay float32), taken by the
-// row gather alone: S is read as float32 and each nonzero rounded to bf16,
-// again as the reference's kernel casts its tile, with no bf16 copy of S.
-// MIXED = 3 is the int8 form of B3 and B10: S holds the 0/1 pattern of a
-// rank-1 banded layout as int8 (half the bytes of a bf16 S) and is widened
-// to x's type as it is read; the rank-1 scales are applied outside the
+// Operand modes of the dense S (the dtype code of the entry points): S in
+// x's type (0 float32, 1 bfloat16); a float32 x on a bfloat16 S (2), as the
+// reference's kernels take it (S cast to x's type per tile; bf16 -> float32
+// is exact): S is read as bf16 and widened as it is read; a bfloat16 x on a
+// float32 S (3; the row gathers only: the partitioned path's dense scatter
+// matrices stay float32), each nonzero rounded to bf16 as the reference's
+// kernel casts its tile; a float32 or bfloat16 x on an int8 S (4, 5): the
+// 0/1 pattern of a rank-1 banded layout (half the bytes of a bf16 S),
+// widened to x's type as it is read, the rank-1 scales applied outside the
 // kernel, as in the reference (a . K(a . x)).
 //
 // Plain C interface, loaded with ctypes (gwen_tpu_torch/ops/spmm_cuda.py).
@@ -65,14 +44,32 @@
 
 #include <type_traits>
 
+// ------------------------------------------------------------ window kernel
+//
+// B3 on a narrow window. For every 128-row destination block b with window
+// start ws_b,
+//   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
+// in float32, cast once to the output type. The TPU kernel stages x in a
+// VMEM ring buffer; here each CTA reads its own window.
+//
+// What bounds it on an H100: bytes, not flops, as long as the products on
+// zeros stay cheap (the window is 384 columns, a row holds a few nonzeros,
+// and one call at L7 moves about 10 MB). So bf16 products run on the
+// tensor cores (WMMA -> mma.sync, float32 accumulators) to stay far below
+// the memory time, the next chunk's loads are issued into registers before
+// the current chunk's products, and the grid walks the 64-column tiles of
+// one block consecutively so they share its S tile in L2. float32 inputs
+// take a CUDA-core FMA path (full float32, no TF32). A row holds a few
+// nonzeros of its window, so most of those products are on zeros; every
+// other form takes the row gathers below, which multiply no zero.
+
 namespace {
 
 constexpr int BM = 128;  // destination rows per graph block
 constexpr int BN = 64;   // feature columns per CTA
-constexpr int BK = 32;   // window rows staged per chunk (one bit word)
+constexpr int BK = 32;   // window rows staged per chunk
 constexpr int NT = 256;  // threads per CTA (8 warps)
 constexpr int LDC = BN + 4;  // float32 output tile row (16-byte multiple)
-constexpr int HALF = 16;     // window columns one thread expands per word
 
 template <typename T>
 struct Cfg {
@@ -88,17 +85,11 @@ constexpr int SMEM_BYTES =
     cmax(cmax(Cfg<float>::STAGE_BYTES, Cfg<__nv_bfloat16>::STAGE_BYTES),
          BM * LDC * (int)sizeof(float));
 
-// Everything a launch passes; pointers the form does not use are null.
+// Everything a launch passes.
 struct Args {
-  const void* s;             // (N_pad, W) S, unpacked form
-  const uint32_t* bits;      // (N_pad, W / 32) S01, packed form
-  const float* col_scale;    // a on source rows, packed form
-  const float* row_scale;    // a on destination rows, packed form
+  const void* s;             // (num_blocks * 128, W)
   const void* x;             // (x_rows, f)
   const int* window_start;   // (num_blocks,)
-  const int* esc_ptr;        // (num_blocks + 1,) or null
-  const int64_t* esc_rows;   // (n_fix,)
-  const void* fix;           // (n_fix, f)
   void* out;                 // (num_blocks * 128, f)
   int n_fc, window, f, x_rows;
 };
@@ -122,22 +113,8 @@ __device__ __forceinline__ float scale_at(const float* v, int64_t i) {
   return to_f32(from_f32<T>(v[i]));
 }
 
-// 16 S-tile entries from half `h` of a bit word: bit (16h + j) selects the
-// (rounded) column scale sc[j], else 0. Written as 16-byte vectors.
-template <typename T>
-__device__ __forceinline__ void expand_half(uint32_t word, int h,
-                                            const float* sc, T* dst) {
-  __align__(16) T tmp[HALF];
-#pragma unroll
-  for (int j = 0; j < HALF; ++j)
-    tmp[j] = from_f32<T>(((word >> (h * HALF + j)) & 1u) ? sc[j] : 0.f);
-#pragma unroll
-  for (int v = 0; v < HALF * (int)sizeof(T) / 16; ++v)
-    reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(tmp)[v];
-}
-
 // S as it lies in memory for an x of type T: T itself, bf16 under a float32
-// x (MIXED = 1), float32 under a bf16 x (MIXED = 2, row gather only) or
+// x (MIXED = 1), float32 under a bf16 x (MIXED = 2, row gathers only) or
 // int8 (MIXED = 3).
 template <typename T, int MIXED>
 using s_type = typename std::conditional<
@@ -170,7 +147,7 @@ __device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
   }
 }
 
-template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
+template <typename T, int MIXED = 0>
 __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   using C = Cfg<T>;
   using TS = s_type<T, MIXED>;
@@ -188,38 +165,18 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   const int c0 = fc * BN;
   const int64_t row0 = (int64_t)b * BM;
   const int64_t ws = a.window_start[b];
-  const TS* s_blk =
-      PACKED ? nullptr : static_cast<const TS*>(a.s) + row0 * window;
+  const TS* s_blk = static_cast<const TS*>(a.s) + row0 * window;
   const T* x = static_cast<const T*>(a.x);
   T* out = static_cast<T*>(a.out);
-  // Packed: thread (pr, ph) expands half ph of row pr's word of each chunk.
-  const int pr = tid >> 1, ph = tid & 1;
-  const int wpr = window / BK;  // bit words per row
 
   uint4 ra[SA_VECS], rb[C::B_VECS];
-  uint32_t rw = 0;
-  float rsc[HALF];
   auto load = [&](int k0) {
-    if constexpr (PACKED) {
-      rw = a.bits[(row0 + pr) * wpr + k0 / BK];
-      const float4* sp = reinterpret_cast<const float4*>(
-          a.col_scale + ws + k0 + ph * HALF);
 #pragma unroll
-      for (int i = 0; i < HALF / 4; ++i) {
-        const float4 v = sp[i];
-        rsc[4 * i] = v.x;
-        rsc[4 * i + 1] = v.y;
-        rsc[4 * i + 2] = v.z;
-        rsc[4 * i + 3] = v.w;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < SA_VECS; ++i) {
-        const int v = tid + i * NT;
-        const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
-        ra[i] = *reinterpret_cast<const uint4*>(s_blk + (int64_t)r * window +
-                                                k0 + cv * SVEC);
-      }
+    for (int i = 0; i < SA_VECS; ++i) {
+      const int v = tid + i * NT;
+      const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
+      ra[i] = *reinterpret_cast<const uint4*>(s_blk + (int64_t)r * window +
+                                              k0 + cv * SVEC);
     }
 #pragma unroll
     for (int i = 0; i < C::B_VECS; ++i) {
@@ -233,18 +190,11 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
     }
   };
   auto stage = [&]() {
-    if constexpr (PACKED) {
-      float sc[HALF];
 #pragma unroll
-      for (int j = 0; j < HALF; ++j) sc[j] = to_f32(from_f32<T>(rsc[j]));
-      expand_half<T>(rw, ph, sc, As + pr * C::LDA + ph * HALF);
-    } else {
-#pragma unroll
-      for (int i = 0; i < SA_VECS; ++i) {
-        const int v = tid + i * NT;
-        const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
-        store_s<T, MIXED>(As + r * C::LDA + cv * SVEC, ra[i]);
-      }
+    for (int i = 0; i < SA_VECS; ++i) {
+      const int v = tid + i * NT;
+      const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
+      store_s<T, MIXED>(As + r * C::LDA + cv * SVEC, ra[i]);
     }
 #pragma unroll
     for (int i = 0; i < C::B_VECS; ++i) {
@@ -334,142 +284,66 @@ __global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
   }
   __syncthreads();
 
-  if constexpr (HAS_ESC) {
-    // Escape receivers are unique, so no two threads add to one element.
-    const T* fix = static_cast<const T*>(a.fix);
-    const int j0 = a.esc_ptr[b], j1 = a.esc_ptr[b + 1];
-    for (int idx = tid; idx < (j1 - j0) * BN; idx += NT) {
-      const int j = j0 + idx / BN, c = idx % BN;
-      if (c0 + c < f)
-        Cs[(int)(a.esc_rows[j] - row0) * LDC + c] +=
-            to_f32(fix[(int64_t)j * f + c0 + c]);
-    }
-    __syncthreads();
-  }
-
   constexpr int OV = BN / C::VEC;  // output vectors per tile row
   for (int v = tid; v < BM * OV; v += NT) {
     const int r = v / OV, cv = v % OV;
     const int col = c0 + cv * C::VEC;
     if (col < f) {
-      const float rs = PACKED ? scale_at<T>(a.row_scale, row0 + r) : 1.f;
       __align__(16) T tmp[C::VEC];
 #pragma unroll
       for (int e = 0; e < C::VEC; ++e)
-        tmp[e] = from_f32<T>(PACKED ? Cs[r * LDC + cv * C::VEC + e] * rs
-                                    : Cs[r * LDC + cv * C::VEC + e]);
+        tmp[e] = from_f32<T>(Cs[r * LDC + cv * C::VEC + e]);
       *reinterpret_cast<uint4*>(out + (row0 + r) * f + col) =
           *reinterpret_cast<const uint4*>(tmp);
     }
   }
 }
 
-template <typename T, bool HAS_ESC, bool PACKED, int MIXED = 0>
+template <typename T, int MIXED = 0>
 int launch(const Args& a, int num_blocks, cudaStream_t stream) {
+  if (a.f % Cfg<T>::VEC) return -1;
   const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks);
-  window_spmm_kernel<T, HAS_ESC, PACKED, MIXED><<<grid, NT, 0, stream>>>(a);
+  window_spmm_kernel<T, MIXED><<<grid, NT, 0, stream>>>(a);
   return (int)cudaGetLastError();
-}
-
-// One launch for dtype code 0 (float32), 1 (bfloat16), 2 (float32 x, fix
-// and output on a bfloat16 S; unpacked form only), 4 or 5 (float32 or
-// bfloat16 x on an int8 S; no escapes), with or without escapes. -1 for
-// arguments the kernel does not take.
-template <bool PACKED>
-int dispatch(Args a, int num_blocks, int dtype, void* stream) {
-  if (num_blocks <= 0 || a.window <= 0 || a.window % BK || a.f <= 0) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool esc = a.esc_ptr != nullptr;
-  a.n_fc = (a.f + BN - 1) / BN;
-  if (dtype == 0) {
-    if (a.f % Cfg<float>::VEC) return -1;
-    return esc ? launch<float, true, PACKED>(a, num_blocks, st)
-               : launch<float, false, PACKED>(a, num_blocks, st);
-  }
-  if (dtype == 1) {
-    if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
-    return esc ? launch<__nv_bfloat16, true, PACKED>(a, num_blocks, st)
-               : launch<__nv_bfloat16, false, PACKED>(a, num_blocks, st);
-  }
-  if constexpr (!PACKED) {
-    if (dtype == 2) {
-      if (a.f % Cfg<float>::VEC) return -1;
-      return esc ? launch<float, true, false, 1>(a, num_blocks, st)
-                 : launch<float, false, false, 1>(a, num_blocks, st);
-    }
-    if (dtype == 4 && !esc) {
-      if (a.f % Cfg<float>::VEC) return -1;
-      return launch<float, false, false, 3>(a, num_blocks, st);
-    }
-    if (dtype == 5 && !esc) {
-      if (a.f % Cfg<__nv_bfloat16>::VEC) return -1;
-      return launch<__nv_bfloat16, false, false, 3>(a, num_blocks, st);
-    }
-  }
-  return -1;
-}
-
-Args make_args(const void* x, const void* window_start, const void* esc_ptr,
-               const void* esc_rows, const void* fix, void* out, int window,
-               int f, int x_rows) {
-  Args a{};
-  a.x = x;
-  a.window_start = static_cast<const int*>(window_start);
-  a.esc_ptr = static_cast<const int*>(esc_ptr);
-  a.esc_rows = static_cast<const int64_t*>(esc_rows);
-  a.fix = fix;
-  a.out = out;
-  a.window = window;
-  a.f = f;
-  a.x_rows = x_rows;
-  return a;
 }
 
 }  // namespace
 
-// B1 and B3 (x (x_rows, f), out (num_blocks * 128, f), fix (n_fix, f)).
-// Returns 0 on success, a cudaError_t from the launch, or -1 for arguments
-// the kernel does not take. esc_ptr == NULL means no escapes (B3).
-// dtype: 0 = float32, 1 = bfloat16, 2 = float32 x on a bfloat16 S, 4 and 5
-// = float32 and bfloat16 x on an int8 S (no escapes).
+// B3 on a narrow window: s (num_blocks * 128, window), x (x_rows, f), out
+// (num_blocks * 128, f), window_start (num_blocks,) int32. dtype 0, 1, 2, 4
+// or 5 (see the top of this file). Returns 0 on success, a cudaError_t from
+// the launch, or -1 for arguments the kernel does not take.
 extern "C" int gwen_window_spmm(const void* s, const void* x,
-                                const void* window_start, const void* esc_ptr,
-                                const void* esc_rows, const void* fix,
-                                void* out, int num_blocks, int window, int f,
-                                int x_rows, int dtype, void* stream) {
-  Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
-                     x_rows);
-  a.s = s;
-  return dispatch<false>(a, num_blocks, dtype, stream);
-}
-
-// Packed B1: bits (num_blocks * 128, window / 32) uint32, col_scale and
-// row_scale float32 (a on source and destination rows); dtype 0 or 1. Shapes
-// and return codes as gwen_window_spmm.
-extern "C" int gwen_window_spmm_packed(
-    const void* bits, const void* col_scale, const void* row_scale,
-    const void* x, const void* window_start, const void* esc_ptr,
-    const void* esc_rows, const void* fix, void* out, int num_blocks,
-    int window, int f, int x_rows, int dtype, void* stream) {
-  Args a = make_args(x, window_start, esc_ptr, esc_rows, fix, out, window, f,
-                     x_rows);
-  a.bits = static_cast<const uint32_t*>(bits);
-  a.col_scale = static_cast<const float*>(col_scale);
-  a.row_scale = static_cast<const float*>(row_scale);
-  return dispatch<true>(a, num_blocks, dtype, stream);
+                                const void* window_start, void* out,
+                                int num_blocks, int window, int f, int x_rows,
+                                int dtype, void* stream) {
+  if (num_blocks <= 0 || window <= 0 || window % BK || f <= 0) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  Args a{s, x, static_cast<const int*>(window_start), out, (f + BN - 1) / BN,
+         window, f, x_rows};
+  switch (dtype) {
+    case 0: return launch<float>(a, num_blocks, st);
+    case 1: return launch<__nv_bfloat16>(a, num_blocks, st);
+    case 2: return launch<float, 1>(a, num_blocks, st);
+    case 4: return launch<float, 3>(a, num_blocks, st);
+    case 5: return launch<__nv_bfloat16, 3>(a, num_blocks, st);
+  }
+  return -1;
 }
 
 // ------------------------------------------------------------ row gathers
 //
-// B4 and packed B4, replacing gwen_tpu/ops/spmm_pallas.py:_diag_kernel_b
-// (through _diag_impl_b, both branches of its `packed` flag); B10, replacing
+// B1 and B4, weighted and packed, replacing
+// gwen_tpu/ops/spmm_pallas.py:_diag_kernel (through _diag_impl) and
+// _diag_kernel_b (through _diag_impl_b), both branches of their `packed`
+// flag; B1 on a runtime S (diag_matvec's forward); B10, replacing
 // _sliding_kernel_b (through _sliding_impl_b); B13, replacing
 // _sliding_packed_kernel (through _sliding_packed_impl); and B11, replacing
 // _sdense_kernel (through _sdense_impl). B3 takes the dense gather too on a
 // wide window (the RCM band of a partition, the int8 rank-1 band). The TPU
 // kernels multiply the whole window on the MXU because they cannot gather
 // rows, and at L7 a row holds about 7 nonzeros of a window of 384 (KD
-// order: B4, B10 on the esc2 graph), 1,664 (B11, B10 on an RCM band) or
+// order: B1, B4, B10 on the esc2 graph), 1,664 (B11, B10 on an RCM band) or
 // 1,792 (B13) columns, so > 98 % of those products are on zeros. The math
 // is the gather-scale-sum of B12,
 //   dense:  acc[i] = sum_{c < W, S[i, c] != 0} T(S[i, c]) * x[ws + c]
@@ -481,47 +355,76 @@ extern "C" int gwen_window_spmm_packed(
 // ascending column order, the fix added before the row scale (the escape
 // tables of packed graphs carry w = a_s), one rounding, and sources at or
 // past x_rows read as zero. T() rounds to x's type first, as the reference
-// casts its tile. A row with no nonzero and no escape writes zeros.
+// casts its tile. A row with no nonzero and no escape writes zeros. A call
+// with one item and one with several compute the same sums in the same
+// order.
 //
 // The design: one warp per destination row, which walks the nonzeros
-// instead of the window. The packed gather reads the row's W / 32 bit words
+// instead of the window. The packed gathers read the row's W / 32 bit words
 // once, one word a lane (12 at L7 on the diag layout, 56 on the band); the
-// dense gather streams its S row once with coalesced 16-byte loads,
-// evict-first, four vectors a lane issued together (48 vectors of bf16 S on
-// the diag layout, 208 on the band), and a lane masks its vectors'
-// nonzeros. A ballot picks the lanes (words, vectors) with a nonzero; the
-// warp walks them in ascending order, broadcasts each one's word or vector
-// with shuffles and walks its nonzeros, so a row with any number of
-// nonzeros (a hub) is right and nothing is staged in shared memory. Each
-// nonzero's x row is read with one 16-byte load a lane for every batch item
-// (up to four held in registers), so the bits, scales and S are decoded
-// once per call for a batch of up to four, not once per item, and S leaves
-// device memory once (a larger batch, or F over one pass of 32 vectors, 256
-// bf16 or 128 float32 values, decodes the row again per group of four and
-// per pass, mostly from L2). No product is taken on a zero. The escape
-// epilogue (HAS_ESC) finds the row's slot once: a block's receivers are
-// unique and sorted (about 8 a block at L7), and the warp compares 32 of
-// them a round with one ballot; the row's fix row is then added for each
-// item like one more nonzero of weight 1. The escape instantiations take
-// more registers a thread than the others, so fewer CTAs fit an SM; capping
-// them with launch bounds trades that for spills and was not faster at
-// every batch size.
+// dense gathers stream the S row once with coalesced 16-byte loads,
+// evict-first (48 vectors of bf16 S on the diag layout, 208 on the band),
+// and a lane masks its vectors' nonzeros. No product is taken on a zero. The
+// escape epilogue (HAS_ESC) finds the row's slot once: a block's receivers
+// are unique and sorted (about 8 a block at L7), and the warp compares 32
+// of them a round with one ballot; the row's fix row is then added like one
+// more nonzero of weight 1.
 //
-// What bounds it: bytes. The packed gather reads the bits (7.9 MB on the L7
+// A batch of two or more (dense_rows_kernel, packed_rows_kernel): a ballot
+// picks the lanes (words, vectors) with a nonzero; the warp walks them in
+// ascending order, broadcasts each one's word or vector with shuffles and
+// walks its nonzeros. Each nonzero's x row is read with one 16-byte load a
+// lane for every batch item, up to four issued together, so the bits,
+// scales and S are decoded once for a batch of up to four, not once per
+// item, and S leaves device memory once (a larger batch, or F over one pass
+// of 32 vectors, 256 bf16 or 128 float32 values, decodes the row again per
+// group of four and per pass, mostly from L2). The escape instantiations
+// take more registers a thread than the others, so fewer CTAs fit an SM;
+// capping them with launch bounds trades that for spills and was not faster
+// at every batch size.
+//
+// One item (dense_row1_kernel, packed_row1_kernel): walked as above, a lane
+// would hold one 16-byte load in flight per nonzero and wait a full L2
+// latency for each of the row's ~7. So the walk lists first, then gathers:
+//   1. list: each lane takes K consecutive S vectors (or KW bit words) of a
+//      round of the row, masks their nonzeros (those with a source below
+//      x_rows), and the warp writes them to its list in shared memory in
+//      ascending column order, the column and, for a dense S, the weight
+//      (an inclusive scan of each lane's popcount over the lanes gives each
+//      lane its first slot; a round with no nonzero is skipped on a ballot);
+//   2. gather: the warp takes the list 8 entries at a time; each lane copies
+//      the 8 x rows' 16-byte column slices into its staging slots in shared
+//      memory at once (cp.async: in flight without holding registers, so
+//      more warps fit an SM) and, packed, loads their column scales, then
+//      adds them in list order.
+// K and KW are chosen per launch so that one round covers the diag layout's
+// row (two bf16 vectors or one word a lane) and few the RCM band's (four
+// vectors or two words a lane): the decode work a round costs grows with
+// K, the scan and list work with the rounds. A list holds LIST entries; a
+// row with more (a hub) gathers whenever it fills, so the order of
+// summation stays ascending. A warp walks ROWS1 consecutive rows and loads
+// the next row's S vectors or words while it gathers the current one's;
+// the escape slot search loads its first receivers before the list is
+// built and resolves after it, and the fix row is loaded with the gathers.
+//
+// What bounds it: bytes. The packed gathers read the bits (7.9 MB on the L7
 // diag layout, 35 MB on the band), the scales and x (mostly from L2: a row
-// is gathered by its ~7 neighbours, once per batch item) and writes the
-// output; the dense gather must read S as stored (126.6 MB bf16 on the L7
+// is gathered by its ~7 neighbours, once per batch item) and write the
+// output; the dense gathers must read S as stored (126.6 MB bf16 on the L7
 // diag layout, 545.7 MB bf16, 1.09 GB float32 and 273 MB int8 on the band),
 // a floor no kernel on such a layout can pass, plus x, the fix rows and the
 // output. On the diag layout S is the smaller part: the gathered x rows
-// (about 2.3 GB a batch-4 call, from L2) and the warps in flight set the
-// time.
+// (about 590 MB an item at F 256 bf16, from L2) and the warps in flight set
+// the time. A runtime S with every window column nonzero (a dense random
+// tile) costs W gathers a row; diag_matvec's probabilities are zero off the
+// window's mask, about 7 a row.
 
 namespace {
 
 // Destination rows per CTA: small CTAs fit more warps on an SM at the
 // ~90 registers a thread of the batch-4 kernels takes.
 constexpr int ROW_WARPS = 4;
+constexpr int NB = 4;  // batch items a walk of the batched gathers
 constexpr unsigned FULL = 0xffffffffu;
 
 // The escape fix rows a gather adds: block b's receivers are rows[ptr[b]]
@@ -534,23 +437,40 @@ struct Escapes {
   int n_fix;
 };
 
-// The slot j of destination `row` (esc.rows[j] == row) in its block's range,
-// or -1. The whole warp takes part: 32 receivers a round, one ballot each.
+// The first round of a slot search in the receivers [j0, j1): lane l holds
+// receiver j0 + l, or -1.
+__device__ __forceinline__ int64_t escape_candidate(const Escapes& esc, int j0,
+                                                    int j1, int lane) {
+  return j0 + lane < j1 ? esc.rows[j0 + lane] : -1;
+}
+
+// The slot j of destination `row` (esc.rows[j] == row) in [j0, j1), or -1,
+// from the first round's candidates; a block of more than 32 receivers
+// loads the later rounds here. The whole warp takes part: 32 receivers a
+// round, one ballot each.
+__device__ __forceinline__ int escape_slot_in(const Escapes& esc, int64_t row,
+                                              int j0, int j1, int64_t cand,
+                                              int lane) {
+  for (int k = j0;;) {
+    const unsigned hit = __ballot_sync(FULL, cand == row);
+    if (hit) return k + __ffs(hit) - 1;
+    k += 32;
+    if (k >= j1) return -1;
+    cand = k + lane < j1 ? esc.rows[k + lane] : -1;
+  }
+}
+
+// The slot of destination `row` in its block b's range, or -1.
 __device__ __forceinline__ int escape_slot(const Escapes& esc, int64_t row,
                                            int64_t b, int lane) {
   const int j0 = esc.ptr[b], j1 = esc.ptr[b + 1];
-  for (int k = j0; k < j1; k += 32) {
-    const int j = k + lane;
-    const unsigned hit = __ballot_sync(FULL, j < j1 && esc.rows[j] == row);
-    if (hit) return k + __ffs(hit) - 1;
-  }
-  return -1;
+  return escape_slot_in(esc, row, j0, j1, escape_candidate(esc, j0, j1, lane), lane);
 }
 
 // Adds one nonzero, weight w on the source row whose 16-byte column vector
 // (item 0) is at xr, for the nb (<= NB) batch items, item stride `item`.
 // The items' loads are issued together.
-template <typename T, int NB>
+template <typename T>
 __device__ __forceinline__ void add_row(float (&acc)[NB][16 / sizeof(T)],
                                         float w, const T* __restrict__ xr,
                                         int64_t item, int nb) {
@@ -572,7 +492,7 @@ __device__ __forceinline__ void add_row(float (&acc)[NB][16 / sizeof(T)],
 // The row's fix rows (slot >= 0) into the accumulators, then the
 // accumulators times the row scale, rounded once, into the nb items' output
 // rows (`out` at item 0, this row and column c0; item stride `out_item`).
-template <typename T, int NB, bool HAS_ESC>
+template <typename T, bool HAS_ESC>
 __device__ __forceinline__ void finish_row(float (&acc)[NB][16 / sizeof(T)],
                                            const Escapes& esc, int slot,
                                            int b0, int c0, int f, float rs,
@@ -582,7 +502,7 @@ __device__ __forceinline__ void finish_row(float (&acc)[NB][16 / sizeof(T)],
   if constexpr (HAS_ESC) {
     if (slot >= 0) {
       const int64_t fix_item = (int64_t)esc.n_fix * f;
-      add_row<T, NB>(acc, 1.f,
+      add_row<T>(acc, 1.f,
                      static_cast<const T*>(esc.fix) + b0 * fix_item +
                          (int64_t)slot * f + c0,
                      fix_item, nb);
@@ -599,10 +519,10 @@ __device__ __forceinline__ void finish_row(float (&acc)[NB][16 / sizeof(T)],
   }
 }
 
-// B13 and packed B4: bits (n_pad, words) S01, window-relative, as the
-// packed window kernel reads them; col_scale and row_scale a on source and
-// destination rows.
-template <typename T, int NB, bool HAS_ESC>
+// Packed B4 and B13 on a batch of two or more: bits (n_pad, words) S01,
+// window-relative (bit j of word k of row i is column 32k + j of its
+// window); col_scale and row_scale a on source and destination rows.
+template <typename T, bool HAS_ESC>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 packed_rows_kernel(const uint32_t* __restrict__ bits,
                    const float* __restrict__ col_scale,
@@ -644,14 +564,14 @@ packed_rows_kernel(const uint32_t* __restrict__ bits,
           for (uint32_t m = __shfl_sync(FULL, word, j); m; m &= m - 1) {
             const int src = col0 + __ffs(m) - 1;
             if (on && src < x_rows)
-              add_row<T, NB>(acc, scale_at<T>(col_scale, src),
-                             xb + (int64_t)src * f, item, nb);
+              add_row<T>(acc, scale_at<T>(col_scale, src),
+                         xb + (int64_t)src * f, item, nb);
           }
         }
       }
       if (on)
-        finish_row<T, NB, HAS_ESC>(acc, esc, slot, b0, c0, f, rs,
-                                   out + b0 * out_item + row * f + c0, out_item, nb);
+        finish_row<T, HAS_ESC>(acc, esc, slot, b0, c0, f, rs,
+                               out + b0 * out_item + row * f + c0, out_item, nb);
     }
   }
 }
@@ -676,9 +596,10 @@ __device__ __forceinline__ float s_entry(const uint4& v, int e) {
   }
 }
 
-// B4, B10, B11 (and B3 on a wide window): S (n_pad, window) window-relative
-// in the type the operand mode names (s_type).
-template <typename T, int MIXED, int NB, bool HAS_ESC>
+// B4, B10, B11 (and B3 on a wide window) on a batch of two or more: S
+// (n_pad, window) window-relative in the type the operand mode names
+// (s_type).
+template <typename T, int MIXED, bool HAS_ESC>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
 dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_start,
                   const T* __restrict__ x, T* __restrict__ out, const Escapes esc,
@@ -733,39 +654,346 @@ dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
             for (unsigned m = __shfl_sync(FULL, mask, j); m; m &= m - 1) {
               const int e = __ffs(m) - 1;
               if (on && col0 + e < x_rows)
-                add_row<T, NB>(acc, s_entry<T, MIXED>(v, e),
+                add_row<T>(acc, s_entry<T, MIXED>(v, e),
                                xb + (int64_t)(col0 + e) * f, item, nb);
             }
           }
         }
       }
       if (on)
-        finish_row<T, NB, HAS_ESC>(acc, esc, slot, b0, c0, f, 1.f,
-                                   out + b0 * out_item + row * f + c0, out_item, nb);
+        finish_row<T, HAS_ESC>(acc, esc, slot, b0, c0, f, 1.f,
+                               out + b0 * out_item + row * f + c0, out_item, nb);
     }
   }
 }
 
-// The batch rides inside the warp: up to NB = 4 items a pass (one pass
-// for the train-mesh shape), 1 for an unbatched call.
+// ---- one item: list, then gather (see the top of this section)
+
+constexpr int LIST = 32;     // listed nonzeros a warp holds
+constexpr int INFLIGHT = 8;  // gathered x rows in flight a lane
+constexpr int ROWS1 = 4;     // consecutive destination rows a warp walks
+
+__device__ __forceinline__ int popc(unsigned m) { return __popc(m); }
+__device__ __forceinline__ int popc(unsigned long long m) { return __popcll(m); }
+__device__ __forceinline__ int lowest(unsigned m) { return __ffs(m) - 1; }
+__device__ __forceinline__ int lowest(unsigned long long m) { return __ffsll(m) - 1; }
+
+// Bits [0, k) of an M, k clamped to [0, bits of M].
+template <typename M>
+__device__ __forceinline__ M low_bits(int k) {
+  constexpr int BITS = 8 * sizeof(M);
+  return k <= 0 ? M(0) : k >= BITS ? ~M(0) : (M(1) << k) - 1;
+}
+
+// Adds list entries [0, n) into acc, in list order: the source row of entry
+// k is lcol[k] (its 16-byte column slice at xc + lcol[k] * f), its weight
+// lw[k] or, with SCALES, the source's column scale rounded to T. INFLIGHT
+// rows are copied at once into the warp's staging rows in shared memory
+// (cp.async: in flight without holding registers), then added. A lane past
+// F (on false) copies nothing.
+template <typename T, bool SCALES>
+__device__ __forceinline__ void gather_list(float (&acc)[16 / sizeof(T)],
+                                            const int* lcol, const float* lw,
+                                            int n, const float* __restrict__ col_scale,
+                                            const T* __restrict__ xc, int f, bool on) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ uint4 stage[ROW_WARPS][INFLIGHT][32];
+  uint4* st = &stage[threadIdx.x >> 5][0][threadIdx.x & 31];  // this lane's
+  for (int k0 = 0; k0 < n; k0 += INFLIGHT) {
+    float w[INFLIGHT];
+#pragma unroll
+    for (int k = 0; k < INFLIGHT; ++k) {
+      const bool live = k0 + k < n;
+      const int src = live ? lcol[k0 + k] : 0;
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(st + k * 32);
+      // 16 bytes, or with a source size of 0 none read and zeros written.
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                   "l"(xc + (int64_t)src * f), "r"(live && on ? 16 : 0));
+      if constexpr (SCALES) w[k] = live ? scale_at<T>(col_scale, src) : 0.f;
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < INFLIGHT; ++k) {
+      if (k0 + k < n) {
+        float wk;
+        if constexpr (SCALES) wk = w[k];
+        else wk = lw[k0 + k];
+        const uint4 raw = st[k * 32];  // each lane reads back its own copy
+        const T* xv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wk, to_f32(xv[e]), acc[e]);
+      }
+    }
+  }
+}
+
+// Appends one round of the row to the warp's list after its n entries: this
+// lane's columns hold the nonzeros `mask` (bit i is column col0 + i, weight
+// weight(i)); lanes in ascending order, each its bits ascending. Gathers the
+// list into acc (gather_list's arguments) whenever it fills. The whole warp
+// takes part; n is the same in every lane.
+template <typename T, bool SCALES, typename M, typename Weight>
+__device__ __forceinline__ void list_round(M mask, int col0, Weight weight,
+                                           int lane, int& n, int* lcol, float* lw,
+                                           float (&acc)[16 / sizeof(T)],
+                                           const float* __restrict__ col_scale,
+                                           const T* __restrict__ xc, int f, bool on) {
+  if (__ballot_sync(FULL, mask != 0) == 0u) return;
+  const int cnt = popc(mask);
+  int first = cnt;  // inclusive scan over the lanes, then this lane's first
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(FULL, first, d);
+    if (lane >= d) first += v;
+  }
+  const int total = __shfl_sync(FULL, first, 31);
+  first -= cnt;
+  for (int done = 0; done < total;) {
+    // This pass lists the round's entries [done, done + LIST - n).
+    int i = first;
+    for (M m = mask; m; m &= m - 1, ++i) {
+      const int slot = n + i - done;
+      if (i >= done && slot < LIST) {
+        const int e = lowest(m);
+        lcol[slot] = col0 + e;
+        if constexpr (!SCALES) lw[slot] = weight(e);
+      }
+    }
+    const int took = min(total - done, LIST - n);
+    n += took;
+    done += took;
+    if (n == LIST) {
+      __syncwarp();
+      gather_list<T, SCALES>(acc, lcol, lw, LIST, col_scale, xc, f, on);
+      __syncwarp();
+      n = 0;
+    }
+  }
+}
+
+// The row's fix row (fixv, loaded when slot >= 0) into acc, then acc times
+// the row scale, rounded once, to out (this row and column slice).
+template <typename T, bool HAS_ESC>
+__device__ __forceinline__ void finish_row1(float (&acc)[16 / sizeof(T)],
+                                            const uint4& fixv, int slot, float rs,
+                                            T* __restrict__ out) {
+  constexpr int VEC = 16 / sizeof(T);
+  if constexpr (HAS_ESC) {
+    if (slot >= 0) {
+      const T* fv = reinterpret_cast<const T*>(&fixv);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(1.f, to_f32(fv[e]), acc[e]);
+    }
+  }
+  __align__(16) T tmp[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) tmp[e] = from_f32<T>(acc[e] * rs);
+  *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(tmp);
+}
+
+// The fix row of `slot` at this lane's column slice, or zeros.
+template <typename T>
+__device__ __forceinline__ uint4 fix_row(const Escapes& esc, int slot, int f,
+                                         int c0, bool on) {
+  return slot >= 0 && on
+             ? __ldg(reinterpret_cast<const uint4*>(static_cast<const T*>(esc.fix) +
+                                                    (int64_t)slot * f + c0))
+             : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// r[q] for a runtime q, by selects (no local memory).
+template <int K>
+__device__ __forceinline__ uint4 pick(const uint4 (&r)[K], int q) {
+  uint4 v = r[0];
+#pragma unroll
+  for (int j = 1; j < K; ++j)
+    if (q == j) v = r[j];
+  return v;
+}
+
+// The graph block of the rows a warp walks, kept as the rows advance (one
+// division a warp).
+struct BlockOf {
+  int b, end, block;
+  __device__ explicit BlockOf(int row, int block_)
+      : b(row / block_), end((row / block_ + 1) * block_), block(block_) {}
+  __device__ int operator()(int row) {
+    while (row >= end) ++b, end += block;
+    return b;
+  }
+};
+
+// B1 (and B1 on a runtime S), and B11, B3, B4, B10 with one item: S (n_pad,
+// window) as dense_rows_kernel takes it, x (x_rows, f), out (n_pad, f). Lane
+// l takes K consecutive S vectors of a round (32 K vectors), so its mask
+// covers K * SVEC consecutive columns.
+template <typename T, int MIXED, bool HAS_ESC, int K>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+dense_row1_kernel(const void* __restrict__ s, const int* __restrict__ window_start,
+                  const T* __restrict__ x, T* __restrict__ out, const Escapes esc,
+                  int n_pad, int window, int block, int f, int x_rows) {
+  using TS = s_type<T, MIXED>;
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int SVEC = 16 / sizeof(TS);  // S entries per 16-byte vector
+  static_assert(K * SVEC <= 32, "a lane's mask is 32 bits");
+  __shared__ int list_col[ROW_WARPS][LIST];
+  __shared__ float list_w[ROW_WARPS][LIST];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * ROW_WARPS + warp) * ROWS1;
+  if (first >= n_pad) return;  // the whole warp
+  const int last = min(first + ROWS1, n_pad);
+  int* lcol = list_col[warp];
+  float* lw = list_w[warp];
+  const int vpr = window / SVEC;  // S vectors per row
+  BlockOf block_of(first, block);
+  uint4 raw[K];
+  auto load = [&](int row, int v0) {
+    const uint4* sv = reinterpret_cast<const uint4*>(static_cast<const TS*>(s) +
+                                                     (int64_t)row * window) +
+                      v0 + K * lane;
+#pragma unroll
+    for (int q = 0; q < K; ++q)
+      raw[q] = v0 + K * lane + q < vpr ? __ldcs(sv + q) : make_uint4(0u, 0u, 0u, 0u);
+  };
+  load(first, 0);
+  for (int row = first; row < last; ++row) {
+    const int b = block_of(row);
+    const int ws = window_start[b];
+    const int j0 = HAS_ESC ? esc.ptr[b] : 0, j1 = HAS_ESC ? esc.ptr[b + 1] : 0;
+    const int64_t cand = HAS_ESC ? escape_candidate(esc, j0, j1, lane) : -1;
+    int slot = -1;
+    for (int cb = 0; cb < f; cb += 32 * VEC) {
+      const int c0 = cb + lane * VEC;
+      const bool on = c0 < f;
+      const T* xc = x + c0;
+      float acc[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+      int n = 0;
+      for (int v0 = 0; v0 < vpr; v0 += 32 * K) {
+        if (v0 > 0 || cb > 0) load(row, v0);
+        const int col0 = ws + (v0 + K * lane) * SVEC;
+        unsigned mask = 0;  // this lane's nonzero entries with a source row
+#pragma unroll
+        for (int q = 0; q < K; ++q)
+#pragma unroll
+          for (int e = 0; e < SVEC; ++e)
+            mask |= (s_entry<T, MIXED>(raw[q], e) != 0.f ? 1u : 0u) << (q * SVEC + e);
+        list_round<T, false>(mask & low_bits<unsigned>(x_rows - col0), col0,
+                             [&](int i) {
+                               return s_entry<T, MIXED>(pick(raw, i / SVEC), i % SVEC);
+                             },
+                             lane, n, lcol, lw, acc, nullptr, xc, f, on);
+      }
+      // This row's S is listed: the next row's goes in flight while this
+      // row's sources are gathered.
+      if (cb + 32 * VEC >= f && row + 1 < last) load(row + 1, 0);
+      if (HAS_ESC && cb == 0) slot = escape_slot_in(esc, row, j0, j1, cand, lane);
+      const uint4 fixv = HAS_ESC ? fix_row<T>(esc, slot, f, c0, on) : uint4{};
+      __syncwarp();
+      gather_list<T, false>(acc, lcol, lw, n, nullptr, xc, f, on);
+      if (on) finish_row1<T, HAS_ESC>(acc, fixv, slot, 1.f, out + (int64_t)row * f + c0);
+      __syncwarp();  // the list is refilled by the next pass or row
+    }
+  }
+}
+
+// Packed B1 and B13 with one item: bits (n_pad, words) as packed_rows_kernel
+// takes them, x (x_rows, f), out (n_pad, f). Lane l takes KW consecutive
+// words of a round (32 KW words), KW = 1 or 2 as its mask M has 32 or 64
+// bits.
+template <typename T, bool HAS_ESC, typename M>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+packed_row1_kernel(const uint32_t* __restrict__ bits,
+                   const float* __restrict__ col_scale,
+                   const float* __restrict__ row_scale,
+                   const int* __restrict__ window_start,
+                   const T* __restrict__ x, T* __restrict__ out,
+                   const Escapes esc, int n_pad, int words, int block, int f,
+                   int x_rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int KW = sizeof(M) / 4;
+  __shared__ int list_col[ROW_WARPS][LIST];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = (blockIdx.x * ROW_WARPS + warp) * ROWS1;
+  if (first >= n_pad) return;  // the whole warp
+  const int last = min(first + ROWS1, n_pad);
+  int* lcol = list_col[warp];
+  BlockOf block_of(first, block);
+  auto lane_words = [&](int row, int k0) {  // words k0 + KW lane .. + KW - 1
+    const int k = k0 + KW * lane;
+    const uint32_t* w = bits + (int64_t)row * words + k;
+    M m = 0;
+#pragma unroll
+    for (int q = 0; q < KW; ++q)
+      if (k + q < words) m |= (M)w[q] << (32 * q);
+    return m;
+  };
+  M ahead = lane_words(first, 0);  // a row's first round, loaded a row ahead
+  for (int row = first; row < last; ++row) {
+    const int b = block_of(row);
+    const int ws = window_start[b];
+    const float rs = scale_at<T>(row_scale, row);
+    const int j0 = HAS_ESC ? esc.ptr[b] : 0, j1 = HAS_ESC ? esc.ptr[b + 1] : 0;
+    const int64_t cand = HAS_ESC ? escape_candidate(esc, j0, j1, lane) : -1;
+    const M round0 = ahead;
+    if (row + 1 < last) ahead = lane_words(row + 1, 0);  // in flight from here
+    int slot = -1;
+    for (int cb = 0; cb < f; cb += 32 * VEC) {
+      const int c0 = cb + lane * VEC;
+      const bool on = c0 < f;
+      const T* xc = x + c0;
+      float acc[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+      int n = 0;
+      for (int k0 = 0; k0 < words; k0 += 32 * KW) {
+        const M m = k0 == 0 ? round0 : lane_words(row, k0);
+        const int col0 = ws + (k0 + KW * lane) * 32;
+        list_round<T, true>(m & low_bits<M>(x_rows - col0), col0,
+                            [](int) { return 0.f; }, lane, n, lcol, nullptr, acc,
+                            col_scale, xc, f, on);
+      }
+      if (HAS_ESC && cb == 0) slot = escape_slot_in(esc, row, j0, j1, cand, lane);
+      const uint4 fixv = HAS_ESC ? fix_row<T>(esc, slot, f, c0, on) : uint4{};
+      __syncwarp();
+      gather_list<T, true>(acc, lcol, nullptr, n, col_scale, xc, f, on);
+      if (on) finish_row1<T, HAS_ESC>(acc, fixv, slot, rs, out + (int64_t)row * f + c0);
+      __syncwarp();  // the list is refilled by the next pass or row
+    }
+  }
+}
+
+// One item takes the batch-1 walk; more ride inside the warp, up to NB = 4
+// items a pass (one pass for the train-mesh shape).
 template <typename T, int MIXED, bool HAS_ESC>
 int launch_dense_rows(const void* s, const int* ws, const void* x, void* out,
                       const Escapes& esc, int n_pad, int window, int block,
                       int f, int x_rows, int batch, cudaStream_t st) {
   const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
+  const dim3 grid1((unsigned)((n_pad + ROW_WARPS * ROWS1 - 1) / (ROW_WARPS * ROWS1)));
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (batch == 1)
-    dense_rows_kernel<T, MIXED, 1, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
-        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows, batch);
+  // One round of vectors for the diag layout (two vectors a lane for 48 of
+  // bf16 S), few for a wide band (four a lane); int8 S, 16 entries a vector,
+  // takes two.
+  constexpr int SVEC = 16 / sizeof(s_type<T, MIXED>);
+  constexpr int K_WIDE = SVEC == 16 ? 2 : 4;
+  if (batch == 1 && window / SVEC <= 64)
+    dense_row1_kernel<T, MIXED, HAS_ESC, 2><<<grid1, ROW_WARPS * 32, 0, st>>>(
+        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows);
+  else if (batch == 1)
+    dense_row1_kernel<T, MIXED, HAS_ESC, K_WIDE><<<grid1, ROW_WARPS * 32, 0, st>>>(
+        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows);
   else
-    dense_rows_kernel<T, MIXED, 4, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
+    dense_rows_kernel<T, MIXED, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
         s, ws, xt, ot, esc, n_pad, window, block, f, x_rows, batch);
   return (int)cudaGetLastError();
 }
 
-// Escapes in the modes B4 takes: S in x's type, or bf16 S under a float32
-// x (MIXED 0 and 1); the other modes take none.
+// Escapes in the modes B1 and B4 take: S in x's type, or bf16 S under a
+// float32 x (MIXED 0 and 1); the other modes take none.
 template <typename T, int MIXED>
 int dense_rows(const void* s, const int* ws, const void* x, void* out,
                const Escapes& esc, int n_pad, int window, int block, int f,
@@ -786,14 +1014,20 @@ int launch_packed_rows(const uint32_t* bits, const float* col_scale,
                        void* out, const Escapes& esc, int n_pad, int words,
                        int block, int f, int x_rows, int batch, cudaStream_t st) {
   const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
+  const dim3 grid1((unsigned)((n_pad + ROW_WARPS * ROWS1 - 1) / (ROW_WARPS * ROWS1)));
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (batch == 1)
-    packed_rows_kernel<T, 1, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
+  // One round of words a lane: 32-bit masks up to 32 words, 64-bit above.
+  if (batch == 1 && words <= 32)
+    packed_row1_kernel<T, HAS_ESC, unsigned><<<grid1, ROW_WARPS * 32, 0, st>>>(
         bits, col_scale, row_scale, ws, xt, ot, esc, n_pad, words, block, f,
-        x_rows, batch);
+        x_rows);
+  else if (batch == 1)
+    packed_row1_kernel<T, HAS_ESC, unsigned long long>
+        <<<grid1, ROW_WARPS * 32, 0, st>>>(bits, col_scale, row_scale, ws, xt, ot,
+                                           esc, n_pad, words, block, f, x_rows);
   else
-    packed_rows_kernel<T, 4, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
+    packed_rows_kernel<T, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
         bits, col_scale, row_scale, ws, xt, ot, esc, n_pad, words, block, f,
         x_rows, batch);
   return (int)cudaGetLastError();
@@ -830,13 +1064,14 @@ Escapes make_escapes(const void* esc_ptr, const void* esc_rows,
 
 }  // namespace
 
-// B4, B10, B11, and B3 on a wide window: S (n_pad, window) window-relative,
-// window_start (n_pad / block,) int32 absolute starts, x (batch, x_rows, f)
-// with x_rows up to the layout's source rows, out (batch, n_pad, f). B4's
-// escapes: esc_ptr (n_pad / block + 1,) int32, esc_rows (n_fix,) int64,
-// fix (batch, n_fix, f) in x's type; esc_ptr == NULL means none. dtype as
-// gwen_window_spmm, and 3 = bfloat16 x on a float32 S; escapes with dtype 0,
-// 1 and 2 only. Return codes as gwen_window_spmm.
+// B1 (also on a runtime S), B4, B10, B11, and B3 on a wide window: S
+// (n_pad, window) window-relative, window_start (n_pad / block,) int32
+// absolute starts, x (batch, x_rows, f) with x_rows up to the layout's
+// source rows, out (batch, n_pad, f) (batch 1: B1's (x_rows, f) and (n_pad,
+// f)). B1's and B4's escapes: esc_ptr (n_pad / block + 1,) int32, esc_rows
+// (n_fix,) int64, fix (batch, n_fix, f) in x's type; esc_ptr == NULL means
+// none. dtype 0 to 5 (see the top of this file); escapes with dtype 0, 1
+// and 2 only. Return codes as gwen_window_spmm.
 extern "C" int gwen_window_spmm_streamed(const void* s, const void* x,
                                          const void* window_start,
                                          const void* esc_ptr,
@@ -860,10 +1095,10 @@ extern "C" int gwen_window_spmm_streamed(const void* s, const void* x,
   return -1;
 }
 
-// B13 and packed B4: bits (n_pad, words) int32 S01, col_scale and row_scale
-// float32, window_start (n_pad / block,) int32, x (batch, x_rows, f), out
-// (batch, n_pad, f); escapes as gwen_window_spmm_streamed. dtype 0 =
-// float32, 1 = bfloat16. Return codes as gwen_window_spmm.
+// Packed B1, packed B4 and B13: bits (n_pad, words) int32 S01, col_scale
+// and row_scale float32, window_start (n_pad / block,) int32, x (batch,
+// x_rows, f), out (batch, n_pad, f); escapes as gwen_window_spmm_streamed.
+// dtype 0 = float32, 1 = bfloat16. Return codes as gwen_window_spmm.
 extern "C" int gwen_sliding_packed_spmm(const void* bits, const void* col_scale,
                                         const void* row_scale, const void* x,
                                         const void* window_start,

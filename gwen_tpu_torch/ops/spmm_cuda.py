@@ -8,27 +8,28 @@ each with a launch count (``.launches``):
 
 * :func:`diag_window_spmm` — kernel B1, replacing
   ``gwen_tpu/ops/spmm_pallas.py:_diag_kernel`` (through ``_diag_impl``):
-  per 128-row destination block ``b``, ``S_b (128, W) @ x[ws_b : ws_b + W]``
-  in float32, plus the escape fix rows of the block placed in-kernel.
+  per destination block ``b``, ``S_b @ x[ws_b : ws_b + W]`` in float32,
+  plus the escape fix rows of the block added in-kernel. A row gather
+  (B11's, with an escape epilogue): one warp per destination row lists the
+  nonzeros of its S row, then gathers their source rows, eight in flight,
+  and adds the row's fix row before the single rounding.
 * :func:`sliding_spmm` — kernel B3, replacing
   ``gwen_tpu/ops/spmm_pallas.py:_sliding_kernel`` (through
   ``_sliding_impl``): the same banded product with a start per block and no
   escapes. The reference keeps x in a VMEM ring buffer; the math is
   ``out_b = Σ_{s ∈ [ws_b, ws_b + W)} S_b[:, s − ws_b] x[s]``.
 * :func:`diag_window_spmm_b` — kernel B4, replacing ``_diag_kernel_b``
-  (through ``_diag_impl_b``): B1 on ``(B, N, F)``. A row gather (B11's,
-  with an escape epilogue): one warp per destination row streams its S row
-  once, gathers the source rows of its nonzeros for every batch item and
-  adds the row's fix row before the single rounding.
+  (through ``_diag_impl_b``): B1 on ``(B, N, F)``, the same row gather with
+  the batch inside the warp.
 * :func:`sliding_spmm_b` — kernel B10, replacing ``_sliding_kernel_b``
   (through ``_sliding_impl_b``): B3 on ``(B, N, F)``, B11's row gather at
   every window width. B3 takes it too on a wide window (an RCM band).
 * :func:`diag_window_spmm_packed` and :func:`diag_window_spmm_packed_b` —
   the packed form of B1 and B4 (the ``packed`` branch of ``_diag_kernel``
-  and ``_diag_kernel_b``): S01 bits expanded in the kernel, times the
-  column scales ``a_s`` rounded to x's type; the row scale ``a_r`` after
-  the escape rows are added. Packed B4 is B13's row gather over the set
-  bits, with the same escape epilogue.
+  and ``_diag_kernel_b``): the set bits of S01 walked in the kernel, each
+  weighted by its column scale ``a_s`` rounded to x's type; the row scale
+  ``a_r`` after the escape rows are added. Both are B13's row gather over
+  the set bits, with the same escape epilogue.
 * :func:`sliding_packed_spmm` — kernel B13, replacing
   ``_sliding_packed_kernel`` (through ``_sliding_packed_impl``): the packed
   product on :class:`SlidingPackedGraph`, no escapes. The reference scales
@@ -64,15 +65,14 @@ The packed kernels build their weights in x's type whatever it is.
 
 What bounds the kernels on an H100: bytes. At L7 (W = 384, F = 256, bf16)
 one diag-window aggregation must stream S (127 MB), x (84 MB, re-read by
-overlapping windows mostly from L2) and the output (84 MB). The window
-kernels (B1, B3 on a narrow window, packed B1) multiply the whole window on
-the tensor cores (``mma.sync`` through WMMA, float32 accumulation), 98 % of
-it on zeros, and lay the grid out so the four 64-column tiles of one
-destination block run next to each other and share its S tile in L2. The
-batched forms (B4, packed B4, B10) and the RCM bands (W 1,664–1,792) take
-the row gathers, which read each row's S or bits once for a batch of up to
-four, gather only the source rows of its nonzeros (about 7 a row) and
-multiply no zero.
+overlapping windows mostly from L2) and the output (84 MB). B3 on a narrow
+window (the esc2 contraction, a few MB a call) multiplies the whole window
+on the tensor cores (``mma.sync`` through WMMA, float32 accumulation);
+every other form takes the row gathers, which read each row's S or bits
+once (for a batch of up to four), gather only the source rows of its
+nonzeros (about 7 a row) and multiply no zero. With one item a gather
+lists the row's nonzeros first and then issues up to eight source rows'
+loads together.
 
 The graph-level composites :func:`spmm_diag_window`,
 :func:`spmm_sliding_dense` and :func:`spmm_sliding_packed` follow
@@ -168,15 +168,10 @@ def _lib() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # (s, x, window_start, esc_ptr, esc_rows, fix, out,
-        #  num_blocks, window, f, x_rows, dtype_code, stream)
-        lib.gwen_window_spmm.argtypes = [vp, vp, vp, vp, vp, vp, vp,
-                                         ci, ci, ci, ci, ci, vp]
+        # (s, x, window_start, out, num_blocks, window, f, x_rows,
+        #  dtype_code, stream)
+        lib.gwen_window_spmm.argtypes = [vp] * 4 + [ci] * 5 + [vp]
         lib.gwen_window_spmm.restype = ci
-        # (bits, col_scale, row_scale, x, window_start, esc_ptr, esc_rows,
-        #  fix, out, num_blocks, window, f, x_rows, dtype, stream)
-        lib.gwen_window_spmm_packed.argtypes = [vp] * 9 + [ci] * 5 + [vp]
-        lib.gwen_window_spmm_packed.restype = ci
         # (s, x, window_start, esc_ptr, esc_rows, fix, out, n_pad, window,
         #  block, f, x_rows, batch, n_fix, dtype, stream)
         lib.gwen_window_spmm_streamed.argtypes = [vp] * 7 + [ci] * 8 + [vp]
@@ -415,25 +410,20 @@ def _launch_failed(name: str, rc: int) -> RuntimeError:
                         f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
 
 
-def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor,
-            esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-            fix: Optional[Tensor]) -> Tensor:
+def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor) -> Tensor:
     """Check the operands and launch ``gwen_window_spmm``, the window kernel
-    (x ``(rows, F)``; 128-row blocks), on the current stream. Raises on
-    anything the kernel does not take."""
+    (B3 on a narrow window: x ``(rows, F)``, 128-row blocks, no escapes), on
+    the current stream. Raises on anything the kernel does not take."""
     n_pad, w = s_mat.shape
-    _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat])
+    _check(x, window_start, n_pad, w, None, None, None, [s_mat])
     if x.dim() != 2:
         raise ValueError("the window kernel takes a 2-d x (rows, F)")
     code = _kernel_code(s_mat.dtype, x)
-    if code >= 4 and fix is not None:
-        raise ValueError("an int8 S takes no escape rows")
     out = torch.empty(n_pad, x.shape[-1], dtype=x.dtype, device=x.device)
-    esc_p, rows_p, fix_p, _ = _escape_args(esc_ptr, esc_rows, fix)
     rc = _lib().gwen_window_spmm(
-        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(), esc_p, rows_p,
-        fix_p, out.data_ptr(), window_start.shape[0], w, x.shape[-1],
-        x.shape[0], code, torch.cuda.current_stream(x.device).cuda_stream)
+        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(), out.data_ptr(),
+        window_start.shape[0], w, x.shape[-1], x.shape[0], code,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise _launch_failed("window SpMM", rc)
     return out
@@ -445,9 +435,9 @@ def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
                      fix: Optional[Tensor] = None) -> Tensor:
     """Check the operands and launch ``gwen_window_spmm_streamed``, the row
     gather on a dense S (``block`` rows per start; x ``(rows, F)`` or ``(B,
-    rows, F)``, the batch inside the kernel), with B4's escape fix rows
-    (``fix`` ``(..., U, F)`` with x's leading axes) where given. Raises on
-    anything the kernel does not take."""
+    rows, F)``, the batch inside the kernel), with B1's or B4's escape fix
+    rows (``fix`` ``(..., U, F)`` with x's leading axes) where given. Raises
+    on anything the kernel does not take."""
     n_pad, w = s_mat.shape
     _check(x, window_start, n_pad, w, esc_ptr, esc_rows, fix, [s_mat], block)
     # Escape rows with S in x's type or a bf16 S under a float32 x only.
@@ -479,32 +469,6 @@ def _check_scales(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
                          f"has {src_rows} and {n_pad}")
 
 
-def _launch_packed(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
-                   window_start: Tensor, src_rows: int, x: Tensor,
-                   esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-                   fix: Optional[Tensor]) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm_packed``, the packed
-    window kernel (packed B1: x ``(rows, F)``, 128-row blocks). Raises on
-    anything the kernel does not take."""
-    n_pad, words = bits.shape
-    _check_scales(bits, col_scale, row_scale, src_rows)
-    _check(x, window_start, n_pad, words * 32, esc_ptr, esc_rows, fix,
-           [bits, col_scale, row_scale])
-    if x.dim() != 2:
-        raise ValueError("the packed window kernel takes a 2-d x (rows, F)")
-    out = torch.empty(n_pad, x.shape[-1], dtype=x.dtype, device=x.device)
-    esc_p, rows_p, fix_p, _ = _escape_args(esc_ptr, esc_rows, fix)
-    rc = _lib().gwen_window_spmm_packed(
-        bits.data_ptr(), col_scale.data_ptr(), row_scale.data_ptr(),
-        x.data_ptr(), window_start.data_ptr(), esc_p, rows_p, fix_p,
-        out.data_ptr(), window_start.shape[0], words * 32, x.shape[-1],
-        x.shape[0], _DTYPE_CODE[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise _launch_failed("packed window SpMM", rc)
-    return out
-
-
 def _launch_packed_rows(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
                         window_start: Tensor, block: int, src_rows: int,
                         x: Tensor, esc_ptr: Optional[Tensor] = None,
@@ -512,8 +476,9 @@ def _launch_packed_rows(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
                         fix: Optional[Tensor] = None) -> Tensor:
     """Check the operands and launch ``gwen_sliding_packed_spmm``, the row
     gather over the set bits (``block`` rows per start; x ``(rows, F)`` or
-    ``(B, rows, F)``, the batch inside the kernel), with packed B4's escape
-    fix rows where given. Raises on anything the kernel does not take."""
+    ``(B, rows, F)``, the batch inside the kernel), with packed B1's or B4's
+    escape fix rows where given. Raises on anything the kernel does not
+    take."""
     n_pad, words = bits.shape
     _check_scales(bits, col_scale, row_scale, src_rows)
     _check(x, window_start, n_pad, words * 32, esc_ptr, esc_rows, fix,
@@ -549,12 +514,14 @@ def _check_dim(x: Tensor, dim: int, name: str) -> None:
 def diag_window_spmm(graph: DiagWindowGraph, x: Tensor,
                      fix: Optional[Tensor] = None) -> Tensor:
     """Kernel B1: the diag-window product plus the escape fix rows
-    (``fix``: ``(U, F)`` in receiver order, or None). ``(N_pad, F)``."""
+    (``fix``: ``(U, F)`` in receiver order, or None). ``(N_pad, F)``. The
+    dense row gather's batch-1 walk with the graph's own block size."""
     _check_dim(x, 2, "B1")
     if not _on_cuda(x):
         return diag_window_spmm_plain(graph, x, fix)
-    out = _launch(graph.s_mat, graph.window_start, x, graph.esc_ptr,
-                  None if fix is None else graph.escape.rows, fix)
+    out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size,
+                           x, graph.esc_ptr,
+                           None if fix is None else graph.escape.rows, fix)
     diag_window_spmm.launches += 1
     return out
 
@@ -577,7 +544,9 @@ def window_matvec(s_mat: Tensor, graph: DiagWindowGraph, x: Tensor) -> Tensor:
     """Kernel B1 on a runtime ``s_mat`` ``(N_pad, W)`` in place of the
     graph's, with no escape rows: ``S_b @ x[ws_b : ws_b + W]`` per block,
     ``(N_pad, F)`` in x's type. x is ``(rows, F)`` with at most
-    ``num_src_rows`` rows; F a multiple of the kernel's vector width."""
+    ``num_src_rows`` rows; F a multiple of the kernel's vector width. The
+    dense row gather: it gathers a source row per nonzero of ``s_mat`` (the
+    attention probabilities are zero off the window's mask)."""
     _check_dim(x, 2, "B1")
     if s_mat.shape != (graph.num_padded_nodes, graph.window_size):
         raise ValueError(f"s must be {(graph.num_padded_nodes, graph.window_size)}"
@@ -585,7 +554,7 @@ def window_matvec(s_mat: Tensor, graph: DiagWindowGraph, x: Tensor) -> Tensor:
     if not _on_cuda(x):
         return window_spmm_plain(s_mat, graph.window_start, x,
                                  graph.num_src_rows)
-    out = _launch(s_mat, graph.window_start, x, None, None, None)
+    out = _launch_streamed(s_mat, graph.window_start, graph.block_size, x)
     diag_window_spmm.launches += 1
     return out
 
@@ -599,7 +568,7 @@ def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
     if graph.window_size <= NARROW_WINDOW:
-        out = _launch(graph.s_mat, graph.window_start, x, None, None, None)
+        out = _launch(graph.s_mat, graph.window_start, x)
     else:
         out = _launch_streamed(graph.s_mat, graph.window_start,
                                graph.block_size, x)
@@ -724,14 +693,15 @@ def diag_window_spmm_packed(graph: DiagWindowGraph, x: Tensor,
                             fix: Optional[Tensor] = None) -> Tensor:
     """Packed B1: the diag-window product from the S01 bits and rank-1
     scales, plus the escape fix rows (``(U, F)``, built with ``w = a_s``).
-    ``(N_pad, F)``."""
+    ``(N_pad, F)``. The bit-row gather's batch-1 walk with the graph's own
+    block size."""
     _check_dim(x, 2, "packed B1")
     if not _on_cuda(x):
         return diag_window_spmm_packed_plain(graph, x, fix)
-    out = _launch_packed(graph.s_pack, graph.r1_col, graph.r1_row,
-                         graph.window_start, graph.num_src_rows, x,
-                         graph.esc_ptr,
-                         None if fix is None else graph.escape.rows, fix)
+    out = _launch_packed_rows(graph.s_pack, graph.r1_col, graph.r1_row,
+                              graph.window_start, graph.block_size,
+                              graph.num_src_rows, x, graph.esc_ptr,
+                              None if fix is None else graph.escape.rows, fix)
     diag_window_spmm_packed.launches += 1
     return out
 

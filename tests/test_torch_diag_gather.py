@@ -1,26 +1,32 @@
-"""The batched diag-window forms on the row gathers (kernel B4, weighted and
+"""The diag-window forms on the row gathers (kernels B1 and B4, weighted and
 packed, and B10 on the esc2 contraction) against the reference package
 (CPU).
 
-On CUDA tensors ``diag_window_spmm_b`` launches the dense row gather and
-``diag_window_spmm_packed_b`` the bit-row gather, each with an escape
-epilogue that adds the row's fix row before the row scale and the single
-rounding, and ``sliding_spmm_b`` the dense row gather at every window
-width (``csrc/window_spmm.cu``); on the CPU they run their plain versions,
-which these tests hold against ``gwen_tpu``'s ``spmm_diag_window`` (Pallas
-in interpret mode) on a graph built to reach every branch of the gathers:
-a hub row with more than 32 in-window nonzeros (several ballot rounds), a
+On CUDA tensors ``diag_window_spmm`` and ``diag_window_spmm_b`` launch the
+dense row gather and ``diag_window_spmm_packed`` and
+``diag_window_spmm_packed_b`` the bit-row gather (with one item, their
+batch-1 walk: the row's nonzeros listed, then gathered eight at a time),
+each with an escape epilogue that adds the row's fix row before the row
+scale and the single rounding; ``window_matvec`` (B1 on a runtime S) the
+dense gather with no escapes; ``sliding_spmm_b`` the dense row gather at
+every window width and ``sliding_spmm`` on a narrow window the window
+kernel (``csrc/window_spmm.cu``). On the CPU they run their plain
+versions, which these tests hold against ``gwen_tpu``'s
+``spmm_diag_window`` (Pallas in interpret mode) on a graph built to reach
+every branch of the gathers: a hub row with more than 32 in-window
+nonzeros (several ballot rounds, several fillings of the batch-1 list), a
 destination block with more than 32 escape rows (the hub's out-of-window
 neighbours: two rounds of the slot search), a block with no nonzero and no
-escape, and fewer x rows than the layout's sources. Leading axes ``(5,)``
-and ``(2, 3)`` (folded into one batch: groups of four and a remainder), F 8,
-24 and 264 (lanes past F, and a second column pass), weighted and packed,
-the escape rows by the ELL gather and by the esc2 contraction, bf16, and a
-float32 x on a bf16 graph. Forward and x-gradient, float32 at ``rtol = atol
-= 1e-4``, bf16 at ``1e-2·max|ref|``. A fake library stands in for the built
-one to hold the wrappers' dispatch and argument packing. L3 icosphere in
-KD-patch order, block 64, window 128 (the packages' own RCM is pinned where
-the esc2 graph is built).
+escape, and fewer x rows than the layout's sources. No leading axis (a 2-d
+x: B1), leading axes ``(5,)`` and ``(2, 3)`` (folded into one batch:
+groups of four and a remainder), F 8, 24 and 264 (lanes past F, and a
+second column pass), weighted and packed, the escape rows by the ELL
+gather and by the esc2 contraction, bf16, and a float32 x on a bf16
+graph. Forward and x-gradient, float32 at ``rtol = atol = 1e-4``, bf16 at
+``1e-2·max|ref|``. A fake library stands in for the built one to hold the
+wrappers' dispatch and argument packing. L3 icosphere in KD-patch order,
+block 64, window 128 (the packages' own RCM is pinned where the esc2 graph
+is built).
 """
 
 import dataclasses
@@ -126,12 +132,13 @@ def _check(dj, dp, shape, seed, dtype=None):
     want, vjp = jax.vjp(lambda v: j_diag(dj, v), jnp.asarray(x, jdt))
     (want_gx,) = vjp(jnp.asarray(cot, jdt))
     xt = torch.from_numpy(x).to(tdt).requires_grad_()
-    before = (spmm_cuda.diag_window_spmm_b.launches,
-              spmm_cuda.diag_window_spmm_packed_b.launches)
+    wrappers = (spmm_cuda.diag_window_spmm, spmm_cuda.diag_window_spmm_b,
+                spmm_cuda.diag_window_spmm_packed,
+                spmm_cuda.diag_window_spmm_packed_b)
+    before = [w.launches for w in wrappers]
     got = spmm_cuda.spmm_diag_window(dp, xt)
     (gx,) = torch.autograd.grad(got, xt, torch.from_numpy(cot).to(tdt))
-    assert (spmm_cuda.diag_window_spmm_b.launches,
-            spmm_cuda.diag_window_spmm_packed_b.launches) == before  # CPU: plain
+    assert [w.launches for w in wrappers] == before  # CPU: plain
     assert got.shape == x.shape and got.dtype == gx.dtype == tdt
     if dtype == "bf16":
         _bf16_close(got.detach().float(), want.astype(jnp.float32))
@@ -145,24 +152,26 @@ def _check(dj, dp, shape, seed, dtype=None):
     np.testing.assert_allclose(gp.numpy(), np.asarray(want_gx), **TOL)
 
 
-@pytest.mark.parametrize("lead,f", [((5,), 8), ((2, 3), 24), ((5,), 264)],
-                         ids=["5-F8", "2x3-F24", "5-F264"])
+@pytest.mark.parametrize("lead,f", [((5,), 8), ((2, 3), 24), ((5,), 264),
+                                    ((), 8), ((), 264)],
+                         ids=["5-F8", "2x3-F24", "5-F264", "2d-F8", "2d-F264"])
 @pytest.mark.parametrize("packed", [False, True], ids=["weighted", "packed"])
 def test_batched_diag_forms_match_reference(packed, lead, f):
-    """B4 and packed B4 (their plain versions) behind ``spmm_diag_window``,
-    the escape rows from the ELL gather."""
+    """B4 and packed B4 (a 2-d x: B1 and packed B1), their plain versions,
+    behind ``spmm_diag_window``, the escape rows from the ELL gather."""
     dj, dp, n = _pair(packed)
     assert dp.esc2_graph is None
     _check(dj, dp, (*lead, n, f), seed=f + len(lead))
 
 
-@pytest.mark.parametrize("lead,f", [((2, 3), 24), ((5,), 264)],
-                         ids=["2x3-F24", "5-F264"])
+@pytest.mark.parametrize("lead,f", [((2, 3), 24), ((5,), 264), ((), 24), ((), 264)],
+                         ids=["2x3-F24", "5-F264", "2d-F24", "2d-F264"])
 @pytest.mark.parametrize("packed", [False, True], ids=["weighted", "packed"])
 def test_batched_diag_forms_on_the_esc2_contraction_match_reference(packed, lead,
                                                                      f, same_rcm):
-    """The escape rows from the esc2 contraction: B10 (its plain version)
-    on the RCM-ordered escape graph, then B4 or packed B4."""
+    """The escape rows from the esc2 contraction: B10 (a 2-d x: B3), its
+    plain version, on the RCM-ordered escape graph, then B4 or packed B4
+    (B1 or packed B1)."""
     dj, dp, n = _pair(packed, esc2=True)
     _check(dj, dp, (*lead, n, f), seed=3 * f)
 
@@ -257,27 +266,85 @@ def test_b10_takes_the_dense_gather_on_the_diag_window(fake_lib):
     assert args[7:] == (g2.num_padded_nodes, 384, 128, 16, n, 4, 0, 1, 0)
 
 
-def test_unbatched_forms_keep_the_window_kernels(fake_lib):
-    """B1, B3 on a narrow window and packed B1 (2-d x) still launch the
-    window kernels, with the escape pointers where B1 has a fix array."""
+UNBATCHED_FORMS = {
+    # form: (packed graph, x dtype, S dtype, fix rows)
+    "B1-fix-f32": (False, torch.float32, torch.float32, True),
+    "B1-fix-bf16": (False, torch.bfloat16, torch.bfloat16, True),
+    "B1-fix-f32-on-bf16": (False, torch.float32, torch.bfloat16, True),
+    "B1-no-fix": (False, torch.bfloat16, torch.bfloat16, False),
+    "B1p-fix-f32": (True, torch.float32, None, True),
+    "B1p-fix-bf16": (True, torch.bfloat16, None, True),
+    "B1p-no-fix": (True, torch.float32, None, False),
+}
+
+
+@pytest.mark.parametrize("form", UNBATCHED_FORMS)
+def test_unbatched_diag_forms_launch_the_row_gathers(form, fake_lib):
+    """B1 and packed B1 (a 2-d x) take the row gathers with batch 1, the
+    graph's own block, the escape pointers and ``n_fix`` (null pointers and
+    0 with no fix array), in B4's dtype codes."""
+    packed, x_dtype, s_dtype, with_fix = UNBATCHED_FORMS[form]
+    _, dp, n = _pair(packed)
+    if not packed:
+        dp = dataclasses.replace(dp, s_mat=dp.s_mat.to(s_dtype))
+    u = dp.escape.rows.shape[0]
+    x = torch.zeros(n, 16, dtype=x_dtype)
+    fix = torch.zeros(u, 16, dtype=x_dtype) if with_fix else None
+    wrapper = (spmm_cuda.diag_window_spmm_packed if packed
+               else spmm_cuda.diag_window_spmm)
+    before = wrapper.launches
+    out = wrapper(dp, x, fix)
+    assert wrapper.launches == before + 1
+    assert out.shape == (dp.num_padded_nodes, 16) and out.dtype == x_dtype
+    (name, args), = fake_lib.calls
+    escapes = ((dp.esc_ptr.data_ptr(), dp.escape.rows.data_ptr(), fix.data_ptr())
+               if with_fix else (None, None, None))
+    tail = (n, 1, u if with_fix else 0)
+    if packed:
+        assert name == "gwen_sliding_packed_spmm"
+        assert args[:5] == (dp.s_pack.data_ptr(), dp.r1_col.data_ptr(),
+                            dp.r1_row.data_ptr(), x.data_ptr(),
+                            dp.window_start.data_ptr())
+        assert args[5:9] == (*escapes, out.data_ptr())
+        assert args[9:] == (dp.num_padded_nodes, WINDOW // 32, BLOCK, 16, *tail,
+                            0 if x_dtype == torch.float32 else 1, 0)
+    else:
+        code = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+                (torch.bfloat16, torch.float32): 2}[(s_dtype, x_dtype)]
+        assert name == "gwen_window_spmm_streamed"
+        assert args[:3] == (dp.s_mat.data_ptr(), x.data_ptr(), dp.window_start.data_ptr())
+        assert args[3:7] == (*escapes, out.data_ptr())
+        assert args[7:] == (dp.num_padded_nodes, WINDOW, BLOCK, 16, *tail, code, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_matvec_launches_the_dense_gather(dtype, fake_lib):
+    """B1 on a runtime S (``diag_matvec``'s forward) takes the dense row
+    gather with batch 1 and no escapes, counted as B1."""
+    _, dp, n = _pair(False)
+    s = torch.zeros(dp.num_padded_nodes, WINDOW, dtype=dtype)
+    x = torch.zeros(n, 16, dtype=dtype)
+    before = spmm_cuda.diag_window_spmm.launches
+    out = spmm_cuda.window_matvec(s, dp, x)
+    assert spmm_cuda.diag_window_spmm.launches == before + 1
+    (name, args), = fake_lib.calls
+    assert name == "gwen_window_spmm_streamed"
+    assert args[:7] == (s.data_ptr(), x.data_ptr(), dp.window_start.data_ptr(),
+                        None, None, None, out.data_ptr())
+    assert args[7:] == (dp.num_padded_nodes, WINDOW, BLOCK, 16, n, 1, 0,
+                        0 if dtype == torch.float32 else 1, 0)
+
+
+def test_b3_keeps_the_window_kernel_on_the_esc2_contraction(fake_lib):
+    """B3 (a 2-d x) on the esc2 graph's 384-column window launches the
+    window kernel, which takes no escape arguments."""
     g2, n2 = _esc2_graph()
-    spmm_cuda.sliding_spmm(g2, torch.zeros(n2, 16, dtype=torch.bfloat16))
-    s, r, n = _edges()
-    g = P.build_graph(s, r, n)
-    kw = dict(window_size=256)
-    for packed in (False, True):
-        dp = P.to_diag_window(g, packed=packed, **kw)
-        u = dp.escape.rows.shape[0]
-        x, fix = torch.zeros(n, 8), torch.zeros(u, 8)
-        b1 = spmm_cuda.diag_window_spmm_packed if packed else spmm_cuda.diag_window_spmm
-        b1(dp, x, fix)
-    names = [name for name, _ in fake_lib.calls]
-    assert names == ["gwen_window_spmm", "gwen_window_spmm", "gwen_window_spmm_packed"]
-    _, b1_args = fake_lib.calls[1]
-    assert b1_args[3] is not None and b1_args[7:] == (dp.num_blocks, 256, 8, n, 0, 0)
-    _, p_args = fake_lib.calls[2]
-    assert p_args[5] == dp.esc_ptr.data_ptr()
-    assert p_args[9:] == (dp.num_blocks, 256, 8, n, 0, 0)
+    x = torch.zeros(n2, 16, dtype=torch.bfloat16)
+    out = spmm_cuda.sliding_spmm(g2, x)
+    (name, args), = fake_lib.calls
+    assert name == "gwen_window_spmm"
+    assert args == (g2.s_mat.data_ptr(), x.data_ptr(), g2.window_start.data_ptr(),
+                    out.data_ptr(), g2.num_blocks, 384, 16, n2, 1, 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "leading", "width", "rows"])
@@ -292,6 +359,24 @@ def test_b4_wrappers_refuse_a_fix_that_does_not_match(bad, fake_lib):
                "rows": torch.zeros(2, u + 1, 8)}[bad]
         wrapper = (spmm_cuda.diag_window_spmm_packed_b if packed
                    else spmm_cuda.diag_window_spmm_b)
+        with pytest.raises(ValueError, match="fix must be|esc_rows must be"):
+            wrapper(dp, x, fix)
+    assert fake_lib.calls == []
+
+
+@pytest.mark.parametrize("bad", ["dtype", "leading", "width", "rows"])
+def test_b1_wrappers_refuse_a_fix_that_does_not_match(bad, fake_lib):
+    """The unbatched forms (a 2-d x) take a ``(U, F)`` fix in x's type."""
+    for packed in (False, True):
+        _, dp, n = _pair(packed)
+        u = dp.escape.rows.shape[0]
+        x = torch.zeros(n, 8)
+        fix = {"dtype": torch.zeros(u, 8, dtype=torch.bfloat16),
+               "leading": torch.zeros(1, u, 8),
+               "width": torch.zeros(u, 16),
+               "rows": torch.zeros(u + 1, 8)}[bad]
+        wrapper = (spmm_cuda.diag_window_spmm_packed if packed
+                   else spmm_cuda.diag_window_spmm)
         with pytest.raises(ValueError, match="fix must be|esc_rows must be"):
             wrapper(dp, x, fix)
     assert fake_lib.calls == []

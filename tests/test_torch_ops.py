@@ -203,13 +203,15 @@ def test_window_spmm_launch_rejects_bad_operands(bad, match):
         x = x.to(torch.bfloat16)
     elif bad == "ndim":
         x = x[None, None]
-    if bad == "fix":  # a batched x with an unbatched fix array
+    if bad == "fix":  # a batched x with an unbatched fix array (B1 and B4's gather)
         with pytest.raises(ValueError, match=match):
-            spmm_cuda._launch(s_mat, ws, x[None], torch.zeros(3, dtype=torch.int32),
-                              torch.zeros(4, dtype=torch.int64), torch.zeros(4, 8))
+            spmm_cuda._launch_streamed(s_mat, ws, 128, x[None],
+                                       torch.zeros(3, dtype=torch.int32),
+                                       torch.zeros(4, dtype=torch.int64),
+                                       torch.zeros(4, 8))
         return
     with pytest.raises((ValueError, TypeError), match=match):
-        spmm_cuda._launch(s_mat, ws, x, None, None, None)
+        spmm_cuda._launch(s_mat, ws, x)
 
 
 # ------------------------------------------------------------ gradients

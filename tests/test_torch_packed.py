@@ -33,6 +33,7 @@ from gwen_tpu_torch.ops.attention import windowed_attention
 from gwen_tpu_torch.train import mesh_graph_loss_fn
 from test_torch_ops import DIAG_CASES, _ordered, same_rcm  # noqa: F401
 from test_torch_train import _flat
+from test_torch_wide_windows import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -270,25 +271,26 @@ def test_packed_plain_kernels_batched_equal_stacked_calls(same_rcm):
     ("batched_3d", ValueError, "2-d x"),
     ("rows", ValueError, "128-row blocks"),
 ])
-def test_packed_launch_rejects_bad_operands(bad, exc, match):
-    """The packed window kernel (packed B1) refuses what it does not take,
-    a batched x among them: packed B4 runs on the row gather."""
-    bits = torch.zeros(256, 2, dtype=torch.int32)
-    col, row = torch.zeros(512), torch.zeros(256)
-    ws = torch.zeros(2, dtype=torch.int32)
-    x = torch.zeros(300, 8)
+def test_packed_launch_rejects_bad_operands(bad, exc, match, fake_lib):
+    """Packed B1 (the bit-row gather with one item) refuses what it does not
+    take before anything launches, a batched x among them: packed B4 takes
+    that."""
+    _, dp, _, n = _diag_pair(DIAG_CASES[3][0])
+    assert dp.block_size == 128
+    x = torch.zeros(n, 8)
     if bad == "bits":
-        bits = bits.long()
+        dp = dataclasses.replace(dp, s_pack=dp.s_pack.long())
     elif bad == "scale_dtype":
-        col = col.double()
+        dp = dataclasses.replace(dp, r1_col=dp.r1_col.double())
     elif bad == "scale_rows":
-        col = torch.zeros(100)
+        dp = dataclasses.replace(dp, r1_col=dp.r1_col[:100])
     elif bad == "batched_3d":
         x = x[None]
     elif bad == "rows":
-        bits, row = torch.zeros(200, 2, dtype=torch.int32), torch.zeros(200)
+        dp = dataclasses.replace(dp, s_pack=dp.s_pack[:-8])
     with pytest.raises(exc, match=match):
-        spmm_cuda._launch_packed(bits, col, row, ws, 300, x, None, None, None)
+        spmm_cuda.diag_window_spmm_packed(dp, x)
+    assert fake_lib.calls == []
 
 
 # ---------------------------------------------------------------- B13
