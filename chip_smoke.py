@@ -14,7 +14,8 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    LayerNorm forward and backward);
 3. builds the L7 graph (with the attention tables) and checks each kernel
    against its plain PyTorch version at the shapes serving gives it (B1,
-   also timed with no fix rows, B3, B2), at the train shapes, batch 4 (B4, B10, B2b on dm, dscale and
+   also timed with no fix rows, B3, timed by its device kernels under
+   ``torch.profiler``, B2), at the train shapes, batch 4 (B4, B10, B2b on dm, dscale and
    dbias, and the diag composite's x-gradient against autograd through
    the plain versions, batched and unbatched), and for attention (B5, B6
    with its row stats, B7) at nb = 1 (a direct 2-D call), 2 and 8 (dh 128)
@@ -39,11 +40,18 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    S (``window_matvec``, on the graph's mask and on every window column)
    with a 2-d x (the gathers' batch-1 walk); then the unfused operators:
    B8, B9 (nb 1), B9b (nb 2 and 8) and ``diag_matvec`` (B1 on a runtime S,
-   timed on the window mask's pattern) at f 128 and 256, the gradients of
+   timed on the window mask's pattern beside its bound and
+   ``torch.sparse.mm`` on that pattern) at f 128 and 256, the gradients of
    ``diag_matvec`` and ``diag_sddmm`` against autograd through the plain
    versions, and ``aggregate`` on a float32 ``(4, N, 1)`` field over the
-   bf16 and the packed diag graph: bf16 ``max|err| ≤ 1e-2·max|plain|``, the
-   plain version in float32 from the same values; float32
+   bf16 and the packed diag graph; then the int8 rank-1 form of B3 and B10
+   on the RCM band (the dense row gather with both scales inside; B3r,
+   B10r), unbatched and at batch 4: one launch a call, against its plain
+   version (one rounding) and ``aggregate_segment`` at the bf16 tolerance,
+   its x-gradient against autograd through the plain version, timed beside
+   its bound and ``torch.sparse.mm`` on the weighted operator: bf16
+   ``max|err| ≤ 1e-2·max|plain|``, the plain version in float32 from the
+   same values; float32
    ``≤ 1e-5·max|plain|``. Kernel and plain are timed with CUDA events
    (packed kernels beside unpacked B1/B4 too); beside each kernel its bound
    (the larger of its bytes over 3.35 TB/s and its useful operations over
@@ -124,19 +132,20 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    versions, one train step's loss and gradients against the same step
    through the plain versions, the step time and peak memory, and one
    step under ``torch.profiler``. One rank: the halos are
-   zero rows and no collective runs; a last line says whether a 1-rank
-   NCCL group on this host carries ``all_reduce`` and ``all_gather``
-   (a child process; logged, not held);
+   zero rows and no collective runs; whether a 1-rank NCCL group on this
+   host carries ``all_reduce`` and ``all_gather`` is probed last (a child
+   process; logged, not held: after it this process's profiler traces
+   lose device events);
 11. the last kernel and the stored-data paths: B14 (block-tile SpMM) on the
    L7 mesh in RCM and in KD-patch order at F 256, unbatched and at batch 4,
    bf16 and float32, on a float32 field of F 1 and 3, on a
    ``num_src``-extended operator, and the x-gradient of
    ``spmm_block_tiles``, each against its plain version, with times, the
    bound (x, the output and the tables as stored) and ``torch.sparse.mm``
-   on the same operator, held to the kernel first; the int8 rank-1 form of
-   B3 and B10 on the RCM band (B11's row gather) against its plain version
-   and ``aggregate_segment``, the kernel alone timed beside its bound and
-   ``torch.sparse.mm``; then the EPD model on the ``BlockTileGraph``:
+   on the same operator, held to the kernel first; ``aggregate`` on the
+   int8 rank-1 layout forward and backward, unbatched and at batch 4, with
+   every count from 0 (B3r 4, nothing else); then the EPD model on the
+   ``BlockTileGraph``:
    3 x 4 served steps (B14 and B2 4 launches per step), 5 Adam steps at
    batch 4 through ``Trainer`` (B14 8 per step, B2 and B2b 4), one served
    step and one train step against the plain versions, no plain version on
@@ -148,7 +157,10 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    --no-animate`` on a raw store of 125 members x 16,384 features written
    here (hidden 1024, batch 4): a finite test loss, the run in the
    registry, the step's time and peak memory. The stores are written and
-   read with numpy and the standard library alone.
+   read with numpy and the standard library alone;
+12. last, in a fresh child process: one call of ``spmm_sliding_rank1``
+   (unbatched and at batch 4) runs exactly one device kernel under
+   ``torch.profiler``, the dense row gather; then the NCCL probe.
 
 The second-to-last lines are a JSON object of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``,
@@ -210,6 +222,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_events(fn, iters: int = 1) -> list:
+    """The device events (kernels, copies) that ``iters`` calls of ``fn()``
+    run under ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn()`` in ms: the durations of the device
+    events of ``iters`` calls (:func:`device_events`), summed, over
+    ``iters``. For a kernel shorter than the host's enqueue of a call, whose
+    back-to-back CUDA-event time (:func:`cuda_ms`) measures the host."""
+    for _ in range(warmup):
+        fn()
+    us = sum(ev.time_range.elapsed_us() for ev in device_events(fn, iters))
+    if not us:
+        raise AssertionError("the profiler saw no device kernel")
+    return us / iters / 1e3
 
 
 def bf16_ulp(v: float) -> float:
@@ -300,11 +339,13 @@ def window_csr(s_dense: torch.Tensor, window_start: torch.Tensor, block: int,
     return crow, cols, vals, (s_dense.shape[0], src_rows)
 
 
-def sparse_mm_ms(csr: tuple, x: torch.Tensor, iters: int = 20) -> float:
+def sparse_mm_ms(csr: tuple, x: torch.Tensor, iters: int = 20,
+                 timer=cuda_ms) -> float:
     """Time of ``torch.sparse.mm`` on the CSR operator and ``x`` ``(rows,
     F)`` or ``(B, rows, F)`` (laid out ``(rows, B·F)`` outside the timed
-    region), in x's type where cuSPARSE takes it, else in float32. The
-    library yardstick of the SpMM kernels; the port never calls it."""
+    region), in x's type where cuSPARSE takes it, else in float32, taken
+    with ``timer`` (:func:`cuda_ms` or :func:`device_ms`). The library
+    yardstick of the SpMM kernels; the port never calls it."""
     from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
 
     crow, cols, vals, size = csr
@@ -315,7 +356,7 @@ def sparse_mm_ms(csr: tuple, x: torch.Tensor, iters: int = 20) -> float:
         try:
             a = torch.sparse_csr_tensor(crow, cols, vals.to(dtype), size=size)
             b = x2.to(dtype).contiguous()
-            ms = cuda_ms(lambda: torch.sparse.mm(a, b), iters)
+            ms = timer(lambda: torch.sparse.mm(a, b), iters)
         except RuntimeError as err:
             if dtype == torch.float32:
                 raise
@@ -480,19 +521,26 @@ def check_kernels(graph, device) -> dict:
     log(f"    B1: {ms:.4f} ms, with no fix rows (no epilogue) {no_fix:.4f} ms")
 
     # B3: banded SpMM on the esc2 graph (x compacted to the U endpoints).
+    # Its kernel is shorter than the host's enqueue of a call, so kernel,
+    # plain version and library call are timed by their device kernels
+    # (device_ms), the back-to-back CUDA-event time logged beside.
     x2 = randn(g2.num_nodes, f)
     want = spmm_cuda.sliding_spmm_plain(g2_32, x2.float())
     err = compare("B3 bf16", spmm_cuda.sliding_spmm(g2, x2), want, BF16_TOL)
     compare("B3 f32", spmm_cuda.sliding_spmm(g2_32, x2.float()), want, F32_TOL)
-    ms, plain_ms = timed_pair(lambda: spmm_cuda.sliding_spmm(g2, x2),
-                              lambda: spmm_cuda.sliding_spmm_plain(g2, x2))
+    b3 = (lambda: spmm_cuda.sliding_spmm(g2, x2),
+          lambda: spmm_cuda.sliding_spmm_plain(g2, x2))
+    events_ms = timed_pair(*b3)
+    log(f"    B3: back-to-back CUDA-event time (the host's enqueue bounds it) "
+        f"kernel {events_ms[0]:.4f} ms, plain {events_ms[1]:.4f} ms")
     results["B3"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=device_ms(b3[0]), plain_ms=device_ms(b3[1], 10),
         **roofline((nonzero_bytes(g2.s_mat, "B3"), x2),
                    (spmm_cuda.sliding_spmm(g2, x2),),
                    2.0 * int((g2.s_mat != 0).sum()) * f, torch.bfloat16),
         library_ms=sparse_mm_ms(window_csr(g2.s_mat, g2.window_start,
-                                           g2.block_size, g2.num_src_rows), x2),
+                                           g2.block_size, g2.num_src_rows), x2,
+                                50, device_ms),
         floor_ms=stored_floor_ms(g2.s_mat))
 
     # B2: residual + LayerNorm at the padded state's shape.
@@ -1343,7 +1391,19 @@ def check_unfused_kernels(graph, packed_diag, device) -> dict:
                 log(f"  diag_matvec forward f={f}: B1 on a runtime S, the mask's "
                     f"pattern (as the unfused backend gives it) {ms:.4f} ms; every "
                     f"window column nonzero {dense_ms:.4f} ms")
-                del p_mat
+                # Its bound and the library call on the mask's pattern: P's
+                # nonzeros with their indices, x and the output; the CSR is
+                # built outside the timed region.
+                csr = window_csr(p_mat, graph.window_start, graph.block_size, src)
+                _log_times({f"diag_matvec B1 on the mask's pattern f={f}": dict(
+                    ms=ms, plain_ms=cuda_ms(
+                        lambda: unfused_cuda.matvec_plain(graph, p_mat, x), 5, 1),
+                    **roofline((nonzero_bytes(p_mat, "diag_matvec P"), x),
+                               (n_pad * f * x.element_size(),),
+                               2.0 * csr[2].numel() * f, torch.bfloat16),
+                    library_ms=sparse_mm_ms(csr, x),
+                    floor_ms=stored_floor_ms(p_mat))})
+                del p_mat, csr
             iters = 20 if nb < 8 else 5
             pairs = {"B8": (lambda: unfused_cuda.sddmm(graph, a, b),
                             lambda: unfused_cuda.sddmm_plain(graph, a, b)),
@@ -1460,7 +1520,8 @@ def expected_launches(remat, process_steps: int, processor: str = "gcn",
     recompute = {"none": 0, "full": s, "save_agg": s,
                  "nested": 2 * s - groups}[kind]
     out = dict.fromkeys(("B1", "B3", "B4", "B10", "B2", "B2b", "B5", "B6", "B7",
-                         "B1p", "B4p", "B13", "B8", "B9", "B11", "B12", "B14"),
+                         "B1p", "B4p", "B13", "B8", "B9", "B11", "B12", "B14",
+                         "B3r"),
                         0)
     if processor == "interaction":  # COO graph, its own LayerNorm: no kernel
         return out
@@ -1491,7 +1552,7 @@ def _counters() -> dict:
             "B13": spmm_cuda.sliding_packed_spmm,
             "B8": unfused_cuda.sddmm, "B9": unfused_cuda.spmm_t,
             "B11": spmm_cuda.windowed_dense_spmm, "B12": spmm_cuda.block_ell_spmm,
-            "B14": spmm_cuda.block_tiles_spmm}
+            "B14": spmm_cuda.block_tiles_spmm, "B3r": spmm_cuda.sliding_rank1_spmm}
 
 
 # Calls of a kernel's plain version with a CUDA tensor: the main paths must
@@ -1865,17 +1926,8 @@ def _profile_step(step, tag: str, top: int = 10) -> None:
     """One ``step()`` under ``torch.profiler``: the device time of its
     kernels by name, and the share of the span from the first kernel's
     start to the last one's end in which a kernel ran."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
     by_name, start, end = {}, math.inf, -math.inf
-    for ev in prof.events():
-        if ev.device_type != DeviceType.CUDA:
-            continue
+    for ev in device_events(step):
         by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
         start, end = min(start, ev.time_range.start), max(end, ev.time_range.end)
     if not by_name:
@@ -2362,6 +2414,96 @@ def coo_csr(graph, rows: int, cols: int) -> tuple:
     return a.crow_indices(), a.col_indices(), a.values(), (rows, cols)
 
 
+def build_rank1_layout(device) -> dict:
+    """The L7 mesh in RCM order as the int8 rank-1 banded layout and as the
+    COO graph it came from."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      rcm_order, to_sliding_rank1)
+
+    verts, s, r = icosphere_edges(LEVELS)
+    n = verts.shape[0]
+    g = build_graph(*apply_order(rcm_order(s, r, n), s, r)[:2], n)
+    return {"coo": g.to(device), "rank1": to_sliding_rank1(g).to(device)}
+
+
+def check_rank1_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
+    """Phase 3, last part: the int8 rank-1 form of B3 and B10 in RCM order
+    (B3r, B10r; F 256, unbatched and batch 4): one launch a call, bf16
+    against its plain version (one rounding) and against
+    ``aggregate_segment``, float32 against the plain version, the x-gradient
+    against autograd through the plain version; timed beside the plain
+    version, the bound (S01's nonzeros with their indices, both scales, x
+    and the output) and ``torch.sparse.mm`` on the weighted operator as a
+    bf16 CSR."""
+    from gwen_tpu_torch.ops import aggregate_segment, spmm_cuda
+
+    gen = torch.Generator(device=device).manual_seed(13)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device).to(torch.bfloat16)
+
+    r1, coo = layouts["rank1"], layouts["coo"]
+    f, n, results = LATENT, r1.num_nodes, {}
+    core = r1.core
+    kern, plain = spmm_cuda.sliding_rank1_spmm, spmm_cuda.sliding_rank1_spmm_plain
+    log(f"  int8 rank-1 banded layout (RCM): S01 {tuple(core.s_mat.shape)} int8 "
+        f"({core.s_mat.nbytes / 2**20:.0f} MiB; bf16 S would be "
+        f"{core.s_mat.nbytes * 2 / 2**20:.0f} MiB), window {core.window_size}, "
+        f"scales {(r1.col_scale.nbytes + r1.row_scale.nbytes) / 1e6:.2f} MB")
+    # The weighted operator a_r a_s ⊙ S01 is the COO graph's: the library
+    # call computes the same function as the composite.
+    csr = coo_csr(coo, r1.num_padded_nodes, r1.num_src_rows)
+    need = nonzero_bytes(core.s_mat, "int8 S01")
+    for shape in ((n, f), (batch, n, f)):
+        x = randn(*shape)
+        nb = shape[0] if len(shape) == 3 else 1
+        name = "B10r" if nb > 1 else "B3r"
+        tag = f"{name} (int8 rank-1 form of {'B10' if nb > 1 else 'B3'}) {tuple(shape)}"
+        before = {k: c.launches for k, c in _counters().items()}
+        got = spmm_cuda.spmm_sliding_rank1(r1, x)
+        ran = {k: c.launches - before[k] for k, c in _counters().items()
+               if c.launches != before[k]}
+        if ran != {"B3r": 1}:
+            raise AssertionError(f"spmm_sliding_rank1 {tuple(shape)} launched {ran}, "
+                                 "want one int8 rank-1 gather")
+        # One rounding in bf16 (both scales inside the gather), as the plain
+        # version rounds: held to it and to the float32 segment sum alike.
+        err = compare(f"{tag} bf16", got,
+                      spmm_cuda.spmm_sliding_rank1(r1, x, plain=True), BF16_TOL)
+        want = spmm_cuda.spmm_sliding_rank1(r1, x.float(), plain=True)
+        compare(f"{tag} f32", spmm_cuda.spmm_sliding_rank1(r1, x.float()), want,
+                F32_TOL)
+        compare(f"{tag} against aggregate_segment (float32)", got,
+                aggregate_segment(coo, x.float()), BF16_TOL)
+        del want
+        xg = x.clone().requires_grad_()
+        cot = randn(*shape).float()
+        (gk,) = torch.autograd.grad(
+            (spmm_cuda.spmm_sliding_rank1(r1, xg).float() * cot).sum(), xg)
+        x32 = x.float().requires_grad_()
+        (gp,) = torch.autograd.grad(
+            (spmm_cuda.spmm_sliding_rank1(r1, x32, plain=True) * cot).sum(), x32)
+        compare(f"{tag} x-gradient vs autograd through the plain version", gk, gp,
+                BF16_TOL)
+        del xg, cot, gk, gp, x32
+        iters = 3 if nb > 1 else 10
+        ms, plain_ms = timed_pair(lambda: kern(r1, x), lambda: plain(r1, x), iters)
+        comp_ms = cuda_ms(lambda: spmm_cuda.spmm_sliding_rank1(r1, x), iters)
+        log(f"  {tag}: the composite spmm_sliding_rank1 {comp_ms:.4f} ms (one "
+            f"launch), the kernel alone {ms:.4f} ms")
+        results[name] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            **roofline((need, r1.col_scale, r1.row_scale, x), (got,),
+                       2.0 * int((core.s_mat != 0).sum()) * f * nb, torch.bfloat16),
+            library_ms=sparse_mm_ms(csr, x, iters),
+            floor_ms=stored_floor_ms(core.s_mat, r1.col_scale, r1.row_scale))
+        _log_times({tag: results[name]})
+        del x, got
+        torch.cuda.empty_cache()
+    del csr
+    return results
+
+
 def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
     """Phase 11, first part: B14 against its plain version at L7 in RCM and
     in KD-patch order (F 256; unbatched and batch 4; bf16 and float32), on a
@@ -2369,9 +2511,7 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
     x-gradient of ``spmm_block_tiles`` against autograd through the plain
     version; timed beside the plain version, the bound (x, the output and
     the tables as the port stores them) and ``torch.sparse.mm`` on the same
-    operator as a bf16 CSR, held to the kernel first. Then the int8 rank-1
-    form of B3 and B10 in RCM order against its plain version and against
-    ``aggregate_segment``."""
+    operator as a bf16 CSR, held to the kernel first."""
     from gwen_tpu_torch.ops import aggregate_segment, spmm_cuda
 
     gen = torch.Generator(device=device).manual_seed(11)
@@ -2453,56 +2593,82 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
         del x, cot, gk, gp, x32
     torch.cuda.empty_cache()
 
-    r1, coo = layouts["rank1"], layouts["coo"]
-    core = r1.core
-    log(f"  int8 rank-1 banded layout (RCM): S01 {tuple(core.s_mat.shape)} int8 "
-        f"({core.s_mat.nbytes / 2**20:.0f} MiB; bf16 S would be "
-        f"{core.s_mat.nbytes * 2 / 2**20:.0f} MiB), window {core.window_size}")
-    core_csr = window_csr(core.s_mat, core.window_start, core.block_size,
-                          core.num_src_rows)
-    core_need = nonzero_bytes(core.s_mat, "int8 S01")
-    for shape in ((n, f), (batch, n, f)):
-        x = randn(*shape)
-        nb = shape[0] if len(shape) == 3 else 1
-        name = "B10" if nb > 1 else "B3"
-        before = (spmm_cuda.sliding_spmm_b if nb > 1 else spmm_cuda.sliding_spmm).launches
-        got = spmm_cuda.spmm_sliding_rank1(r1, x)
-        after = (spmm_cuda.sliding_spmm_b if nb > 1 else spmm_cuda.sliding_spmm).launches
-        if after != before + 1:
-            raise AssertionError(f"spmm_sliding_rank1 {tuple(shape)} did not launch {name}")
-        # The composite rounds three times in bf16 (a ⊙ x, the product, the
-        # row scale), so the bf16 result is held to the plain version on the
-        # same bf16 path, and to the float32 segment sum at 3e-2.
-        compare(f"{name} int8 rank-1 form {tuple(shape)} bf16", got,
-                spmm_cuda.spmm_sliding_rank1(r1, x, plain=True), BF16_TOL)
-        want = spmm_cuda.spmm_sliding_rank1(r1, x.float(), plain=True)
-        compare(f"{name} int8 rank-1 form {tuple(shape)} f32",
-                spmm_cuda.spmm_sliding_rank1(r1, x.float()), want, F32_TOL)
-        compare(f"{name} int8 rank-1 form {tuple(shape)} against aggregate_segment "
-                "(float32; three bf16 roundings)", got,
-                aggregate_segment(coo, x.float()), 3 * BF16_TOL)
-        del want, got
-        ms, plain_ms = timed_pair(
-            lambda: spmm_cuda.spmm_sliding_rank1(r1, x),
-            lambda: spmm_cuda.spmm_sliding_rank1(r1, x, plain=True),
-            3 if nb > 1 else 10)
-        kern = spmm_cuda.sliding_spmm_b if nb > 1 else spmm_cuda.sliding_spmm
-        xs = x * r1.col_scale[:n, None].to(x.dtype)
-        core_ms, core_plain_ms = timed_pair(
-            lambda: kern(core, xs), lambda: spmm_cuda.sliding_spmm_plain(core, xs),
-            3 if nb > 1 else 10)
-        log(f"  {name} int8 rank-1 form {tuple(shape)}: composite {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms")
-        _log_times({f"{name} int8 rank-1 form {tuple(shape)}, the kernel alone": dict(
-            ms=core_ms, plain_ms=core_plain_ms,
-            **roofline((core_need, xs), (xs,), 2.0 * core_csr[2].numel() * f * nb,
-                       torch.bfloat16),
-            library_ms=sparse_mm_ms(core_csr, xs, 3 if nb > 1 else 10),
-            floor_ms=stored_floor_ms(core.s_mat))})
-        del x, xs
-        torch.cuda.empty_cache()
-    del core_csr
     return results
+
+
+RANK1_PROFILE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from gwen_tpu_torch.ops import spmm_cuda
+dev = torch.device("cuda", 0)
+r1 = cs.build_rank1_layout(dev)["rank1"]
+out = {}
+for shape in ((r1.num_nodes, cs.LATENT), (cs.TRAIN_BATCH, r1.num_nodes, cs.LATENT)):
+    x = torch.randn(*shape, device=dev).bfloat16()
+    spmm_cuda.spmm_sliding_rank1(r1, x)
+    out[str(shape)] = [ev.name for ev in cs.device_events(
+        lambda: spmm_cuda.spmm_sliding_rank1(r1, x))]
+print(json.dumps(out))
+"""
+
+
+def rank1_one_kernel_per_call() -> None:
+    """Fail unless one call of ``spmm_sliding_rank1`` (unbatched and at
+    batch 4) runs exactly one device kernel under ``torch.profiler``, the
+    dense row gather: no elementwise pass around it. In a fresh child
+    process: in this one, after the kernel builds and Triton's compiles of
+    phase 2, a profiler window of one call has come back without the device
+    kernel it ran (on an H100, torch 2.11); windows of many calls keep
+    theirs. Run last, as the NCCL probe: the parent's own traces are read
+    before it."""
+    torch.cuda.empty_cache()  # the child allocates on the same card
+    res = subprocess.run([sys.executable, "-c", RANK1_PROFILE,
+                          str(Path(__file__).resolve().parent)],
+                         timeout=300, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise AssertionError(f"the int8 rank-1 profile run failed:\n{res.stderr[-2000:]}")
+    for shape, names in json.loads(res.stdout.strip().splitlines()[-1]).items():
+        log(f"  spmm_sliding_rank1 {shape}: one call under torch.profiler ran "
+            f"{len(names)} device kernel(s) {[nm[:60] for nm in names]}")
+        if len(names) != 1 or "dense_row" not in names[0]:
+            raise AssertionError(f"spmm_sliding_rank1 {shape}: one call ran {names}, "
+                                 "want one dense row gather")
+
+
+def rank1_path(layouts: dict, device) -> dict:
+    """Phase 11: the int8 rank-1 layout as a user calls it: ``aggregate`` forward and
+    backward, unbatched and at batch 4, with every launch count set to 0
+    before. Each call is one launch of the int8 rank-1 gather (B3r/B10r)
+    and nothing else. Returns the counts."""
+    from gwen_tpu_torch.ops import aggregate
+
+    r1 = layouts["rank1"]
+    gen = torch.Generator(device=device).manual_seed(12)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    PLAIN_ON_CUDA["calls"] = 0
+    for shape in ((r1.num_nodes, LATENT), (TRAIN_BATCH, r1.num_nodes, LATENT)):
+        x = torch.randn(*shape, generator=gen, device=device).bfloat16()
+        x.requires_grad_()
+        out = aggregate(r1, x)
+        out.float().square().sum().backward()
+        if (out.shape != x.shape or not bool(torch.isfinite(out).all())
+                or not bool(torch.isfinite(x.grad).all())):
+            raise AssertionError(f"aggregate on the int8 rank-1 layout {shape}: "
+                                 f"{tuple(out.shape)}, not finite")
+    launches = {k: c.launches for k, c in counters.items()}
+    want = {**dict.fromkeys(counters, 0), "B3r": 4}
+    log(f"  launches of aggregate on the int8 rank-1 layout, forward and "
+        f"backward, unbatched and batch {TRAIN_BATCH}: "
+        f"{ {k: v for k, v in launches.items() if v} }; plain versions called on "
+        f"CUDA tensors: {PLAIN_ON_CUDA['calls']}")
+    if launches != want or PLAIN_ON_CUDA["calls"]:
+        raise AssertionError(f"int8 rank-1 path launched {launches}, want {want}, "
+                             "or a plain version ran on the card")
+    return launches
 
 
 def tile_model_paths(layouts: dict, device) -> dict:
@@ -2869,6 +3035,14 @@ def main() -> int:
     log("  unfused operators (B8, B9, B9b, diag_matvec) and aggregate on a "
         "float32 field:")
     results.update(check_unfused_kernels(graph, pg, device))
+    log("  the int8 rank-1 form of B3 and B10 (B3r, B10r) on the RCM band:")
+    t0 = time.perf_counter()
+    rank1 = build_rank1_layout(device)
+    log(f"  RCM-ordered L{LEVELS} int8 rank-1 layout built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    results.update(check_rank1_kernels(rank1, device))
+    del rank1
+    torch.cuda.empty_cache()
 
     log("== phase 4: serve 3 requests x 4 steps through `predict` (GCN)")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2914,16 +3088,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         launches.update(partitioned_paths(device, Path(tmp)))
-    nccl_one_rank_probe()
 
-    log("== phase 11: B14 (block tiles) and the int8 form of B3/B10 against "
-        "their plain versions; the EPD model on a BlockTileGraph and on the "
+    log("== phase 11: `aggregate` on the int8 rank-1 layout; B14 (block tiles) "
+        "against its plain version; the EPD model on a BlockTileGraph and on the "
         "multimesh; `make-mesh-data` -> `train-mesh --data`; `preprocess` -> "
         "`train-gnn`")
     t0 = time.perf_counter()
     layouts = build_tile_layouts(device, perm)
     log(f"  L{LEVELS} block-tile and rank-1 layouts built in "
         f"{time.perf_counter() - t0:.1f} s")
+    launches["B3r"] = rank1_path(layouts, device)["B3r"]
     results.update(check_tile_kernels(layouts, device))
     tile_runs = tile_model_paths(layouts, device)
     launches["B14"] = tile_runs["served"]["B14"] + tile_runs["trained"]["B14"]
@@ -2933,6 +3107,12 @@ def main() -> int:
         store_paths(device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         member_graph_pipeline(device, Path(tmp))
+    log("== last: one device kernel per int8 rank-1 call (a child process "
+        "under torch.profiler); the 1-rank NCCL probe")
+    rank1_one_kernel_per_call()
+    # Last: after this child process the profiler traces of this one lose
+    # device events, and the checks above read them.
+    nccl_one_rank_probe()
 
     spmm, ln = "gwen_tpu/ops/spmm_pallas.py", "gwen_tpu/ops/fused_ln.py"
     att = "gwen_tpu/ops/attention_pallas.py"
@@ -2945,9 +3125,9 @@ def main() -> int:
                       "gathered eight at a time) with the escape rows added in "
                       "its epilogue (dense_row1_kernel)", "cuda", cu,
                       f"{spmm}:909"),
-               "B3": ("banded SpMM on the esc2 contraction: the window kernel "
-                      "(window_spmm_kernel; its int8 S01 form is held in phase "
-                      "11)", "cuda", cu, f"{spmm}:476"),
+               "B3": ("banded SpMM on the esc2 contraction: the dense row "
+                      "gather's batch-1 walk over S's nonzeros "
+                      "(dense_row1_kernel)", "cuda", cu, f"{spmm}:476"),
                "B2": ("residual + LayerNorm forward", "triton", tr, f"{ln}:42"),
                "B4": ("batched diag-window SpMM: a row gather over S's "
                       "nonzeros with the escape rows added in its epilogue "
@@ -2998,8 +3178,17 @@ def main() -> int:
                        "256, unbatched)", "cuda", cu, f"{spmm}:46"),
                "B14": ("block-tile (BSR) SpMM: gather, scale, sum over the "
                        "active tiles' slots (RCM order, F 256, unbatched)",
-                       "cuda", cu, f"{spmm}:194")}
-    counted_as = {"B5b": "B5", "B6b": "B6", "B7b": "B7", "B9b": "B9", "B13u": "B13"}
+                       "cuda", cu, f"{spmm}:194"),
+               "B3r": ("int8 rank-1 banded SpMM a . K(a . x) on the RCM band "
+                       "(unbatched): the dense row gather's batch-1 walk over "
+                       "the int8 S01 with both scales inside "
+                       "(dense_row1_kernel)", "cuda", cu, f"{spmm}:476"),
+               "B10r": ("int8 rank-1 banded SpMM on the RCM band (batch 4): the "
+                        "dense row gather over the int8 S01 with both scales "
+                        "inside (dense_rows_kernel; one count with B3r)", "cuda",
+                        cu, f"{spmm}:609")}
+    counted_as = {"B5b": "B5", "B6b": "B6", "B7b": "B7", "B9b": "B9", "B13u": "B13",
+                  "B10r": "B3r"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": f"{key} {name}", "route": route, "source": src,
                 "replaces": rep, "launches": launches[counted_as.get(key, key)],

@@ -3,13 +3,12 @@
 // block-tile (B14) layouts.
 //
 // Which kernel computes which form:
-//   window_spmm_kernel   B3 (gwen_tpu/ops/spmm_pallas.py:_sliding_kernel,
-//                        through _sliding_impl) on a window of at most 736
-//                        columns (the esc2 contraction), a 2-d x, no escapes;
 //   dense_row1_kernel    batch 1 on a dense S: B1 (_diag_kernel through
 //                        _diag_impl) with its escape fix rows, B1 on a runtime
-//                        S (diag_matvec's forward), and B11, B3 on a wide
-//                        window, B4 and B10 called with one item;
+//                        S (diag_matvec's forward), B3 (_sliding_kernel
+//                        through _sliding_impl) at every width, the esc2
+//                        contraction's 384 columns among them, B11, and B4
+//                        and B10 called with one item;
 //   dense_rows_kernel    a batch of two or more: B4 (_diag_kernel_b through
 //                        _diag_impl_b) with its fix rows, B10
 //                        (_sliding_kernel_b through _sliding_impl_b) at every
@@ -28,71 +27,25 @@
 // x's type (0 float32, 1 bfloat16); a float32 x on a bfloat16 S (2), as the
 // reference's kernels take it (S cast to x's type per tile; bf16 -> float32
 // is exact): S is read as bf16 and widened as it is read; a bfloat16 x on a
-// float32 S (3; the row gathers only: the partitioned path's dense scatter
-// matrices stay float32), each nonzero rounded to bf16 as the reference's
-// kernel casts its tile; a float32 or bfloat16 x on an int8 S (4, 5): the
-// 0/1 pattern of a rank-1 banded layout (half the bytes of a bf16 S),
-// widened to x's type as it is read, the rank-1 scales applied outside the
-// kernel, as in the reference (a . K(a . x)).
+// float32 S (3), each nonzero rounded to bf16 as the reference's kernel
+// casts its tile; a float32 or bfloat16 x on an int8 S (4, 5): the 0/1
+// pattern of a rank-1 banded layout (half the bytes of a bf16 S), read as
+// int8. The int8 rank-1 form of B3 and B10 (gwen_tpu/ops/spmm_pallas.py:
+// spmm_sliding_rank1, a . K(a . x) with K on the int8 S01) is the SCALES
+// instantiation of the dense gathers in modes 4 and 5: each nonzero weighs
+// its source's column scale and the sum its row's scale, both rounded to x's
+// type, before the one rounding, as the packed gathers weigh their set bits
+// (entry gwen_rank1_spmm).
 //
 // Plain C interface, loaded with ctypes (gwen_tpu_torch/ops/spmm_cuda.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
 
-// ------------------------------------------------------------ window kernel
-//
-// B3 on a narrow window. For every 128-row destination block b with window
-// start ws_b,
-//   out[b*128 + r, :] = sum_{c < W} S[b*128 + r, c] * x[ws_b + c, :]
-// in float32, cast once to the output type. The TPU kernel stages x in a
-// VMEM ring buffer; here each CTA reads its own window.
-//
-// What bounds it on an H100: bytes, not flops, as long as the products on
-// zeros stay cheap (the window is 384 columns, a row holds a few nonzeros,
-// and one call at L7 moves about 10 MB). So bf16 products run on the
-// tensor cores (WMMA -> mma.sync, float32 accumulators) to stay far below
-// the memory time, the next chunk's loads are issued into registers before
-// the current chunk's products, and the grid walks the 64-column tiles of
-// one block consecutively so they share its S tile in L2. float32 inputs
-// take a CUDA-core FMA path (full float32, no TF32). A row holds a few
-// nonzeros of its window, so most of those products are on zeros; every
-// other form takes the row gathers below, which multiply no zero.
-
 namespace {
-
-constexpr int BM = 128;  // destination rows per graph block
-constexpr int BN = 64;   // feature columns per CTA
-constexpr int BK = 32;   // window rows staged per chunk
-constexpr int NT = 256;  // threads per CTA (8 warps)
-constexpr int LDC = BN + 4;  // float32 output tile row (16-byte multiple)
-
-template <typename T>
-struct Cfg {
-  static constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte vector
-  static constexpr int LDA = BK + VEC;        // padded S-chunk row
-  static constexpr int LDB = BN + VEC;        // padded x-chunk row
-  static constexpr int B_VECS = BK * BN / VEC / NT;
-  static constexpr int STAGE_BYTES = (BM * LDA + BK * LDB) * sizeof(T);
-};
-
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int SMEM_BYTES =
-    cmax(cmax(Cfg<float>::STAGE_BYTES, Cfg<__nv_bfloat16>::STAGE_BYTES),
-         BM * LDC * (int)sizeof(float));
-
-// Everything a launch passes.
-struct Args {
-  const void* s;             // (num_blocks * 128, W)
-  const void* x;             // (x_rows, f)
-  const int* window_start;   // (num_blocks,)
-  void* out;                 // (num_blocks * 128, f)
-  int n_fc, window, f, x_rows;
-};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -114,8 +67,7 @@ __device__ __forceinline__ float scale_at(const float* v, int64_t i) {
 }
 
 // S as it lies in memory for an x of type T: T itself, bf16 under a float32
-// x (MIXED = 1), float32 under a bf16 x (MIXED = 2, row gathers only) or
-// int8 (MIXED = 3).
+// x (MIXED = 1), float32 under a bf16 x (MIXED = 2) or int8 (MIXED = 3).
 template <typename T, int MIXED>
 using s_type = typename std::conditional<
     MIXED == 1, __nv_bfloat16,
@@ -123,233 +75,28 @@ using s_type = typename std::conditional<
         MIXED == 2, float,
         typename std::conditional<MIXED == 3, int8_t, T>::type>::type>::type;
 
-// One 16-byte vector of S into the staged tile: as it is, its 8 bf16 values
-// widened to float32 (MIXED = 1), or its 16 int8 values widened to T
-// (MIXED = 3).
-template <typename T, int MIXED>
-__device__ __forceinline__ void store_s(T* dst, const uint4& raw) {
-  if constexpr (MIXED == 3) {
-    const int8_t* v = reinterpret_cast<const int8_t*>(&raw);
-    __align__(16) T tmp[16];
-#pragma unroll
-    for (int e = 0; e < 16; ++e) tmp[e] = from_f32<T>((float)v[e]);
-#pragma unroll
-    for (int q = 0; q < 16 * (int)sizeof(T) / 16; ++q)
-      reinterpret_cast<uint4*>(dst)[q] = reinterpret_cast<const uint4*>(tmp)[q];
-  } else if constexpr (MIXED == 1) {
-    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    *reinterpret_cast<float4*>(dst) =
-        make_float4(to_f32(h[0]), to_f32(h[1]), to_f32(h[2]), to_f32(h[3]));
-    *reinterpret_cast<float4*>(dst + 4) =
-        make_float4(to_f32(h[4]), to_f32(h[5]), to_f32(h[6]), to_f32(h[7]));
-  } else {
-    *reinterpret_cast<uint4*>(dst) = raw;
-  }
-}
-
-template <typename T, int MIXED = 0>
-__global__ void __launch_bounds__(NT) window_spmm_kernel(const Args a) {
-  using C = Cfg<T>;
-  using TS = s_type<T, MIXED>;
-  constexpr int SVEC = 16 / sizeof(TS);          // S elements per vector
-  constexpr int SA_VECS = BM * BK / SVEC / NT;   // S vectors per thread
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  T* As = reinterpret_cast<T*>(smem);          // [BM][LDA] S chunk
-  T* Bs = As + BM * C::LDA;                    // [BK][LDB] x chunk
-  float* Cs = reinterpret_cast<float*>(smem);  // [BM][LDC], after the loop
-
-  const int tid = threadIdx.x;
-  const int fc = blockIdx.x % a.n_fc;  // column tile: fastest, shares S in L2
-  const int b = blockIdx.x / a.n_fc;   // destination block
-  const int window = a.window, f = a.f, x_rows = a.x_rows;
-  const int c0 = fc * BN;
-  const int64_t row0 = (int64_t)b * BM;
-  const int64_t ws = a.window_start[b];
-  const TS* s_blk = static_cast<const TS*>(a.s) + row0 * window;
-  const T* x = static_cast<const T*>(a.x);
-  T* out = static_cast<T*>(a.out);
-
-  uint4 ra[SA_VECS], rb[C::B_VECS];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < SA_VECS; ++i) {
-      const int v = tid + i * NT;
-      const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
-      ra[i] = *reinterpret_cast<const uint4*>(s_blk + (int64_t)r * window +
-                                              k0 + cv * SVEC);
-    }
-#pragma unroll
-    for (int i = 0; i < C::B_VECS; ++i) {
-      const int v = tid + i * NT;
-      const int r = v / (BN / C::VEC), cv = v % (BN / C::VEC);
-      const int64_t xr = ws + k0 + r;
-      const int col = c0 + cv * C::VEC;
-      rb[i] = (xr < x_rows && col < f)
-                  ? *reinterpret_cast<const uint4*>(x + xr * f + col)
-                  : make_uint4(0u, 0u, 0u, 0u);
-    }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int i = 0; i < SA_VECS; ++i) {
-      const int v = tid + i * NT;
-      const int r = v / (BK / SVEC), cv = v % (BK / SVEC);
-      store_s<T, MIXED>(As + r * C::LDA + cv * SVEC, ra[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < C::B_VECS; ++i) {
-      const int v = tid + i * NT;
-      const int r = v / (BN / C::VEC), cv = v % (BN / C::VEC);
-      *reinterpret_cast<uint4*>(Bs + r * C::LDB + cv * C::VEC) = rb[i];
-    }
-  };
-
-  if constexpr (std::is_same<T, float>::value) {
-    // CUDA-core path: each thread owns 8 rows x 4 columns.
-    const int tx = tid & 15, ty = tid >> 4;
-    float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    load(0);
-    for (int k0 = 0; k0 < window; k0 += BK) {
-      stage();
-      __syncthreads();
-      if (k0 + BK < window) load(k0 + BK);
-#pragma unroll 8
-      for (int k = 0; k < BK; ++k) {
-        const float4 bv = *reinterpret_cast<const float4*>(Bs + k * C::LDB +
-                                                           tx * 4);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float av = As[(ty * 8 + i) * C::LDA + k];
-          acc[i][0] = fmaf(av, bv.x, acc[i][0]);
-          acc[i][1] = fmaf(av, bv.y, acc[i][1]);
-          acc[i][2] = fmaf(av, bv.z, acc[i][2]);
-          acc[i][3] = fmaf(av, bv.w, acc[i][3]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Cs[(ty * 8 + i) * LDC + tx * 4 + j] = acc[i][j];
-  } else {
-    // Tensor-core path: warp (wm, wn) owns rows wm*32.. and columns wn*32..
-    // as 2 x 2 WMMA 16x16x16 tiles.
-    using namespace nvcuda;
-    const int warp = tid >> 5, wm = warp >> 1, wn = warp & 1;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    load(0);
-    for (int k0 = 0; k0 < window; k0 += BK) {
-      stage();
-      __syncthreads();
-      if (k0 + BK < window) load(k0 + BK);
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], As + (wm * 32 + i * 16) * C::LDA + kk,
-                                 C::LDA);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], Bs + kk * C::LDB + wn * 32 + j * 16,
-                                 C::LDB);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                                acc[i][j], LDC, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  constexpr int OV = BN / C::VEC;  // output vectors per tile row
-  for (int v = tid; v < BM * OV; v += NT) {
-    const int r = v / OV, cv = v % OV;
-    const int col = c0 + cv * C::VEC;
-    if (col < f) {
-      __align__(16) T tmp[C::VEC];
-#pragma unroll
-      for (int e = 0; e < C::VEC; ++e)
-        tmp[e] = from_f32<T>(Cs[r * LDC + cv * C::VEC + e]);
-      *reinterpret_cast<uint4*>(out + (row0 + r) * f + col) =
-          *reinterpret_cast<const uint4*>(tmp);
-    }
-  }
-}
-
-template <typename T, int MIXED = 0>
-int launch(const Args& a, int num_blocks, cudaStream_t stream) {
-  if (a.f % Cfg<T>::VEC) return -1;
-  const dim3 grid((unsigned)a.n_fc * (unsigned)num_blocks);
-  window_spmm_kernel<T, MIXED><<<grid, NT, 0, stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
-
-// B3 on a narrow window: s (num_blocks * 128, window), x (x_rows, f), out
-// (num_blocks * 128, f), window_start (num_blocks,) int32. dtype 0, 1, 2, 4
-// or 5 (see the top of this file). Returns 0 on success, a cudaError_t from
-// the launch, or -1 for arguments the kernel does not take.
-extern "C" int gwen_window_spmm(const void* s, const void* x,
-                                const void* window_start, void* out,
-                                int num_blocks, int window, int f, int x_rows,
-                                int dtype, void* stream) {
-  if (num_blocks <= 0 || window <= 0 || window % BK || f <= 0) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  Args a{s, x, static_cast<const int*>(window_start), out, (f + BN - 1) / BN,
-         window, f, x_rows};
-  switch (dtype) {
-    case 0: return launch<float>(a, num_blocks, st);
-    case 1: return launch<__nv_bfloat16>(a, num_blocks, st);
-    case 2: return launch<float, 1>(a, num_blocks, st);
-    case 4: return launch<float, 3>(a, num_blocks, st);
-    case 5: return launch<__nv_bfloat16, 3>(a, num_blocks, st);
-  }
-  return -1;
-}
 
 // ------------------------------------------------------------ row gathers
 //
 // B1 and B4, weighted and packed, replacing
 // gwen_tpu/ops/spmm_pallas.py:_diag_kernel (through _diag_impl) and
 // _diag_kernel_b (through _diag_impl_b), both branches of their `packed`
-// flag; B1 on a runtime S (diag_matvec's forward); B10, replacing
-// _sliding_kernel_b (through _sliding_impl_b); B13, replacing
+// flag; B1 on a runtime S (diag_matvec's forward); B3 and B10, replacing
+// _sliding_kernel (through _sliding_impl) and _sliding_kernel_b (through
+// _sliding_impl_b), weighted and in their int8 rank-1 form; B13, replacing
 // _sliding_packed_kernel (through _sliding_packed_impl); and B11, replacing
-// _sdense_kernel (through _sdense_impl). B3 takes the dense gather too on a
-// wide window (the RCM band of a partition, the int8 rank-1 band). The TPU
-// kernels multiply the whole window on the MXU because they cannot gather
-// rows, and at L7 a row holds about 7 nonzeros of a window of 384 (KD
-// order: B1, B4, B10 on the esc2 graph), 1,664 (B11, B10 on an RCM band) or
-// 1,792 (B13) columns, so > 98 % of those products are on zeros. The math
-// is the gather-scale-sum of B12,
+// _sdense_kernel (through _sdense_impl). The TPU kernels multiply the whole
+// window on the MXU because they cannot gather rows, and at L7 a row holds
+// about 7 nonzeros of a window of 384 (KD order: B1, B4; B3 and B10 on the
+// esc2 graph hold 2), 1,664 (B11, B3 and B10 on an RCM band) or 1,792 (B13)
+// columns, so > 98 % of those products are on zeros. The math is the
+// gather-scale-sum of B12,
 //   dense:  acc[i] = sum_{c < W, S[i, c] != 0} T(S[i, c]) * x[ws + c]
-//   packed: acc[i] = sum_{bit c of row i set} T(a_s[ws + c]) * x[ws + c]
+//   packed, and rank-1 on an int8 S01 (SCALES):
+//           acc[i] = sum_{S01[i, c] != 0} T(a_s[ws + c]) * x[ws + c]
 //   acc[i] += fix[j]  if esc_rows[j] == i, j in [esc_ptr[b], esc_ptr[b+1])
-//   out[i] = round(acc[i] * (packed ? T(a_r[i]) : 1))
+//   out[i] = round(acc[i] * (packed or SCALES ? T(a_r[i]) : 1))
 // with b = i / block and ws = window_start[b] (the graph's own block size;
 // B11's starts are absolute and need not be monotone), float32 sums in
 // ascending column order, the fix added before the row scale (the escape
@@ -395,8 +142,8 @@ extern "C" int gwen_window_spmm(const void* s, const void* x,
 //   2. gather: the warp takes the list 8 entries at a time; each lane copies
 //      the 8 x rows' 16-byte column slices into its staging slots in shared
 //      memory at once (cp.async: in flight without holding registers, so
-//      more warps fit an SM) and, packed, loads their column scales, then
-//      adds them in list order.
+//      more warps fit an SM) and, packed or SCALES, loads their column
+//      scales, then adds them in list order.
 // K and KW are chosen per launch so that one round covers the diag layout's
 // row (two bf16 vectors or one word a lane) and few the RCM band's (four
 // vectors or two words a lane): the decode work a round costs grows with
@@ -411,13 +158,15 @@ extern "C" int gwen_window_spmm(const void* s, const void* x,
 // diag layout, 35 MB on the band), the scales and x (mostly from L2: a row
 // is gathered by its ~7 neighbours, once per batch item) and write the
 // output; the dense gathers must read S as stored (126.6 MB bf16 on the L7
-// diag layout, 545.7 MB bf16, 1.09 GB float32 and 273 MB int8 on the band),
-// a floor no kernel on such a layout can pass, plus x, the fix rows and the
-// output. On the diag layout S is the smaller part: the gathered x rows
-// (about 590 MB an item at F 256 bf16, from L2) and the warps in flight set
-// the time. A runtime S with every window column nonzero (a dense random
-// tile) costs W gathers a row; diag_matvec's probabilities are zero off the
-// window's mask, about 7 a row.
+// diag layout, 545.7 MB bf16, 1.09 GB float32 and 273 MB int8 on the band,
+// 7.9 MB bf16 on the esc2 graph), a floor no kernel on such a layout can
+// pass, plus x, the fix rows, the rank-1 scales (read from L2 beside each
+// gathered row, as the packed gathers read theirs) and the output. On the
+// diag layout S is the smaller part: the gathered x rows (about 590 MB an
+// item at F 256 bf16, from L2) and the warps in flight set the time. A
+// runtime S with every window column nonzero (a dense random tile) costs W
+// gathers a row; diag_matvec's probabilities are zero off the window's mask,
+// about 7 a row.
 
 namespace {
 
@@ -596,15 +345,19 @@ __device__ __forceinline__ float s_entry(const uint4& v, int e) {
   }
 }
 
-// B4, B10, B11 (and B3 on a wide window) on a batch of two or more: S
-// (n_pad, window) window-relative in the type the operand mode names
-// (s_type).
-template <typename T, int MIXED, bool HAS_ESC>
+// B4, B10 and B11 on a batch of two or more: S (n_pad, window)
+// window-relative in the type the operand mode names (s_type). SCALES (the
+// int8 rank-1 form of B10): each nonzero weighs T(col_scale[source]), the
+// sum T(row_scale[row]); null scales otherwise.
+template <typename T, int MIXED, bool HAS_ESC, bool SCALES>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
-dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_start,
+dense_rows_kernel(const void* __restrict__ s, const float* __restrict__ col_scale,
+                  const float* __restrict__ row_scale,
+                  const int* __restrict__ window_start,
                   const T* __restrict__ x, T* __restrict__ out, const Escapes esc,
                   int n_pad, int window, int block, int f, int x_rows, int batch) {
   using TS = s_type<T, MIXED>;
+  static_assert(!SCALES || MIXED == 3, "the rank-1 scales go with an int8 S01");
   constexpr int VEC = 16 / sizeof(T);
   constexpr int SVEC = 16 / sizeof(TS);  // S entries per 16-byte vector
   constexpr int GROUP = 4;  // S vectors a lane loads at once
@@ -616,6 +369,7 @@ dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
   const uint4* srow =
       reinterpret_cast<const uint4*>(static_cast<const TS*>(s) + row * window);
   const int slot = HAS_ESC ? escape_slot(esc, row, row / block, lane) : -1;
+  const float rs = SCALES ? scale_at<T>(row_scale, row) : 1.f;
   const int64_t item = (int64_t)x_rows * f, out_item = (int64_t)n_pad * f;
   const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
 
@@ -654,14 +408,16 @@ dense_rows_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
             for (unsigned m = __shfl_sync(FULL, mask, j); m; m &= m - 1) {
               const int e = __ffs(m) - 1;
               if (on && col0 + e < x_rows)
-                add_row<T>(acc, s_entry<T, MIXED>(v, e),
-                               xb + (int64_t)(col0 + e) * f, item, nb);
+                add_row<T>(acc,
+                           SCALES ? scale_at<T>(col_scale, col0 + e)
+                                  : s_entry<T, MIXED>(v, e),
+                           xb + (int64_t)(col0 + e) * f, item, nb);
             }
           }
         }
       }
       if (on)
-        finish_row<T, HAS_ESC>(acc, esc, slot, b0, c0, f, 1.f,
+        finish_row<T, HAS_ESC>(acc, esc, slot, b0, c0, f, rs,
                                out + b0 * out_item + row * f + c0, out_item, nb);
     }
   }
@@ -824,16 +580,19 @@ struct BlockOf {
   }
 };
 
-// B1 (and B1 on a runtime S), and B11, B3, B4, B10 with one item: S (n_pad,
-// window) as dense_rows_kernel takes it, x (x_rows, f), out (n_pad, f). Lane
-// l takes K consecutive S vectors of a round (32 K vectors), so its mask
-// covers K * SVEC consecutive columns.
-template <typename T, int MIXED, bool HAS_ESC, int K>
+// B1 (and B1 on a runtime S), B3, and B11, B4, B10 with one item: S
+// (n_pad, window) and the scales as dense_rows_kernel takes them, x (x_rows,
+// f), out (n_pad, f). Lane l takes K consecutive S vectors of a round (32 K
+// vectors), so its mask covers K * SVEC consecutive columns.
+template <typename T, int MIXED, bool HAS_ESC, bool SCALES, int K>
 __global__ void __launch_bounds__(ROW_WARPS * 32)
-dense_row1_kernel(const void* __restrict__ s, const int* __restrict__ window_start,
+dense_row1_kernel(const void* __restrict__ s, const float* __restrict__ col_scale,
+                  const float* __restrict__ row_scale,
+                  const int* __restrict__ window_start,
                   const T* __restrict__ x, T* __restrict__ out, const Escapes esc,
                   int n_pad, int window, int block, int f, int x_rows) {
   using TS = s_type<T, MIXED>;
+  static_assert(!SCALES || MIXED == 3, "the rank-1 scales go with an int8 S01");
   constexpr int VEC = 16 / sizeof(T);
   constexpr int SVEC = 16 / sizeof(TS);  // S entries per 16-byte vector
   static_assert(K * SVEC <= 32, "a lane's mask is 32 bits");
@@ -860,6 +619,7 @@ dense_row1_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
   for (int row = first; row < last; ++row) {
     const int b = block_of(row);
     const int ws = window_start[b];
+    const float rs = SCALES ? scale_at<T>(row_scale, row) : 1.f;
     const int j0 = HAS_ESC ? esc.ptr[b] : 0, j1 = HAS_ESC ? esc.ptr[b + 1] : 0;
     const int64_t cand = HAS_ESC ? escape_candidate(esc, j0, j1, lane) : -1;
     int slot = -1;
@@ -880,11 +640,11 @@ dense_row1_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
 #pragma unroll
           for (int e = 0; e < SVEC; ++e)
             mask |= (s_entry<T, MIXED>(raw[q], e) != 0.f ? 1u : 0u) << (q * SVEC + e);
-        list_round<T, false>(mask & low_bits<unsigned>(x_rows - col0), col0,
-                             [&](int i) {
-                               return s_entry<T, MIXED>(pick(raw, i / SVEC), i % SVEC);
-                             },
-                             lane, n, lcol, lw, acc, nullptr, xc, f, on);
+        list_round<T, SCALES>(mask & low_bits<unsigned>(x_rows - col0), col0,
+                              [&](int i) {
+                                return s_entry<T, MIXED>(pick(raw, i / SVEC), i % SVEC);
+                              },
+                              lane, n, lcol, lw, acc, col_scale, xc, f, on);
       }
       // This row's S is listed: the next row's goes in flight while this
       // row's sources are gathered.
@@ -892,8 +652,8 @@ dense_row1_kernel(const void* __restrict__ s, const int* __restrict__ window_sta
       if (HAS_ESC && cb == 0) slot = escape_slot_in(esc, row, j0, j1, cand, lane);
       const uint4 fixv = HAS_ESC ? fix_row<T>(esc, slot, f, c0, on) : uint4{};
       __syncwarp();
-      gather_list<T, false>(acc, lcol, lw, n, nullptr, xc, f, on);
-      if (on) finish_row1<T, HAS_ESC>(acc, fixv, slot, 1.f, out + (int64_t)row * f + c0);
+      gather_list<T, SCALES>(acc, lcol, lw, n, col_scale, xc, f, on);
+      if (on) finish_row1<T, HAS_ESC>(acc, fixv, slot, rs, out + (int64_t)row * f + c0);
       __syncwarp();  // the list is refilled by the next pass or row
     }
   }
@@ -967,28 +727,31 @@ packed_row1_kernel(const uint32_t* __restrict__ bits,
 
 // One item takes the batch-1 walk; more ride inside the warp, up to NB = 4
 // items a pass (one pass for the train-mesh shape).
-template <typename T, int MIXED, bool HAS_ESC>
-int launch_dense_rows(const void* s, const int* ws, const void* x, void* out,
-                      const Escapes& esc, int n_pad, int window, int block,
-                      int f, int x_rows, int batch, cudaStream_t st) {
+template <typename T, int MIXED, bool HAS_ESC, bool SCALES = false>
+int launch_dense_rows(const void* s, const float* col_scale,
+                      const float* row_scale, const int* ws, const void* x,
+                      void* out, const Escapes& esc, int n_pad, int window,
+                      int block, int f, int x_rows, int batch, cudaStream_t st) {
+  if (f % (16 / (int)sizeof(T))) return -1;
   const dim3 grid((unsigned)((n_pad + ROW_WARPS - 1) / ROW_WARPS));
   const dim3 grid1((unsigned)((n_pad + ROW_WARPS * ROWS1 - 1) / (ROW_WARPS * ROWS1)));
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  // One round of vectors for the diag layout (two vectors a lane for 48 of
-  // bf16 S), few for a wide band (four a lane); int8 S, 16 entries a vector,
-  // takes two.
+  // One round of vectors for the diag layout and the esc2 graph (two vectors
+  // a lane for 48 of bf16 S), few for a wide band (four a lane); int8 S, 16
+  // entries a vector, takes two.
   constexpr int SVEC = 16 / sizeof(s_type<T, MIXED>);
   constexpr int K_WIDE = SVEC == 16 ? 2 : 4;
   if (batch == 1 && window / SVEC <= 64)
-    dense_row1_kernel<T, MIXED, HAS_ESC, 2><<<grid1, ROW_WARPS * 32, 0, st>>>(
-        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows);
+    dense_row1_kernel<T, MIXED, HAS_ESC, SCALES, 2><<<grid1, ROW_WARPS * 32, 0, st>>>(
+        s, col_scale, row_scale, ws, xt, ot, esc, n_pad, window, block, f, x_rows);
   else if (batch == 1)
-    dense_row1_kernel<T, MIXED, HAS_ESC, K_WIDE><<<grid1, ROW_WARPS * 32, 0, st>>>(
-        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows);
+    dense_row1_kernel<T, MIXED, HAS_ESC, SCALES, K_WIDE><<<grid1, ROW_WARPS * 32, 0, st>>>(
+        s, col_scale, row_scale, ws, xt, ot, esc, n_pad, window, block, f, x_rows);
   else
-    dense_rows_kernel<T, MIXED, HAS_ESC><<<grid, ROW_WARPS * 32, 0, st>>>(
-        s, ws, xt, ot, esc, n_pad, window, block, f, x_rows, batch);
+    dense_rows_kernel<T, MIXED, HAS_ESC, SCALES><<<grid, ROW_WARPS * 32, 0, st>>>(
+        s, col_scale, row_scale, ws, xt, ot, esc, n_pad, window, block, f, x_rows,
+        batch);
   return (int)cudaGetLastError();
 }
 
@@ -998,13 +761,14 @@ template <typename T, int MIXED>
 int dense_rows(const void* s, const int* ws, const void* x, void* out,
                const Escapes& esc, int n_pad, int window, int block, int f,
                int x_rows, int batch, cudaStream_t st) {
-  if (f % (16 / (int)sizeof(T))) return -1;
   if (esc.ptr == nullptr)
-    return launch_dense_rows<T, MIXED, false>(s, ws, x, out, esc, n_pad, window,
-                                              block, f, x_rows, batch, st);
+    return launch_dense_rows<T, MIXED, false>(s, nullptr, nullptr, ws, x, out, esc,
+                                              n_pad, window, block, f, x_rows,
+                                              batch, st);
   if constexpr (MIXED <= 1)
-    return launch_dense_rows<T, MIXED, true>(s, ws, x, out, esc, n_pad, window,
-                                             block, f, x_rows, batch, st);
+    return launch_dense_rows<T, MIXED, true>(s, nullptr, nullptr, ws, x, out, esc,
+                                             n_pad, window, block, f, x_rows,
+                                             batch, st);
   return -1;
 }
 
@@ -1064,14 +828,15 @@ Escapes make_escapes(const void* esc_ptr, const void* esc_rows,
 
 }  // namespace
 
-// B1 (also on a runtime S), B4, B10, B11, and B3 on a wide window: S
-// (n_pad, window) window-relative, window_start (n_pad / block,) int32
-// absolute starts, x (batch, x_rows, f) with x_rows up to the layout's
-// source rows, out (batch, n_pad, f) (batch 1: B1's (x_rows, f) and (n_pad,
-// f)). B1's and B4's escapes: esc_ptr (n_pad / block + 1,) int32, esc_rows
-// (n_fix,) int64, fix (batch, n_fix, f) in x's type; esc_ptr == NULL means
-// none. dtype 0 to 5 (see the top of this file); escapes with dtype 0, 1
-// and 2 only. Return codes as gwen_window_spmm.
+// B1 (also on a runtime S), B3, B4, B10 and B11: S (n_pad, window)
+// window-relative, window_start (n_pad / block,) int32 absolute starts, x
+// (batch, x_rows, f) with x_rows up to the layout's source rows, out (batch,
+// n_pad, f) (batch 1: (x_rows, f) and (n_pad, f)). B1's and B4's escapes:
+// esc_ptr (n_pad / block + 1,) int32, esc_rows (n_fix,) int64, fix (batch,
+// n_fix, f) in x's type; esc_ptr == NULL means none. dtype 0 to 5 (see the
+// top of this file); escapes with dtype 0, 1 and 2 only. Returns 0 on
+// success, a cudaError_t from the launch, or -1 for arguments the kernels do
+// not take.
 extern "C" int gwen_window_spmm_streamed(const void* s, const void* x,
                                          const void* window_start,
                                          const void* esc_ptr,
@@ -1098,7 +863,8 @@ extern "C" int gwen_window_spmm_streamed(const void* s, const void* x,
 // Packed B1, packed B4 and B13: bits (n_pad, words) int32 S01, col_scale
 // and row_scale float32, window_start (n_pad / block,) int32, x (batch,
 // x_rows, f), out (batch, n_pad, f); escapes as gwen_window_spmm_streamed.
-// dtype 0 = float32, 1 = bfloat16. Return codes as gwen_window_spmm.
+// dtype 0 = float32, 1 = bfloat16. Return codes as
+// gwen_window_spmm_streamed.
 extern "C" int gwen_sliding_packed_spmm(const void* bits, const void* col_scale,
                                         const void* row_scale, const void* x,
                                         const void* window_start,
@@ -1119,6 +885,34 @@ extern "C" int gwen_sliding_packed_spmm(const void* bits, const void* col_scale,
     return packed_rows<float>(b, cs, rs, ws, x, out, esc, n_pad, words, block, f, x_rows, batch, st);
   if (dtype == 1)
     return packed_rows<__nv_bfloat16>(b, cs, rs, ws, x, out, esc, n_pad, words, block, f, x_rows, batch, st);
+  return -1;
+}
+
+// The int8 rank-1 form of B3 (batch 1) and B10: s (n_pad, window) int8 S01
+// window-relative, col_scale (x_rows or more,) and row_scale (n_pad,)
+// float32, window_start (n_pad / block,) int32, x (batch, x_rows, f), out
+// (batch, n_pad, f); out = T(row_scale) . sum over S01's nonzeros of
+// T(col_scale) . x, one rounding. dtype 4 = float32, 5 = bfloat16 (x and
+// out). Return codes as gwen_window_spmm_streamed.
+extern "C" int gwen_rank1_spmm(const void* s, const void* col_scale,
+                               const void* row_scale, const void* x,
+                               const void* window_start, void* out, int n_pad,
+                               int window, int block, int f, int x_rows,
+                               int batch, int dtype, void* stream) {
+  const Escapes none = make_escapes(nullptr, nullptr, nullptr, 0);
+  if (col_scale == nullptr || row_scale == nullptr ||
+      !rows_args_ok(n_pad, window, block, f, x_rows, batch, none))
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* cs = static_cast<const float*>(col_scale);
+  const float* rs = static_cast<const float*>(row_scale);
+  const int* ws = static_cast<const int*>(window_start);
+  if (dtype == 4)
+    return launch_dense_rows<float, 3, false, true>(
+        s, cs, rs, ws, x, out, none, n_pad, window, block, f, x_rows, batch, st);
+  if (dtype == 5)
+    return launch_dense_rows<__nv_bfloat16, 3, false, true>(
+        s, cs, rs, ws, x, out, none, n_pad, window, block, f, x_rows, batch, st);
   return -1;
 }
 

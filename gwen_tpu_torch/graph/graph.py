@@ -386,8 +386,8 @@ class SlidingRank1Graph:
     a[r]·a[s]`` with ``a = 1/sqrt(d̂)``, so ``S = diag(a)·S01·diag(a)``:
     ``core`` is a :class:`SlidingDenseGraph` whose ``s_mat`` holds the 0/1
     pattern as int8 (half the bytes of a bf16 S), and aggregation is
-    ``row_scale ⊙ core(col_scale ⊙ x)`` with the scales applied outside
-    the kernel."""
+    ``row_scale ⊙ core(col_scale ⊙ x)``; the port's kernel applies both
+    scales inside its gather."""
 
     core: SlidingDenseGraph
     row_scale: Tensor  # (N_pad,) float32, a on destination rows

@@ -3,7 +3,7 @@ int8 rank-1 and bit-packed, for the windowed-dense and blocked-ELL layouts
 of the partitioned path, and for the block-tile layout: hand-written Hopper
 kernels (``csrc/window_spmm.cu``) and their plain PyTorch versions.
 
-Ten kernel wrappers (and :func:`window_matvec`, which counts as B1),
+Eleven kernel wrappers (and :func:`window_matvec`, which counts as B1),
 each with a launch count (``.launches``):
 
 * :func:`diag_window_spmm` — kernel B1, replacing
@@ -17,13 +17,15 @@ each with a launch count (``.launches``):
   ``gwen_tpu/ops/spmm_pallas.py:_sliding_kernel`` (through
   ``_sliding_impl``): the same banded product with a start per block and no
   escapes. The reference keeps x in a VMEM ring buffer; the math is
-  ``out_b = Σ_{s ∈ [ws_b, ws_b + W)} S_b[:, s − ws_b] x[s]``.
+  ``out_b = Σ_{s ∈ [ws_b, ws_b + W)} S_b[:, s − ws_b] x[s]``. The dense
+  row gather's batch-1 walk at every window width (the esc2 contraction's
+  384 columns, an RCM band's 1,664).
 * :func:`diag_window_spmm_b` — kernel B4, replacing ``_diag_kernel_b``
   (through ``_diag_impl_b``): B1 on ``(B, N, F)``, the same row gather with
   the batch inside the warp.
 * :func:`sliding_spmm_b` — kernel B10, replacing ``_sliding_kernel_b``
   (through ``_sliding_impl_b``): B3 on ``(B, N, F)``, B11's row gather at
-  every window width. B3 takes it too on a wide window (an RCM band).
+  every window width, the batch inside the warp.
 * :func:`diag_window_spmm_packed` and :func:`diag_window_spmm_packed_b` —
   the packed form of B1 and B4 (the ``packed`` branch of ``_diag_kernel``
   and ``_diag_kernel_b``): the set bits of S01 walked in the kernel, each
@@ -47,10 +49,14 @@ each with a launch count (``.launches``):
 * :func:`block_tiles_spmm` — kernel B14, replacing ``_tile_kernel``
   (through ``_spmm_tiles_impl``): the block-tile (BSR) product as a
   gather-scale-sum over the slots of each block's active tiles.
-
-B3 and B10 also take the int8 S01 of a :class:`SlidingRank1Graph`'s core
-(widened to x's type as it is staged); :func:`spmm_sliding_rank1` applies
-the rank-1 scales outside, ``a ⊙ K(a ⊙ x)``, as the reference's.
+* :func:`sliding_rank1_spmm` — the int8 rank-1 form of B3 and B10
+  (``spmm_pallas.spmm_sliding_rank1``, ``a ⊙ K(a ⊙ x)`` with K on the int8
+  S01 of a :class:`SlidingRank1Graph`'s core): the dense row gather on the
+  int8 S01 with both scales folded in, as the packed gathers fold theirs
+  (each nonzero weighs its source's column scale, the sum its row's scale,
+  both rounded to x's type, one rounding). The reference rounds ``a ⊙ x``,
+  the product and the row scale each in x's type; in float32 the two agree
+  to reassociation.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
@@ -66,13 +72,12 @@ The packed kernels build their weights in x's type whatever it is.
 What bounds the kernels on an H100: bytes. At L7 (W = 384, F = 256, bf16)
 one diag-window aggregation must stream S (127 MB), x (84 MB, re-read by
 overlapping windows mostly from L2) and the output (84 MB). B3 on a narrow
-window (the esc2 contraction, a few MB a call) multiplies the whole window
-on the tensor cores (``mma.sync`` through WMMA, float32 accumulation);
-every other form takes the row gathers, which read each row's S or bits
-once (for a batch of up to four), gather only the source rows of its
-nonzeros (about 7 a row) and multiply no zero. With one item a gather
-lists the row's nonzeros first and then issues up to eight source rows'
-loads together.
+window (the esc2 contraction, a few MB a call) reads 7.9 MB of S for
+about 2 nonzeros a row. Every form takes the row gathers, which read each
+row's S or bits once (for a batch of up to four), gather only the source
+rows of its nonzeros and multiply no zero. With one item a gather lists
+the row's nonzeros first and then issues up to eight source rows' loads
+together.
 
 The graph-level composites :func:`spmm_diag_window`,
 :func:`spmm_sliding_dense` and :func:`spmm_sliding_packed` follow
@@ -84,9 +89,9 @@ packed diag graph takes packed B1/B4 (its escape tables carry ``a_s``).
 The composites are symmetric operators that are zero on padding rows, so
 their gradient is the same composite applied to the cotangent (the
 reference's ``_diag_comp_bwd``, ``_sliding_bwd`` and
-``_sliding_packed_bwd``; ``a_r a_s ⊙ S01`` is symmetric too); one
-``torch.autograd.Function`` carries that. S and the tables get no
-gradient.
+``_sliding_packed_bwd``; ``a_r a_s ⊙ S01`` is symmetric too, and so is
+the int8 rank-1 form); one ``torch.autograd.Function`` carries that. S and
+the tables get no gradient.
 """
 
 from __future__ import annotations
@@ -114,11 +119,7 @@ from gwen_tpu_torch.graph.graph import (
 
 Tensor = torch.Tensor
 
-BLOCK = 128  # destination rows per graph block, fixed in the window kernel
-# The widest window B3 (a 2-d x) takes on the window kernel: the esc2
-# contraction's 384 columns; an RCM band (1,664 columns and more) takes the
-# row gather, which walks the nonzeros instead of the window.
-NARROW_WINDOW = 736
+BLOCK = 128  # destination rows per graph block of the unfused kernels
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "window_spmm.cu"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -168,10 +169,6 @@ def _lib() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        # (s, x, window_start, out, num_blocks, window, f, x_rows,
-        #  dtype_code, stream)
-        lib.gwen_window_spmm.argtypes = [vp] * 4 + [ci] * 5 + [vp]
-        lib.gwen_window_spmm.restype = ci
         # (s, x, window_start, esc_ptr, esc_rows, fix, out, n_pad, window,
         #  block, f, x_rows, batch, n_fix, dtype, stream)
         lib.gwen_window_spmm_streamed.argtypes = [vp] * 7 + [ci] * 8 + [vp]
@@ -181,6 +178,10 @@ def _lib() -> ctypes.CDLL:
         #  stream)
         lib.gwen_sliding_packed_spmm.argtypes = [vp] * 9 + [ci] * 8 + [vp]
         lib.gwen_sliding_packed_spmm.restype = ci
+        # (s, col_scale, row_scale, x, window_start, out, n_pad, window,
+        #  block, f, x_rows, batch, dtype, stream)
+        lib.gwen_rank1_spmm.argtypes = [vp] * 6 + [ci] * 7 + [vp]
+        lib.gwen_rank1_spmm.restype = ci
         # (nbr, w, window_start, x, out, n_pad, deg, block, f, x_rows,
         #  batch, dtype, stream)
         lib.gwen_ell_spmm.argtypes = [vp] * 5 + [ci] * 7 + [vp]
@@ -229,17 +230,23 @@ def window_spmm_plain(s_mat: Tensor, window_start: Tensor, x: Tensor,
     return acc.to(x.dtype)
 
 
+def scaled_s(s01: Tensor, window_start: Tensor, col_scale: Tensor,
+             dtype: torch.dtype) -> Tensor:
+    """The ``(N_pad, W)`` S tile the packed and int8 rank-1 kernels weigh:
+    the 0/1 pattern ``s01`` times the column scale of each window column,
+    rounded to ``dtype``."""
+    n_pad, w = s01.shape
+    nb = window_start.shape[0]
+    idx = window_start.long()[:, None] + torch.arange(w, device=s01.device)
+    cs = col_scale.to(dtype)[idx]  # (nb, W)
+    return (s01.reshape(nb, n_pad // nb, w) * cs[:, None, :]).reshape(n_pad, w)
+
+
 def packed_s(bits: Tensor, window_start: Tensor, col_scale: Tensor,
              dtype: torch.dtype) -> Tensor:
-    """The ``(N_pad, W)`` S tile the packed kernels build: S01 (from the
-    bits) times the column scale of each window column, rounded to
-    ``dtype``."""
-    mask = unpack_bits(bits)
-    n_pad, w = mask.shape
-    nb = window_start.shape[0]
-    idx = window_start.long()[:, None] + torch.arange(w, device=bits.device)
-    cs = col_scale.to(dtype)[idx]  # (nb, W)
-    return (mask.reshape(nb, n_pad // nb, w) * cs[:, None, :]).reshape(n_pad, w)
+    """The ``(N_pad, W)`` S tile the packed kernels build from the S01
+    bits (see :func:`scaled_s`)."""
+    return scaled_s(unpack_bits(bits), window_start, col_scale, dtype)
 
 
 def diag_window_spmm_plain(graph: DiagWindowGraph, x: Tensor,
@@ -272,6 +279,17 @@ def sliding_packed_spmm_plain(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
     """Plain version of :func:`sliding_packed_spmm`."""
     s = packed_s(graph.s_pack, graph.window_start, graph.col_scale, x.dtype)
     return window_spmm_plain(s, graph.window_start, x, graph.num_src_rows,
+                             row_scale=graph.row_scale)
+
+
+def sliding_rank1_spmm_plain(graph: SlidingRank1Graph, x: Tensor) -> Tensor:
+    """Plain version of :func:`sliding_rank1_spmm`: the int8 S01 weighted by
+    the column scales, both scales rounded to ``x.dtype``, the sums in
+    float32 times the row scale and rounded once. ``x`` is ``(rows, F)`` or
+    ``(B, rows, F)``; rows at or past ``x.shape[-2]`` read as zero."""
+    core = graph.core
+    s = scaled_s(core.s_mat, core.window_start, graph.col_scale, x.dtype)
+    return window_spmm_plain(s, core.window_start, x, core.num_src_rows,
                              row_scale=graph.row_scale)
 
 
@@ -328,11 +346,10 @@ def block_tiles_spmm_plain(graph: BlockTileGraph, x: Tensor) -> Tensor:
 
 def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
            esc_ptr: Optional[Tensor], esc_rows: Optional[Tensor],
-           fix: Optional[Tensor], layout: list, block: int = BLOCK) -> None:
+           fix: Optional[Tensor], layout: list, block: int) -> None:
     """Raise on operands the kernels do not take. ``layout`` holds the
     graph's tensors besides ``window_start`` (S, or the bits and scales);
-    ``block`` is the rows per window start (the window kernels take 128,
-    the row gathers the graph's own)."""
+    ``block`` is the rows per window start (the graph's own)."""
     if x.dim() not in (2, 3):
         raise ValueError(f"x must be (rows, F) or (B, rows, F); got shape "
                          f"{tuple(x.shape)} (fold other batched inputs into "
@@ -377,9 +394,10 @@ def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
 
 def _kernel_code(s_dtype: torch.dtype, x: Tensor, streamed: bool = False) -> int:
     """The kernels' dtype code for an S of ``s_dtype`` and ``x``: 0 float32,
-    1 bfloat16, 2 float32 x on a bfloat16 S, 3 (the streaming launch of
-    B11 only) bfloat16 x on a float32 S, 4 and 5 float32 and bfloat16 x on
-    an int8 S (the 0/1 pattern of a rank-1 layout; no escapes)."""
+    1 bfloat16, 2 float32 x on a bfloat16 S, 3 (``streamed``: a launch with
+    no escape rows, B11's operand) bfloat16 x on a float32 S, 4 and 5
+    float32 and bfloat16 x on an int8 S (the 0/1 pattern of a rank-1
+    layout; no escapes)."""
     if s_dtype == x.dtype and x.dtype in _DTYPE_CODE:
         return _DTYPE_CODE[x.dtype]
     if s_dtype == torch.int8 and x.dtype in _DTYPE_CODE:
@@ -410,25 +428,6 @@ def _launch_failed(name: str, rc: int) -> RuntimeError:
                         f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
 
 
-def _launch(s_mat: Tensor, window_start: Tensor, x: Tensor) -> Tensor:
-    """Check the operands and launch ``gwen_window_spmm``, the window kernel
-    (B3 on a narrow window: x ``(rows, F)``, 128-row blocks, no escapes), on
-    the current stream. Raises on anything the kernel does not take."""
-    n_pad, w = s_mat.shape
-    _check(x, window_start, n_pad, w, None, None, None, [s_mat])
-    if x.dim() != 2:
-        raise ValueError("the window kernel takes a 2-d x (rows, F)")
-    code = _kernel_code(s_mat.dtype, x)
-    out = torch.empty(n_pad, x.shape[-1], dtype=x.dtype, device=x.device)
-    rc = _lib().gwen_window_spmm(
-        s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(), out.data_ptr(),
-        window_start.shape[0], w, x.shape[-1], x.shape[0], code,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise _launch_failed("window SpMM", rc)
-    return out
-
-
 def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
                      x: Tensor, esc_ptr: Optional[Tensor] = None,
                      esc_rows: Optional[Tensor] = None,
@@ -456,11 +455,14 @@ def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
     return out
 
 
-def _check_scales(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
-                  src_rows: int) -> None:
-    n_pad = bits.shape[0]
-    if bits.dtype != torch.int32:
-        raise TypeError(f"the S01 bits must be int32, not {bits.dtype}")
+def _check_scales(s01: Tensor, col_scale: Tensor, row_scale: Tensor,
+                  src_rows: int, s_dtype: torch.dtype = torch.int32) -> None:
+    """Raise unless ``s01`` (the S01 bits, or the int8 S01) is ``s_dtype``
+    and the rank-1 scales are float32 and cover the source and destination
+    rows."""
+    n_pad = s01.shape[0]
+    if s01.dtype != s_dtype:
+        raise TypeError(f"S01 must be {s_dtype}, not {s01.dtype}")
     if col_scale.dtype != torch.float32 or row_scale.dtype != torch.float32:
         raise TypeError("the rank-1 scales must be float32")
     if col_scale.shape[0] < src_rows or row_scale.shape[0] < n_pad:
@@ -560,18 +562,13 @@ def window_matvec(s_mat: Tensor, graph: DiagWindowGraph, x: Tensor) -> Tensor:
 
 
 def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
-    """Kernel B3: the banded product (no escapes). ``(N_pad, F)``. The
-    window kernel on a window of at most :data:`NARROW_WINDOW` columns (the
-    esc2 contraction); else B11's row gather (the RCM band of a partition
-    or of the int8 rank-1 layout)."""
+    """Kernel B3: the banded product (no escapes). ``(N_pad, F)``. The dense
+    row gather's batch-1 walk at every window width (the esc2 contraction,
+    the RCM band of a partition), with the graph's own block size."""
     _check_dim(x, 2, "B3")
     if not _on_cuda(x):
         return sliding_spmm_plain(graph, x)
-    if graph.window_size <= NARROW_WINDOW:
-        out = _launch(graph.s_mat, graph.window_start, x)
-    else:
-        out = _launch_streamed(graph.s_mat, graph.window_start,
-                               graph.block_size, x)
+    out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size, x)
     sliding_spmm.launches += 1
     return out
 
@@ -738,6 +735,34 @@ def sliding_packed_spmm(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
     return out
 
 
+def sliding_rank1_spmm(graph: SlidingRank1Graph, x: Tensor) -> Tensor:
+    """The int8 rank-1 form of B3 (x ``(rows, F)``) and B10 (x ``(B, rows,
+    F)``): ``out[i] = T(a_r[i]) · Σ T(a_s[c]) · x[c]`` over the nonzeros of
+    row i of the core's int8 S01, in float32 and rounded once (``T()``
+    rounds to x's type). ``(..., N_pad, F)``. The dense row gather with both
+    scales folded in, the graph's own block size."""
+    if not _on_cuda(x):
+        return sliding_rank1_spmm_plain(graph, x)
+    core = graph.core
+    n_pad, w = core.s_mat.shape
+    _check_scales(core.s_mat, graph.col_scale, graph.row_scale,
+                  core.num_src_rows, torch.int8)
+    _check(x, core.window_start, n_pad, w, None, None, None,
+           [core.s_mat, graph.col_scale, graph.row_scale], core.block_size)
+    out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
+                      device=x.device)
+    rc = _lib().gwen_rank1_spmm(
+        core.s_mat.data_ptr(), graph.col_scale.data_ptr(),
+        graph.row_scale.data_ptr(), x.data_ptr(), core.window_start.data_ptr(),
+        out.data_ptr(), n_pad, w, core.block_size, x.shape[-1], x.shape[-2],
+        _batch(x), _kernel_code(core.s_mat.dtype, x),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise _launch_failed("int8 rank-1 row gather", rc)
+    sliding_rank1_spmm.launches += 1
+    return out
+
+
 diag_window_spmm.launches = 0
 diag_window_spmm_b.launches = 0
 sliding_spmm.launches = 0
@@ -748,6 +773,7 @@ sliding_packed_spmm.launches = 0
 windowed_dense_spmm.launches = 0
 block_ell_spmm.launches = 0
 block_tiles_spmm.launches = 0
+sliding_rank1_spmm.launches = 0
 
 
 # ------------------------------------------------------------ composites
@@ -827,6 +853,12 @@ def _sliding_packed_composite(graph: SlidingPackedGraph, x: Tensor,
     out_rows = _check_rows(graph, x)
     b13 = sliding_packed_spmm_plain if plain else sliding_packed_spmm
     return b13(graph, x)[..., :out_rows, :]
+
+
+def _rank1_composite(graph: SlidingRank1Graph, x: Tensor, plain: bool) -> Tensor:
+    out_rows = _check_rows(graph, x)
+    k = sliding_rank1_spmm_plain if plain else sliding_rank1_spmm
+    return k(graph, x)[..., :out_rows, :]
 
 
 def _ext_rows(graph, x: Tensor) -> int:
@@ -990,13 +1022,13 @@ def spmm_block_tiles(graph: BlockTileGraph, x: Tensor, plain: bool = False) -> T
 
 def spmm_sliding_rank1(graph: SlidingRank1Graph, x: Tensor,
                        plain: bool = False) -> Tensor:
-    """int8 rank-1 banded aggregation ``a ⊙ K(a ⊙ x)`` on ``(..., N, F)``:
-    K is B3 (B10 with leading axes) on the int8 S01 of ``graph.core``, and
-    the scales, rounded to x's type, are applied outside the kernel as the
-    reference's ``spmm_sliding_rank1`` does. Differentiable in x: K carries
-    its own backward (K on the cotangent, S01 is symmetric) and autograd
-    composes the scales."""
-    n = x.shape[-2]
-    xs = x * graph.col_scale[:n, None].to(x.dtype)
-    out = spmm_sliding_dense(graph.core, xs, plain=plain)
-    return out * graph.row_scale[: out.shape[-2], None].to(out.dtype)
+    """int8 rank-1 banded aggregation ``a ⊙ K(a ⊙ x)`` on ``(..., N, F)``,
+    K the banded product on the int8 S01 of ``graph.core``: one launch of
+    :func:`sliding_rank1_spmm` (B3's or, with leading axes, B10's int8 form)
+    with both scales inside, rounded to x's type, and one rounding of the
+    result (the reference's ``spmm_sliding_rank1`` rounds ``a ⊙ x``, the
+    product and the row scale each). Differentiable in x: ``a ⊙ S01 ⊙ a``
+    is symmetric, so the backward is the same kernel on the cotangent.
+    ``plain=True`` runs the plain version and leaves the gradient to
+    autograd."""
+    return _aggregate(_rank1_composite, graph, x, plain)

@@ -257,7 +257,7 @@ def _esc2_graph():
 
 def test_b10_takes_the_dense_gather_on_the_diag_window(fake_lib):
     g2, n = _esc2_graph()
-    assert g2.window_size == 384 and g2.window_size <= spmm_cuda.NARROW_WINDOW
+    assert g2.window_size == 384
     x = torch.zeros(4, n, 16, dtype=torch.bfloat16)
     spmm_cuda.sliding_spmm_b(g2, x)
     (name, args), = fake_lib.calls
@@ -335,16 +335,22 @@ def test_window_matvec_launches_the_dense_gather(dtype, fake_lib):
                         0 if dtype == torch.float32 else 1, 0)
 
 
-def test_b3_keeps_the_window_kernel_on_the_esc2_contraction(fake_lib):
-    """B3 (a 2-d x) on the esc2 graph's 384-column window launches the
-    window kernel, which takes no escape arguments."""
+def test_b3_takes_the_dense_gather_on_the_esc2_contraction(fake_lib):
+    """B3 (a 2-d x) on the esc2 graph's 384-column window takes the dense
+    row gather's batch-1 walk: one ``gwen_window_spmm_streamed`` launch with
+    batch 1, the graph's own block, no escape pointers and the dtype code."""
     g2, n2 = _esc2_graph()
+    assert g2.num_padded_nodes % g2.block_size == 0 and g2.window_size % 32 == 0
     x = torch.zeros(n2, 16, dtype=torch.bfloat16)
+    before = spmm_cuda.sliding_spmm.launches
     out = spmm_cuda.sliding_spmm(g2, x)
+    assert spmm_cuda.sliding_spmm.launches == before + 1
+    assert out.shape == (g2.num_padded_nodes, 16) and out.dtype == torch.bfloat16
     (name, args), = fake_lib.calls
-    assert name == "gwen_window_spmm"
+    assert name == "gwen_window_spmm_streamed"
     assert args == (g2.s_mat.data_ptr(), x.data_ptr(), g2.window_start.data_ptr(),
-                    out.data_ptr(), g2.num_blocks, 384, 16, n2, 1, 0)
+                    None, None, None, out.data_ptr(), g2.num_padded_nodes, 384,
+                    g2.block_size, 16, n2, 1, 0, 1, 0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "leading", "width", "rows"])

@@ -192,26 +192,26 @@ def test_aggregate_rejects_layouts_of_later_slices():
     ("fix", "leading axes"),
 ])
 def test_window_spmm_launch_rejects_bad_operands(bad, match):
+    """The dense row gather's launch (every form on a dense S) refuses what
+    the kernel does not take before anything launches."""
     s_mat = torch.zeros(256, 64)
     ws = torch.zeros(2, dtype=torch.int32)
     x = torch.zeros(300, 8)
+    esc = (None, None, None)
     if bad == "rows":
         s_mat = torch.zeros(200, 64)
     elif bad == "f":
         x = torch.zeros(300, 6)
     elif bad == "dtype":
-        x = x.to(torch.bfloat16)
+        s_mat = s_mat.half()
     elif bad == "ndim":
         x = x[None, None]
-    if bad == "fix":  # a batched x with an unbatched fix array (B1 and B4's gather)
-        with pytest.raises(ValueError, match=match):
-            spmm_cuda._launch_streamed(s_mat, ws, 128, x[None],
-                                       torch.zeros(3, dtype=torch.int32),
-                                       torch.zeros(4, dtype=torch.int64),
-                                       torch.zeros(4, 8))
-        return
+    elif bad == "fix":  # a batched x with an unbatched fix array (B1 and B4's gather)
+        x = x[None]
+        esc = (torch.zeros(3, dtype=torch.int32), torch.zeros(4, dtype=torch.int64),
+               torch.zeros(4, 8))
     with pytest.raises((ValueError, TypeError), match=match):
-        spmm_cuda._launch(s_mat, ws, x)
+        spmm_cuda._launch_streamed(s_mat, ws, 128, x, *esc)
 
 
 # ------------------------------------------------------------ gradients

@@ -373,25 +373,22 @@ def test_b11_launches_the_dense_gather_in_each_operand_mode(s_dtype, x_dtype, co
 @pytest.mark.parametrize("batched", [False, True], ids=["B3", "B10"])
 @pytest.mark.parametrize("window", [None, 768], ids=["narrow", "wide"])
 def test_banded_kernels_take_the_gather_on_a_wide_window(window, batched, fake_lib):
-    """B3 keeps the window kernel on a window of at most ``NARROW_WINDOW``
-    columns and takes the dense gather on a wider one; B10 takes the dense
-    gather at every width, the batch inside the kernel."""
+    """B3 and B10 take the dense gather on a narrow and on a wide window
+    alike (B3 with batch 1, B10 with the batch inside the kernel), with the
+    graph's own block and no escape pointers."""
     g, n = _rcm_graph()
     sd = P.to_sliding_dense(g, dtype=torch.bfloat16, window_size=window)
-    wide = sd.window_size > spmm_cuda.NARROW_WINDOW
-    assert wide == (window is not None)
+    assert (sd.window_size > 736) == (window is not None)
     x = torch.zeros(*((2,) if batched else ()), n, 16, dtype=torch.bfloat16)
     wrapper = spmm_cuda.sliding_spmm_b if batched else spmm_cuda.sliding_spmm
     before = wrapper.launches
     wrapper(sd, x)
     assert wrapper.launches == before + 1
     (name, args), = fake_lib.calls
-    if wide or batched:
-        assert name == "gwen_window_spmm_streamed"
-        assert args[7:14] == (sd.num_padded_nodes, sd.window_size, 128, 16, n,
-                              2 if batched else 1, 0)
-    else:
-        assert name == "gwen_window_spmm"
+    assert name == "gwen_window_spmm_streamed"
+    assert args[3:6] == (None, None, None)
+    assert args[7:] == (sd.num_padded_nodes, sd.window_size, 128, 16, n,
+                        2 if batched else 1, 0, 1, 0)
 
 
 def test_gather_wrappers_refuse_what_the_kernels_do_not_take(fake_lib):

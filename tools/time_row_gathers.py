@@ -7,10 +7,13 @@ plain PyTorch version first.
 With one item: B1 and packed B1 (bf16, F 256, with and without their escape
 fix rows), B1 on a float32 one-channel field (F 4) over the bf16 S,
 ``diag_matvec``'s B1 on a runtime S with the window mask's pattern (the
-attention probabilities) at f 128 and 256, B13 and B11 (RCM order, F 256).
-Then, for comparison, the batch-4 forms that share the kernels' source (B4,
-packed B4, B10, B13, B11) and B3 on the esc2 contraction, and the two row
-gathers launched directly with one item on B1's and packed B1's operands
+attention probabilities) at f 128 and 256, B13 and B11 (RCM order, F 256),
+B3 on the esc2 contraction, and the int8 rank-1 composite
+(``spmm_sliding_rank1`` on the RCM band, unbatched and at batch 4, held to
+its own checkout's plain version on the same bf16 path). Then, for
+comparison, the batch-4 forms that share the kernels' source (B4, packed
+B4, B10, B13, B11), and the two row gathers launched directly with one
+item on B1's and packed B1's operands
 (``_launch_streamed``, ``_launch_packed_rows``: the same call as B1 where B1
 takes the gathers). ``--root`` imports ``gwen_tpu_torch`` from another
 checkout (say the parent commit unpacked with ``git archive``), so that
@@ -18,7 +21,8 @@ two versions can be timed in turns, in separate processes, in one session
 on one card. Prints the card
 (``nvidia-smi`` name and power limit), the compiler's register lines, and
 one JSON line of times in ms (CUDA events, the mean of ``--iters`` calls
-after 3 warm-up calls). Needs numpy and torch; imports no JAX.
+after 3 warm-up calls; B3 on the esc2 graph also by its device kernels
+under ``torch.profiler``). Needs numpy and torch; imports no JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +48,24 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """The device kernels' time of one ``fn()`` under ``torch.profiler``
+    (the mean of ``iters`` calls after 3 warm-up calls): for a kernel
+    shorter than the host's enqueue of a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.time_range.elapsed_us() for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA) / iters / 1e3
 
 
 def held(torch, name: str, got, want) -> float:
@@ -74,7 +96,8 @@ def main() -> int:
         return 1
     from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
                                       kd_patch_order, rcm_order, to_diag_window,
-                                      to_sliding_packed, to_windowed_dense, window_mask)
+                                      to_sliding_packed, to_sliding_rank1,
+                                      to_windowed_dense, window_mask)
     from gwen_tpu_torch.ops import spmm_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -100,6 +123,7 @@ def main() -> int:
     sp = to_sliding_packed(g3).to(dev)
     wd = to_windowed_dense(g3).to(dev)
     wd16 = dataclasses.replace(wd, s_mat=wd.s_mat.bfloat16())
+    r1 = to_sliding_rank1(g3).to(dev)
     g2 = dg.esc2_graph
 
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -163,7 +187,15 @@ def main() -> int:
                 pg.num_src_rows, x, pg.esc_ptr, pg.escape.rows, fix),
             lambda: spmm_cuda.diag_window_spmm_packed_plain(p32, x.float(),
                                                             fix.float())),
-        "B3 esc2": (lambda: spmm_cuda.sliding_spmm(g2, x2), None),
+        "B3 esc2": (lambda: spmm_cuda.sliding_spmm(g2, x2),
+                    lambda: spmm_cuda.sliding_spmm_plain(
+                        dataclasses.replace(g2, s_mat=g2.s_mat.float()), x2.float())),
+        "int8 rank-1 composite, B3 form": (
+            lambda: spmm_cuda.spmm_sliding_rank1(r1, xr),
+            lambda: spmm_cuda.spmm_sliding_rank1(r1, xr, plain=True)),
+        "int8 rank-1 composite, B10 form batch 4": (
+            lambda: spmm_cuda.spmm_sliding_rank1(r1, xrb),
+            lambda: spmm_cuda.spmm_sliding_rank1(r1, xrb, plain=True)),
         "B4 batch 4": (lambda: spmm_cuda.diag_window_spmm_b(dg, xb, fixb), None),
         "B4p batch 4": (lambda: spmm_cuda.diag_window_spmm_packed_b(pg, xb, fixb), None),
         "B10 esc2 batch 4": (lambda: spmm_cuda.sliding_spmm_b(g2, x2b), None),
@@ -176,6 +208,10 @@ def main() -> int:
             held(torch, name, kernel(), plain())
         times[name] = cuda_ms(torch, kernel, args.iters)
         print(f"  {name}: {times[name]:.4f} ms", flush=True)
+    # B3 on the esc2 graph is shorter than the host's enqueue of a call.
+    name = "B3 esc2, device kernels (profiler)"
+    times[name] = device_ms(torch, lambda: spmm_cuda.sliding_spmm(g2, x2), args.iters)
+    print(f"  {name}: {times[name]:.4f} ms", flush=True)
     print(json.dumps({"tag": args.tag, "device": smi, "ms": times}))
     return 0
 
