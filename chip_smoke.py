@@ -19,8 +19,12 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    dbias, and the diag composite's x-gradient against autograd through
    the plain versions, batched and unbatched), and for attention (B5, B6
    with its row stats, B7) at nb = 1 (a direct 2-D call), 2 and 8 (dh 128)
-   and 4 (dh 64), with the attention Function's gradients against autograd
-   through the plain forward; then builds the bit-packed L7 graphs (the
+   and 4 (dh 64), each B6 and B7 call repeated for the same bits (no
+   atomics), B6 and B7 also timed by their device kernels, with the
+   attention Function's gradients against autograd through the plain
+   forward, then B6 and B7 on an L5 graph whose lists are wider than their
+   register chunk, with a block of rows with no source (bf16 and float32,
+   nb 1, 2, 3, 8, q, k and v short of the nodes); then builds the bit-packed L7 graphs (the
    diag layout in the same KD order, the RCM banded layout at block 256)
    and checks packed B1 (F 256, also timed with no fix rows), packed B4
    (batch 4) and B13 (F 256 and batch 4), the packed composites'
@@ -91,7 +95,8 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
 7. the same for ``train-mesh model.processor=attention``: B5, B6, B7, B2
    and B2b 4 times per step with remat off, the step against the plain
    versions (at batch 2 if theirs does not fit at batch 4), times and peak
-   memory with remat off and ``save_agg``, export and one request;
+   memory with remat off and ``save_agg``, one step under ``torch.profiler``
+   with B6's and B7's share, export and one request;
 8. trains on the bit-packed layouts: ``train-mesh graph.refine=7
    train.batch_size=4`` with ``mesh.kernel=diag_packed`` (GCN: packed B4
    and B10 8 times per step, B2 and B2b 4; attention: B5, B6, B7, B2, B2b
@@ -158,9 +163,11 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    here (hidden 1024, batch 4): a finite test loss, the run in the
    registry, the step's time and peak memory. The stores are written and
    read with numpy and the standard library alone;
-12. last, in a fresh child process: one call of ``spmm_sliding_rank1``
+12. last, in fresh child processes: one call of ``spmm_sliding_rank1``
    (unbatched and at batch 4) runs exactly one device kernel under
-   ``torch.profiler``, the dense row gather; then the NCCL probe.
+   ``torch.profiler``, the dense row gather, and one call of B6 and of B7
+   (nb 1 and 8) exactly one, ``attn_dq_kernel`` and ``attn_dkdv_kernel``;
+   then the NCCL probe.
 
 The second-to-last lines are a JSON object of the kernels and the
 ``nvidia-smi`` line; the last line is ``{"ok": true, "device": ...}``,
@@ -272,6 +279,14 @@ def compare(name: str, got: torch.Tensor, plain: torch.Tensor, tol: float,
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return err
+
+
+def same_bits(name: str, got: tuple, again) -> None:
+    """Fail unless a second call, ``again()``, returns ``got`` bit for bit
+    (no atomics: the gradients repeat from run to run)."""
+    if not all(torch.equal(a, b) for a, b in zip(got, again(), strict=True)):
+        raise AssertionError(f"{name}: a second call gave other bits")
+    log(f"  {name}: a second call gives the same bits")
 
 
 def timed_pair(kernel, plain, iters: int = 20) -> tuple[float, float]:
@@ -904,6 +919,9 @@ def check_attention_kernels(graph, device) -> dict:
             errs[("B7", name)] = max(
                 compare(f"B7 {name} {tag} dk", dk, w_dk, tol),
                 compare(f"B7 {name} {tag} dv", dv, w_dv, tol))
+            same_bits(f"B6, B7 {name} {tag}", (dq, st, dk, dv),
+                      lambda: (*ac.attention_dq(graph, *a, scale),
+                               *ac.attention_dkdv(graph, *a, st, scale)))
         del want, w_dq, w_dk, w_dv, f32
         nb = lead[0] if lead else 1
         if dh == 128:
@@ -922,7 +940,8 @@ def check_attention_kernels(graph, device) -> dict:
             for key, (kern, plain) in pairs.items():
                 ms, plain_ms = timed_pair(kern, plain, iters)
                 times[(key, nb)] = (ms, plain_ms)
-                log(f"  {key} nb={nb}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+                dev = f", device kernel {device_ms(kern, 20):.4f} ms" if key != "B5" else ""
+                log(f"  {key} nb={nb}: kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f} ms")
             # JSON rows: the unbatched form at nb = 1; B5b at the serving
             # shape, B6b and B7b at the batch-4 train shape.
             rows = {1: {"B5": "B5", "B6": "B6", "B7": "B7"}, 2: {"B5": "B5b"},
@@ -967,6 +986,89 @@ def check_attention_kernels(graph, device) -> dict:
         del ts, cot, got, t32, want
     torch.cuda.empty_cache()
     return results
+
+
+def build_wide_attention_graph(device):
+    """An L5 graph in KD-patch order whose neighbour lists are wider than
+    the attention backward's register chunk (7 entries): the mesh, a hub
+    joined both ways to every node within 150 rows of it (a row of ~300
+    sources and a transpose list of ~300 destinations), and 300 appended
+    nodes whose first whole block is cleared (128 rows with no source). As
+    the bf16 diag layout (window 384, block 128) with its attention lists."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph,
+                                      diag_transpose_tables, icosphere_edges,
+                                      kd_patch_order, to_diag_window)
+
+    verts, s, r = icosphere_edges(5)
+    n0 = verts.shape[0]
+    s2, r2, _ = apply_order(kd_patch_order(verts, s, r, n0), s, r)
+    s2, r2 = np.asarray(s2, np.int64), np.asarray(r2, np.int64)
+    h, near = n0 // 4, set(s2[r2 == n0 // 4].tolist())
+    others = np.array([c for c in range(h - 150, h + 150)
+                       if c != h and c not in near])
+    n = n0 + 300
+    g = build_graph(np.concatenate([s2, others, np.full(others.size, h)]),
+                    np.concatenate([r2, np.full(others.size, h), others]), n)
+    diag = to_diag_window(g, window_size=WINDOW, dtype=torch.bfloat16)
+    block = diag.block_size
+    empty = -(-n0 // block)
+    sm = diag.s_mat.clone()
+    sm[empty * block:(empty + 1) * block] = 0
+    diag = diag_transpose_tables(dataclasses.replace(diag, s_mat=sm))
+    width, width_t = diag.attn_nbr.shape[1], diag.attn_nbr_t.shape[1]
+    if not (width > 7 and width_t > 7 and (empty + 1) * block <= n
+            and not bool((diag.attn_nbr[empty * block:(empty + 1) * block] >= 0).any())):
+        raise AssertionError("the wide attention graph lacks a row or a transpose "
+                             "list over 7 entries, or its block of empty rows")
+    log(f"  wide attention graph: nodes {n}, padded {diag.num_padded_nodes}, "
+        f"lists {tuple(diag.attn_nbr.shape)} and {tuple(diag.attn_nbr_t.shape)}, "
+        f"rows {empty * block}-{(empty + 1) * block - 1} with no source")
+    return diag.to(device)
+
+
+def check_wide_attention_graph(graph, device) -> None:
+    """Phase 3, correctness only: B6 and B7 on :func:`build_wide_attention_graph`
+    against their plain versions, in bf16 and float32, at nb 1 (2-D), 3 and
+    8 (dh 128) and nb 2 at dh 64, once with q, k and v 100 rows short of the
+    nodes (listed rows at or past them read as zero); one launch each a
+    call, a second call the same bits, rows with no source 0."""
+    from gwen_tpu_torch.ops import attention_cuda as ac
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    n = graph.num_nodes
+    has = (graph.attn_nbr >= 0).any(1)
+    for lead, rows, dh in (((), n, 128), ((3,), n, 128), ((8,), n - 100, 128),
+                           ((2,), n, 64)):
+        tag = f"nb={lead[0] if lead else 1} rows={rows} dh={dh}"
+        q, k, v, g = (torch.randn(*lead, rows, dh, generator=gen, device=device)
+                      for _ in range(4))
+        scale = dh ** -0.5
+        busy, idle = has[:rows], ~has[:rows]
+        w_dq, w_st = ac.attention_dq_plain(graph, q, k, v, g, scale)
+        w_dk, w_dv = ac.attention_dkdv_plain(graph, q, k, v, g, w_st, scale)
+        for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+            name = f"wide graph {'bf16' if dt == torch.bfloat16 else 'f32'} {tag}"
+            a = [t.to(dt) for t in (q, k, v, g)]
+            before = (ac.attention_dq.launches, ac.attention_dkdv.launches)
+            dq, st = ac.attention_dq(graph, *a, scale)
+            dk, dv = ac.attention_dkdv(graph, *a, st, scale)
+            if (ac.attention_dq.launches - before[0],
+                    ac.attention_dkdv.launches - before[1]) != (1, 1):
+                raise AssertionError(f"{name}: B6 and B7 did not launch once each")
+            compare(f"B6 {name} dq", dq, w_dq, tol)
+            # A row with no source holds mx = -1e30: stats are held on the
+            # others, and those rows to 0.
+            for i, stat in enumerate(("mx", "den", "delta")):
+                compare(f"B6 {name} {stat}", st[..., busy, i], w_st[..., busy, i],
+                        tol)
+            compare(f"B7 {name} dk", dk, w_dk, tol)
+            compare(f"B7 {name} dv", dv, w_dv, tol)
+            same_bits(f"B6, B7 {name}", (dq, st, dk, dv),
+                      lambda: (*ac.attention_dq(graph, *a, scale),
+                               *ac.attention_dkdv(graph, *a, st, scale)))
+            if bool(dq[..., idle, :].any()) or bool(st[..., idle, 1:].any()):
+                raise AssertionError(f"{name}: a row with no source is not 0")
+    torch.cuda.empty_cache()
 
 
 def build_packed_graphs(device, perm) -> dict:
@@ -1802,6 +1904,15 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
     x, y = _train_batch(n, device, rng)
     model = _train_model(device, CHANNELS, processor=processor)
     _check_and_time_step(model, graph, x, y, processor)
+    if attention:
+        by_name = _profile_step(_adam_step(model, graph, x, y),
+                                f"batch-{TRAIN_BATCH} attention")
+        busy = sum(by_name.values())
+        for key, kernel in (("B6", "attn_dq_kernel"), ("B7", "attn_dkdv_kernel")):
+            us = sum(t for name, t in by_name.items() if kernel in name)
+            log(f"  {key} ({kernel}) in the profiled attention step: "
+                + (f"{us / 1e3:.3f} ms, {us / busy:.1%} of the device busy time"
+                   if busy else "not measured"))
     del model
     torch.cuda.empty_cache()
 
@@ -1922,10 +2033,11 @@ def train_packed(graphs: dict, device, workdir: Path) -> dict:
     return launches
 
 
-def _profile_step(step, tag: str, top: int = 10) -> None:
+def _profile_step(step, tag: str, top: int = 10) -> dict:
     """One ``step()`` under ``torch.profiler``: the device time of its
     kernels by name, and the share of the span from the first kernel's
-    start to the last one's end in which a kernel ran."""
+    start to the last one's end in which a kernel ran. Returns the µs by
+    kernel name (empty where the trace held no device event)."""
     by_name, start, end = {}, math.inf, -math.inf
     for ev in device_events(step):
         by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
@@ -1933,13 +2045,14 @@ def _profile_step(step, tag: str, top: int = 10) -> None:
     if not by_name:
         log(f"  {tag} profile: the trace holds no device event; kernel shares "
             "not measured")
-        return
+        return by_name
     busy = sum(by_name.values())
     log(f"  {tag} profile of one step: device busy {busy / 1e3:.3f} ms of a "
         f"{(end - start) / 1e3:.3f} ms span ({busy / (end - start):.1%}); by "
         "kernel:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
+    return by_name
 
 
 def _task_step(model, loss_fn, graph, batch, tag: str,
@@ -2614,27 +2727,51 @@ print(json.dumps(out))
 """
 
 
-def rank1_one_kernel_per_call() -> None:
-    """Fail unless one call of ``spmm_sliding_rank1`` (unbatched and at
-    batch 4) runs exactly one device kernel under ``torch.profiler``, the
-    dense row gather: no elementwise pass around it. In a fresh child
+ATTN_PROFILE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+from gwen_tpu_torch.ops import attention_cuda as ac
+dev = torch.device("cuda", 0)
+graph = cs.build_serving_graph(dev, torch.bfloat16)[0]
+out, scale = {}, 128 ** -0.5
+for lead in ((), (cs.ATTN_HEADS * cs.TRAIN_BATCH,)):
+    q, k, v, g = (torch.randn(*lead, graph.num_nodes, 128, device=dev).bfloat16()
+                  for _ in range(4))
+    st = ac.attention_dq(graph, q, k, v, g, scale)[1]
+    ac.attention_dkdv(graph, q, k, v, g, st, scale)
+    nb = lead[0] if lead else 1
+    out[f"B6 nb {nb}"] = [ev.name for ev in cs.device_events(
+        lambda: ac.attention_dq(graph, q, k, v, g, scale))]
+    out[f"B7 nb {nb}"] = [ev.name for ev in cs.device_events(
+        lambda: ac.attention_dkdv(graph, q, k, v, g, st, scale))]
+print(json.dumps(out))
+"""
+
+
+def one_kernel_per_call(script: str, what: str, want: dict) -> None:
+    """Fail unless each call that the child ``script`` runs once under
+    ``torch.profiler`` ran exactly one device kernel, named with the
+    substring ``want`` gives for the call's key prefix. In a fresh child
     process: in this one, after the kernel builds and Triton's compiles of
     phase 2, a profiler window of one call has come back without the device
     kernel it ran (on an H100, torch 2.11); windows of many calls keep
     theirs. Run last, as the NCCL probe: the parent's own traces are read
     before it."""
     torch.cuda.empty_cache()  # the child allocates on the same card
-    res = subprocess.run([sys.executable, "-c", RANK1_PROFILE,
+    res = subprocess.run([sys.executable, "-c", script,
                           str(Path(__file__).resolve().parent)],
                          timeout=300, capture_output=True, text=True)
     if res.returncode != 0:
-        raise AssertionError(f"the int8 rank-1 profile run failed:\n{res.stderr[-2000:]}")
-    for shape, names in json.loads(res.stdout.strip().splitlines()[-1]).items():
-        log(f"  spmm_sliding_rank1 {shape}: one call under torch.profiler ran "
+        raise AssertionError(f"the {what} profile run failed:\n{res.stderr[-2000:]}")
+    for call, names in json.loads(res.stdout.strip().splitlines()[-1]).items():
+        kernel = next(v for k, v in want.items() if call.startswith(k))
+        log(f"  {what} {call}: one call under torch.profiler ran "
             f"{len(names)} device kernel(s) {[nm[:60] for nm in names]}")
-        if len(names) != 1 or "dense_row" not in names[0]:
-            raise AssertionError(f"spmm_sliding_rank1 {shape}: one call ran {names}, "
-                                 "want one dense row gather")
+        if len(names) != 1 or kernel not in names[0]:
+            raise AssertionError(f"{what} {call}: one call ran {names}, want one "
+                                 f"{kernel}")
 
 
 def rank1_path(layouts: dict, device) -> dict:
@@ -3016,6 +3153,9 @@ def main() -> int:
     results.update(check_train_kernels(graph, device))
     log("  attention (B5, B6, B7):")
     results.update(check_attention_kernels(graph, device))
+    log("  the attention backward (B6, B7) on an L5 graph with lists over the "
+        "register chunk and rows with no source:")
+    check_wide_attention_graph(build_wide_attention_graph(device), device)
     t0 = time.perf_counter()
     packed = build_packed_graphs(device, perm)
     pg, sg = packed["diag_packed"], packed["packed"]
@@ -3107,9 +3247,11 @@ def main() -> int:
         store_paths(device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         member_graph_pipeline(device, Path(tmp))
-    log("== last: one device kernel per int8 rank-1 call (a child process "
-        "under torch.profiler); the 1-rank NCCL probe")
-    rank1_one_kernel_per_call()
+    log("== last: one device kernel per int8 rank-1 call and per B6 and B7 "
+        "call (child processes under torch.profiler); the 1-rank NCCL probe")
+    one_kernel_per_call(RANK1_PROFILE, "spmm_sliding_rank1", {"(": "dense_row"})
+    one_kernel_per_call(ATTN_PROFILE, "windowed attention backward",
+                        {"B6": "attn_dq_kernel", "B7": "attn_dkdv_kernel"})
     # Last: after this child process the profiler traces of this one lose
     # device events, and the checks above read them.
     nccl_one_rank_probe()
@@ -3141,13 +3283,18 @@ def main() -> int:
                       acu, f"{att}:522"),
                "B5b": (f"batched windowed attention forward (nb = 2{one})",
                        "cuda", acu, f"{att}:619"),
-               "B6": (f"attention dQ and row stats (nb = 1{one})", "cuda", acu,
-                      f"{att}:771"),
-               "B6b": (f"batched attention dQ and row stats (nb = 8{one})",
+               "B6": (f"attention dQ and row stats (nb = 1{one}): one pass "
+                      "over the row's list, a 16-lane group a row with its 7 k "
+                      "and 7 v gathers in flight, 64 rows a CTA "
+                      "(attn_dq_kernel)", "cuda", acu, f"{att}:771"),
+               "B6b": (f"batched attention dQ and row stats (nb = 8{one}; the "
+                       "items on the grid, attn_dq_kernel)",
                        "cuda", acu, f"{att}:875"),
-               "B7": (f"attention dK and dV (nb = 1{one})", "cuda", acu,
-                      f"{att}:1053"),
-               "B7b": (f"batched attention dK and dV (nb = 8{one})", "cuda",
+               "B7": (f"attention dK and dV (nb = 1{one}): the transpose list "
+                      "in chunks of 7, a chunk's q and g gathers and stats in "
+                      "flight (attn_dkdv_kernel)", "cuda", acu, f"{att}:1053"),
+               "B7b": (f"batched attention dK and dV (nb = 8{one}; the items "
+                       "on the grid, attn_dkdv_kernel)", "cuda",
                        acu, f"{att}:1216"),
                "B1p": ("packed diag-window SpMM: S01 bits, rank-1 scales "
                        "(the packed branch of _diag_kernel): the bit-row "

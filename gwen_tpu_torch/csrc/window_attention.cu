@@ -34,15 +34,31 @@
 // kernels multiply dense (128, W) tiles on the MXU, but a mesh row holds at
 // most ~7 of the W = 384 window columns, so 98 % of that work is masked out.
 // Here the mask is read as neighbour lists (DiagWindowGraph.attn_nbr and its
-// transpose attn_nbr_t): one warp owns one row and each lane holds dh/32
-// feature values. A dot product is a warp butterfly, after which every lane
-// holds the same bits, so all lanes take the same softmax; the source side
-// recomputes each score with the same operations, so its p is the forward's
-// to the bit. At L7, nb = 2, dh = 128, bf16, a forward reads q, k, v and
-// writes out, ~0.34 GB (0.1 ms at the card's bandwidth); neighbours are near
-// in KD order, so the repeated k_j and v_j reads mostly hit L2. dK/dV walk
-// the transpose lists instead of scattering, with no atomics, so gradients
-// repeat from run to run.
+// transpose attn_nbr_t). In the forward one warp owns one row and each lane
+// holds dh/32 feature values; a dot product is a warp butterfly, after which
+// every lane holds the same bits, so all lanes take the same softmax. At L7,
+// nb = 2, dh = 128, bf16, a forward reads q, k, v and writes out, ~0.34 GB
+// (0.1 ms at the card's bandwidth); neighbours are near in KD order, so the
+// repeated k_j and v_j reads mostly hit L2.
+//
+// The backward kernels (B6, B7) are bound by latencies in series when a
+// row's neighbours are visited one after another: a row holds ~7 sources,
+// and a gather that waits for the previous neighbour's dot product leaves
+// ~21 dependent round trips to L2 a row in B6. So they read a row's list
+// once, issue all of its gathers before the first dot product, keep the
+// gathered k rows for dq (14 row reads a row instead of 21, one expf a
+// neighbour), and complete the row's dot products together. A group of 16
+// lanes owns a row at dh 128 in bf16 (16 bytes a lane, 4-step butterflies),
+// two rows a warp; a CTA covers 64 consecutive rows of one item (see the
+// shared parts below). What bounds them then, measured on an H100: the
+// instructions and shuffles in series of each row at 16-24 resident warps
+// an SM (80-128 registers a thread hold the 14 gathered rows), not the
+// bytes: a control run whose gathers all hit L1 is only 10-13 % faster
+// (tools/time_attention_bwd.py --controls). The source
+// side forms each score with the same device functions, in the same lane
+// layout, so its p is B6's to the bit. dK/dV walk the transpose lists
+// instead of scattering, with no atomics, so gradients repeat from run to
+// run.
 //
 // Plain C interface, loaded with ctypes (gwen_tpu_torch/ops/attention_cuda.py).
 
@@ -202,115 +218,453 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   Lane<T, VPT>::store(out + (b * n_q + i) * DH + lane * VPT, acc);
 }
 
+// ----------------------------------------------------- B6 / B7: shared parts
+//
+// A group of G lanes owns one (row, item): each lane holds V consecutive
+// values of the head, 16 bytes (G = dh * sizeof(T) / 16, at most 32), so a
+// gathered row is one 16-byte load a lane. A warp holds 32 / G groups, a
+// CTA BWD_ROWS consecutive rows of one item, which its groups take in turn
+// (the sources of nearby rows overlap, so L1 and L2 serve the repeats). The
+// first CAP entries of a row's list and their rows are all loaded before
+// the first dot product: an invalid entry loads row 0 and is masked after,
+// so no register is cleared. The chunk's CAP scores and CAP g . v products
+// are completed together: a first butterfly step that leaves the scores to
+// the group's lower half and the g . v products to its upper half, then a
+// plain butterfly on CAP values. Each lane then takes the softmax
+// arithmetic of its own slots (an expf and a division a neighbour, not CAP
+// of each on every lane), and the group reads each neighbour's dl (and p)
+// from the lane that holds it.
+
+constexpr int BWD_ROWS = 64;  // consecutive rows of one item a CTA
+
+constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
+
+template <typename T, int VPT>
+struct Geo {
+  static constexpr int DH = 32 * VPT;
+  static constexpr int BYTES = DH * (int)sizeof(T);
+  static constexpr int G = BYTES / 16 < 32 ? BYTES / 16 : 32;  // lanes a row
+  static constexpr int V = DH / G;                             // values a lane
+  static constexpr int NC = V * (int)sizeof(T) / 16;  // 16-byte loads a lane
+  // Neighbours held in registers at once: 7 at 16 bytes a lane (the
+  // icosphere's widest row, degree 6 and the self-loop), fewer for wider
+  // lanes.
+  static constexpr int CAP = NC == 1 ? 7 : 8 / NC;
+  static constexpr int GPW = 32 / G;  // groups a warp
+  // Slots: the lanes of a half-group that own a neighbour's softmax each
+  // (W), and the slots of each lane (SL).
+  static constexpr int W = G / 2 < pow2_at_least(CAP) ? G / 2 : pow2_at_least(CAP);
+  static constexpr int SL = pow2_at_least(CAP) / W;
+};
+
+__device__ __forceinline__ unsigned word(const uint4& u, int i) {
+  return i == 0 ? u.x : i == 1 ? u.y : i == 2 ? u.z : u.w;
+}
+
+// A lane's V values of one row, as loaded: NC 16-byte chunks, read as
+// float32 one value at a time (bf16 widens exactly).
+template <typename T, int NC>
+struct Piece {
+  static constexpr int PER = 16 / (int)sizeof(T);  // values a chunk
+  uint4 c[NC];
+  __device__ __forceinline__ void load(const T* p) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) c[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
+  }
+  __device__ __forceinline__ float at(int e) const {
+    const uint4& u = c[e / PER];
+    if (sizeof(T) == 4) return __uint_as_float(word(u, e % PER));
+    const unsigned w = word(u, (e % PER) >> 1);
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+// The group's lanes and this lane's place in them.
+template <int G>
+struct Group {
+  unsigned mask;  // the group's lanes in the warp
+  int first;      // the group's first lane
+  int lane;       // this lane in the group
+  __device__ __forceinline__ explicit Group(int sub)
+      : mask(G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (sub * G)),
+        first(sub * G), lane((threadIdx.x & 31) % G) {}
+};
+
+// One lane's part of a . b (fmaf in value order). B6 and B7 form every score
+// and every g . v with this and pair_sums, with q (or g) first, so B7's p is
+// B6's to the bit: B7 subtracts B6's mx and divides by B6's den.
+template <typename T, int NC>
+__device__ __forceinline__ float lane_dot(const Piece<T, NC>& a,
+                                          const Piece<T, NC>& b) {
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < NC * Piece<T, NC>::PER; ++e) s = fmaf(a.at(e), b.at(e), s);
+  return s;
+}
+
+// The lane parts of a chunk, s[0..CAP) scores and s[CAP..2 CAP) g . v
+// products, completed over the group into h[0..CAP): the first xor step
+// (offset G / 2) keeps the scores in the lower half and the products in
+// the upper one, sending each lane's other half to its partner; the rest is
+// a plain butterfly. Each sum gets the additions of a plain butterfly on
+// all 2 CAP values (each step adds the same two values), so its bits do not
+// depend on the split.
+template <int G, int CAP>
+__device__ __forceinline__ void pair_sums(const float (&s)[2 * CAP],
+                                          float (&h)[CAP], int lane,
+                                          unsigned mask) {
+  const bool up = lane & (G / 2);
+#pragma unroll
+  for (int d = 0; d < CAP; ++d) {
+    const float send = up ? s[d] : s[CAP + d];
+    h[d] = (up ? s[CAP + d] : s[d]) + __shfl_xor_sync(mask, send, G / 2);
+  }
+#pragma unroll
+  for (int o = G / 4; o > 0; o >>= 1) {
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) h[d] += __shfl_xor_sync(mask, h[d], o);
+  }
+}
+
+// This lane's slots d = slot + W x (x < SL) of the completed sums h: the
+// score sc and the product dp of each (a slot past CAP holds 0). A lower
+// lane holds the scores and takes each product from its partner in the
+// upper half, and the other way round.
+template <int G, int CAP, int W, int SL>
+__device__ __forceinline__ void own_slots(const float (&h)[CAP], int slot,
+                                          int lane, unsigned mask,
+                                          float (&sc)[SL], float (&dp)[SL]) {
+  const bool up = lane & (G / 2);
+#pragma unroll
+  for (int x = 0; x < SL; ++x) {
+    float mine = 0.f;
+#pragma unroll
+    for (int d = W * x; d < W * x + W && d < CAP; ++d) {
+      if (d == slot + W * x) mine = h[d];
+    }
+    const float other = __shfl_xor_sync(mask, mine, G / 2);
+    sc[x] = up ? other : mine;
+    dp[x] = up ? mine : other;
+  }
+}
+
+// Sum over the slots of a half-group, in a fixed order.
+template <int W>
+__device__ __forceinline__ float slots_sum(float x, unsigned mask) {
+#pragma unroll
+  for (int o = W / 2; o > 0; o >>= 1) x += __shfl_xor_sync(mask, x, o);
+  return x;
+}
+
+// Entries base .. base + CAP - 1 of a list of width `deg` into j (-1 past
+// the list's end: its first -1 or the width). Returns their count; `more`
+// says the list goes on past them. All CAP + 1 loads are issued at once.
+template <int CAP>
+__device__ __forceinline__ int list_chunk(const int* list, int base, int deg,
+                                          int (&j)[CAP], bool& more) {
+  int x[CAP + 1];
+#pragma unroll
+  for (int d = 0; d <= CAP; ++d) x[d] = base + d < deg ? __ldg(list + base + d) : -1;
+  int cnt = 0;
+#pragma unroll
+  for (int d = 0; d < CAP; ++d) {
+    j[d] = cnt == d && x[d] >= 0 ? x[d] : -1;
+    cnt += j[d] >= 0;
+  }
+  more = cnt == CAP && x[CAP] >= 0;
+  return cnt;
+}
+
+// The rows j[d] of a (rows, dh) matrix seen from this lane (`base` holds
+// the lane's offset). A row at or past `rows`, or -1, loads row 0 instead
+// and is masked by the caller (its bit in the returned mask is clear).
+template <typename T, int NC, int CAP>
+__device__ __forceinline__ unsigned gather(const T* base, const int (&j)[CAP],
+                                           int rows, int dh,
+                                           Piece<T, NC> (&out)[CAP]) {
+  unsigned real = 0;
+#pragma unroll
+  for (int d = 0; d < CAP; ++d) {
+    const bool in = j[d] >= 0 && j[d] < rows;
+    real |= (in ? 1u : 0u) << d;
+    out[d].load(base + (int64_t)(in ? j[d] : 0) * dh);
+  }
+  return real;
+}
+
 // ----------------------------------------------------------- B6 / B6b
 
 template <typename T, int VPT>
-__global__ void __launch_bounds__(NT)
+struct Dq {
+  using Gm = Geo<T, VPT>;
+  static constexpr int G = Gm::G, CAP = Gm::CAP, V = Gm::V, W = Gm::W,
+                       SL = Gm::SL, NC = Gm::NC;
+  using P = Piece<T, NC>;
+
+  // A row of at most CAP sources, gathered (kr, vr; `real` marks the rows
+  // below n_kv, the others read as zero): mx, den, delta and acc = dq.
+  static __device__ __forceinline__ void row(const P& qi, const P& gi,
+                                             const P (&kr)[CAP],
+                                             const P (&vr)[CAP], int cnt,
+                                             unsigned real, float scale,
+                                             const Group<G>& grp, float& mx,
+                                             float& den, float& delta,
+                                             float (&acc)[V]) {
+    float s[2 * CAP], h[CAP];
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) {
+      s[d] = lane_dot(qi, kr[d]);
+      s[CAP + d] = lane_dot(gi, vr[d]);
+    }
+    pair_sums<G, CAP>(s, h, grp.lane, grp.mask);
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) {
+      if (!(real >> d & 1u)) h[d] = 0.f;  // a zero k and v row
+    }
+    // The row max, on the lower half (which holds the scores), then given
+    // to the upper half. __fmul_rn is never fused into a later add: B7
+    // rounds the same product the same way.
+    float m = NEG_BIG;
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) {
+      if (d < cnt) m = fmaxf(m, __fmul_rn(h[d], scale));
+    }
+    const float mo = __shfl_xor_sync(grp.mask, m, G / 2);
+    mx = grp.lane & (G / 2) ? mo : m;
+    const int slot = grp.lane % W;
+    float sc[SL], dp[SL], e[SL], dl[SL], t = 0.f;
+    own_slots<G, CAP, W, SL>(h, slot, grp.lane, grp.mask, sc, dp);
+#pragma unroll
+    for (int x = 0; x < SL; ++x) {
+      e[x] = slot + W * x < cnt ? expf(__fmul_rn(sc[x], scale) - mx) : 0.f;
+      t += e[x];
+    }
+    den = slots_sum<W>(t, grp.mask);
+    const float div = den == 0.f ? 1.f : den;
+    t = 0.f;
+#pragma unroll
+    for (int x = 0; x < SL; ++x) {
+      if (slot + W * x < cnt) t += dp[x] * (e[x] / div);
+    }
+    delta = slots_sum<W>(t, grp.mask);
+#pragma unroll
+    for (int x = 0; x < SL; ++x) {
+      dl[x] = round_to<T>(e[x] / div * (dp[x] - delta) * scale);
+    }
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) {
+      const float w = __shfl_sync(grp.mask, dl[d / W], grp.first + d % W);
+      if (d < cnt && (real >> d & 1u)) {
+#pragma unroll
+        for (int x = 0; x < V; ++x) acc[x] = fmaf(w, kr[d].at(x), acc[x]);
+      }
+    }
+  }
+
+  // A list over CAP entries: its chunks walked four times (row max, den,
+  // delta, dq), gathered again each time, with every lane taking every
+  // slot; no shared scratch, so no width is refused.
+  static __device__ void wide(const P& qi, const P& gi, const int* row,
+                              int deg, const T* kb, const T* vb, int n_kv,
+                              float scale, const Group<G>& grp, float& mx,
+                              float& den, float& delta, float (&acc)[V]) {
+    float div = 1.f;
+    mx = NEG_BIG;
+    den = delta = 0.f;
+    for (int pass = 0; pass < 4; ++pass) {
+      for (int base = 0; base < deg; base += CAP) {
+        int j[CAP];
+        bool more;
+        const int cnt = list_chunk<CAP>(row, base, deg, j, more);
+        P kr[CAP], vr[CAP];
+        const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, Gm::DH, kr);
+        gather<T, NC, CAP>(vb, j, n_kv, Gm::DH, vr);
+        float s[2 * CAP], h[CAP], hs[CAP];
+#pragma unroll
+        for (int d = 0; d < CAP; ++d) {
+          s[d] = lane_dot(qi, kr[d]);
+          s[CAP + d] = lane_dot(gi, vr[d]);
+        }
+        pair_sums<G, CAP>(s, h, grp.lane, grp.mask);
+#pragma unroll
+        for (int d = 0; d < CAP; ++d) {
+          if (!(real >> d & 1u)) h[d] = 0.f;
+          // every lane: the score (lower half) and product (upper half)
+          hs[d] = __shfl_xor_sync(grp.mask, h[d], G / 2);
+        }
+        const bool up = grp.lane & (G / 2);
+#pragma unroll
+        for (int d = 0; d < CAP; ++d) {
+          if (d >= cnt) continue;
+          const float sc = __fmul_rn(up ? hs[d] : h[d], scale);
+          const float dp = up ? h[d] : hs[d];
+          if (pass == 0) {
+            mx = fmaxf(mx, sc);
+          } else if (pass == 1) {
+            den += expf(sc - mx);
+          } else if (pass == 2) {
+            delta += dp * (expf(sc - mx) / div);
+          } else if (real >> d & 1u) {
+            const float dl = round_to<T>(expf(sc - mx) / div * (dp - delta) * scale);
+#pragma unroll
+            for (int x = 0; x < V; ++x) acc[x] = fmaf(dl, kr[d].at(x), acc[x]);
+          }
+        }
+        if (!more) break;
+      }
+      if (pass == 1) div = den == 0.f ? 1.f : den;
+    }
+  }
+};
+
+// dQ and the stats of BWD_ROWS consecutive destination rows of one item a
+// CTA. A row's list of at most CAP entries (every mesh row at L7: degree
+// <= 6 plus the self-loop) takes one pass: its k and v rows gathered at
+// once and kept, one expf a neighbour, dq summed from the kept k rows. At
+// most 80 registers a thread, so 3 CTAs (24 warps) an SM: at dh 128 bf16
+// that spills ~100 bytes a thread, and is still faster on an H100 than 2
+// CTAs without a spill, because the extra warps hide more of each row's
+// chain (B7, with two accumulators, is 2.4x slower at 80 and keeps 2).
+template <typename T, int VPT>
+__global__ void __launch_bounds__(NT, 3)
 attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ g,
                const int* __restrict__ nbr, T* __restrict__ dq,
                float* __restrict__ stats, int n_q, int n_kv, int deg,
                float scale) {
-  constexpr int DH = 32 * VPT;
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * WARPS + warp;
-  if (i >= n_q) return;
+  using W = Dq<T, VPT>;
+  constexpr int DH = W::Gm::DH, G = W::G, CAP = W::CAP, V = W::V;
+  constexpr int NG = WARPS * W::Gm::GPW;  // groups a CTA
+  const int sub = (threadIdx.x & 31) / G;
+  const Group<G> grp(sub);
   const int64_t b = blockIdx.y;
-  float* sc = smem + warp * 2 * deg;  // scores
-  float* dps = sc + deg;              // g_i . v_j
-  const int* row = nbr + (int64_t)i * deg;
-  const T* kb = k + b * n_kv * DH + lane * VPT;
-  const T* vb = v + b * n_kv * DH + lane * VPT;
-  const int64_t at = (b * n_q + i) * DH + lane * VPT;
-
-  float qi[VPT], gi[VPT];
-  Lane<T, VPT>::load(q + at, qi);
-  Lane<T, VPT>::load(g + at, gi);
-  float mx;
-  const int cnt = row_scores<T, VPT>(qi, kb, row, deg, n_kv, scale, lane,
-                                     sc, mx);
-  float den = 0.f;
-  for (int d = 0; d < cnt; ++d) den += expf(sc[d] - mx);
-  const float div = den == 0.f ? 1.f : den;
-
-  float delta = 0.f;
-  for (int d = 0; d < cnt; ++d) {
-    float vj[VPT];
-    Lane<T, VPT>::row(vb, row[d], n_kv, vj);
-    const float dp = warp_dot<VPT>(gi, vj);
-    if (lane == 0) dps[d] = dp;
-    delta += dp * (expf(sc[d] - mx) / div);
-  }
-  __syncwarp();
-
-  float acc[VPT];
+  const int end = min(n_q, ((int)blockIdx.x + 1) * BWD_ROWS);
+  const T* kb = k + b * n_kv * DH + grp.lane * V;
+  const T* vb = v + b * n_kv * DH + grp.lane * V;
+  for (int i = (int)blockIdx.x * BWD_ROWS + (int)(threadIdx.x >> 5) * W::Gm::GPW + sub;
+       i < end; i += NG) {
+    const int64_t at = (b * n_q + i) * DH + grp.lane * V;
+    const int* row = nbr + (int64_t)i * deg;
+    typename W::P qi, gi;
+    qi.load(q + at);
+    gi.load(g + at);
+    int j[CAP];
+    bool more;
+    const int cnt = list_chunk<CAP>(row, 0, deg, j, more);
+    float mx, den, delta, acc[V];
 #pragma unroll
-  for (int e = 0; e < VPT; ++e) acc[e] = 0.f;
-  for (int d = 0; d < cnt; ++d) {
-    const float p = expf(sc[d] - mx) / div;
-    const float dl = round_to<T>(p * (dps[d] - delta) * scale);
-    float kj[VPT];
-    Lane<T, VPT>::row(kb, row[d], n_kv, kj);
-#pragma unroll
-    for (int e = 0; e < VPT; ++e) acc[e] = fmaf(dl, kj[e], acc[e]);
-  }
-  Lane<T, VPT>::store(dq + at, acc);
-  if (lane == 0) {
-    float* st = stats + (b * n_q + i) * 3;
-    st[0] = mx;
-    st[1] = den;
-    st[2] = delta;
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+    if (!more) {
+      typename W::P kr[CAP], vr[CAP];
+      const unsigned real = gather<T, W::NC, CAP>(kb, j, n_kv, DH, kr);
+      gather<T, W::NC, CAP>(vb, j, n_kv, DH, vr);
+      W::row(qi, gi, kr, vr, cnt, real, scale, grp, mx, den, delta, acc);
+    } else {
+      W::wide(qi, gi, row, deg, kb, vb, n_kv, scale, grp, mx, den, delta, acc);
+    }
+    Lane<T, V>::store(dq + at, acc);
+    if (grp.lane == 0) {
+      float* st = stats + (b * n_q + i) * 3;
+      st[0] = mx;
+      st[1] = den;
+      st[2] = delta;
+    }
   }
 }
 
 // ----------------------------------------------------------- B7 / B7b
 
+// dK and dV of BWD_ROWS consecutive source rows of one item a CTA, each
+// over the destination rows of its transpose list, CAP at a time: their q
+// and g rows and the stats of this lane's slots loaded at once, the chunk's
+// 2 CAP dot products completed together, p and dl as B6 forms them, each on
+// the lane that owns its slot. The list is read once at any width; sums run
+// in list order.
 template <typename T, int VPT>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
                  const float* __restrict__ stats,
                  const int* __restrict__ nbr_t, T* __restrict__ dk,
                  T* __restrict__ dv, int n_q, int n_kv, int deg_t,
                  float scale) {
-  constexpr int DH = 32 * VPT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * WARPS + warp;
-  if (c >= n_kv) return;
+  using Gm = Geo<T, VPT>;
+  constexpr int DH = Gm::DH, G = Gm::G, CAP = Gm::CAP, V = Gm::V;
+  constexpr int W = Gm::W, SL = Gm::SL, NG = WARPS * Gm::GPW;
+  using P = Piece<T, Gm::NC>;
+  const int sub = (threadIdx.x & 31) / G;
+  const Group<G> grp(sub);
   const int64_t b = blockIdx.y;
-  const int* col = nbr_t + (int64_t)c * deg_t;
-  const T* qb = q + b * n_q * DH + lane * VPT;
-  const T* gb = g + b * n_q * DH + lane * VPT;
+  const int end = min(n_kv, ((int)blockIdx.x + 1) * BWD_ROWS);
+  const int slot = grp.lane % W;
+  const T* qb = q + b * n_q * DH + grp.lane * V;
+  const T* gb = g + b * n_q * DH + grp.lane * V;
   const float* sb = stats + b * n_q * 3;
-  const int64_t at = (b * n_kv + c) * DH + lane * VPT;
-
-  float kc[VPT], vc[VPT], ak[VPT], av[VPT];
-  Lane<T, VPT>::load(k + at, kc);
-  Lane<T, VPT>::load(v + at, vc);
+  for (int c = (int)blockIdx.x * BWD_ROWS + (threadIdx.x >> 5) * Gm::GPW + sub;
+       c < end; c += NG) {
+    const int* col = nbr_t + (int64_t)c * deg_t;
+    const int64_t at = (b * n_kv + c) * DH + grp.lane * V;
+    P kc, vc;
+    kc.load(k + at);
+    vc.load(v + at);
+    float ak[V], av[V];
 #pragma unroll
-  for (int e = 0; e < VPT; ++e) ak[e] = av[e] = 0.f;
-  for (int t = 0; t < deg_t; ++t) {
-    const int i = col[t];
-    if (i < 0) break;
-    if (i >= n_q) continue;  // a zero q and g row adds nothing
-    float qi[VPT], gi[VPT];
-    Lane<T, VPT>::load(qb + (int64_t)i * DH, qi);
-    Lane<T, VPT>::load(gb + (int64_t)i * DH, gi);
-    const float mx = sb[(int64_t)i * 3], den = sb[(int64_t)i * 3 + 1];
-    const float delta = sb[(int64_t)i * 3 + 2];
-    const float p = expf(__fmul_rn(warp_dot<VPT>(kc, qi), scale) - mx) /
-                    (den == 0.f ? 1.f : den);
-    const float dl = p * (warp_dot<VPT>(vc, gi) - delta) * scale;
-    const float rdl = round_to<T>(dl), rp = round_to<T>(p);
+    for (int e = 0; e < V; ++e) ak[e] = av[e] = 0.f;
+    for (int base = 0; base < deg_t; base += CAP) {
+      int ii[CAP];
+      bool more;
+      list_chunk<CAP>(col, base, deg_t, ii, more);
+      P qr[CAP], gr[CAP];
+      // A row at or past n_q is a zero q and g row: it adds nothing.
+      const unsigned live = gather<T, Gm::NC, CAP>(qb, ii, n_q, DH, qr);
+      gather<T, Gm::NC, CAP>(gb, ii, n_q, DH, gr);
+      int mine[SL];  // this lane's slots' rows
+      float mx[SL], den[SL], dlt[SL];
 #pragma unroll
-    for (int e = 0; e < VPT; ++e) {
-      ak[e] = fmaf(rdl, qi[e], ak[e]);
-      av[e] = fmaf(rp, gi[e], av[e]);
+      for (int x = 0; x < SL; ++x) {
+        mine[x] = -1;
+#pragma unroll
+        for (int d = W * x; d < W * x + W && d < CAP; ++d) {
+          if (d == slot + W * x && (live >> d & 1u)) mine[x] = ii[d];
+        }
+        const float* st = sb + (int64_t)(mine[x] < 0 ? 0 : mine[x]) * 3;
+        mx[x] = __ldg(st);
+        den[x] = __ldg(st + 1);
+        dlt[x] = __ldg(st + 2);
+      }
+      float s[2 * CAP], h[CAP], sc[SL], dp[SL], rdl[SL], rp[SL];
+#pragma unroll
+      for (int d = 0; d < CAP; ++d) {
+        s[d] = lane_dot(qr[d], kc);
+        s[CAP + d] = lane_dot(gr[d], vc);
+      }
+      pair_sums<G, CAP>(s, h, grp.lane, grp.mask);
+      own_slots<G, CAP, W, SL>(h, slot, grp.lane, grp.mask, sc, dp);
+#pragma unroll
+      for (int x = 0; x < SL; ++x) {
+        const float p = expf(__fmul_rn(sc[x], scale) - mx[x]) /
+                        (den[x] == 0.f ? 1.f : den[x]);
+        rdl[x] = round_to<T>(p * (dp[x] - dlt[x]) * scale);
+        rp[x] = round_to<T>(p);
+      }
+#pragma unroll
+      for (int d = 0; d < CAP; ++d) {
+        const int from = grp.first + d % W;
+        const float wk = __shfl_sync(grp.mask, rdl[d / W], from);
+        const float wv = __shfl_sync(grp.mask, rp[d / W], from);
+        if (live >> d & 1u) {
+#pragma unroll
+          for (int x = 0; x < V; ++x) {
+            ak[x] = fmaf(wk, qr[d].at(x), ak[x]);
+            av[x] = fmaf(wv, gr[d].at(x), av[x]);
+          }
+        }
+      }
+      if (!more) break;
     }
+    Lane<T, V>::store(dk + at, ak);
+    Lane<T, V>::store(dv + at, av);
   }
-  Lane<T, VPT>::store(dk + at, ak);
-  Lane<T, VPT>::store(dv + at, av);
 }
 
 // ----------------------------------------------------------- launches
@@ -332,13 +686,16 @@ int launch_fwd(const void* q, const void* k, const void* v, const int* nbr,
   return (int)cudaGetLastError();
 }
 
+// The backward kernels' grid: BWD_ROWS rows of one item a CTA.
+dim3 bwd_grid(int rows, int nb) {
+  return dim3((unsigned)((rows + BWD_ROWS - 1) / BWD_ROWS), (unsigned)nb);
+}
+
 template <typename T, int VPT>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
               const int* nbr, void* dq, float* stats, int nb, int n_q,
               int n_kv, int deg, float scale, cudaStream_t st) {
-  const int smem = WARPS * 2 * deg * (int)sizeof(float);
-  if (smem > MAX_SMEM) return -1;
-  attn_dq_kernel<T, VPT><<<grid_of(n_q, nb), NT, smem, st>>>(
+  attn_dq_kernel<T, VPT><<<bwd_grid(n_q, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), nbr,
       static_cast<T*>(dq), stats, n_q, n_kv, deg, scale);
@@ -350,7 +707,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* g,
                 const float* stats, const int* nbr_t, void* dk, void* dv,
                 int nb, int n_q, int n_kv, int deg_t, float scale,
                 cudaStream_t st) {
-  attn_dkdv_kernel<T, VPT><<<grid_of(n_kv, nb), NT, 0, st>>>(
+  attn_dkdv_kernel<T, VPT><<<bwd_grid(n_kv, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), stats, nbr_t,
       static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv, deg_t, scale);
