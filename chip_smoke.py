@@ -20,11 +20,13 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    the plain versions, batched and unbatched), and for attention (B5, B6
    with its row stats, B7) at nb = 1 (a direct 2-D call), 2 and 8 (dh 128)
    and 4 (dh 64), each B6 and B7 call repeated for the same bits (no
-   atomics), B6 and B7 also timed by their device kernels, with the
+   atomics), B5, B6 and B7 also timed by their device kernels, with the
    attention Function's gradients against autograd through the plain
-   forward, then B6 and B7 on an L5 graph whose lists are wider than their
-   register chunk, with a block of rows with no source (bf16 and float32,
-   nb 1, 2, 3, 8, q, k and v short of the nodes); then builds the bit-packed L7 graphs (the
+   forward, then B5, B6 and B7 on an L5 graph whose lists are wider than
+   their register chunk, with a block of rows with no source (bf16 and
+   float32, nb 1, 2, 3, 8, q, k and v short of the nodes), at window 384
+   and at window 2048 with a hub row listing its whole window (a list of
+   2,048 entries); then builds the bit-packed L7 graphs (the
    diag layout in the same KD order, the RCM banded layout at block 256)
    and checks packed B1 (F 256, also timed with no fix rows), packed B4
    (batch 4) and B13 (F 256 and batch 4), the packed composites'
@@ -142,9 +144,11 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    process; logged, not held: after it this process's profiler traces
    lose device events);
 11. the last kernel and the stored-data paths: B14 (block-tile SpMM) on the
-   L7 mesh in RCM and in KD-patch order at F 256, unbatched and at batch 4,
-   bf16 and float32, on a float32 field of F 1 and 3, on a
-   ``num_src``-extended operator, and the x-gradient of
+   L7 mesh in RCM and in KD-patch order at F 256, unbatched, at batch 4 and
+   at batch 5 (not timed), bf16 and float32, on an L5 graph with a hub row
+   of ~300 live slots (more than the batched walk's list holds), on a
+   float32 field of F 1 and 3, on a ``num_src``-extended operator, and the
+   x-gradient of
    ``spmm_block_tiles``, each against its plain version, with times, the
    bound (x, the output and the tables as stored) and ``torch.sparse.mm``
    on the same operator, held to the kernel first; ``aggregate`` on the
@@ -165,8 +169,9 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    read with numpy and the standard library alone;
 12. last, in fresh child processes: one call of ``spmm_sliding_rank1``
    (unbatched and at batch 4) runs exactly one device kernel under
-   ``torch.profiler``, the dense row gather, and one call of B6 and of B7
-   (nb 1 and 8) exactly one, ``attn_dq_kernel`` and ``attn_dkdv_kernel``;
+   ``torch.profiler``, the dense row gather, and one call of B5, B6 and B7
+   (nb 1 and 8) exactly one, ``attn_fwd_kernel``, ``attn_dq_kernel`` and
+   ``attn_dkdv_kernel``;
    then the NCCL probe.
 
 The second-to-last lines are a JSON object of the kernels and the
@@ -940,12 +945,12 @@ def check_attention_kernels(graph, device) -> dict:
             for key, (kern, plain) in pairs.items():
                 ms, plain_ms = timed_pair(kern, plain, iters)
                 times[(key, nb)] = (ms, plain_ms)
-                dev = f", device kernel {device_ms(kern, 20):.4f} ms" if key != "B5" else ""
+                dev = f", device kernel {device_ms(kern, 20):.4f} ms"
                 log(f"  {key} nb={nb}: kernel {ms:.4f} ms{dev}, plain {plain_ms:.4f} ms")
             # JSON rows: the unbatched form at nb = 1; B5b at the serving
             # shape, B6b and B7b at the batch-4 train shape.
             rows = {1: {"B5": "B5", "B6": "B6", "B7": "B7"}, 2: {"B5": "B5b"},
-                    8: {"B6": "B6b", "B7": "B7b"}}[nb]
+                    8: {"B5": "B5b nb 8", "B6": "B6b", "B7": "B7b"}}[nb]
             # Bytes: q, k, v (and g, the stats) and the neighbour lists in,
             # the results out; operations per mask entry and head column: 4
             # forward (scores, P·V), 6 for dQ, 8 for dK and dV.
@@ -969,6 +974,9 @@ def check_attention_kernels(graph, device) -> dict:
     for row, at in row_of.items():
         results[row]["library_ms"] = lib[at]
     del kept
+    # B5b at the batch-4 train shape is not a row of the kernels line
+    # (one row a kernel form): its numbers are logged here.
+    _log_times({"B5b nb=8": results.pop("B5b nb 8")})
 
     # The Function's gradients (B6 then B7 on the cotangent) against autograd
     # through the plain forward, float32 from the same values.
@@ -988,13 +996,17 @@ def check_attention_kernels(graph, device) -> dict:
     return results
 
 
-def build_wide_attention_graph(device):
+def build_wide_attention_graph(device, window: int = WINDOW):
     """An L5 graph in KD-patch order whose neighbour lists are wider than
-    the attention backward's register chunk (7 entries): the mesh, a hub
+    the attention kernels' register chunk (7 entries): the mesh, a hub
     joined both ways to every node within 150 rows of it (a row of ~300
     sources and a transpose list of ~300 destinations), and 300 appended
     nodes whose first whole block is cleared (128 rows with no source). As
-    the bf16 diag layout (window 384, block 128) with its attention lists."""
+    the bf16 diag layout (block 128, ``window``) with its attention lists.
+    With a window over 1,536 the hub row's mask holds its whole window, so
+    its list is wider than the 1,536 entries that a forward keeping a
+    row's scores in 48 KB of shared memory (one warp a row, eight a CTA)
+    would have to refuse."""
     from gwen_tpu_torch.graph import (apply_order, build_graph,
                                       diag_transpose_tables, icosphere_edges,
                                       kd_patch_order, to_diag_window)
@@ -1009,29 +1021,35 @@ def build_wide_attention_graph(device):
     n = n0 + 300
     g = build_graph(np.concatenate([s2, others, np.full(others.size, h)]),
                     np.concatenate([r2, np.full(others.size, h), others]), n)
-    diag = to_diag_window(g, window_size=WINDOW, dtype=torch.bfloat16)
+    diag = to_diag_window(g, window_size=window, dtype=torch.bfloat16)
     block = diag.block_size
     empty = -(-n0 // block)
     sm = diag.s_mat.clone()
     sm[empty * block:(empty + 1) * block] = 0
+    if window > 1536:
+        sm[h] = 1
     diag = diag_transpose_tables(dataclasses.replace(diag, s_mat=sm))
     width, width_t = diag.attn_nbr.shape[1], diag.attn_nbr_t.shape[1]
     if not (width > 7 and width_t > 7 and (empty + 1) * block <= n
+            and (window <= 1536 or width > 1536)
             and not bool((diag.attn_nbr[empty * block:(empty + 1) * block] >= 0).any())):
         raise AssertionError("the wide attention graph lacks a row or a transpose "
-                             "list over 7 entries, or its block of empty rows")
-    log(f"  wide attention graph: nodes {n}, padded {diag.num_padded_nodes}, "
+                             "list over 7 entries (over 1,536 at a wide window), "
+                             "or its block of empty rows")
+    log(f"  wide attention graph: window {diag.window_size}, nodes {n}, "
+        f"padded {diag.num_padded_nodes}, "
         f"lists {tuple(diag.attn_nbr.shape)} and {tuple(diag.attn_nbr_t.shape)}, "
         f"rows {empty * block}-{(empty + 1) * block - 1} with no source")
     return diag.to(device)
 
 
 def check_wide_attention_graph(graph, device) -> None:
-    """Phase 3, correctness only: B6 and B7 on :func:`build_wide_attention_graph`
-    against their plain versions, in bf16 and float32, at nb 1 (2-D), 3 and
-    8 (dh 128) and nb 2 at dh 64, once with q, k and v 100 rows short of the
-    nodes (listed rows at or past them read as zero); one launch each a
-    call, a second call the same bits, rows with no source 0."""
+    """Phase 3, correctness only: B5, B6 and B7 on
+    :func:`build_wide_attention_graph` against their plain versions, in
+    bf16 and float32, at nb 1 (2-D), 3 and 8 (dh 128) and nb 2 at dh 64,
+    once with q, k and v 100 rows short of the nodes (listed rows at or
+    past them read as zero); one launch each a call, a second call the same
+    bits, rows with no source 0."""
     from gwen_tpu_torch.ops import attention_cuda as ac
 
     gen = torch.Generator(device=device).manual_seed(13)
@@ -1044,17 +1062,21 @@ def check_wide_attention_graph(graph, device) -> None:
                       for _ in range(4))
         scale = dh ** -0.5
         busy, idle = has[:rows], ~has[:rows]
+        w_out = ac.attention_fwd_plain(graph, q, k, v, scale)
         w_dq, w_st = ac.attention_dq_plain(graph, q, k, v, g, scale)
         w_dk, w_dv = ac.attention_dkdv_plain(graph, q, k, v, g, w_st, scale)
         for dt, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
             name = f"wide graph {'bf16' if dt == torch.bfloat16 else 'f32'} {tag}"
             a = [t.to(dt) for t in (q, k, v, g)]
-            before = (ac.attention_dq.launches, ac.attention_dkdv.launches)
+            before = (ac.attention_fwd.launches, ac.attention_dq.launches,
+                      ac.attention_dkdv.launches)
+            out = ac.attention_fwd(graph, *a[:3], scale)
             dq, st = ac.attention_dq(graph, *a, scale)
             dk, dv = ac.attention_dkdv(graph, *a, st, scale)
-            if (ac.attention_dq.launches - before[0],
-                    ac.attention_dkdv.launches - before[1]) != (1, 1):
-                raise AssertionError(f"{name}: B6 and B7 did not launch once each")
+            if (ac.attention_fwd.launches - before[0], ac.attention_dq.launches
+                    - before[1], ac.attention_dkdv.launches - before[2]) != (1, 1, 1):
+                raise AssertionError(f"{name}: B5, B6 and B7 did not launch once each")
+            compare(f"B5 {name} out", out, w_out, tol)
             compare(f"B6 {name} dq", dq, w_dq, tol)
             # A row with no source holds mx = -1e30: stats are held on the
             # others, and those rows to 0.
@@ -1063,10 +1085,12 @@ def check_wide_attention_graph(graph, device) -> None:
                         tol)
             compare(f"B7 {name} dk", dk, w_dk, tol)
             compare(f"B7 {name} dv", dv, w_dv, tol)
-            same_bits(f"B6, B7 {name}", (dq, st, dk, dv),
-                      lambda: (*ac.attention_dq(graph, *a, scale),
+            same_bits(f"B5, B6, B7 {name}", (out, dq, st, dk, dv),
+                      lambda: (ac.attention_fwd(graph, *a[:3], scale),
+                               *ac.attention_dq(graph, *a, scale),
                                *ac.attention_dkdv(graph, *a, st, scale)))
-            if bool(dq[..., idle, :].any()) or bool(st[..., idle, 1:].any()):
+            if (bool(out[..., idle, :].any()) or bool(dq[..., idle, :].any())
+                    or bool(st[..., idle, 1:].any())):
                 raise AssertionError(f"{name}: a row with no source is not 0")
     torch.cuda.empty_cache()
 
@@ -2517,6 +2541,31 @@ def build_tile_layouts(device, kd_perm) -> dict:
             "rank1": to_sliding_rank1(g).to(device)}
 
 
+def build_hub_tiles(device):
+    """An L5 mesh in RCM order with a hub joined both ways to every node
+    within 150 rows of it (a row of ~300 live slots, wider than the B14
+    walk's list of 32 entries), as the block-tile layout (block 128), with
+    the COO graph it came from."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      rcm_order, to_block_tiles)
+
+    verts, s, r = icosphere_edges(5)
+    n = verts.shape[0]
+    s2, r2, _ = apply_order(rcm_order(s, r, n), s, r)
+    s2, r2 = np.asarray(s2, np.int64), np.asarray(r2, np.int64)
+    h, near = n // 2, set(s2[r2 == n // 2].tolist())
+    others = np.array([c for c in range(h - 150, h + 150) if c != h and c not in near])
+    g = build_graph(np.concatenate([s2, others, np.full(others.size, h)]),
+                    np.concatenate([r2, np.full(others.size, h), others]), n)
+    tiles = to_block_tiles(g)
+    live = int((tiles.tw != 0).sum(1).max())
+    if live <= 32:
+        raise AssertionError(f"the hub tile graph's widest row has {live} live slots")
+    log(f"  hub block-tile graph: nodes {n}, {tiles.tnbr.shape[1]} slots a row, "
+        f"widest row {live} live slots")
+    return g.to(device), tiles.to(device)
+
+
 def coo_csr(graph, rows: int, cols: int) -> tuple:
     """A COO graph's operator as CSR parts ``(crow, cols, values, size)``
     with duplicate edges summed."""
@@ -2619,7 +2668,10 @@ def check_rank1_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict
 
 def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
     """Phase 11, first part: B14 against its plain version at L7 in RCM and
-    in KD-patch order (F 256; unbatched and batch 4; bf16 and float32), on a
+    in KD-patch order (F 256; unbatched, batch 4 and batch 5, a group of
+    four and one item more; bf16 and float32), on an L5 graph with a hub
+    row of more live slots than the walk's list holds (:func:`build_hub_tiles`;
+    unbatched, batch 4 and batch 5 on fewer x rows), on a
     float32 field of F 1 and 3, on a ``num_src``-extended operator, and the
     x-gradient of ``spmm_block_tiles`` against autograd through the plain
     version; timed beside the plain version, the bound (x, the output and
@@ -2646,7 +2698,7 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
         need = nonzero_slot_bytes(t.tnbr, t.tw, f"B14 {order}")
         coo = layouts["coo" if order == "rcm" else "coo_kd"]
         csr = coo_csr(coo, t.num_padded_nodes, t.num_src_rows)
-        for shape in ((n, f), (batch, n, f)):
+        for shape in ((n, f), (batch, n, f), (batch + 1, n, f)):
             x = randn(*shape)
             nb = shape[0] if len(shape) == 3 else 1
             iters = 5 if nb > 1 else 20
@@ -2657,6 +2709,9 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
             compare(f"B14 {tag} f32", b14(t, x.float()), want, F32_TOL)
             compare(f"B14 {tag} against aggregate_segment", got[..., :n, :],
                     aggregate_segment(coo, x.float()), BF16_TOL)
+            if nb > batch:  # correctness only
+                del want, x, got
+                continue
             x2 = spmm_cuda._fit_rows(x, t.num_src_rows)
             x2 = x2.transpose(0, 1).reshape(t.num_src_rows, -1) if nb > 1 else x2
             # The same function: held in float32, where the library rounds once.
@@ -2683,6 +2738,14 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
         compare(f"spmm_block_tiles on a float32 field (batch {batch}, F {ch})",
                 spmm_cuda.spmm_block_tiles(t, x),
                 spmm_cuda.spmm_block_tiles(t, x, plain=True), F32_TOL)
+    coo, hub = build_hub_tiles(device)
+    for shape in ((hub.num_nodes, f), (batch, hub.num_nodes, f),
+                  (batch + 1, hub.num_nodes - 10, 24)):
+        x = randn(*shape)
+        want = b14p(hub, x.float())
+        compare(f"B14 hub graph {shape} bf16", b14(hub, x), want, BF16_TOL)
+        compare(f"B14 hub graph {shape} f32", b14(hub, x.float()), want, F32_TOL)
+    del coo, hub
     ext = layouts["ext"]
     x = randn(batch, ext.num_src_rows, f)
     got = b14(ext, x)
@@ -2739,9 +2802,12 @@ out, scale = {}, 128 ** -0.5
 for lead in ((), (cs.ATTN_HEADS * cs.TRAIN_BATCH,)):
     q, k, v, g = (torch.randn(*lead, graph.num_nodes, 128, device=dev).bfloat16()
                   for _ in range(4))
+    ac.attention_fwd(graph, q, k, v, scale)
     st = ac.attention_dq(graph, q, k, v, g, scale)[1]
     ac.attention_dkdv(graph, q, k, v, g, st, scale)
     nb = lead[0] if lead else 1
+    out[f"B5 nb {nb}"] = [ev.name for ev in cs.device_events(
+        lambda: ac.attention_fwd(graph, q, k, v, scale))]
     out[f"B6 nb {nb}"] = [ev.name for ev in cs.device_events(
         lambda: ac.attention_dq(graph, q, k, v, g, scale))]
     out[f"B7 nb {nb}"] = [ev.name for ev in cs.device_events(
@@ -3153,9 +3219,12 @@ def main() -> int:
     results.update(check_train_kernels(graph, device))
     log("  attention (B5, B6, B7):")
     results.update(check_attention_kernels(graph, device))
-    log("  the attention backward (B6, B7) on an L5 graph with lists over the "
-        "register chunk and rows with no source:")
-    check_wide_attention_graph(build_wide_attention_graph(device), device)
+    log("  the attention kernels (B5, B6, B7) on an L5 graph with lists over "
+        "the register chunk and rows with no source, at window 384 and at "
+        "window 2048 with a hub row listing its whole window:")
+    for window in (WINDOW, 2048):
+        check_wide_attention_graph(build_wide_attention_graph(device, window), device)
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
     packed = build_packed_graphs(device, perm)
     pg, sg = packed["diag_packed"], packed["packed"]
@@ -3247,11 +3316,12 @@ def main() -> int:
         store_paths(device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         member_graph_pipeline(device, Path(tmp))
-    log("== last: one device kernel per int8 rank-1 call and per B6 and B7 "
-        "call (child processes under torch.profiler); the 1-rank NCCL probe")
+    log("== last: one device kernel per int8 rank-1 call and per B5, B6 and "
+        "B7 call (child processes under torch.profiler); the 1-rank NCCL probe")
     one_kernel_per_call(RANK1_PROFILE, "spmm_sliding_rank1", {"(": "dense_row"})
-    one_kernel_per_call(ATTN_PROFILE, "windowed attention backward",
-                        {"B6": "attn_dq_kernel", "B7": "attn_dkdv_kernel"})
+    one_kernel_per_call(ATTN_PROFILE, "windowed attention",
+                        {"B5": "attn_fwd_kernel", "B6": "attn_dq_kernel",
+                         "B7": "attn_dkdv_kernel"})
     # Last: after this child process the profiler traces of this one lose
     # device events, and the checks above read them.
     nccl_one_rank_probe()
@@ -3279,9 +3349,12 @@ def main() -> int:
                        "S01 form is held in phase 11)", "cuda", cu, f"{spmm}:609"),
                "B2b": ("residual + LayerNorm backward", "triton", tr,
                        f"{ln}:59"),
-               "B5": (f"windowed attention forward (nb = 1{one})", "cuda",
-                      acu, f"{att}:522"),
-               "B5b": (f"batched windowed attention forward (nb = 2{one})",
+               "B5": (f"windowed attention forward (nb = 1{one}): one pass "
+                      "over the row's list, a 16-lane group a row with its 7 k "
+                      "and 7 v gathers in flight, 64 rows a CTA "
+                      "(attn_fwd_kernel)", "cuda", acu, f"{att}:522"),
+               "B5b": (f"batched windowed attention forward (nb = 2{one}; the "
+                       "items on the grid, attn_fwd_kernel)",
                        "cuda", acu, f"{att}:619"),
                "B6": (f"attention dQ and row stats (nb = 1{one}): one pass "
                       "over the row's list, a 16-lane group a row with its 7 k "
@@ -3323,8 +3396,10 @@ def main() -> int:
                        "cuda", cu, f"{spmm}:353"),
                "B12": ("blocked-ELL SpMM: gather, scale, sum (RCM order, F "
                        "256, unbatched)", "cuda", cu, f"{spmm}:46"),
-               "B14": ("block-tile (BSR) SpMM: gather, scale, sum over the "
-                       "active tiles' slots (RCM order, F 256, unbatched)",
+               "B14": ("block-tile (BSR) SpMM: a warp a row walks the active "
+                       "tiles' slots and gathers the live ones (RCM order, F "
+                       "256, unbatched: tile_walk_kernel; a batch lists them "
+                       "once and gathers the list per item, tile_list_kernel)",
                        "cuda", cu, f"{spmm}:194"),
                "B3r": ("int8 rank-1 banded SpMM a . K(a . x) on the RCM band "
                        "(unbatched): the dense row gather's batch-1 walk over "

@@ -34,27 +34,25 @@
 // kernels multiply dense (128, W) tiles on the MXU, but a mesh row holds at
 // most ~7 of the W = 384 window columns, so 98 % of that work is masked out.
 // Here the mask is read as neighbour lists (DiagWindowGraph.attn_nbr and its
-// transpose attn_nbr_t). In the forward one warp owns one row and each lane
-// holds dh/32 feature values; a dot product is a warp butterfly, after which
-// every lane holds the same bits, so all lanes take the same softmax. At L7,
-// nb = 2, dh = 128, bf16, a forward reads q, k, v and writes out, ~0.34 GB
-// (0.1 ms at the card's bandwidth); neighbours are near in KD order, so the
-// repeated k_j and v_j reads mostly hit L2.
+// transpose attn_nbr_t). At L7, nb = 2, dh = 128, bf16, a forward reads q,
+// k, v and writes out, ~0.34 GB (0.1 ms at the card's bandwidth);
+// neighbours are near in KD order, so the repeated k_j and v_j reads mostly
+// hit L2.
 //
-// The backward kernels (B6, B7) are bound by latencies in series when a
-// row's neighbours are visited one after another: a row holds ~7 sources,
-// and a gather that waits for the previous neighbour's dot product leaves
-// ~21 dependent round trips to L2 a row in B6. So they read a row's list
-// once, issue all of its gathers before the first dot product, keep the
-// gathered k rows for dq (14 row reads a row instead of 21, one expf a
-// neighbour), and complete the row's dot products together. A group of 16
-// lanes owns a row at dh 128 in bf16 (16 bytes a lane, 4-step butterflies),
-// two rows a warp; a CTA covers 64 consecutive rows of one item (see the
-// shared parts below). What bounds them then, measured on an H100: the
-// instructions and shuffles in series of each row at 16-24 resident warps
-// an SM (80-128 registers a thread hold the 14 gathered rows), not the
-// bytes: a control run whose gathers all hit L1 is only 10-13 % faster
-// (tools/time_attention_bwd.py --controls). The source
+// All three are bound by latencies in series when a row's neighbours are
+// visited one after another: a row holds ~7 sources, and a gather that
+// waits for the previous neighbour's dot product leaves ~14 dependent round
+// trips to L2 a row in B5 and ~21 in B6. So each reads a row's list once,
+// issues all of its gathers before the first dot product (B5 and B6 keep
+// the gathered v or k rows for the output sum: one pass, one expf a
+// neighbour), and completes the row's dot products together. A group of 16
+// lanes owns a row at dh 128 in bf16 (16 bytes a lane, 4-step
+// butterflies), two rows a warp; a CTA covers 64 consecutive rows of one
+// item (see the shared parts below). What bounds the backward then,
+// measured on an H100: the instructions and shuffles in series of each row
+// at 16-24 resident warps an SM (80-128 registers a thread hold the 14
+// gathered rows), not the bytes: a control run whose gathers all hit L1 is
+// only 10-13 % faster (tools/time_attention.py --controls). The source
 // side forms each score with the same device functions, in the same lane
 // layout, so its p is B6's to the bit. dK/dV walk the transpose lists
 // instead of scattering, with no atomics, so gradients repeat from run to
@@ -68,10 +66,9 @@
 
 namespace {
 
-constexpr int WARPS = 8;  // rows per CTA, one warp each
+constexpr int WARPS = 8;  // warps a CTA
 constexpr int NT = WARPS * 32;
 constexpr float NEG_BIG = -1e30f;  // the reference's masked logit
-constexpr int MAX_SMEM = 48 * 1024;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -91,151 +88,42 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f32(from_f32<T>(v));
 }
 
-template <int BYTES>
-struct Chunk;
-template <>
-struct Chunk<2> { using type = unsigned short; };
-template <>
-struct Chunk<4> { using type = unsigned int; };
-template <>
-struct Chunk<8> { using type = uint2; };
-template <>
-struct Chunk<16> { using type = uint4; };
-
-// A lane's VPT consecutive values of one row, moved as float32 in the
-// widest loads their alignment allows (rows are 32 * VPT values).
+// A lane's VPT consecutive values of one row (whole 16-byte chunks: the
+// lane layout below), stored from float32.
 template <typename T, int VPT>
 struct Lane {
   static constexpr int BYTES = VPT * (int)sizeof(T);
-  static constexpr int CB = BYTES < 16 ? BYTES : 16;
-  using C = typename Chunk<CB>::type;
+  static_assert(BYTES % 16 == 0, "a lane holds whole 16-byte chunks");
 
-  static __device__ __forceinline__ void load(const T* p, float (&out)[VPT]) {
-    __align__(16) T t[VPT];
-#pragma unroll
-    for (int i = 0; i < BYTES / CB; ++i)
-      reinterpret_cast<C*>(t)[i] = reinterpret_cast<const C*>(p)[i];
-#pragma unroll
-    for (int e = 0; e < VPT; ++e) out[e] = to_f32(t[e]);
-  }
-  // Row j of a (rows, 32 * VPT) matrix, seen from this lane; rows at or
-  // past `rows` read as zero (the reference zero-pads k and v).
-  static __device__ __forceinline__ void row(const T* base, int j, int rows,
-                                             float (&out)[VPT]) {
-    if (j < rows) {
-      load(base + (int64_t)j * (32 * VPT), out);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VPT; ++e) out[e] = 0.f;
-    }
-  }
   static __device__ __forceinline__ void store(T* p, const float (&in)[VPT]) {
     __align__(16) T t[VPT];
 #pragma unroll
     for (int e = 0; e < VPT; ++e) t[e] = from_f32<T>(in[e]);
 #pragma unroll
-    for (int i = 0; i < BYTES / CB; ++i)
-      reinterpret_cast<C*>(p)[i] = reinterpret_cast<const C*>(t)[i];
+    for (int i = 0; i < BYTES / 16; ++i)
+      reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(t)[i];
   }
 };
 
-// Dot product of two rows spread over the warp. The xor butterfly leaves
-// the same bits in every lane (each step adds the same two values in the
-// two lanes of a pair), and a . b and b . a round alike.
-template <int VPT>
-__device__ __forceinline__ float warp_dot(const float (&a)[VPT],
-                                          const float (&b)[VPT]) {
-  float s = 0.f;
-#pragma unroll
-  for (int e = 0; e < VPT; ++e) s = fmaf(a[e], b[e], s);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-  return s;
-}
-
-// Scores of destination row i against its listed sources, kept in the
-// warp's shared scratch `sc`; returns the count and sets the row max.
-template <typename T, int VPT>
-__device__ __forceinline__ int row_scores(const float (&qi)[VPT],
-                                          const T* kb, const int* row,
-                                          int deg, int n_kv, float scale,
-                                          int lane, float* sc, float& mx) {
-  int cnt = 0;
-  mx = NEG_BIG;
-  for (; cnt < deg; ++cnt) {
-    const int j = row[cnt];
-    if (j < 0) break;
-    float kj[VPT];
-    Lane<T, VPT>::row(kb, j, n_kv, kj);
-    // __fmul_rn is never fused into a later add: the source side rounds
-    // the same product the same way.
-    const float s = __fmul_rn(warp_dot<VPT>(qi, kj), scale);
-    if (lane == 0) sc[cnt] = s;
-    mx = fmaxf(mx, s);
-  }
-  __syncwarp();
-  return cnt;
-}
-
-// ----------------------------------------------------------- B5 / B5b
-
-template <typename T, int VPT>
-__global__ void __launch_bounds__(NT)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const int* __restrict__ nbr,
-                T* __restrict__ out, int n_q, int n_kv, int deg,
-                float scale) {
-  constexpr int DH = 32 * VPT;
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int i = blockIdx.x * WARPS + warp;
-  if (i >= n_q) return;  // the whole warp leaves; no CTA barrier follows
-  const int64_t b = blockIdx.y;
-  float* sc = smem + warp * deg;
-  const int* row = nbr + (int64_t)i * deg;
-  const T* kb = k + b * n_kv * DH + lane * VPT;
-  const T* vb = v + b * n_kv * DH + lane * VPT;
-
-  float qi[VPT];
-  Lane<T, VPT>::load(q + (b * n_q + i) * DH + lane * VPT, qi);
-  float mx;
-  const int cnt = row_scores<T, VPT>(qi, kb, row, deg, n_kv, scale, lane,
-                                     sc, mx);
-  float den = 0.f;
-  for (int d = 0; d < cnt; ++d) den += expf(sc[d] - mx);
-  const float div = den == 0.f ? 1.f : den;
-
-  float acc[VPT];
-#pragma unroll
-  for (int e = 0; e < VPT; ++e) acc[e] = 0.f;
-  for (int d = 0; d < cnt; ++d) {
-    const float p = round_to<T>(expf(sc[d] - mx) / div);
-    float vj[VPT];
-    Lane<T, VPT>::row(vb, row[d], n_kv, vj);
-#pragma unroll
-    for (int e = 0; e < VPT; ++e) acc[e] = fmaf(p, vj[e], acc[e]);
-  }
-  Lane<T, VPT>::store(out + (b * n_q + i) * DH + lane * VPT, acc);
-}
-
-// ----------------------------------------------------- B6 / B7: shared parts
+// ------------------------------------------------ B5, B6, B7: shared parts
 //
 // A group of G lanes owns one (row, item): each lane holds V consecutive
 // values of the head, 16 bytes (G = dh * sizeof(T) / 16, at most 32), so a
 // gathered row is one 16-byte load a lane. A warp holds 32 / G groups, a
-// CTA BWD_ROWS consecutive rows of one item, which its groups take in turn
+// CTA CTA_ROWS consecutive rows of one item, which its groups take in turn
 // (the sources of nearby rows overlap, so L1 and L2 serve the repeats). The
 // first CAP entries of a row's list and their rows are all loaded before
 // the first dot product: an invalid entry loads row 0 and is masked after,
-// so no register is cleared. The chunk's CAP scores and CAP g . v products
-// are completed together: a first butterfly step that leaves the scores to
-// the group's lower half and the g . v products to its upper half, then a
-// plain butterfly on CAP values. Each lane then takes the softmax
-// arithmetic of its own slots (an expf and a division a neighbour, not CAP
-// of each on every lane), and the group reads each neighbour's dl (and p)
-// from the lane that holds it.
+// so no register is cleared. In B6 and B7 the chunk's CAP scores and CAP
+// g . v products are completed together: a first butterfly step that leaves
+// the scores to the group's lower half and the g . v products to its upper
+// half, then a plain butterfly on CAP values; B5 completes its CAP scores
+// alone, in a plain butterfly. Each lane then takes the softmax arithmetic
+// of its own slots (an expf and a division a neighbour, not CAP of each on
+// every lane), and the group reads each neighbour's p (or dl) from the lane
+// that holds it.
 
-constexpr int BWD_ROWS = 64;  // consecutive rows of one item a CTA
+constexpr int CTA_ROWS = 64;  // consecutive rows of one item a CTA
 
 constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
 
@@ -392,6 +280,184 @@ __device__ __forceinline__ unsigned gather(const T* base, const int (&j)[CAP],
   return real;
 }
 
+// ----------------------------------------------------------- B5 / B5b
+
+// The lane parts s[0..CAP) summed over the group in place: a plain
+// butterfly, after which every lane holds the same bits of each sum.
+template <int G, int CAP>
+__device__ __forceinline__ void group_sums(float (&s)[CAP], unsigned mask) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) s[d] += __shfl_xor_sync(mask, s[d], o);
+  }
+}
+
+template <typename T, int VPT>
+struct Fwd {
+  using Gm = Geo<T, VPT>;
+  static constexpr int G = Gm::G, CAP = Gm::CAP, V = Gm::V, W = Gm::W,
+                       SL = Gm::SL, NC = Gm::NC;
+  using P = Piece<T, NC>;
+
+  // The chunk's scores (q . k_d) * scale, in every lane of the group; a row
+  // at or past n_kv (its bit in `real` clear) is a zero k row: score 0.
+  static __device__ __forceinline__ void scores(const P& qi, const P (&kr)[CAP],
+                                                unsigned real, float scale,
+                                                unsigned mask, float (&sc)[CAP]) {
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) sc[d] = lane_dot(qi, kr[d]);
+    group_sums<G, CAP>(sc, mask);
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) sc[d] = real >> d & 1u ? __fmul_rn(sc[d], scale) : 0.f;
+  }
+
+  // exp(sc[d] - mx) of this lane's slots d = slot + W x that are below cnt
+  // (0 for the others).
+  static __device__ __forceinline__ void slot_exps(const float (&sc)[CAP], int cnt,
+                                                   float mx, int slot,
+                                                   float (&e)[SL]) {
+#pragma unroll
+    for (int x = 0; x < SL; ++x) {
+      float mine = 0.f;
+#pragma unroll
+      for (int d = W * x; d < W * x + W && d < CAP; ++d) {
+        if (d == slot + W * x) mine = sc[d];
+      }
+      e[x] = slot + W * x < cnt ? expf(mine - mx) : 0.f;
+    }
+  }
+
+  // The sum of the chunk's exps over the group's slots.
+  static __device__ __forceinline__ float exps_sum(const float (&e)[SL], unsigned mask) {
+    float t = 0.f;
+#pragma unroll
+    for (int x = 0; x < SL; ++x) t += e[x];
+    return slots_sum<W>(t, mask);
+  }
+
+  // acc += round(e_d / div) v_d over the chunk's rows below n_kv, each p
+  // formed on the lane that owns its slot and read from there.
+  static __device__ __forceinline__ void add_rows(const float (&e)[SL], float div,
+                                                  const P (&vr)[CAP], int cnt,
+                                                  unsigned real, const Group<G>& grp,
+                                                  float (&acc)[V]) {
+    float p[SL];
+#pragma unroll
+    for (int x = 0; x < SL; ++x) p[x] = round_to<T>(e[x] / div);
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) {
+      const float w = __shfl_sync(grp.mask, p[d / W], grp.first + d % W);
+      if (d < cnt && (real >> d & 1u)) {
+#pragma unroll
+        for (int x = 0; x < V; ++x) acc[x] = fmaf(w, vr[d].at(x), acc[x]);
+      }
+    }
+  }
+
+  // A row of at most CAP sources, its k and v rows gathered: acc = out.
+  static __device__ __forceinline__ void row(const P& qi, const P (&kr)[CAP],
+                                             const P (&vr)[CAP], int cnt,
+                                             unsigned real, float scale,
+                                             const Group<G>& grp, float (&acc)[V]) {
+    float sc[CAP], e[SL];
+    scores(qi, kr, real, scale, grp.mask, sc);
+    float mx = NEG_BIG;
+#pragma unroll
+    for (int d = 0; d < CAP; ++d) {
+      if (d < cnt) mx = fmaxf(mx, sc[d]);
+    }
+    slot_exps(sc, cnt, mx, grp.lane % W, e);
+    const float den = exps_sum(e, grp.mask);
+    add_rows(e, den == 0.f ? 1.f : den, vr, cnt, real, grp, acc);
+  }
+
+  // A list over CAP entries: its chunks walked twice, gathered again each
+  // time, with no shared scratch (no width is refused): the max and den
+  // first (den rescaled whenever the max grows), then round(p) v.
+  static __device__ void wide(const P& qi, const int* row, int deg, const T* kb,
+                              const T* vb, int n_kv, float scale,
+                              const Group<G>& grp, float (&acc)[V]) {
+    const int slot = grp.lane % W;
+    float mx = NEG_BIG, den = 0.f;
+    for (int base = 0; base < deg; base += CAP) {
+      int j[CAP];
+      bool more;
+      const int cnt = list_chunk<CAP>(row, base, deg, j, more);
+      P kr[CAP];
+      const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, Gm::DH, kr);
+      float sc[CAP], e[SL];
+      scores(qi, kr, real, scale, grp.mask, sc);
+      float m = mx;
+#pragma unroll
+      for (int d = 0; d < CAP; ++d) {
+        if (d < cnt) m = fmaxf(m, sc[d]);
+      }
+      slot_exps(sc, cnt, m, slot, e);
+      den = den * expf(mx - m) + exps_sum(e, grp.mask);
+      mx = m;
+      if (!more) break;
+    }
+    const float div = den == 0.f ? 1.f : den;
+    for (int base = 0; base < deg; base += CAP) {
+      int j[CAP];
+      bool more;
+      const int cnt = list_chunk<CAP>(row, base, deg, j, more);
+      P kr[CAP], vr[CAP];
+      const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, Gm::DH, kr);
+      gather<T, NC, CAP>(vb, j, n_kv, Gm::DH, vr);
+      float sc[CAP], e[SL];
+      scores(qi, kr, real, scale, grp.mask, sc);
+      slot_exps(sc, cnt, mx, slot, e);
+      add_rows(e, div, vr, cnt, real, grp, acc);
+      if (!more) break;
+    }
+  }
+};
+
+// The output of CTA_ROWS consecutive destination rows of one item a CTA. A
+// row's list of at most CAP entries (every mesh row at L7) takes one pass:
+// its k and v rows gathered at once, CAP scores completed together, one
+// expf a neighbour on the lane that owns its slot, out summed from the
+// kept v rows.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(NT, 3)
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const int* __restrict__ nbr,
+                T* __restrict__ out, int n_q, int n_kv, int deg, float scale) {
+  using F = Fwd<T, VPT>;
+  constexpr int DH = F::Gm::DH, G = F::G, CAP = F::CAP, V = F::V;
+  constexpr int NG = WARPS * F::Gm::GPW;  // groups a CTA
+  const int sub = (threadIdx.x & 31) / G;
+  const Group<G> grp(sub);
+  const int64_t b = blockIdx.y;
+  const int end = min(n_q, ((int)blockIdx.x + 1) * CTA_ROWS);
+  const T* kb = k + b * n_kv * DH + grp.lane * V;
+  const T* vb = v + b * n_kv * DH + grp.lane * V;
+  for (int i = (int)blockIdx.x * CTA_ROWS + (int)(threadIdx.x >> 5) * F::Gm::GPW + sub;
+       i < end; i += NG) {
+    const int64_t at = (b * n_q + i) * DH + grp.lane * V;
+    const int* row = nbr + (int64_t)i * deg;
+    typename F::P qi;
+    qi.load(q + at);
+    int j[CAP];
+    bool more;
+    const int cnt = list_chunk<CAP>(row, 0, deg, j, more);
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+    if (!more) {
+      typename F::P kr[CAP], vr[CAP];
+      const unsigned real = gather<T, F::NC, CAP>(kb, j, n_kv, DH, kr);
+      gather<T, F::NC, CAP>(vb, j, n_kv, DH, vr);
+      F::row(qi, kr, vr, cnt, real, scale, grp, acc);
+    } else {
+      F::wide(qi, row, deg, kb, vb, n_kv, scale, grp, acc);
+    }
+    Lane<T, V>::store(out + at, acc);
+  }
+}
+
 // ----------------------------------------------------------- B6 / B6b
 
 template <typename T, int VPT>
@@ -517,7 +583,7 @@ struct Dq {
   }
 };
 
-// dQ and the stats of BWD_ROWS consecutive destination rows of one item a
+// dQ and the stats of CTA_ROWS consecutive destination rows of one item a
 // CTA. A row's list of at most CAP entries (every mesh row at L7: degree
 // <= 6 plus the self-loop) takes one pass: its k and v rows gathered at
 // once and kept, one expf a neighbour, dq summed from the kept k rows. At
@@ -538,10 +604,10 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = (threadIdx.x & 31) / G;
   const Group<G> grp(sub);
   const int64_t b = blockIdx.y;
-  const int end = min(n_q, ((int)blockIdx.x + 1) * BWD_ROWS);
+  const int end = min(n_q, ((int)blockIdx.x + 1) * CTA_ROWS);
   const T* kb = k + b * n_kv * DH + grp.lane * V;
   const T* vb = v + b * n_kv * DH + grp.lane * V;
-  for (int i = (int)blockIdx.x * BWD_ROWS + (int)(threadIdx.x >> 5) * W::Gm::GPW + sub;
+  for (int i = (int)blockIdx.x * CTA_ROWS + (int)(threadIdx.x >> 5) * W::Gm::GPW + sub;
        i < end; i += NG) {
     const int64_t at = (b * n_q + i) * DH + grp.lane * V;
     const int* row = nbr + (int64_t)i * deg;
@@ -574,7 +640,7 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ----------------------------------------------------------- B7 / B7b
 
-// dK and dV of BWD_ROWS consecutive source rows of one item a CTA, each
+// dK and dV of CTA_ROWS consecutive source rows of one item a CTA, each
 // over the destination rows of its transpose list, CAP at a time: their q
 // and g rows and the stats of this lane's slots loaded at once, the chunk's
 // 2 CAP dot products completed together, p and dl as B6 forms them, each on
@@ -595,12 +661,12 @@ attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int sub = (threadIdx.x & 31) / G;
   const Group<G> grp(sub);
   const int64_t b = blockIdx.y;
-  const int end = min(n_kv, ((int)blockIdx.x + 1) * BWD_ROWS);
+  const int end = min(n_kv, ((int)blockIdx.x + 1) * CTA_ROWS);
   const int slot = grp.lane % W;
   const T* qb = q + b * n_q * DH + grp.lane * V;
   const T* gb = g + b * n_q * DH + grp.lane * V;
   const float* sb = stats + b * n_q * 3;
-  for (int c = (int)blockIdx.x * BWD_ROWS + (threadIdx.x >> 5) * Gm::GPW + sub;
+  for (int c = (int)blockIdx.x * CTA_ROWS + (threadIdx.x >> 5) * Gm::GPW + sub;
        c < end; c += NG) {
     const int* col = nbr_t + (int64_t)c * deg_t;
     const int64_t at = (b * n_kv + c) * DH + grp.lane * V;
@@ -669,33 +735,27 @@ attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 // ----------------------------------------------------------- launches
 
-dim3 grid_of(int rows, int nb) {
-  return dim3((unsigned)((rows + WARPS - 1) / WARPS), (unsigned)nb);
+// The kernels' grid: CTA_ROWS rows of one item a CTA.
+dim3 rows_grid(int rows, int nb) {
+  return dim3((unsigned)((rows + CTA_ROWS - 1) / CTA_ROWS), (unsigned)nb);
 }
 
 template <typename T, int VPT>
 int launch_fwd(const void* q, const void* k, const void* v, const int* nbr,
                void* out, int nb, int n_q, int n_kv, int deg, float scale,
                cudaStream_t st) {
-  const int smem = WARPS * deg * (int)sizeof(float);
-  if (smem > MAX_SMEM) return -1;
-  attn_fwd_kernel<T, VPT><<<grid_of(n_q, nb), NT, smem, st>>>(
+  attn_fwd_kernel<T, VPT><<<rows_grid(n_q, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), nbr, static_cast<T*>(out), n_q, n_kv, deg,
       scale);
   return (int)cudaGetLastError();
 }
 
-// The backward kernels' grid: BWD_ROWS rows of one item a CTA.
-dim3 bwd_grid(int rows, int nb) {
-  return dim3((unsigned)((rows + BWD_ROWS - 1) / BWD_ROWS), (unsigned)nb);
-}
-
 template <typename T, int VPT>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
               const int* nbr, void* dq, float* stats, int nb, int n_q,
               int n_kv, int deg, float scale, cudaStream_t st) {
-  attn_dq_kernel<T, VPT><<<bwd_grid(n_q, nb), NT, 0, st>>>(
+  attn_dq_kernel<T, VPT><<<rows_grid(n_q, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), nbr,
       static_cast<T*>(dq), stats, n_q, n_kv, deg, scale);
@@ -707,7 +767,7 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* g,
                 const float* stats, const int* nbr_t, void* dk, void* dv,
                 int nb, int n_q, int n_kv, int deg_t, float scale,
                 cudaStream_t st) {
-  attn_dkdv_kernel<T, VPT><<<bwd_grid(n_kv, nb), NT, 0, st>>>(
+  attn_dkdv_kernel<T, VPT><<<rows_grid(n_kv, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), stats, nbr_t,
       static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv, deg_t, scale);

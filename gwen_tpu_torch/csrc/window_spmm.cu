@@ -19,7 +19,10 @@
 //                        of _diag_kernel_b), B13 (_sliding_packed_kernel
 //                        through _sliding_packed_impl);
 //   ell_spmm_kernel      B12 (_kernel through _spmm_impl);
-//   tile_spmm_kernel     B14 (_tile_kernel through _spmm_tiles_impl).
+//   tile_walk_kernel     B14 (_tile_kernel through _spmm_tiles_impl) with
+//                        one item;
+//   tile_list_kernel     B14 on a batch: the row's live slots listed once,
+//                        then gathered for each item.
 // Each has its section below, with what bounds it and what its design does
 // about that.
 //
@@ -1034,106 +1037,262 @@ extern "C" int gwen_ell_spmm(const void* nbr, const void* w,
 // gather-scale-sum with one indirection more than B12,
 //   out[i, :] = sum_{t < n_active[b]} sum_{d < D}
 //       T(tw[i, t*D + d]) * x[tile_idx[b, t]*block + tnbr[i, t*D + d], :]
-// with b = i / block, and that is what this kernel does, reading the BSR
-// tables as they are: one warp per destination row and batch member; the
-// warp reads the row's slots of the block's ACTIVE tiles only (n_active[b]
-// * D of the tiles_max * D stored), 32 at a time, one per lane, each lane
-// resolving its slot's tile base from tile_idx; a ballot picks the slots
-// with a nonzero weight (about 7 of 56 on an icosphere) and only those are
-// broadcast and gathered, each source row with 16-byte loads, float32
-// accumulation in slot order (no atomics, a fixed order of summation), one
-// rounding. Each slot's weight is rounded to x's type first, as the
-// reference casts its tile; the reference's tile holds the sum of the slots
-// of one row that name the same source and rounds that sum, so for a bf16 x
-// the two differ on a graph with duplicate edges (no mesh has any). Sources
-// at or past x_rows read as zero.
+// with b = i / block, and that is what the two kernels here do, reading
+// the BSR tables as they are: a warp a destination row reads the row's
+// slots of its block's ACTIVE tiles only (n_active[b] * D of the
+// tiles_max * D stored), 32 a round, one a lane, each lane resolving its
+// slot's source row from tile_idx; a ballot keeps the slots with a nonzero
+// weight and a source below x_rows (about 7 of a row's 70 slots in RCM
+// order), in ascending slot order. Float32 sums in that order (no atomics,
+// a fixed order of summation), one rounding. Each slot's weight is rounded
+// to x's type first, as the reference casts its tile; the reference's tile
+// holds the sum of the slots of one row that name the same source and
+// rounds that sum, so for a bf16 x the two differ on a graph with duplicate
+// edges (no mesh has any). Sources at or past x_rows read as zero.
+//   One item (tile_walk_kernel): each live slot, broadcast by shuffles,
+//     adds its source row at once, one 16-byte load a lane.
+//   A batch (tile_list_kernel): the warp lists the row's live slots in
+//     shared memory once (one entry a lane at most, so a popcount of the
+//     ballot places each), then gathers the list for each item in turn,
+//     four x rows in flight a lane, through L1: the tables are read once a
+//     row for the whole batch (per pass over F), not once per item (a row
+//     of more live slots than the list holds, which no mesh has, lists and
+//     gathers them in pieces for each item).
+//
+// What bounds them, measured on an H100 (PERF.md, tools/time_row_gathers.py
+// --controls): not the bytes of the gathers (with every gather from one of
+// 64 rows, so from L1, the batched kernel is ~7 % faster and the walk ~5 %),
+// but each row's instructions and latencies in series: the table rounds,
+// the ballot, the list, the gathers. So warps in flight decide: the
+// kernels hold 32 (walk) and 40 (list) registers a thread, and a design
+// with more gathers in flight a warp but more registers (eight or two
+// slots at once, the batch items held in registers, cp.async into shared
+// memory) was slower at every batch size.
 //
 // Why not one CTA per block staging its active tiles in shared memory (the
 // reuse the layout was made for on the TPU): on a mesh a block's 128 rows
 // make about 900 gathers from about 8 tiles of 128 rows, so a staged row is
 // used about once; staging reads as much as gathering and adds a barrier
 // per tile. L2 already serves the rows that neighbours share.
-//
-// What bounds it: bytes. Per row it reads n_active * D slots of 5 bytes
-// (uint8 index, float32 weight), gathers about 7 rows of x (mostly from L2)
-// and writes one row.
 
 namespace {
 
-constexpr int TILE_WARPS = 8;  // destination rows per CTA
+// The block-tile tables as the walk reads them.
+struct Tiles {
+  const int* tile_idx;  // (n_pad / block, tiles_max) active source tiles
+  const int* n_active;  // (n_pad / block,)
+  const uint8_t* tnbr;  // (n_pad, tiles_max * deg) within-tile sources
+  const float* tw;      // (n_pad, tiles_max * deg) weights
+  int tiles_max, deg, block, x_rows;
+  float inv_deg;  // 1 / deg
+};
 
+// One destination row's part of the tables.
+struct TileRow {
+  const int* tiles;    // its block's active tiles
+  const uint8_t* nbr;  // its slots' within-tile sources
+  const float* w;      // and weights
+  int n;               // its slots in the active tiles
+
+  __device__ TileRow(const Tiles& tl, int row) {
+    const int b = row / tl.block;
+    const int64_t at = (int64_t)row * tl.tiles_max * tl.deg;
+    tiles = tl.tile_idx + (int64_t)b * tl.tiles_max;
+    nbr = tl.tnbr + at;
+    w = tl.tw + at;
+    n = min(tl.n_active[b], tl.tiles_max) * tl.deg;
+  }
+  // Slot k: its source row and weight (rounded to T); true when the weight
+  // is nonzero and the source below x_rows. Its tile k / deg comes from a
+  // float32 product, off by at most one for k < 2^21 (the entry refuses
+  // wider rows) and corrected, instead of an integer division.
+  template <typename T>
+  __device__ bool slot(const Tiles& tl, int k, int& src, float& wk) const {
+    src = 0;
+    wk = 0.f;
+    if (k >= n) return false;
+    wk = scale_at<T>(w, k);
+    int t = (int)(((float)k + 0.5f) * tl.inv_deg);
+    t -= t * tl.deg > k;
+    t += (t + 1) * tl.deg <= k;
+    src = tiles[t] * tl.block + (int)nbr[k];
+    return wk != 0.f && src < tl.x_rows;
+  }
+};
+
+constexpr int TILE_WARPS = 8;  // destination rows a CTA, a warp each
+constexpr int TILE_FLIGHT = 4;  // listed x rows a lane gathers at once
+
+// Adds list entries [0, n) into acc in list order, TILE_FLIGHT x rows
+// loaded into registers at once (through L1, which serves the rows that
+// nearby destination rows share).
 template <typename T>
-__global__ void __launch_bounds__(TILE_WARPS * 32)
-tile_spmm_kernel(const int* __restrict__ tile_idx,
-                 const int* __restrict__ n_active,
-                 const uint8_t* __restrict__ tnbr, const float* __restrict__ tw,
-                 const T* __restrict__ x, T* __restrict__ out, int n_pad,
-                 int tiles_max, int tile_degree, int block, int f, int x_rows) {
+__device__ __forceinline__ void gather_regs(float (&acc)[16 / sizeof(T)],
+                                            const int* lcol, const float* lw, int n,
+                                            const T* __restrict__ xc, int f, bool on) {
+  constexpr int VEC = 16 / sizeof(T);
+  for (int k0 = 0; k0 < n; k0 += TILE_FLIGHT) {
+    uint4 raw[TILE_FLIGHT];
+#pragma unroll
+    for (int k = 0; k < TILE_FLIGHT; ++k)
+      raw[k] = k0 + k < n && on
+                   ? __ldg(reinterpret_cast<const uint4*>(xc + (int64_t)lcol[k0 + k] * f))
+                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+    for (int k = 0; k < TILE_FLIGHT; ++k) {
+      if (k0 + k < n) {
+        const float wk = lw[k0 + k];
+        const T* xv = reinterpret_cast<const T*>(&raw[k]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wk, to_f32(xv[e]), acc[e]);
+      }
+    }
+  }
+}
+
+// One pass of a row's walk for one item: its slots, 32 a round, each live
+// slot broadcast by shuffles as the ballot gives it and its source row
+// (x's column slice at xc) added at once, one 16-byte load a lane.
+template <typename T>
+__device__ __forceinline__ void walk_row(const Tiles& tl, const TileRow& tr,
+                                         const T* __restrict__ xc, int f, bool on,
+                                         int lane, float (&acc)[16 / sizeof(T)]) {
+  constexpr int VEC = 16 / sizeof(T);
+  for (int k0 = 0; k0 < tr.n; k0 += 32) {
+    int src;
+    float w;
+    const bool live = tr.slot<T>(tl, k0 + lane, src, w);
+    for (unsigned m = __ballot_sync(FULL, live); m; m &= m - 1) {
+      const int j = __ffs(m) - 1;
+      const float wj = __shfl_sync(FULL, w, j);
+      const int sj = __shfl_sync(FULL, src, j);
+      if (!on) continue;
+      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(xc + (int64_t)sj * f));
+      const T* xv = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wj, to_f32(xv[e]), acc[e]);
+    }
+  }
+}
+
+// B14 with one item: a warp a row walks it (walk_row). x (x_rows, f), out
+// (n_pad, f). At most 32 registers a thread (8 CTAs an SM): the walk is
+// bound by its instructions and latencies in series, so warps in flight
+// count for more than gathers in flight (PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(TILE_WARPS * 32, 8)
+tile_walk_kernel(const Tiles tl, const T* __restrict__ x, T* __restrict__ out,
+                 int n_pad, int f) {
   constexpr int VEC = 16 / sizeof(T);
   const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
-  if (row >= n_pad) return;
-  const int bi = blockIdx.y;
-  const T* xb = x + (int64_t)bi * x_rows * f;
-  T* ob = out + ((int64_t)bi * n_pad + row) * f;
-  const int b = (int)(row / block);
-  const int flat = tiles_max * tile_degree;
-  const int n_slots = min(n_active[b], tiles_max) * tile_degree;
-  const int* tiles = tile_idx + (int64_t)b * tiles_max;
-  const uint8_t* nbr_row = tnbr + row * flat;
-  const float* w_row = tw + row * flat;
-
-  // The whole warp walks the column passes together (the ballot and the
-  // shuffles below need every lane); a lane past F only skips its loads
-  // and its store.
+  const int row = blockIdx.x * TILE_WARPS + (threadIdx.x >> 5);
+  if (row >= n_pad) return;  // the whole warp
+  const TileRow tr(tl, row);
   for (int cb = 0; cb < f; cb += 32 * VEC) {
     const int c0 = cb + lane * VEC;
     const bool on = c0 < f;
     float acc[VEC];
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-    for (int k0 = 0; k0 < n_slots; k0 += 32) {
-      // Lane l holds slot k0 + l of the row.
-      const int k = k0 + lane;
-      float my_w = 0.f;
-      int my_src = 0;
-      if (k < n_slots) {
-        my_w = scale_at<T>(w_row, k);
-        my_src = tiles[k / tile_degree] * block + (int)nbr_row[k];
-      }
-      unsigned live =
-          __ballot_sync(0xffffffffu, my_w != 0.f && my_src < x_rows);
-      while (live) {  // ascending slots: a fixed order of summation
-        const int j = __ffs(live) - 1;
-        live &= live - 1;
-        const float wv = __shfl_sync(0xffffffffu, my_w, j);
-        const int64_t src = __shfl_sync(0xffffffffu, my_src, j);
-        if (!on) continue;
-        const uint4 raw = *reinterpret_cast<const uint4*>(xb + src * f + c0);
-        const T* xv = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(wv, to_f32(xv[e]), acc[e]);
-      }
+    walk_row<T>(tl, tr, x + c0, f, on, lane, acc);
+    if (on) finish_row1<T, false>(acc, uint4{}, -1, 1.f, out + (int64_t)row * f + c0);
+  }
+}
+
+// Appends this lane's live slot (src, w) to the warp's list after its n
+// entries, lanes in ascending order (`bal`, the ballot of the live lanes);
+// n grows by the round's count in every lane.
+__device__ __forceinline__ void list_slot(bool live, unsigned bal, int src, float w,
+                                          int lane, int& n, int* lcol, float* lw) {
+  if (live) {
+    const int at = n + __popc(bal & ((1u << lane) - 1u));
+    lcol[at] = src;
+    lw[at] = w;
+  }
+  n += __popc(bal);
+}
+
+// B14 on a batch: a warp a row lists the row's live slots once (when they
+// fit the list: every mesh row), then gathers the list for each item in
+// turn, one item's sums in registers; a row with more live slots than the
+// list holds lists and gathers them in pieces for each item. x (batch,
+// x_rows, f), out (batch, n_pad, f). At most 40 registers a thread (6 CTAs
+// an SM); walking a hub row with walk_row instead of in pieces costs the
+// common path registers and was slower.
+template <typename T>
+__global__ void __launch_bounds__(TILE_WARPS * 32, 6)
+tile_list_kernel(const Tiles tl, const T* __restrict__ x, T* __restrict__ out,
+                 int n_pad, int f, int batch) {
+  constexpr int VEC = 16 / sizeof(T);
+  __shared__ int list_col[TILE_WARPS][LIST];
+  __shared__ float list_w[TILE_WARPS][LIST];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = blockIdx.x * TILE_WARPS + warp;
+  if (row >= n_pad) return;  // the whole warp
+  int* lcol = list_col[warp];
+  float* lw = list_w[warp];
+  const int64_t item = (int64_t)tl.x_rows * f, out_item = (int64_t)n_pad * f;
+  const TileRow tr(tl, row);
+  for (int cb = 0; cb < f; cb += 32 * VEC) {
+    const int c0 = cb + lane * VEC;
+    const bool on = c0 < f;
+    // The row's live slots, listed once if they fit.
+    int n = 0;
+    bool whole = true;
+    for (int k0 = 0; k0 < tr.n && whole; k0 += 32) {
+      int src;
+      float w;
+      const bool live = tr.slot<T>(tl, k0 + lane, src, w);
+      const unsigned bal = __ballot_sync(FULL, live);
+      if (n + __popc(bal) > LIST) whole = false;
+      else list_slot(live, bal, src, w, lane, n, lcol, lw);
     }
-    __align__(16) T tmp[VEC];
+    __syncwarp();
+    for (int b = 0; b < batch; ++b) {
+      const T* xc = x + b * item + c0;
+      float acc[VEC];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) tmp[e] = from_f32<T>(acc[e]);
-    if (on)
-      *reinterpret_cast<uint4*>(ob + c0) = *reinterpret_cast<const uint4*>(tmp);
+      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+      if (whole) {
+        gather_regs<T>(acc, lcol, lw, n, xc, f, on);
+      } else {  // a hub row: listed and gathered in pieces
+        __syncwarp();
+        n = 0;
+        for (int k0 = 0; k0 < tr.n; k0 += 32) {
+          int src;
+          float w;
+          const bool live = tr.slot<T>(tl, k0 + lane, src, w);
+          const unsigned bal = __ballot_sync(FULL, live);
+          if (n + __popc(bal) > LIST) {
+            __syncwarp();
+            gather_regs<T>(acc, lcol, lw, n, xc, f, on);
+            __syncwarp();
+            n = 0;
+          }
+          list_slot(live, bal, src, w, lane, n, lcol, lw);
+        }
+        __syncwarp();
+        gather_regs<T>(acc, lcol, lw, n, xc, f, on);
+      }
+      if (on)
+        finish_row1<T, false>(acc, uint4{}, -1, 1.f,
+                              out + b * out_item + (int64_t)row * f + c0);
+    }
+    __syncwarp();  // the list is refilled next
   }
 }
 
 template <typename T>
-int launch_tiles(const int* tile_idx, const int* n_active, const uint8_t* tnbr,
-                 const float* tw, const void* x, void* out, int n_pad,
-                 int tiles_max, int tile_degree, int block, int f, int x_rows,
+int launch_tiles(const Tiles& tl, const void* x, void* out, int n_pad, int f,
                  int batch, cudaStream_t stream) {
   if (f % (16 / (int)sizeof(T))) return -1;
-  const dim3 grid((unsigned)((n_pad + TILE_WARPS - 1) / TILE_WARPS),
-                  (unsigned)batch);
-  tile_spmm_kernel<T><<<grid, TILE_WARPS * 32, 0, stream>>>(
-      tile_idx, n_active, tnbr, tw, static_cast<const T*>(x),
-      static_cast<T*>(out), n_pad, tiles_max, tile_degree, block, f, x_rows);
+  const dim3 grid((unsigned)((n_pad + TILE_WARPS - 1) / TILE_WARPS));
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (batch == 1)
+    tile_walk_kernel<T><<<grid, TILE_WARPS * 32, 0, stream>>>(tl, xt, ot, n_pad, f);
+  else
+    tile_list_kernel<T><<<grid, TILE_WARPS * 32, 0, stream>>>(tl, xt, ot, n_pad, f, batch);
   return (int)cudaGetLastError();
 }
 
@@ -1151,18 +1310,13 @@ extern "C" int gwen_tile_spmm(const void* tile_idx, const void* n_active,
                               int batch, int dtype, void* stream) {
   if (n_pad <= 0 || tiles_max <= 0 || tile_degree <= 0 || block <= 0 ||
       block > 256 || n_pad % block || f <= 0 || x_rows <= 0 || batch <= 0 ||
-      batch > 65535)
+      (int64_t)tiles_max * tile_degree >= (1 << 21))
     return -1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* ti = static_cast<const int*>(tile_idx);
-  const int* na = static_cast<const int*>(n_active);
-  const uint8_t* nb = static_cast<const uint8_t*>(tnbr);
-  const float* wp = static_cast<const float*>(tw);
-  if (dtype == 0)
-    return launch_tiles<float>(ti, na, nb, wp, x, out, n_pad, tiles_max,
-                               tile_degree, block, f, x_rows, batch, st);
-  if (dtype == 1)
-    return launch_tiles<__nv_bfloat16>(ti, na, nb, wp, x, out, n_pad, tiles_max,
-                                       tile_degree, block, f, x_rows, batch, st);
+  const Tiles tl{static_cast<const int*>(tile_idx), static_cast<const int*>(n_active),
+                 static_cast<const uint8_t*>(tnbr), static_cast<const float*>(tw),
+                 tiles_max, tile_degree, block, x_rows, 1.f / (float)tile_degree};
+  if (dtype == 0) return launch_tiles<float>(tl, x, out, n_pad, f, batch, st);
+  if (dtype == 1) return launch_tiles<__nv_bfloat16>(tl, x, out, n_pad, f, batch, st);
   return -1;
 }

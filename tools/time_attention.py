@@ -1,32 +1,36 @@
-"""Times the windowed-attention backward kernels of ``gwen_tpu_torch`` (B6,
-dQ and the row stats; B7, dK and dV) on one NVIDIA GPU at the L7 shapes
-``chip_smoke.py`` gives them, holds each against its plain PyTorch version
-first, and times the attention train steps they run in.
+"""Times the windowed-attention kernels of ``gwen_tpu_torch`` (B5, the
+forward; B6, dQ and the row stats; B7, dK and dV) on one NVIDIA GPU at the
+L7 shapes ``chip_smoke.py`` gives them, holds each against its plain
+PyTorch version first, and times the attention train steps they run in.
 
-    python3 tools/time_attention_bwd.py [--root DIR] [--tag NAME] [--iters N]
-    python3 tools/time_attention_bwd.py --controls
+    python3 tools/time_attention.py [--root DIR] [--tag NAME] [--iters N]
+    python3 tools/time_attention.py --controls
 
 Kernels (dh 128, bf16, the L7 icosphere in KD-patch order, window 384,
-with its attention lists): B6 and B7 at nb 1 (a 2-D call) and B6b and B7b
-at nb 8 (2 heads x batch 4), each by CUDA events around ``--iters``
-back-to-back calls and by its device kernels under ``torch.profiler``,
-beside the plain version's time. Steps (Adam, latent 256, 4 process
-steps, 2 heads, bf16 compute, 1 channel): the batch-4 attention train
-step, the batch-4 fair-CRPS step (4 members, 16 items a step), and the
-batch-4 step of the partitioned path on one rank (``diag`` layout, zero
-halos); each by CUDA events over 3 steps after a warm-up, then one step
-under ``torch.profiler`` for B6's and B7's device time in it. ``--root``
+with its attention lists): B5, B6 and B7 at nb 1 (a 2-D call), B5b, B6b
+and B7b at nb 2 (2 heads: the served shape) and at nb 8 (2 heads x batch
+4: the train shape), each by CUDA events around ``--iters`` back-to-back
+calls and by its device kernels under ``torch.profiler``, beside the plain
+version's time. Steps (Adam, latent 256, 4 process steps, 2 heads, bf16
+compute, 1 channel): the batch-4 attention train step, the batch-4
+fair-CRPS step (4 members, 16 items a step), and the batch-4 step of the
+partitioned path on one rank (``diag`` layout, zero halos); each by CUDA
+events over 3 steps after a warm-up, then one step under
+``torch.profiler`` for B5's, B6's and B7's device time in it. ``--root``
 imports ``gwen_tpu_torch`` from another checkout (say the parent commit
 unpacked with ``git archive``), so that two versions can be timed in
 turns, in separate processes, on one card.
 
-``--controls`` times, instead of the steps, B6b and B7b built from this
-checkout's ``csrc/window_attention.cu`` with one change each, beside the
-kernels as they are: every gather reads one of the first 64 rows (so
-from L1: what the bytes of the gathers cost), and one more CTA an SM for
-each kernel (at most 64 registers a thread for B6, 80 for B7: what
-occupancy buys against spills). The first control's outputs
-are wrong by construction and are not held. Prints the card (``nvidia-smi``
+``--controls`` times, instead of the steps, B5b (nb 2 and 8), B6b and B7b
+built from this checkout's ``csrc/window_attention.cu`` with one change
+each, beside the kernels as they are: every gather reads one of the first
+64 rows (so from L1: what the bytes of the gathers cost); one more CTA an
+SM for each kernel (at most 64 registers a thread for B5 and B6, 80 for
+B7: what occupancy buys against spills); one CTA fewer for B5 (at most
+128 registers: no spill); and B5's scores completed by the backward's
+``pair_sums`` with its g . v half zero, then handed to the upper half of
+the group, instead of a plain butterfly. The first control's outputs are
+wrong by construction and are not held. Prints the card (``nvidia-smi``
 name and power limit) and one JSON line of times in ms. Needs numpy and
 torch; imports no JAX.
 """
@@ -45,11 +49,29 @@ CONTROLS = {
     "gathers from 64 rows": [(
         "out[d].load(base + (int64_t)(in ? j[d] : 0) * dh);",
         "out[d].load(base + (int64_t)((in ? j[d] : 0) & 63) * dh);")],
-    "fewer registers (B6 64, B7 80)": [
+    "fewer registers (B5, B6 64, B7 80)": [
+        ("__launch_bounds__(NT, 3)\nattn_fwd_kernel",
+         "__launch_bounds__(NT, 4)\nattn_fwd_kernel"),
         ("__launch_bounds__(NT, 3)\nattn_dq_kernel",
          "__launch_bounds__(NT, 4)\nattn_dq_kernel"),
         ("__launch_bounds__(NT, 2)\nattn_dkdv_kernel",
          "__launch_bounds__(NT, 3)\nattn_dkdv_kernel")],
+    "B5 at 128 registers": [
+        ("__launch_bounds__(NT, 3)\nattn_fwd_kernel",
+         "__launch_bounds__(NT, 2)\nattn_fwd_kernel")],
+    "B5 scores by pair_sums": [(
+        "    group_sums<G, CAP>(sc, mask);\n",
+        """    {
+      float s2[2 * CAP], h[CAP];
+      for (int d = 0; d < CAP; ++d) s2[d] = sc[d], s2[CAP + d] = 0.f;
+      const int ln = (threadIdx.x & 31) % G;
+      pair_sums<G, CAP>(s2, h, ln, mask);
+      for (int d = 0; d < CAP; ++d) {
+        const float o = __shfl_xor_sync(mask, h[d], G / 2);
+        sc[d] = ln & (G / 2) ? o : h[d];
+      }
+    }
+""")],
 }
 
 
@@ -71,12 +93,16 @@ def control_libs(ac, nvcc_build) -> dict:
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(text)
         lib_path, ptxas = nvcc_build(path)
-        for line in ptxas.splitlines():
-            if "Compiling entry" in line or "spill" in line or "registers" in line:
-                print(f"  {name}: ptxas: {line.strip()[-90:]}")
+        entry = ""
+        for line in ptxas.splitlines():  # the bf16 dh-128 kernels' lines
+            if "Compiling entry" in line:
+                entry = line
+            elif "bfloat16Li4E" in entry and ("spill" in line or "registers" in line):
+                print(f"  {name}: ptxas: {entry.split('attn_')[1][:12]} {line.strip()[-60:]}")
         lib = ctypes.CDLL(str(lib_path))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [ci, ci, ci, ci, ci, cf, ci, vp]
+        lib.gwen_attn_fwd.argtypes = [vp] * 5 + tail
         lib.gwen_attn_dq.argtypes = [vp] * 7 + tail
         lib.gwen_attn_dkdv.argtypes = [vp] * 8 + tail
         libs[name] = lib
@@ -139,7 +165,7 @@ def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
-        print("time_attention_bwd: CUDA is not available", file=sys.stderr)
+        print("time_attention: CUDA is not available", file=sys.stderr)
         return 1
     from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
                                       kd_patch_order, to_diag_window)
@@ -169,11 +195,15 @@ def main() -> int:
     times: dict = {}
 
     # The kernels, each held to its plain version first.
-    for lead in ((), (HEADS * BATCH,)):
+    for lead in ((), (HEADS,), (HEADS * BATCH,)):
         nb = lead[0] if lead else 1
         q, k, v, g = (torch.randn(*lead, n, 128, generator=gen, device=dev).bfloat16()
                       for _ in range(4))
         scale = 128 ** -0.5
+        out = ac.attention_fwd(graph, q, k, v, scale)
+        held(torch, f"B5 nb {nb} out", out,
+             ac.attention_fwd_plain(graph, *(t.float() for t in (q, k, v)), scale))
+        del out
         dq, st = ac.attention_dq(graph, q, k, v, g, scale)
         w_dq, w_st = ac.attention_dq_plain(graph, *(t.float() for t in (q, k, v, g)),
                                            scale)
@@ -186,6 +216,8 @@ def main() -> int:
         del dq, dk, dv, w_dq, w_st, w_dk, w_dv
         p_st = ac.attention_dq_plain(graph, q, k, v, g, scale)[1]
         calls = {
+            "B5": (lambda: ac.attention_fwd(graph, q, k, v, scale),
+                   lambda: ac.attention_fwd_plain(graph, q, k, v, scale)),
             "B6": (lambda: ac.attention_dq(graph, q, k, v, g, scale),
                    lambda: ac.attention_dq_plain(graph, q, k, v, g, scale)),
             "B7": (lambda: ac.attention_dkdv(graph, q, k, v, g, st, scale),
@@ -211,8 +243,13 @@ def main() -> int:
                                   device=dev).bfloat16() for _ in range(4))
         scale = 128 ** -0.5
         st = ac.attention_dq(graph, q, k, v, g, scale)[1]
-        out = [torch.empty_like(q) for _ in range(3)]
+        out = [torch.empty_like(q) for _ in range(4)]
         st2 = torch.empty_like(st)
+
+        def b5(lib, nb):
+            return lambda: lib.gwen_attn_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), graph.attn_nbr.data_ptr(),
+                out[3].data_ptr(), *ac._args(q[:nb], k[:nb], graph.attn_nbr, scale))
 
         def b6(lib):
             return lambda: lib.gwen_attn_dq(
@@ -227,19 +264,22 @@ def main() -> int:
                 out[2].data_ptr(), *ac._args(q, k, graph.attn_nbr_t, scale))
 
         want = [ac.attention_dq(graph, q, k, v, g, scale)[0],
-                *ac.attention_dkdv(graph, q, k, v, g, st, scale)]
+                *ac.attention_dkdv(graph, q, k, v, g, st, scale),
+                ac.attention_fwd(graph, q, k, v, scale)]
         for name, lib in libs.items():
-            for fn in (b6(lib), b7(lib)):
+            for fn in (b6(lib), b7(lib), b5(lib, HEADS * BATCH)):
                 if fn() != 0:
                     raise RuntimeError(f"{name}: launch failed")
             if name != "gathers from 64 rows":
-                for got, w, what in zip(out, want, ("dq", "dk", "dv")):
+                for got, w, what in zip(out, want, ("dq", "dk", "dv", "out")):
                     held(torch, f"{name} {what} against the kernel", got, w)
         runs: dict = {}
         for rnd in range(2):  # in turns, then reversed
             for name, lib in (libs.items() if rnd == 0 else reversed(libs.items())):
-                for key, fn in (("B6b", b6(lib)), ("B7b", b7(lib))):
-                    runs.setdefault(f"{key} nb 8, {name}", []).append(
+                for key, fn in (("B5b nb 2", b5(lib, HEADS)),
+                                ("B5b nb 8", b5(lib, HEADS * BATCH)),
+                                ("B6b nb 8", b6(lib)), ("B7b nb 8", b7(lib))):
+                    runs.setdefault(f"{key}, {name}", []).append(
                         cuda_ms(torch, fn, args.iters))
         for key, ms in runs.items():
             times[key] = sum(ms) / len(ms)
@@ -288,12 +328,14 @@ def main() -> int:
         times[name] = cuda_ms(torch, step, 3, 1)
         by_name = device_us(torch, step)
         busy = sum(by_name.values())
-        for key, kernel in (("B6", "attn_dq_kernel"), ("B7", "attn_dkdv_kernel")):
+        for key, kernel in (("B5", "attn_fwd_kernel"), ("B6", "attn_dq_kernel"),
+                            ("B7", "attn_dkdv_kernel")):
             us = sum(t for nm, t in by_name.items() if kernel in nm)
             times[f"{name} {key} device"] = us / 1e3
         times[f"{name} device busy"] = busy / 1e3
         print(f"  {name}: {times[name]:.3f} ms; one step profiled: device busy "
-              f"{busy / 1e3:.3f} ms, B6 {times[f'{name} B6 device']:.3f}, B7 "
+              f"{busy / 1e3:.3f} ms, B5 {times[f'{name} B5 device']:.3f}, B6 "
+              f"{times[f'{name} B6 device']:.3f}, B7 "
               f"{times[f'{name} B7 device']:.3f}", flush=True)
     print(json.dumps({"tag": args.tag, "device": smi, "ms": times}))
     return 0

@@ -3,6 +3,7 @@ at the L7 shapes ``chip_smoke.py`` gives them, and holds each against its
 plain PyTorch version first.
 
     python3 tools/time_row_gathers.py [--root DIR] [--tag NAME] [--iters N]
+    python3 tools/time_row_gathers.py --controls [--vs DIR]
 
 With one item: B1 and packed B1 (bf16, F 256, with and without their escape
 fix rows), B1 on a float32 one-channel field (F 4) over the bf16 S,
@@ -12,8 +13,9 @@ B3 on the esc2 contraction, and the int8 rank-1 composite
 (``spmm_sliding_rank1`` on the RCM band, unbatched and at batch 4, held to
 its own checkout's plain version on the same bf16 path). Then, for
 comparison, the batch-4 forms that share the kernels' source (B4, packed
-B4, B10, B13, B11), and the two row gathers launched directly with one
-item on B1's and packed B1's operands
+B4, B10, B13, B11), B14 (the block-tile SpMM, F 256) in RCM and in
+KD-patch order, unbatched and at batch 4, and the two row gathers
+launched directly with one item on B1's and packed B1's operands
 (``_launch_streamed``, ``_launch_packed_rows``: the same call as B1 where B1
 takes the gathers). ``--root`` imports ``gwen_tpu_torch`` from another
 checkout (say the parent commit unpacked with ``git archive``), so that
@@ -23,6 +25,16 @@ on one card. Prints the card
 one JSON line of times in ms (CUDA events, the mean of ``--iters`` calls
 after 3 warm-up calls; B3 on the esc2 graph also by its device kernels
 under ``torch.profiler``). Needs numpy and torch; imports no JAX.
+
+``--controls`` times, instead, B14 unbatched and at batch 4 in both
+orders built from this checkout's ``csrc/window_spmm.cu`` with one change
+each (``CONTROLS``), beside the kernel as it is: every gather from one of
+the first 64 rows (so from L1: what the gathers' bytes cost; its outputs
+are wrong by construction and not held); one item through the batch's
+list kernel instead of the slot walk; the walk at 40 registers a thread
+instead of 32; the list kernel with no register cap instead of 40.
+``--vs DIR`` adds the B14 kernel of another checkout's source (say the
+parent), built and called in the same process.
 """
 
 from __future__ import annotations
@@ -35,6 +47,57 @@ import sys
 from pathlib import Path
 
 LEVELS, WINDOW, F, BATCH = 7, 384, 256, 4
+# name: [(text of csrc/window_spmm.cu, its replacement)]
+CONTROLS = {
+    "B14 gathers from 64 rows": [(
+        "    return wk != 0.f && src < tl.x_rows;",
+        "    src &= 63;\n    return wk != 0.f && src < tl.x_rows;")],
+    "B14 one item by the list kernel": [(
+        "  if (batch == 1)\n    tile_walk_kernel", "  if (false)\n    tile_walk_kernel")],
+    "B14 walk at 40 registers": [(
+        "__launch_bounds__(TILE_WARPS * 32, 8)\ntile_walk_kernel",
+        "__launch_bounds__(TILE_WARPS * 32, 6)\ntile_walk_kernel")],
+    "B14 list kernel, no register cap": [(
+        "__launch_bounds__(TILE_WARPS * 32, 6)\ntile_list_kernel",
+        "__launch_bounds__(TILE_WARPS * 32)\ntile_list_kernel")],
+}
+
+
+def control_libs(spmm_cuda, vs=None) -> dict:
+    """Each control's library, built from a changed copy of the kernels'
+    source in the build directory, with B14's entry typed as the wrapper
+    types it; with ``vs``, also the library of that checkout's source as it
+    is (its name the checkout's path)."""
+    import ctypes
+
+    src = spmm_cuda._SRC.read_text()
+    libs = {}
+    controls = dict(CONTROLS)
+    if vs is not None:
+        controls[f"{vs} as it is"] = (
+            Path(vs) / "gwen_tpu_torch" / "csrc" / "window_spmm.cu").read_text()
+    for name, edits in controls.items():
+        text = edits if isinstance(edits, str) else src
+        for old, new in ([] if isinstance(edits, str) else edits):
+            if text.count(old) != 1:
+                raise AssertionError(f"control {name!r}: {old!r} not found once")
+            text = text.replace(old, new)
+        path = spmm_cuda._SRC.parents[1] / "_build" / f"window_spmm_{len(libs)}.cu"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+        lib_path, ptxas = spmm_cuda.nvcc_build(path)
+        entry = ""
+        for line in ptxas.splitlines():  # B14's register and spill lines
+            if "Compiling entry" in line:
+                entry = line
+            elif "tile_" in entry and ("registers" in line or "spill" in line):
+                print(f"  {name}: ptxas: {line.strip()[-90:]}")
+        lib = ctypes.CDLL(str(lib_path))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.gwen_tile_spmm.argtypes = [vp] * 6 + [ci] * 8 + [vp]
+        lib.gwen_tile_spmm.restype = ci
+        libs[name] = lib
+    return libs
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -86,6 +149,10 @@ def main() -> int:
                     help="checkout to import gwen_tpu_torch from")
     ap.add_argument("--tag", default="this checkout")
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--controls", action="store_true",
+                    help="time B14's control builds instead")
+    ap.add_argument("--vs", help="with --controls: also time the B14 kernel of "
+                    "this checkout's source, built as it is")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
 
@@ -95,9 +162,10 @@ def main() -> int:
         print("time_row_gathers: CUDA is not available", file=sys.stderr)
         return 1
     from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
-                                      kd_patch_order, rcm_order, to_diag_window,
-                                      to_sliding_packed, to_sliding_rank1,
-                                      to_windowed_dense, window_mask)
+                                      kd_patch_order, rcm_order, to_block_tiles,
+                                      to_diag_window, to_sliding_packed,
+                                      to_sliding_rank1, to_windowed_dense,
+                                      window_mask)
     from gwen_tpu_torch.ops import spmm_cuda
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -115,18 +183,20 @@ def main() -> int:
     n = verts.shape[0]
     s2, r2, _ = apply_order(kd_patch_order(verts, s, r, n), s, r)
     g = build_graph(s2, r2, n)
+    s3, r3, _ = apply_order(rcm_order(s, r, n), s, r)
+    g3 = build_graph(s3, r3, n)
+    tiles = {"RCM": to_block_tiles(g3).to(dev), "KD": to_block_tiles(g).to(dev)}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if args.controls:
+        return run_controls(torch, spmm_cuda, tiles, n, gen, args, smi)
     dg = to_diag_window(g, window_size=WINDOW, dtype=torch.bfloat16).to(dev)
     pg = to_diag_window(g, window_size=WINDOW, dtype=torch.bfloat16,
                         packed=True).to(dev)
-    s3, r3, _ = apply_order(rcm_order(s, r, n), s, r)
-    g3 = build_graph(s3, r3, n)
     sp = to_sliding_packed(g3).to(dev)
     wd = to_windowed_dense(g3).to(dev)
     wd16 = dataclasses.replace(wd, s_mat=wd.s_mat.bfloat16())
     r1 = to_sliding_rank1(g3).to(dev)
     g2 = dg.esc2_graph
-
-    gen = torch.Generator(device=dev).manual_seed(3)
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
@@ -196,6 +266,10 @@ def main() -> int:
         "int8 rank-1 composite, B10 form batch 4": (
             lambda: spmm_cuda.spmm_sliding_rank1(r1, xrb),
             lambda: spmm_cuda.spmm_sliding_rank1(r1, xrb, plain=True)),
+        **{f"B14 {o}{'' if x_ is xr else f' batch {BATCH}'}": (
+            lambda o=o, x_=x_: spmm_cuda.block_tiles_spmm(tiles[o], x_),
+            lambda o=o, x_=x_: spmm_cuda.block_tiles_spmm_plain(tiles[o], x_.float()))
+           for o in tiles for x_ in (xr, xrb)},
         "B4 batch 4": (lambda: spmm_cuda.diag_window_spmm_b(dg, xb, fixb), None),
         "B4p batch 4": (lambda: spmm_cuda.diag_window_spmm_packed_b(pg, xb, fixb), None),
         "B10 esc2 batch 4": (lambda: spmm_cuda.sliding_spmm_b(g2, x2b), None),
@@ -212,6 +286,44 @@ def main() -> int:
     name = "B3 esc2, device kernels (profiler)"
     times[name] = device_ms(torch, lambda: spmm_cuda.sliding_spmm(g2, x2), args.iters)
     print(f"  {name}: {times[name]:.4f} ms", flush=True)
+    print(json.dumps({"tag": args.tag, "device": smi, "ms": times}))
+    return 0
+
+
+def run_controls(torch, spmm_cuda, tiles: dict, n: int, gen, args, smi) -> int:
+    """B14 at batch 4 in both orders, the kernel as it is and each control,
+    each control held to the kernel first, timed in turns and then in the
+    reverse order."""
+    libs = {"as it is": spmm_cuda._lib(), **control_libs(spmm_cuda, args.vs)}
+    x = torch.randn(BATCH, n, F, generator=gen, device="cuda").bfloat16()
+    runs: dict = {}
+
+    def call(lib, t, out, nb):
+        return lambda: lib.gwen_tile_spmm(
+            t.tile_idx.data_ptr(), t.n_active.data_ptr(), t.tnbr.data_ptr(),
+            t.tw.data_ptr(), x.data_ptr(), out.data_ptr(), t.num_padded_nodes,
+            t.tiles_max, t.tile_degree, t.block_size, F, n, nb, 1,
+            torch.cuda.current_stream().cuda_stream)
+
+    for order, t in tiles.items():
+        for nb in (1, BATCH):
+            want = spmm_cuda.block_tiles_spmm(t, x[:nb])
+            held(torch, f"B14 {order} batch {nb}", want,
+                 spmm_cuda.block_tiles_spmm_plain(t, x[:nb].float()))
+            out = torch.empty_like(want)
+            for name, lib in libs.items():
+                if call(lib, t, out, nb)() != 0:
+                    raise RuntimeError(f"{name}: launch failed")
+                if "64 rows" not in name:
+                    held(torch, f"B14 {order} batch {nb}, {name}, against the kernel",
+                         out, want)
+            for rnd in range(2):  # in turns, then reversed
+                for name, lib in (libs.items() if rnd == 0 else reversed(libs.items())):
+                    runs.setdefault(f"B14 {order} batch {nb}, {name}", []).append(
+                        cuda_ms(torch, call(lib, t, out, nb), args.iters))
+    times = {key: sum(ms) / len(ms) for key, ms in runs.items()}
+    for key, ms in times.items():
+        print(f"  {key}: {ms:.4f} ms", flush=True)
     print(json.dumps({"tag": args.tag, "device": smi, "ms": times}))
     return 0
 
