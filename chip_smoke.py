@@ -47,7 +47,9 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    with a 2-d x (the gathers' batch-1 walk); then the unfused operators:
    B8, B9 (nb 1), B9b (nb 2 and 8) and ``diag_matvec`` (B1 on a runtime S,
    timed on the window mask's pattern beside its bound and
-   ``torch.sparse.mm`` on that pattern) at f 128 and 256, the gradients of
+   ``torch.sparse.mm`` on that pattern) at f 128 and 256, B8 and B9b on an
+   L5 graph (up to 11 covering blocks a source block) at f 264 and nb 3
+   with operands 100 rows short, the gradients of
    ``diag_matvec`` and ``diag_sddmm`` against autograd through the plain
    versions, and ``aggregate`` on a float32 ``(4, N, 1)`` field over the
    bf16 and the packed diag graph; then the int8 rank-1 form of B3 and B10
@@ -1453,6 +1455,19 @@ def check_diag_gather_graphs(graphs: dict, device) -> None:
     torch.cuda.synchronize()
 
 
+def build_window_graph(device, levels: int):
+    """The L``levels`` icosphere in KD-patch order on the bf16 diag-window
+    layout (window ``WINDOW``, 128-row blocks) with its transpose tables."""
+    from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
+                                      kd_patch_order, to_diag_window)
+
+    verts, s, r = icosphere_edges(levels)
+    n = verts.shape[0]
+    s2, r2, _ = apply_order(kd_patch_order(verts, s, r, n), s, r)
+    return to_diag_window(build_graph(s2, r2, n), window_size=WINDOW,
+                          dtype=torch.bfloat16, transpose_tables=True).to(device)
+
+
 def check_unfused_kernels(graph, packed_diag, device) -> dict:
     """Phase 3 for the unfused attention operators: B8 (SDDMM), B9 and B9b
     (transpose SpMM at nb 1, 2 and 8) and ``diag_matvec``'s forward (B1 on a
@@ -1556,6 +1571,29 @@ def check_unfused_kernels(graph, packed_diag, device) -> dict:
             del a, b, s, g
             torch.cuda.empty_cache()
     _log_times(results)
+
+    # An L5 graph, whose source blocks have up to 11 covering blocks, at f
+    # 264 and nb 3: B9's walk over those covers and its 128-feature slices
+    # (the third mostly past f, zeros from TMA), B8 past the 256 features
+    # it keeps resident (a streamed beside b), and operands shorter than
+    # the graph's rows.
+    l5 = build_window_graph(device, 5)
+    n5, nb, f = l5.num_nodes, 3, 264
+    log(f"  L5 graph: {n5} nodes, {l5.num_blocks} blocks, covering blocks a "
+        f"source block {int(l5.t_cnt.min())} to {int(l5.t_cnt.max())}")
+    a, b = randn(nb, n5 - 100, f), randn(nb, n5, f)
+    want = unfused_cuda.sddmm_plain(l5, a.float(), b.float())
+    compare(f"B8 bf16 L5 nb={nb} f={f}", unfused_cuda.sddmm(l5, a, b), want, BF16_TOL)
+    compare(f"B8 f32 L5 nb={nb} f={f}", unfused_cuda.sddmm(l5, a.float(), b.float()),
+            want, F32_TOL)
+    s, g = randn(nb, l5.num_padded_nodes, w), randn(nb, n5 - 100, f)
+    want = unfused_cuda.spmm_t_plain(l5, s.float(), g.float())
+    compare(f"B9b bf16 L5 nb={nb} f={f}", unfused_cuda.spmm_t(l5, s, g), want,
+            BF16_TOL)
+    compare(f"B9b f32 L5 nb={nb} f={f}", unfused_cuda.spmm_t(l5, s.float(), g.float()),
+            want, F32_TOL)
+    del l5, a, b, s, g, want
+    torch.cuda.empty_cache()
 
     # The two Functions' gradients against autograd through the plain
     # versions, float32 from the same values.
@@ -3384,12 +3422,19 @@ def main() -> int:
                "B13u": ("bit-packed banded SpMM (unbatched: the batch-1 walk, "
                         "packed_row1_kernel; one count with B13)", "cuda",
                         cu, f"{spmm}:1556"),
-               "B8": ("SDDMM: window-relative score tile (one item, f 128)",
-                      "cuda", ucu, f"{att}:78"),
-               "B9": (f"transpose SpMM on a runtime S (nb = 1, f 128{one})",
+               "B8": ("SDDMM: window-relative score tile (one item, f 128): "
+                      "the block's a rows once in shared memory, b's window "
+                      "through a cp.async ring, mma.sync tiles, the scores "
+                      "staged and stored as whole row segments "
+                      "(sddmm_tc_kernel)", "cuda", ucu, f"{att}:78"),
+               "B9": (f"transpose SpMM on a runtime S (nb = 1, f 128{one}): a "
+                      "CTA a source block walks its covering blocks, s and g "
+                      "tiles through a TMA ring with mbarriers, S^T by "
+                      "ldmatrix.trans into mma.sync (spmm_t_tc_kernel)",
                       "cuda", ucu, f"{att}:171"),
-               "B9b": (f"batched transpose SpMM (nb = 2, f 128{one})", "cuda",
-                       ucu, f"{att}:1393"),
+               "B9b": (f"batched transpose SpMM (nb = 2, f 128{one}; the items "
+                       "on the grid, spmm_t_tc_kernel)", "cuda", ucu,
+                       f"{att}:1393"),
                "B11": ("windowed-dense SpMM, absolute starts: a row gather "
                        "over S's nonzeros (RCM order, F 256, unbatched: the "
                        "batch-1 walk, dense_row1_kernel)",

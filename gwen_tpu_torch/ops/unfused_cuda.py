@@ -24,9 +24,11 @@ with the items as a grid axis):
 The kernels fix the block at 128 rows and rely on window starts and the
 window being multiples of it (checked when the graph's transpose tables
 are built, :func:`~gwen_tpu_torch.graph.graph.diag_transpose_tables`); the
-plain versions take any block. The kernels' shared memory is fixed (they
-loop over f and over the covering blocks inside), so there is no
-size-dependent guard to get wrong.
+plain versions take any block. Their bf16 forms are tile products on the
+tensor cores fed by a ring of asynchronous copies; their shared memory is
+bounded whatever f is (B8 keeps a's rows resident up to 256 features and
+streams them beside b above; B9 walks f in 128-feature slices), so there
+is no size-dependent guard to get wrong.
 
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
