@@ -94,13 +94,19 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    policy of ``REMAT_LADDER`` (held to the launch counts it implies), and
    the unbatched EPD train step (256 channels, the reference ``bench.py``
    shape) with CUDA events, with peak memory; runs one step at the default
-   batch 21 with the cheapest remat policy that fits; then exports the
-   trained run and answers one ``predict`` request from it;
+   batch 21 with the cheapest remat policy that fits; then ``export``
+   (the CLI, on the run's registry root) writes the trained run's artifact
+   (``rollout_steps`` 4, ``node_perm.npy`` the permutation
+   ``ServingModel.load`` computes), one ``predict`` request of 2 steps is
+   answered from it with every count from 0 (B1, B3 and B2 each 2 × 4, no
+   other kernel, no plain version on the card), and ``runs`` lists the run
+   with its best metric;
 7. the same for ``train-mesh model.processor=attention``: B5, B6, B7, B2
    and B2b 4 times per step with remat off, the step against the plain
    versions (at batch 2 if theirs does not fit at batch 4), times and peak
    memory with remat off and ``save_agg``, one step under ``torch.profiler``
-   with B6's and B7's share, export and one request;
+   with B6's and B7's share, ``export``, one request (B5 and B2 each
+   2 × 4) and ``runs``;
 8. trains on the bit-packed layouts: ``train-mesh graph.refine=7
    train.batch_size=4`` with ``mesh.kernel=diag_packed`` (GCN: packed B4
    and B10 8 times per step, B2 and B2b 4; attention: B5, B6, B7, B2, B2b
@@ -163,12 +169,20 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    the card, and one forward on the L7 multimesh (finest level through B12)
    against the union as one COO graph; ``make-mesh-data`` → ``train-mesh
    --data`` at ``graph.refine=7`` (launch counts as phase 6, finite skill
-   numbers), again with ``data.lazy=true``, then export and ``predict``
-   with the graph rebuilt from the store; ``preprocess`` → ``train-gnn
-   --no-animate`` on a raw store of 125 members x 16,384 features written
-   here (hidden 1024, batch 4): a finite test loss, the run in the
-   registry, the step's time and peak memory. The stores are written and
-   read with numpy and the standard library alone;
+   numbers), again with ``data.lazy=true``, then ``export --data`` and
+   ``predict`` with the graph rebuilt from the store (checked as phase 6);
+   ``preprocess`` → ``train-gnn --no-animate`` on a raw store of 125
+   members x 16,384 features written here (hidden 1024, batch 4): a finite
+   test loss, the run in the registry, the step's time and peak memory;
+   then ``train-cnn --no-animate`` on the same stores (124 input members
+   as channels, 1 target, height 32 x ncells 512) with the UNet at its
+   default width (hidden 64, depth 4, ~4.8 M parameters), batch 21,
+   float32 with TF32 off: a finite test loss, the run reloaded through
+   ``load_best_model(..., params_template=...)``, one forward on the card
+   against the CPU forward (``CNN_TOL``), the batch-21 step's time and
+   peak memory beside the card's name and power limit (cuDNN convs, no
+   hand-written kernel). The stores are written and read with numpy and
+   the standard library alone;
 12. last, in fresh child processes: one call of ``spmm_sliding_rank1``
    (unbatched and at batch 4) runs exactly one device kernel under
    ``torch.profiler``, the dense row gather, and one call of B5, B6 and B7
@@ -201,6 +215,11 @@ REQUESTS, ROLLOUT_STEPS = 3, 4
 BF16_TOL, F32_TOL, STEP_ULPS = 1e-2, 1e-5, 2.5
 TRAIN_BATCH, DEFAULT_BATCH = 4, 21
 LOSS_TOL, GRAD_TOL = 1e-2, 5e-2
+# The UNet forward on the card against the CPU, float32 with TF32 off:
+# cuDNN and the CPU sum each conv in their own order and algorithm, and
+# four GroupNorms rescale what that leaves; 1e-4 of max|CPU| allows that
+# and nothing more.
+CNN_TOL = 1e-4
 REMAT_LADDER = (False, "save_agg", "save_agg:2", True, "nested:2")
 ATTN_HEADS = 2
 # Published peaks of one H100 SXM at 700 W: device memory rate and dense
@@ -2033,35 +2052,87 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
 
 def _export_and_predict(out: dict, n: int, device, workdir: Path, rng,
                         processor: str) -> None:
-    """Training feeds serving: export the run of the ``train-mesh`` JSON
-    line ``out`` and answer one ``predict`` request from the artifact."""
+    """Training feeds serving: ``export`` the run of the ``train-mesh`` JSON
+    line ``out`` through the CLI (its registry root, its experiment and,
+    for a store-trained run, ``--data`` on its store), check the artifact
+    (``rollout_steps`` 4, ``node_perm.npy`` the permutation
+    ``ServingModel.load`` computes), answer one ``predict`` request of 2
+    steps from it with every count from 0 (GCN: B1, B3 and B2 each 2 x
+    ``PROCESS_STEPS``; attention: B5 and B2; nothing else, and no plain
+    version on the card), then list the run with ``runs``."""
     import contextlib
     import io
 
     from gwen_tpu_torch.cli.main import main as cli
     from gwen_tpu_torch.registry import Run
-    from gwen_tpu_torch.serve import export_model, model_from_metadata
+    from gwen_tpu_torch.serve import ServingModel
 
-    params, cfg = Run(Path(out["run_dir"])).load_model()
-    trained = model_from_metadata(cfg, device)
-    trained.load_state_dict(params)
-    if trained.processor != processor:
-        raise AssertionError(f"the saved run reloads as {trained.processor}")
-    art = export_model(trained, np.zeros((n, CHANNELS), np.float32),
-                       workdir / "trained", metadata=cfg)
+    run_dir = Path(out["run_dir"])
+    root, experiment = run_dir.parents[1], run_dir.parent.name
+    meta = Run(run_dir).meta
+    _, cfg = Run(run_dir).load_model()
+    if cfg["processor"] != processor:
+        raise AssertionError(f"the saved run is a {cfg['processor']} run")
+    art = workdir / "trained"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = cli(["export", "--out", str(art), "--experiment", experiment,
+                  *(("--data", cfg["data"]) if cfg.get("data") else ()),
+                  "--device", str(device), f"run.registry_root={root}"])
+    said = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"  export: {said}, {time.perf_counter() - t0:.1f} s")
+    if rc != 0 or said["nodes"] != n or said["platform"] != torch.device(device).type:
+        raise AssertionError(f"export returned {rc}: {said}")
+    written = json.loads((art / "meta.json").read_text())
+    sm = ServingModel.load(art, device)
+    perm = np.load(art / "node_perm.npy")
+    # 4: export's default --rollout-steps.
+    if (written["rollout_steps"] != 4 or sm.rollout_steps != 4
+            or not np.array_equal(perm, sm.node_perm)):
+        raise AssertionError(f"artifact: rollout_steps {written['rollout_steps']}, "
+                             "node_perm.npy "
+                             f"{'equals' if np.array_equal(perm, sm.node_perm) else 'differs from'}"
+                             " the served permutation")
+    log(f"  artifact: rollout_steps {sm.rollout_steps}, node_perm.npy equals "
+        f"the served graph's {written['metadata']['node_order']} order")
+    del sm
+
     x0 = rng.normal(size=(n, CHANNELS)).astype(np.float32)
     np.save(workdir / "x_trained.npy", x0)
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    PLAIN_ON_CUDA["calls"] = 0
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli(["predict", "--artifact", str(art), "--input",
                   str(workdir / "x_trained.npy"), "--steps", "2", "--out",
                   str(workdir / "y_trained.npy"), "--device", str(device)])
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    want.update(dict.fromkeys(("B5", "B2") if processor == "attention"
+                              else ("B1", "B3", "B2"), 2 * PROCESS_STEPS))
     traj = np.load(workdir / "y_trained.npy")
     if rc != 0 or traj.shape != (2, n, CHANNELS) or not np.isfinite(traj).all():
         raise AssertionError(f"predict from the trained run: rc {rc}, "
                              f"{traj.shape}, finite={np.isfinite(traj).all()}")
-    log(f"  predict from the trained {processor} run"
+    log(f"  predict from the exported {processor} run"
         f"{' (graph from ' + cfg['data'] + ')' if cfg.get('data') else ''}: "
-        f"{traj.shape}, finite")
+        f"{traj.shape}, finite; launches {launches} (want {want}); plain "
+        f"versions called on CUDA tensors: {PLAIN_ON_CUDA['calls']}")
+    if launches != want or PLAIN_ON_CUDA["calls"]:
+        raise AssertionError(f"kernel launch counts {launches} != {want}, or a "
+                             "plain version ran on the card")
+
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = cli(["runs", "--root", str(root)])
+    rows = [r for r in json.loads(buf.getvalue()) if r["run_id"] == out["run_id"]]
+    log(f"  runs: {rows}")
+    if (rc != 0 or len(rows) != 1 or rows[0]["experiment"] != experiment
+            or rows[0]["status"] != "FINISHED"
+            or rows[0]["best_metric"] != meta["best_metric"]
+            or not math.isfinite(rows[0]["best_metric"])):
+        raise AssertionError(f"runs --root {root} gave {rows}")
 
 
 def train_packed(graphs: dict, device, workdir: Path) -> dict:
@@ -3043,7 +3114,7 @@ def store_paths(device, workdir: Path) -> None:
     """Phase 11, third part: ``make-mesh-data`` → ``train-mesh --data`` at
     ``graph.refine=7``, batch 4, default ``mesh.kernel`` (launch counts as
     phase 6, finite skill numbers), once more with ``data.lazy=true`` on a
-    shorter store, then ``export_model`` on the run and ``predict`` on the
+    shorter store, then ``export --data`` on the run and ``predict`` on the
     artifact, whose graph comes from the store's sidecar."""
     import contextlib
     import io
@@ -3166,6 +3237,77 @@ def member_graph_pipeline(device, workdir: Path) -> None:
     _task_step(model, lambda b, _: loss_fn(b), None, batch,
                f"batch-{TRAIN_BATCH} member-graph GCNStack (125 members x "
                f"{feats} features, hidden {hidden}, float32)")
+
+
+def cnn_pipeline(device, workdir: Path) -> None:
+    """Phase 11, last part: ``train-cnn --no-animate`` on the stores that
+    :func:`member_graph_pipeline` preprocessed (125 members x height 32 x
+    ncells 512, ``member_split`` 124: 124 input channels, 1 output) with
+    the UNet at its default width (hidden 64, depth 4: widths 64 to 512,
+    ~4.8 M parameters), the default batch of 21, float32 (TF32 off, as
+    this script sets it), 1 epoch: a finite test loss and the run in the
+    registry, reloaded through ``load_best_model(..., params_template=...)``;
+    one forward on the card against the port's CPU forward on the same
+    parameters (float32, ``CNN_TOL``); then the time and peak memory of one
+    train step at batch 21. The convs are cuDNN's (``F.conv2d``): the path
+    runs no hand-written kernel, as the reference's runs no Pallas one."""
+    import contextlib
+    import io
+
+    from gwen_tpu_torch.cli.main import main as cli
+    from gwen_tpu_torch.config import load_config
+    from gwen_tpu_torch.data.dataset import load_split
+    from gwen_tpu_torch.nn.unet import UNet
+    from gwen_tpu_torch.registry import Registry
+    from gwen_tpu_torch.train import cnn_loss_fn
+
+    cfg = load_config(str(workdir / "cfg.json"))
+    test, _ = load_split(cfg.data, "test")  # (time, member, height, ncells)
+    _, members, height, ncells = test.shape
+    split = cfg.train.member_split
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = cli(["train-cnn", "--no-animate", "--device", str(device),
+                  "--config", str(workdir / "cfg.json"),
+                  f"train.batch_size={DEFAULT_BATCH}"])
+    torch.cuda.synchronize()
+    out = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"  train-cnn: {out}, {time.perf_counter() - t0:.1f} s")
+    if (rc != 0 or not math.isfinite(out["test_loss"])
+            or not math.isfinite(out["best_train_loss"])
+            or not out["device"].startswith(torch.device(device).type)):
+        raise AssertionError(f"train-cnn returned {rc}: {out}")
+    cpu_model = UNet(split, members - split, device="cpu")
+    params, mcfg = Registry(workdir / "runs").load_best_model(
+        "GWEN_CNN", params_template=cpu_model.state_dict())
+    want = {"hidden": 64, "depth": 4, "channels_in": split,
+            "channels_out": members - split}
+    if mcfg != want:
+        raise AssertionError(f"train-cnn saved {mcfg}, want {want}")
+    cpu_model.load_state_dict(params)
+    model = UNet(split, members - split, device=device)
+    model.load_state_dict(params)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  UNet widths {model.widths}, {n_params / 1e6:.2f} M parameters, "
+        "reloaded through its template")
+
+    # One forward on the card against the CPU forward, on a test sample.
+    x = torch.from_numpy(np.ascontiguousarray(test[:1, :split], np.float32))
+    with torch.no_grad():
+        got = model(x.to(device)).cpu()
+        plain = cpu_model(x)
+    compare("UNet forward on the card vs on the CPU (float32)", got, plain,
+            CNN_TOL)
+
+    batch = (torch.randn(DEFAULT_BATCH, split, height, ncells, device=device),
+             torch.randn(DEFAULT_BATCH, members - split, height, ncells,
+                         device=device))
+    loss_fn = cnn_loss_fn(model)
+    log(f"  {smi_line()}")
+    _task_step(model, lambda b, _: loss_fn(b), None, batch,
+               f"batch-{DEFAULT_BATCH} UNet ({split} -> {members - split} "
+               f"channels, {height} x {ncells}, hidden 64, depth 4, float32, "
+               "TF32 off)", profile=True)
 
 
 NCCL_PROBE = r"""
@@ -3338,8 +3480,8 @@ def main() -> int:
 
     log("== phase 11: `aggregate` on the int8 rank-1 layout; B14 (block tiles) "
         "against its plain version; the EPD model on a BlockTileGraph and on the "
-        "multimesh; `make-mesh-data` -> `train-mesh --data`; `preprocess` -> "
-        "`train-gnn`")
+        "multimesh; `make-mesh-data` -> `train-mesh --data` -> `export`; "
+        "`preprocess` -> `train-gnn`; `train-cnn`")
     t0 = time.perf_counter()
     layouts = build_tile_layouts(device, perm)
     log(f"  L{LEVELS} block-tile and rank-1 layouts built in "
@@ -3354,6 +3496,7 @@ def main() -> int:
         store_paths(device, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         member_graph_pipeline(device, Path(tmp))
+        cnn_pipeline(device, Path(tmp))
     log("== last: one device kernel per int8 rank-1 call and per B5, B6 and "
         "B7 call (child processes under torch.profiler); the 1-rank NCCL probe")
     one_kernel_per_call(RANK1_PROFILE, "spmm_sliding_rank1", {"(": "dense_row"})

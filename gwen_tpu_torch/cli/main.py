@@ -5,12 +5,18 @@ with ``section.key=value`` config overrides, each printing one JSON line::
     python -m gwen_tpu_torch preprocess  [--config cfg.json] [overrides...]
     python -m gwen_tpu_torch train-gnn   [--config cfg.json] [--no-animate]
         [--out-dir output] [--device cuda] [overrides...]
+    python -m gwen_tpu_torch train-cnn   [--config cfg.json] [--no-animate]
+        [--out-dir output] [--device cuda] [overrides...]
     python -m gwen_tpu_torch make-mesh-data --out store.zarr [--members M]
         [--steps T] [--config cfg.json] [overrides...]
     python -m gwen_tpu_torch train-mesh [--config cfg.json] [--members M]
         [--steps T] [--data store.zarr] [--device cuda] [overrides...]
+    python -m gwen_tpu_torch export --out DIR [--data store.zarr]
+        [--experiment NAME] [--rollout-steps 4] [--device cuda]
+        [--config cfg.json] [overrides...]
     python -m gwen_tpu_torch predict --artifact DIR --input x0.npy \
         [--steps N] [--out predictions.npy] [--device cuda]
+    python -m gwen_tpu_torch runs [--experiment NAME] [--root runs]
     python -m gwen_tpu_torch gif --input data.zarr [--var theta_v]
         [--out output] [--member M]
 
@@ -19,11 +25,10 @@ with ``section.key=value`` config overrides, each printing one JSON line::
     python -m torch.distributed.run --nproc-per-node 2 -m gwen_tpu_torch \
         train-mesh --device cpu mesh.graph_axis=2
 
-``ingest`` needs ``h5py`` and ``gif`` (and ``train-gnn`` without
-``--no-animate``) matplotlib and Pillow, each imported where it is used;
-everything else runs on numpy and torch. Of the reference's subcommands
-``train-cnn``, ``export``, ``runs`` and ``bench`` are not in the port
-(ROADMAP queue A).
+``ingest`` needs ``h5py`` and ``gif`` (and ``train-gnn`` or ``train-cnn``
+without ``--no-animate``) matplotlib and Pillow, each imported where it is
+used; everything else runs on numpy and torch. Of the reference's
+subcommands only ``bench`` is not in the port.
 """
 
 from __future__ import annotations
@@ -32,8 +37,9 @@ import argparse
 import json
 import sys
 
-_CONFIGURED = ("ingest", "preprocess", "train-gnn", "train-mesh",
-               "make-mesh-data")
+_CONFIGURED = ("ingest", "preprocess", "train-gnn", "train-cnn", "train-mesh",
+               "make-mesh-data", "export")
+_DEVICE_HELP = "torch device (default cuda; fails without CUDA)"
 
 
 def main(argv: "list[str] | None" = None) -> int:
@@ -44,7 +50,7 @@ def main(argv: "list[str] | None" = None) -> int:
         p.add_argument("--config", default=None,
                        help="config JSON (nested or reference-flat)")
         p.add_argument("overrides", nargs="*", help="section.key=value overrides")
-        if name == "train-gnn":
+        if name in ("train-gnn", "train-cnn"):
             p.add_argument("--no-animate", action="store_true")
             p.add_argument("--out-dir", default="output")
         if name == "make-mesh-data":
@@ -55,17 +61,29 @@ def main(argv: "list[str] | None" = None) -> int:
         if name == "train-mesh":
             p.add_argument("--data", default="",
                            help="mesh-ensemble zarr store (default: synthetic)")
-        if name in ("train-gnn", "train-mesh"):
-            p.add_argument("--device", default="cuda",
-                           help="torch device (default cuda; fails without CUDA)")
+        if name == "export":
+            p.add_argument("--out", required=True, help="artifact directory")
+            p.add_argument("--data", default="",
+                           help="mesh store whose graph sidecar rebuilds the "
+                                "mesh (default: icosphere from the run's levels)")
+            p.add_argument("--experiment", default="",
+                           help="registry experiment (default: "
+                                "<run.experiment>_MESH)")
+            p.add_argument("--rollout-steps", type=int, default=4,
+                           help="steps per dispatch the artifact records "
+                                "(the port's rollout loops step by step)")
+        if name in ("train-gnn", "train-cnn", "train-mesh", "export"):
+            p.add_argument("--device", default="cuda", help=_DEVICE_HELP)
     prd = sub.add_parser("predict")
     prd.add_argument("--artifact", required=True, help="exported artifact dir")
     prd.add_argument("--input", required=True,
                      help=".npy initial state (nodes, channels)")
     prd.add_argument("--steps", type=int, default=1)
     prd.add_argument("--out", default="predictions.npy")
-    prd.add_argument("--device", default="cuda",
-                     help="torch device (default cuda; fails without CUDA)")
+    prd.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    rns = sub.add_parser("runs")
+    rns.add_argument("--experiment", default=None, help="default: all experiments")
+    rns.add_argument("--root", default="runs")
     g = sub.add_parser("gif")
     g.add_argument("--input", default=None,
                    help="zarr store with (time, member, height, ncells); "
@@ -105,6 +123,12 @@ def main(argv: "list[str] | None" = None) -> int:
         out = run(cfg, animate=not args.no_animate, out_dir=args.out_dir,
                   device=args.device)
         print(json.dumps(out))
+    elif args.cmd == "train-cnn":
+        from gwen_tpu_torch.cli.train_cnn import main as run
+
+        out = run(cfg, animate=not args.no_animate, out_dir=args.out_dir,
+                  device=args.device)
+        print(json.dumps(out))
     elif args.cmd == "train-mesh":
         from gwen_tpu_torch.cli.train_mesh import main as run
         from gwen_tpu_torch.train.mesh import is_main_process
@@ -123,12 +147,39 @@ def main(argv: "list[str] | None" = None) -> int:
         )
         path = save_mesh_dataset(args.out, fields, s, r, verts)
         print(json.dumps({"path": str(path), "fields": list(fields.shape)}))
+    elif args.cmd == "export":
+        from gwen_tpu_torch.cli.export_cli import export_main
+
+        out = export_main(cfg, out=args.out, data=args.data,
+                          experiment=args.experiment,
+                          rollout_steps=args.rollout_steps, device=args.device)
+        print(json.dumps(out))
     elif args.cmd == "predict":
         from gwen_tpu_torch.cli.export_cli import predict_main
 
         out = predict_main(args.artifact, args.input, args.steps, args.out,
                            device=args.device)
         print(json.dumps(out))
+    elif args.cmd == "runs":
+        from pathlib import Path
+
+        from gwen_tpu_torch.registry import Registry
+
+        root = Path(args.root)
+        reg = Registry(root)
+        exps = ([args.experiment] if args.experiment
+                else sorted(p.name for p in root.iterdir() if p.is_dir())
+                if root.exists() else [])
+        rows = []
+        for exp in exps:
+            if exp == "checkpoints":
+                continue
+            for r in reg.get_runs(exp, with_artifacts_only=False):
+                meta = r.meta
+                rows.append({"experiment": exp, "run_id": r.run_id,
+                             "status": meta.get("status"),
+                             "best_metric": meta.get("best_metric")})
+        print(json.dumps(rows, indent=2))
     elif args.cmd == "gif":
         import numpy as np
 

@@ -9,6 +9,9 @@
   by a boolean ``target_mask``. All member features go to the model and the
   mask applies in the loss; ``mask_inputs=True`` also zeroes the target
   members' features in the input.
+* :class:`ConvEnsembleDataset`: the CNN view, per time step the input
+  members as channels and the target members as outputs, with the same
+  member split (a ``simplify`` mode takes one input and one target).
 * :class:`MeshEnsembleDataset`: mesh-scale next-step pairs and trajectories.
 
 Everything yields numpy arrays of one shape per dataset.
@@ -56,6 +59,17 @@ def load_data(config: DataConfig):
     return train, test, meta
 
 
+def split_members(members: int, member_split: int, seed: int,
+                  simplify: bool) -> tuple[np.ndarray, np.ndarray]:
+    """``(input_indices, target_indices)``: the members shuffled once by
+    ``seed``, the first ``member_split`` (sorted) inputs and the rest
+    targets; ``simplify`` takes one input and one target."""
+    perm = np.random.default_rng(seed).permutation(members)
+    if simplify:
+        return perm[:1], perm[1:2]
+    return np.sort(perm[:member_split]), np.sort(perm[member_split:])
+
+
 @dataclass
 class MemberGraphDataset:
     """Ensemble-member graph view: one sample per time step.
@@ -72,16 +86,9 @@ class MemberGraphDataset:
     mask_inputs: bool = False
 
     def __post_init__(self) -> None:
-        t, m, h, c = self.data.shape
-        rng = np.random.default_rng(self.seed)
-        perm = rng.permutation(m)
-        if self.simplify:
-            # 1 input / 1 target member.
-            self.input_indices = perm[:1]
-            self.target_indices = perm[1:2]
-        else:
-            self.input_indices = np.sort(perm[: self.member_split])
-            self.target_indices = np.sort(perm[self.member_split :])
+        m = self.data.shape[1]
+        self.input_indices, self.target_indices = split_members(
+            m, self.member_split, self.seed, self.simplify)
         mask = np.zeros(m, bool)
         mask[self.target_indices] = True
         self.target_mask = mask
@@ -149,6 +156,39 @@ class MemberGraphDataset:
                 yield x, mask
 
 
+@dataclass
+class ConvEnsembleDataset:
+    """CNN view: per time step, input members as channels → target
+    members. ``x`` is ``(batch, members_in, height, ncells)`` and ``y``
+    ``(batch, members_out, height, ncells)``; the member split is
+    :class:`MemberGraphDataset`'s for the same seed."""
+
+    data: np.ndarray  # (time, member, height, ncells)
+    member_split: int
+    seed: int = 42
+    simplify: bool = False
+
+    def __post_init__(self) -> None:
+        self.input_indices, self.target_indices = split_members(
+            self.data.shape[1], self.member_split, self.seed, self.simplify)
+
+    def __len__(self) -> int:
+        return self.data.shape[0]
+
+    def __getitem__(self, t: int) -> tuple[np.ndarray, np.ndarray]:
+        return self.data[t, self.input_indices], self.data[t, self.target_indices]
+
+    def batches(self, batch_size: int, shuffle: bool = False, seed: int = 0):
+        """Yield ``(x, y)`` batches over time steps (shuffled by ``seed``
+        when asked); the last partial batch is dropped."""
+        order = np.arange(len(self))
+        if shuffle:
+            np.random.default_rng(seed).shuffle(order)
+        for start in range(0, len(order) - batch_size + 1, batch_size):
+            idx = order[start : start + batch_size]
+            yield (np.stack([self.data[i, self.input_indices] for i in idx]),
+                   np.stack([self.data[i, self.target_indices] for i in idx]))
+
 
 @dataclass
 class MeshEnsembleDataset:
@@ -204,15 +244,10 @@ class MeshEnsembleDataset:
 def make_datasets(
     data_cfg: DataConfig, train_cfg: TrainConfig, kind: str = "graph"
 ) -> tuple:
-    """Convenience: load both splits and wrap them (orchestrator helper).
-    ``kind="conv"`` (the CNN view) comes with the UNet slice of the port."""
-    if kind != "graph":
-        raise ValueError(
-            f"make_datasets(kind={kind!r}): only the member-graph view is "
-            "ported; the CNN view (ConvEnsembleDataset) comes with the UNet "
-            "slice")
+    """Convenience: load both splits and wrap them in the member-graph view
+    (``kind="graph"``) or the CNN view (``kind="conv"``)."""
     train, test, meta = load_data(data_cfg)
-    cls = MemberGraphDataset
+    cls = MemberGraphDataset if kind == "graph" else ConvEnsembleDataset
     mk = lambda d: cls(  # noqa: E731
         data=d,
         member_split=train_cfg.member_split,

@@ -48,6 +48,23 @@ def _environment_snapshot() -> dict:
     }
 
 
+def _match_template(params: dict, template: dict, run_id: str) -> dict:
+    """``params`` in ``template``'s key order, once every key and shape
+    agrees."""
+    for key in template:
+        if key not in params:
+            raise ValueError(f"run {run_id}: the stored params lack {key!r}")
+    for key, val in params.items():
+        if key not in template:
+            raise ValueError(f"run {run_id}: the stored params hold {key!r}, "
+                             "which the template lacks")
+        if tuple(val.shape) != tuple(template[key].shape):
+            raise ValueError(f"run {run_id}: {key!r} is stored with shape "
+                             f"{tuple(val.shape)}, the template's is "
+                             f"{tuple(template[key].shape)}")
+    return {key: params[key] for key in template}
+
+
 def default_experiment(base: str = "GWEN") -> str:
     """Experiment name, suffixed with ``GWEN_SITE`` when that is set (or
     ``balfrin`` on hosts named ``nid*``), as the reference names them."""
@@ -103,11 +120,24 @@ class Run:
         if best_metric is not None:
             self._update_meta(best_metric=float(best_metric))
 
-    def load_model(self) -> tuple[dict, dict]:
-        """``(params state dict on the CPU, model_config)``."""
+    def environment(self) -> dict:
+        """The stack versions saved with the model artifact (``{}`` when
+        the run saved none)."""
+        p = self.path / "artifacts" / "environment.json"
+        return json.loads(p.read_text()) if p.exists() else {}
+
+    def load_model(self, params_template: Optional[dict] = None
+                   ) -> tuple[dict, dict]:
+        """``(params state dict on the CPU, model_config)``. With
+        ``params_template`` (a state dict, such as a fresh model's) the
+        stored params must have its keys and shapes: a missing key, an
+        extra key or another shape raises ``ValueError`` naming the key;
+        the params come back in the template's key order."""
         art = self.path / "artifacts"
         params = torch.load(art / "params.pt", map_location="cpu",
                             weights_only=True)
+        if params_template is not None:
+            params = _match_template(params, params_template, self.run_id)
         return params, json.loads((art / "model.json").read_text())
 
     def has_artifacts(self) -> bool:
@@ -145,9 +175,12 @@ class Registry:
             runs = [r for r in runs if r.has_artifacts()]
         return sorted(runs, key=lambda r: r.meta.get("start_time", 0), reverse=True)
 
-    def load_best_model(self, experiment: str, strategy: str = "best"):
+    def load_best_model(self, experiment: str,
+                        params_template: Optional[dict] = None,
+                        strategy: str = "best"):
         """Params and config of the run with the lowest ``best_metric``
-        (``strategy="best"``) or of the newest run (``"latest"``)."""
+        (``strategy="best"``) or of the newest run (``"latest"``), held to
+        ``params_template`` as :meth:`Run.load_model` holds them."""
         runs = self.get_runs(experiment)
         if not runs:
             raise FileNotFoundError(f"no runs with artifacts in experiment {experiment!r}")
@@ -157,4 +190,4 @@ class Registry:
             scored = [r for r in runs if "best_metric" in r.meta]
             chosen = min(scored, key=lambda r: r.meta["best_metric"]) if scored else runs[0]
         log.info("loading model from run %s", chosen.run_id)
-        return chosen.load_model()
+        return chosen.load_model(params_template)

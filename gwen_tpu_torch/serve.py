@@ -90,9 +90,12 @@ def unpack_tree(spec: Any, leaves: list) -> Any:
 
 
 def export_model(model: EncodeProcessDecode, sample_input: np.ndarray, path,
-                 metadata: dict) -> Path:
+                 metadata: dict, rollout_steps: int = 0) -> Path:
     """Write ``model``'s weights as an artifact in the reference's format
     (``arrays.npz`` + ``meta.json``, no ``model.stablehlo``).
+    ``rollout_steps`` is recorded as the reference records the length of
+    its compiled rollout; the port compiles none (see
+    :meth:`ServingModel.rollout`).
 
     ``metadata`` must carry the run hyperparameters that
     :meth:`ServingModel.load` rebuilds from: ``levels``, ``channels``,
@@ -110,7 +113,7 @@ def export_model(model: EncodeProcessDecode, sample_input: np.ndarray, path,
                   "dtype": np.asarray(sample_input).dtype.name},
         "platforms": [],
         "torch_version": torch.__version__,
-        "rollout_steps": 0,
+        "rollout_steps": int(rollout_steps),
         "metadata": metadata,
     }
     np.savez(path / "arrays.npz",
@@ -205,8 +208,16 @@ class ServingModel:
         with torch.inference_mode():
             return self.model(self.graph, x)
 
+    @property
+    def rollout_steps(self) -> int:
+        """Steps per dispatch that the artifact records (0: none)."""
+        return int(self.meta.get("rollout_steps", 0))
+
     def rollout(self, x0: torch.Tensor, num_steps: int) -> torch.Tensor:
-        """Autoregressive rollout: ``(num_steps, *state_shape)``."""
+        """Autoregressive rollout: ``(num_steps, *state_shape)``. The
+        reference dispatches ``rollout_steps`` steps at a time as one
+        compiled scan; the port has no compiled program to load, so it
+        runs :meth:`step` once a step whatever ``rollout_steps`` says."""
         states = []
         x = x0
         for _ in range(num_steps):

@@ -11,6 +11,7 @@ from gwen_tpu_torch.train.mesh import (
     make_mesh,
 )
 from gwen_tpu_torch.train.tasks import (
+    cnn_loss_fn,
     ensemble_crps_loss_fn,
     gnn_loss_fn,
     mesh_graph_loss_fn,
@@ -27,6 +28,7 @@ __all__ = [
     "ProcessMesh",
     "Trainer",
     "TrainState",
+    "cnn_loss_fn",
     "ensemble_crps_loss_fn",
     "gnn_loss_fn",
     "initialize_distributed",

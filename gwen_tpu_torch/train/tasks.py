@@ -1,6 +1,7 @@
 """Task definitions: counterpart of ``gwen_tpu.train.tasks``: the
 member-graph GNN task of ``train-gnn`` (:func:`gnn_loss_fn`, which closes
-over its small graph) and the tasks the ``train-mesh`` path trains:
+over its small graph), the UNet task of ``train-cnn`` (:func:`cnn_loss_fn`)
+and the tasks the ``train-mesh`` path trains:
 next-step prediction, fair-ensemble-CRPS training on perturbed members, and
 rollout-horizon training. Each mesh ``loss_fn(batch, graph) -> (loss,
 preds)`` closes over the model; the graph comes in as the Trainer's
@@ -56,6 +57,27 @@ def gnn_loss_fn(model, graph, loss: str = "l1-masked",
         else:
             value = losses.crps_gaussian_surrogate(preds, target, ensemble_axis=1)
         return value, preds
+
+    return loss_fn
+
+
+def cnn_loss_fn(model, loss: str = "l1", spatial_mask=None) -> Callable:
+    """UNet task: ``loss_fn((x, y)) -> (loss, preds)`` on member-channel
+    fields ``(B, C, height, ncells)``. With ``spatial_mask`` (one value per
+    ``(height, ncells)`` cell) the loss is :func:`losses.masked_loss` of
+    base ``loss``; otherwise L1 or MSE."""
+    if loss not in ("l1", "mse"):
+        raise ValueError(f"unknown CNN loss {loss!r}")
+    fn = losses.l1_loss if loss == "l1" else losses.mse_loss
+
+    def loss_fn(batch):
+        x, y = batch
+        preds = model(x)
+        if spatial_mask is None:
+            return fn(preds, y), preds
+        mask = torch.as_tensor(spatial_mask, dtype=preds.dtype,
+                               device=preds.device)
+        return losses.masked_loss(preds, y, mask, base=loss), preds
 
     return loss_fn
 

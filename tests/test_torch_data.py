@@ -349,8 +349,15 @@ def test_make_datasets_and_conv_refusal(store):
     tr, te, meta = make_datasets(cfg, TrainConfig(member_split=3, seed=2))
     assert isinstance(tr, MemberGraphDataset) and len(te) == T and meta == {}
     np.testing.assert_array_equal(tr.data, values)
-    with pytest.raises(ValueError, match="UNet"):
-        make_datasets(cfg, TrainConfig(), kind="conv")
+    # The CNN view, which the port once refused, splits the members as the
+    # reference's does.
+    tr, te, _ = make_datasets(cfg, TrainConfig(member_split=3, seed=2),
+                              kind="conv")
+    j_tr, _, _ = j_dataset.make_datasets(cfg, TrainConfig(member_split=3, seed=2),
+                                         kind="conv")
+    assert type(tr).__name__ == type(j_tr).__name__ == "ConvEnsembleDataset"
+    np.testing.assert_array_equal(tr.input_indices, j_tr.input_indices)
+    np.testing.assert_array_equal(te[1][1], j_tr[1][1])
 
 
 def test_meshstore_round_trip_both_ways(tmp_path):

@@ -255,11 +255,12 @@ def test_cli_offers_the_ported_subcommands(capsys):
     with pytest.raises(SystemExit):
         cli(["--help"])
     text = capsys.readouterr().out
-    for name in ("ingest", "preprocess", "train-gnn", "train-mesh",
-                 "make-mesh-data", "predict", "gif"):
+    for name in ("ingest", "preprocess", "train-gnn", "train-cnn", "train-mesh",
+                 "make-mesh-data", "export", "predict", "runs", "gif"):
         assert name in text
+    # `bench` belongs to the port's benchmark, which is not there yet.
     with pytest.raises(SystemExit):
-        cli(["train-cnn"])
+        cli(["bench"])
 
 
 def test_missing_libraries_raise_where_they_are_used(monkeypatch, tmp_path):
