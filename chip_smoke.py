@@ -4,7 +4,8 @@ GCN, attention and interaction processors.
 
     python3 chip_smoke.py
 
-Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
+Drives ``gwen_tpu_torch`` only (no JAX); its timers are
+``gwen_tpu_torch.profiling``'s. Phases, each printed as it runs:
 
 1. the device (``nvidia-smi`` name and power limit, torch's device name);
    exits non-zero when CUDA is absent;
@@ -172,17 +173,27 @@ Drives ``gwen_tpu_torch`` only (no JAX). Phases, each printed as it runs:
    numbers), again with ``data.lazy=true``, then ``export --data`` and
    ``predict`` with the graph rebuilt from the store (checked as phase 6);
    ``preprocess`` → ``train-gnn --no-animate`` on a raw store of 125
-   members x 16,384 features written here (hidden 1024, batch 4): a finite
-   test loss, the run in the registry, the step's time and peak memory;
-   then ``train-cnn --no-animate`` on the same stores (124 input members
-   as channels, 1 target, height 32 x ncells 512) with the UNet at its
-   default width (hidden 64, depth 4, ~4.8 M parameters), batch 21,
-   float32 with TF32 off: a finite test loss, the run reloaded through
-   ``load_best_model(..., params_template=...)``, one forward on the card
-   against the CPU forward (``CNN_TOL``), the batch-21 step's time and
-   peak memory beside the card's name and power limit (cuDNN convs, no
-   hand-written kernel). The stores are written and read with numpy and
-   the standard library alone;
+   members x 16,384 features written here (hidden 1024, batch 4) and
+   ``train-cnn --no-animate`` on its stores (batch 21), launched together,
+   each under ``python -m torch.distributed.run --nproc_per_node 1`` as the
+   data-parallel runs are launched (one rank: no process group): their
+   wall seconds, finite losses and rank 0's runs in the registry; ten
+   train steps at its shapes, each timed by CUDA events and by the host
+   (``StepTimer``, and the host's enqueue), with Python's garbage
+   collector on and then off: the median, the spread, the card's clock
+   and power before and after, and one step's profile; then ``train-cnn
+   --no-animate`` on the same stores (124 input members as channels, 1
+   target, height 32 x ncells 512) with the UNet at its default width
+   (hidden 64, depth 4, ~4.8 M parameters), batch 21, first in this
+   process from torch's default TF32 flags (cuDNN's on): a finite test
+   loss, the flags restored after it, the run reloaded through
+   ``load_best_model(..., params_template=...)``, the run's own first test
+   forward on the card against the CPU forward of the saved parameters
+   (float32, ``CNN_TOL``: the entry point ran its convs in float32) and,
+   for the record, that forward's error with TF32 on; the batch-21 step's
+   time and peak memory beside the card's name
+   and power limit (cuDNN convs, no hand-written kernel). The stores are
+   written and read with numpy and the standard library alone;
 12. last, in fresh child processes: one call of ``spmm_sliding_rank1``
    (unbatched and at batch 4) runs exactly one device kernel under
    ``torch.profiler``, the dense row gather, and one call of B5, B6 and B7
@@ -201,6 +212,7 @@ import concurrent.futures
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -209,6 +221,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from gwen_tpu_torch.profiling import StepTimer, cuda_ms, device_ms, profile_step
 
 LEVELS, LATENT, PROCESS_STEPS, CHANNELS, WINDOW = 7, 256, 4, 1, 384
 REQUESTS, ROLLOUT_STEPS = 3, 4
@@ -240,48 +254,6 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn()`` in ms (CUDA events around ``iters``
-    back-to-back calls, after ``warmup`` calls)."""
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_events(fn, iters: int = 1) -> list:
-    """The device events (kernels, copies) that ``iters`` calls of ``fn()``
-    run under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return [ev for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-
-
-def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of ``fn()`` in ms: the durations of the device
-    events of ``iters`` calls (:func:`device_events`), summed, over
-    ``iters``. For a kernel shorter than the host's enqueue of a call, whose
-    back-to-back CUDA-event time (:func:`cuda_ms`) measures the host."""
-    for _ in range(warmup):
-        fn()
-    us = sum(ev.time_range.elapsed_us() for ev in device_events(fn, iters))
-    if not us:
-        raise AssertionError("the profiler saw no device kernel")
-    return us / iters / 1e3
 
 
 def bf16_ulp(v: float) -> float:
@@ -1757,14 +1729,17 @@ def count_plain_calls_on_cuda() -> None:
                           "residual_layernorm_bwd_plain")),
               (attention_cuda, ("attention_fwd_plain", "attention_dq_plain",
                                 "attention_dkdv_plain")))
+    def counting(fn):
+        def counted(*args, **kwargs):
+            if any(isinstance(t, torch.Tensor) and t.is_cuda
+                   for t in (*args, *kwargs.values())):
+                PLAIN_ON_CUDA["calls"] += 1
+            return fn(*args, **kwargs)
+        return counted
+
     for mod, names in plains:
         for name in names:
-            def counted(*args, _fn=getattr(mod, name), **kwargs):
-                if any(isinstance(t, torch.Tensor) and t.is_cuda
-                       for t in (*args, *kwargs.values())):
-                    PLAIN_ON_CUDA["calls"] += 1
-                return _fn(*args, **kwargs)
-            setattr(mod, name, counted)
+            setattr(mod, name, counting(getattr(mod, name)))
 
 
 def _train_model(device, channels: int, remat=False, processor: str = "gcn"):
@@ -1780,15 +1755,7 @@ def _train_model(device, channels: int, remat=False, processor: str = "gcn"):
 def _step_ms(step, iters: int = 5) -> float:
     """Mean ms of ``step()`` (CUDA events around ``iters`` steps, after one
     warm-up step)."""
-    step()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        step()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return cuda_ms(step, iters, warmup=1)
 
 
 def _adam_step(model, graph, x, y):
@@ -2023,7 +1990,8 @@ def train(graph, device, workdir: Path, processor: str = "gcn") -> dict:
 
         # One step at the default batch with the cheapest remat policy that
         # fits.
-        xb = torch.from_numpy(rng.normal(size=(DEFAULT_BATCH, n, CHANNELS)).astype(np.float32)).to(device)
+        xb = torch.from_numpy(rng.normal(size=(DEFAULT_BATCH, n, CHANNELS))
+                              .astype(np.float32)).to(device)
         for remat in REMAT_LADDER:
             mb = _train_model(device, CHANNELS, remat=remat)
             torch.cuda.empty_cache()
@@ -2140,8 +2108,8 @@ def train_packed(graphs: dict, device, workdir: Path) -> dict:
     for GCN and attention, ``packed`` for GCN): launch counts per step and
     no plain version on the card, one step against the plain versions, step
     time and peak memory (the ``packed`` step also under ``torch.profiler``);
-    then the unbatched 256-channel EPD step on ``diag_packed`` (packed B1). Returns the packed kernels' launch counts
-    on these paths."""
+    then the unbatched 256-channel EPD step on ``diag_packed`` (packed B1).
+    Returns the packed kernels' launch counts on these paths."""
     launches = {}
     rng = np.random.default_rng(6)
     for kernel, processor, keys in (("diag_packed", "gcn", ("B4p",)),
@@ -2167,22 +2135,18 @@ def train_packed(graphs: dict, device, workdir: Path) -> dict:
 
 
 def _profile_step(step, tag: str, top: int = 10) -> dict:
-    """One ``step()`` under ``torch.profiler``: the device time of its
-    kernels by name, and the share of the span from the first kernel's
-    start to the last one's end in which a kernel ran. Returns the µs by
-    kernel name (empty where the trace held no device event)."""
-    by_name, start, end = {}, math.inf, -math.inf
-    for ev in device_events(step):
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-        start, end = min(start, ev.time_range.start), max(end, ev.time_range.end)
+    """One ``step()`` under ``torch.profiler`` (``profile_step``): logs the
+    busy share of its span and its kernels by device time. Returns the µs
+    by kernel name (empty where the trace held no device event)."""
+    prof = profile_step(step)
+    by_name = prof["kernels_us"]
     if not by_name:
         log(f"  {tag} profile: the trace holds no device event; kernel shares "
             "not measured")
         return by_name
     busy = sum(by_name.values())
-    log(f"  {tag} profile of one step: device busy {busy / 1e3:.3f} ms of a "
-        f"{(end - start) / 1e3:.3f} ms span ({busy / (end - start):.1%}); by "
-        "kernel:")
+    log(f"  {tag} profile of one step: device busy {prof['busy_ms']:.3f} ms of a "
+        f"{prof['span_ms']:.3f} ms span ({prof['busy_share']:.1%}); by kernel:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"    {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:90]}")
     return by_name
@@ -2541,11 +2505,12 @@ def check_halo_operators(graph, processor: str, device,
     """The partitioned path's operators on one rank's halo graph, at the
     shapes ``train-mesh`` gives them (batch 4, the halo-extended source
     rows), against their plain versions on the same path: for GCN
-    ``aggregate_halo`` (``sliding``: B10 on the band; ``diag``: B4 over the extended rows with the fix rows
-    of the gathered contraction, B10; ``dense``: B11; ``ell``: B12) in bf16
-    and in float32; for attention ``attend_halo`` (B5 on the extended K/V,
-    B6 and B7 through its gradients) in bf16 against autograd through the
-    plain forward in float32."""
+    ``aggregate_halo`` (``sliding``: B10 on the band; ``diag``: B4 over the
+    extended rows with the fix rows of the gathered contraction, B10;
+    ``dense``: B11; ``ell``: B12) in bf16 and in float32; for attention
+    ``attend_halo`` (B5 on the extended K/V, B6 and B7 through its
+    gradients) in bf16 against autograd through the plain forward in
+    float32."""
     from gwen_tpu_torch.parallel import aggregate_halo, attend_halo
 
     gen = torch.Generator(device=device).manual_seed(11)
@@ -2887,13 +2852,14 @@ sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke as cs
 from gwen_tpu_torch.ops import spmm_cuda
+from gwen_tpu_torch.profiling import device_events
 dev = torch.device("cuda", 0)
 r1 = cs.build_rank1_layout(dev)["rank1"]
 out = {}
 for shape in ((r1.num_nodes, cs.LATENT), (cs.TRAIN_BATCH, r1.num_nodes, cs.LATENT)):
     x = torch.randn(*shape, device=dev).bfloat16()
     spmm_cuda.spmm_sliding_rank1(r1, x)
-    out[str(shape)] = [ev.name for ev in cs.device_events(
+    out[str(shape)] = [ev.name for ev in device_events(
         lambda: spmm_cuda.spmm_sliding_rank1(r1, x))]
 print(json.dumps(out))
 """
@@ -2905,6 +2871,7 @@ sys.path.insert(0, sys.argv[1])
 import torch
 import chip_smoke as cs
 from gwen_tpu_torch.ops import attention_cuda as ac
+from gwen_tpu_torch.profiling import device_events
 dev = torch.device("cuda", 0)
 graph = cs.build_serving_graph(dev, torch.bfloat16)[0]
 out, scale = {}, 128 ** -0.5
@@ -2915,11 +2882,11 @@ for lead in ((), (cs.ATTN_HEADS * cs.TRAIN_BATCH,)):
     st = ac.attention_dq(graph, q, k, v, g, scale)[1]
     ac.attention_dkdv(graph, q, k, v, g, st, scale)
     nb = lead[0] if lead else 1
-    out[f"B5 nb {nb}"] = [ev.name for ev in cs.device_events(
+    out[f"B5 nb {nb}"] = [ev.name for ev in device_events(
         lambda: ac.attention_fwd(graph, q, k, v, scale))]
-    out[f"B6 nb {nb}"] = [ev.name for ev in cs.device_events(
+    out[f"B6 nb {nb}"] = [ev.name for ev in device_events(
         lambda: ac.attention_dq(graph, q, k, v, g, scale))]
-    out[f"B7 nb {nb}"] = [ev.name for ev in cs.device_events(
+    out[f"B7 nb {nb}"] = [ev.name for ev in device_events(
         lambda: ac.attention_dkdv(graph, q, k, v, g, st, scale))]
 print(json.dumps(out))
 """
@@ -3154,10 +3121,14 @@ def member_graph_pipeline(device, workdir: Path) -> None:
     connected member graph, a field of height 32 x ncells 512 (16,384
     features a member node; the original GWEN publishes no field size, this
     one is this script's), 40 time steps, ``hidden_feats`` 1024, batch 4, 1
-    epoch: a finite test loss and the run in the registry; then the time
-    and peak memory of one train step at those shapes. The aggregation here
-    is ``adj @ x`` on a 125 x 125 matrix, a plain product in the reference
-    too: the path runs no hand-written kernel."""
+    epoch, and ``train-cnn --no-animate`` on its stores at batch 21, both
+    launched together as a user launches the data-parallel runs, under
+    ``torch.distributed.run --nproc_per_node 1`` (:func:`launched`): finite
+    losses and rank 0's runs in the registry; then ten train steps
+    at those shapes, each timed, with the peak memory and one step's
+    profile (:func:`_step_spread`). The aggregation here is ``adj @ x`` on
+    a 125 x 125 matrix, a plain product in the reference too: the path runs
+    no hand-written kernel."""
     import contextlib
     import io
 
@@ -3165,6 +3136,7 @@ def member_graph_pipeline(device, workdir: Path) -> None:
     from gwen_tpu_torch.data import zarrstore
     from gwen_tpu_torch.graph import build_graph, erdos_renyi_edges, to_dense
     from gwen_tpu_torch.nn import GCNStack
+    from gwen_tpu_torch.nn.core import count_params
     from gwen_tpu_torch.registry import Registry
     from gwen_tpu_torch.train import gnn_loss_fn
 
@@ -3198,31 +3170,27 @@ def member_graph_pipeline(device, workdir: Path) -> None:
                      "epochs": 1},
            "run": {"registry_root": str(workdir / "runs"), "experiment": "GWEN"}}
     (workdir / "cfg.json").write_text(json.dumps(cfg))
-    outs = []
-    for argv in (["preprocess"], ["train-gnn", "--no-animate", "--device", str(device)]):
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()) as buf:
-            rc = cli([*argv, "--config", str(workdir / "cfg.json")])
-        torch.cuda.synchronize()
-        outs.append(json.loads(buf.getvalue().strip().splitlines()[-1]))
-        log(f"  {argv[0]}: {outs[-1]}, {time.perf_counter() - t0:.1f} s")
-        if rc != 0:
-            raise AssertionError(f"{argv[0]} returned {rc}")
-    out = outs[1]
-    runs = Registry(workdir / "runs").get_runs("GWEN")
-    if (not math.isfinite(out["test_loss"]) or not math.isfinite(out["best_train_loss"])
-            or [r.run_id for r in runs] != [out["run_id"]]
-            or runs[0].meta.get("status") != "FINISHED"
-            or not out["device"].startswith("cuda")):
-        raise AssertionError(f"train-gnn: {out}, runs {[r.run_id for r in runs]}")
-    params, mcfg = runs[0].load_model()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        rc = cli(["preprocess", "--config", str(workdir / "cfg.json")])
+    log(f"  preprocess: {buf.getvalue().strip().splitlines()[-1]}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0:
+        raise AssertionError(f"preprocess returned {rc}")
+    cfg_path = str(workdir / "cfg.json")
+    launched(workdir, {
+        "GWEN": ["train-gnn", "--no-animate", "--device", "cuda", "--config",
+                 cfg_path],
+        "GWEN_CNN": ["train-cnn", "--no-animate", "--device", "cuda", "--config",
+                     cfg_path, f"train.batch_size={DEFAULT_BATCH}"]})
+    params, mcfg = Registry(workdir / "launched").get_runs("GWEN")[0].load_model()
     feats = height * ncells
     if mcfg != {"hidden_feats": hidden, "channels": feats} or \
             params["gcn_0.w"].shape != (feats, hidden):
         raise AssertionError(f"train-gnn saved {mcfg}, gcn_0.w "
                              f"{tuple(params['gcn_0.w'].shape)}")
 
-    # One train step at the run's shapes.
+    # Ten train steps at the run's shapes, each timed.
     s, r = erdos_renyi_edges(members, 1.0, seed=42)
     graph = to_dense(build_graph(s, r, members)).to(device)
     model = GCNStack(feats, feats, device=device, hidden_feats=hidden,
@@ -3232,11 +3200,133 @@ def member_graph_pipeline(device, workdir: Path) -> None:
     batch = {"x": torch.randn(TRAIN_BATCH, members, feats, device=device),
              "mask": mask}
     loss_fn = gnn_loss_fn(model, graph)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  GCNStack widths {model.widths}, {n_params / 1e6:.1f} M parameters")
-    _task_step(model, lambda b, _: loss_fn(b), None, batch,
-               f"batch-{TRAIN_BATCH} member-graph GCNStack (125 members x "
-               f"{feats} features, hidden {hidden}, float32)")
+    log(f"  GCNStack widths {model.widths}, {count_params(model) / 1e6:.1f} M "
+        "parameters")
+    opt = torch.optim.Adam(model.parameters(), lr=1e-4)
+
+    def step():
+        loss, _ = loss_fn(batch)
+        loss.backward()
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    _step_spread(step, f"batch-{TRAIN_BATCH} member-graph GCNStack (125 members "
+                 f"x {feats} features, hidden {hidden}, float32)")
+
+
+def launched(workdir: Path, runs: dict) -> dict:
+    """Start each run of ``runs`` (its registry experiment → the argv of
+    ``python -m gwen_tpu_torch``) under ``python -m torch.distributed.run
+    --standalone --nproc_per_node 1`` (one rank on this card: no process
+    group, no collective), all at once, in ``workdir`` with this checkout on
+    the path and ``run.registry_root`` at ``workdir / "launched"``, and
+    wait for them (at most 600 s; killed at the limit). Logs each one's
+    wall seconds, JSON line and the run rank 0 wrote to the registry;
+    returns the JSON lines by experiment. Fails unless each run finished
+    on the card as one rank with its run in the registry."""
+    from gwen_tpu_torch.registry import Registry
+
+    torch.cuda.empty_cache()  # the children allocate on the same card
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent), *filter(None, [env.get("PYTHONPATH")])])
+    root = workdir / "launched"
+    procs = {}
+    try:
+        for experiment, argv in runs.items():
+            with open(workdir / f"{experiment}.out", "w") as out, \
+                    open(workdir / f"{experiment}.err", "w") as err:
+                procs[experiment] = subprocess.Popen(
+                    [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                     "--nproc_per_node", "1", "-m", "gwen_tpu_torch", *argv,
+                     f"run.registry_root={root}"],
+                    cwd=workdir, env=env, stdout=out, stderr=err)
+        t0, wall = time.perf_counter(), {}
+        while len(wall) < len(procs):
+            if time.perf_counter() - t0 > 600:
+                raise AssertionError(f"launched runs not done in 600 s: {list(procs)}")
+            for experiment, proc in procs.items():
+                if experiment not in wall and proc.poll() is not None:
+                    wall[experiment] = time.perf_counter() - t0
+            time.sleep(0.2)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    outs = {}
+    for experiment, argv in runs.items():
+        if procs[experiment].returncode != 0:
+            raise AssertionError(
+                f"{argv[0]} under torch.distributed.run returned "
+                f"{procs[experiment].returncode}:\n"
+                f"{(workdir / f'{experiment}.err').read_text()[-3000:]}")
+        out = json.loads((workdir / f"{experiment}.out").read_text()
+                         .strip().splitlines()[-1])
+        registered = Registry(root).get_runs(experiment)
+        run = next((r for r in registered if r.run_id == out["run_id"]), None)
+        log(f"  {argv[0]} under `torch.distributed.run --nproc_per_node 1` "
+            f"({len(runs)} launched together): {wall[experiment]:.1f} s wall, "
+            f"{out}; rank 0's registry run {out['run_id']}: "
+            f"{None if run is None else run.meta.get('status')}, best metric "
+            f"{None if run is None else run.meta.get('best_metric')}")
+        if (run is None or run.meta.get("status") != "FINISHED" or out["world"] != 1
+                or not out["device"].startswith("cuda")
+                or not math.isfinite(out["best_train_loss"])
+                or not math.isfinite(out["test_loss"])):
+            raise AssertionError(f"{argv[0]} launched: {out}, runs "
+                                 f"{[r.run_id for r in registered]}")
+        outs[experiment] = out
+    return outs
+
+
+def _step_spread(step, tag: str, steps: int = 10) -> None:
+    """``steps`` calls of ``step()`` after a warm-up, each timed by CUDA
+    events, by the host to its barrier (``StepTimer``) and by the host to
+    the return of ``step()`` (its enqueue), once with Python's garbage
+    collector on and once with it off: the median, the spread and each
+    step; the peak memory and the card's clock and power before and after;
+    then one step under ``torch.profiler`` (busy share and kernels)."""
+    import gc
+
+    smi = ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+           "--format=csv,noheader"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    before = subprocess.run(smi, capture_output=True, text=True, timeout=60).stdout
+    for collector in ("on", "off"):
+        timer, device, enqueue = StepTimer(window=steps), [], []
+        if collector == "off":
+            gc.disable()
+        try:
+            for _ in range(steps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with timer:
+                    t0 = time.perf_counter()
+                    start.record()
+                    step()
+                    end.record()
+                    enqueue.append((time.perf_counter() - t0) * 1e3)
+                    torch.cuda.synchronize()
+                device.append(start.elapsed_time(end))
+        finally:
+            gc.enable()
+        host = [d * 1e3 for d in timer.durations]
+        log(f"  {tag} train step, {steps} steps, garbage collector {collector}: "
+            f"median {np.median(device):.3f} ms (CUDA events), spread "
+            f"{min(device):.3f} to {max(device):.3f} ms, each "
+            f"{[round(v, 3) for v in device]}; host to the barrier (StepTimer) "
+            f"median {np.median(host):.3f} ms, spread {min(host):.3f} to "
+            f"{max(host):.3f} ms; host enqueue median {np.median(enqueue):.3f} "
+            f"ms, spread {min(enqueue):.3f} to {max(enqueue):.3f} ms")
+    after = subprocess.run(smi, capture_output=True, text=True, timeout=60).stdout
+    log(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"clocks.sm, power.draw, temperature before {before.strip()}, after "
+        f"{after.strip()}")
+    _profile_step(step, tag)
 
 
 def cnn_pipeline(device, workdir: Path) -> None:
@@ -3244,19 +3334,26 @@ def cnn_pipeline(device, workdir: Path) -> None:
     :func:`member_graph_pipeline` preprocessed (125 members x height 32 x
     ncells 512, ``member_split`` 124: 124 input channels, 1 output) with
     the UNet at its default width (hidden 64, depth 4: widths 64 to 512,
-    ~4.8 M parameters), the default batch of 21, float32 (TF32 off, as
-    this script sets it), 1 epoch: a finite test loss and the run in the
-    registry, reloaded through ``load_best_model(..., params_template=...)``;
-    one forward on the card against the port's CPU forward on the same
-    parameters (float32, ``CNN_TOL``); then the time and peak memory of one
-    train step at batch 21. The convs are cuDNN's (``F.conv2d``): the path
-    runs no hand-written kernel, as the reference's runs no Pallas one."""
+    ~4.8 M parameters), the default batch of 21, 1 epoch. First through the
+    entry point in this process, from torch's default TF32 flags
+    (``cudnn.allow_tf32`` on, ``cuda.matmul.allow_tf32`` off), which
+    ``train-cnn`` must clear for its float32 model and restore: a finite
+    test loss, the flags as they were after it, the run in the registry,
+    reloaded through ``load_best_model(..., params_template=...)``, and the
+    run's own first test forward on the card against the CPU forward of the
+    saved parameters on the same sample (float32, ``CNN_TOL``); for the
+    record, that forward again with TF32 on and its error. Then the time
+    and peak memory of one train step at batch 21 (TF32 off, as
+    this script sets it) and its profile. The convs are cuDNN's
+    (``F.conv2d``): the path runs no hand-written kernel, as the
+    reference's runs no Pallas one."""
     import contextlib
     import io
 
     from gwen_tpu_torch.cli.main import main as cli
     from gwen_tpu_torch.config import load_config
     from gwen_tpu_torch.data.dataset import load_split
+    from gwen_tpu_torch.nn.core import count_params
     from gwen_tpu_torch.nn.unet import UNet
     from gwen_tpu_torch.registry import Registry
     from gwen_tpu_torch.train import cnn_loss_fn
@@ -3265,18 +3362,41 @@ def cnn_pipeline(device, workdir: Path) -> None:
     test, _ = load_split(cfg.data, "test")  # (time, member, height, ncells)
     _, members, height, ncells = test.shape
     split = cfg.train.member_split
+
+    # The run's first test forward (eval mode), as it ran on the card.
+    seen = []
+
+    def keep_first_eval_forward(module, args, output):
+        if isinstance(module, UNet) and not module.training and not seen:
+            seen.append((args[0].detach().cpu(), output.detach().cpu()))
+
+    torch.backends.cudnn.allow_tf32 = True  # torch's defaults
+    torch.backends.cuda.matmul.allow_tf32 = False
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        keep_first_eval_forward)
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()) as buf:
-        rc = cli(["train-cnn", "--no-animate", "--device", str(device),
-                  "--config", str(workdir / "cfg.json"),
-                  f"train.batch_size={DEFAULT_BATCH}"])
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            rc = cli(["train-cnn", "--no-animate", "--device", str(device),
+                      "--config", str(workdir / "cfg.json"),
+                      f"train.batch_size={DEFAULT_BATCH}"])
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
     out = json.loads(buf.getvalue().strip().splitlines()[-1])
-    log(f"  train-cnn: {out}, {time.perf_counter() - t0:.1f} s")
+    log(f"  train-cnn (in this process, from torch's default TF32 flags): {out}, "
+        f"{time.perf_counter() - t0:.1f} s; flags after it: cudnn.allow_tf32 "
+        f"{flags[0]}, cuda.matmul.allow_tf32 {flags[1]}")
     if (rc != 0 or not math.isfinite(out["test_loss"])
             or not math.isfinite(out["best_train_loss"])
             or not out["device"].startswith(torch.device(device).type)):
         raise AssertionError(f"train-cnn returned {rc}: {out}")
+    if flags != (True, False):
+        raise AssertionError(f"train-cnn left the TF32 flags at {flags}")
     cpu_model = UNet(split, members - split, device="cpu")
     params, mcfg = Registry(workdir / "runs").load_best_model(
         "GWEN_CNN", params_template=cpu_model.state_dict())
@@ -3287,17 +3407,27 @@ def cnn_pipeline(device, workdir: Path) -> None:
     cpu_model.load_state_dict(params)
     model = UNet(split, members - split, device=device)
     model.load_state_dict(params)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"  UNet widths {model.widths}, {n_params / 1e6:.2f} M parameters, "
-        "reloaded through its template")
+    log(f"  UNet widths {model.widths}, {count_params(model) / 1e6:.2f} M "
+        "parameters, reloaded through its template")
 
-    # One forward on the card against the CPU forward, on a test sample.
-    x = torch.from_numpy(np.ascontiguousarray(test[:1, :split], np.float32))
+    # The run's forward on the card against the CPU forward of its saved
+    # parameters on the same test sample; then, for the record, TF32.
+    if not seen or seen[0][0].shape != (1, split, height, ncells):
+        raise AssertionError("train-cnn ran no test forward of one sample")
+    x, got = seen[0]
     with torch.no_grad():
-        got = model(x.to(device)).cpu()
         plain = cpu_model(x)
-    compare("UNet forward on the card vs on the CPU (float32)", got, plain,
-            CNN_TOL)
+        compare("train-cnn's own UNet forward on the card (from torch's default "
+                "TF32 flags) vs on the CPU (float32)", got, plain, CNN_TOL)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = model(x.to(device)).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    err = (tf32 - plain).abs().max().item()
+    ref = plain.abs().max().item()
+    log(f"  for the record, the same forward with cuDNN's TF32 on: max|err| "
+        f"{err:.4g} of max|CPU| {ref:.4g} ({err / ref:.3g} relative; not held)")
 
     batch = (torch.randn(DEFAULT_BATCH, split, height, ncells, device=device),
              torch.randn(DEFAULT_BATCH, members - split, height, ncells,
@@ -3481,7 +3611,8 @@ def main() -> int:
     log("== phase 11: `aggregate` on the int8 rank-1 layout; B14 (block tiles) "
         "against its plain version; the EPD model on a BlockTileGraph and on the "
         "multimesh; `make-mesh-data` -> `train-mesh --data` -> `export`; "
-        "`preprocess` -> `train-gnn`; `train-cnn`")
+        "`preprocess` -> `train-gnn` (under torch.distributed.run); `train-cnn` "
+        "(from torch's TF32 defaults, and under torch.distributed.run)")
     t0 = time.perf_counter()
     layouts = build_tile_layouts(device, perm)
     log(f"  L{LEVELS} block-tile and rank-1 layouts built in "

@@ -1,4 +1,4 @@
-"""Command-line interface of the port. Every pipeline stage is a subcommand
+r"""Command-line interface of the port. Every pipeline stage is a subcommand
 with ``section.key=value`` config overrides, each printing one JSON line::
 
     python -m gwen_tpu_torch ingest      [--config cfg.json] [overrides...]
@@ -20,10 +20,17 @@ with ``section.key=value`` config overrides, each printing one JSON line::
     python -m gwen_tpu_torch gif --input data.zarr [--var theta_v]
         [--out output] [--member M]
 
-``train-mesh`` partitioned over several devices is one process per device::
+``train-mesh`` partitioned over several devices, and ``train-gnn`` and
+``train-cnn`` data-parallel (each batch cut over the processes), run one
+process per device; rank 0 alone writes the registry and prints the JSON
+line::
 
     python -m torch.distributed.run --nproc-per-node 2 -m gwen_tpu_torch \
         train-mesh --device cpu mesh.graph_axis=2
+    python -m torch.distributed.run --nproc_per_node N -m gwen_tpu_torch \
+        train-gnn --config cfg.json --no-animate [overrides...]
+    python -m torch.distributed.run --nproc_per_node N -m gwen_tpu_torch \
+        train-cnn --config cfg.json --no-animate [overrides...]
 
 ``ingest`` needs ``h5py`` and ``gif`` (and ``train-gnn`` or ``train-cnn``
 without ``--no-animate``) matplotlib and Pillow, each imported where it is
@@ -43,7 +50,9 @@ _DEVICE_HELP = "torch device (default cuda; fails without CUDA)"
 
 
 def main(argv: "list[str] | None" = None) -> int:
-    parser = argparse.ArgumentParser(prog="gwen_tpu_torch", description=__doc__)
+    parser = argparse.ArgumentParser(
+        prog="gwen_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="cmd", required=True)
     for name in _CONFIGURED:
         p = sub.add_parser(name)
@@ -117,25 +126,22 @@ def main(argv: "list[str] | None" = None) -> int:
 
         train, test = preprocess(cfg.data)
         print(json.dumps({"train": str(train), "test": str(test)}))
-    elif args.cmd == "train-gnn":
-        from gwen_tpu_torch.cli.train_gnn import main as run
-
-        out = run(cfg, animate=not args.no_animate, out_dir=args.out_dir,
-                  device=args.device)
-        print(json.dumps(out))
-    elif args.cmd == "train-cnn":
-        from gwen_tpu_torch.cli.train_cnn import main as run
-
-        out = run(cfg, animate=not args.no_animate, out_dir=args.out_dir,
-                  device=args.device)
-        print(json.dumps(out))
-    elif args.cmd == "train-mesh":
-        from gwen_tpu_torch.cli.train_mesh import main as run
+    elif args.cmd in ("train-gnn", "train-cnn", "train-mesh"):
         from gwen_tpu_torch.train.mesh import is_main_process
 
-        out = run(cfg, members=args.members, steps=args.steps, data=args.data,
-                  device=args.device)
-        if is_main_process():  # rank 0 of a partitioned run speaks for it
+        if args.cmd == "train-mesh":
+            from gwen_tpu_torch.cli.train_mesh import main as run
+
+            out = run(cfg, members=args.members, steps=args.steps,
+                      data=args.data, device=args.device)
+        else:
+            if args.cmd == "train-gnn":
+                from gwen_tpu_torch.cli.train_gnn import main as run
+            else:
+                from gwen_tpu_torch.cli.train_cnn import main as run
+            out = run(cfg, animate=not args.no_animate, out_dir=args.out_dir,
+                      device=args.device)
+        if is_main_process():  # rank 0 of a run of several processes speaks
             print(json.dumps(out))
     elif args.cmd == "make-mesh-data":
         from gwen_tpu_torch.data.meshstore import save_mesh_dataset

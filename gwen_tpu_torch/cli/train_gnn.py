@@ -8,12 +8,20 @@ model when ``train.retrain=false``) → ``Trainer.fit`` → evaluation on the
 test split → optional per-target-member GIF animations.
 
 The device is explicit: ``cuda`` by default, and asking for it where there
-is none raises; ``--device cpu`` runs the same path on the CPU. This
-orchestrator runs in one process on one device. The reference spreads the
-batch over the data axis of its device mesh when it finds several devices;
-the port's counterpart of that axis is the data axis of
-:class:`~gwen_tpu_torch.train.mesh.ProcessMesh` under
-``torch.distributed.run``, which this entry point does not take.
+is none raises; ``--device cpu`` runs the same path on the CPU.
+
+Data-parallel over processes, as the reference spreads each batch over the
+data axis of its device mesh: under ``python -m torch.distributed.run
+--nproc_per_node N -m gwen_tpu_torch train-gnn ...`` each process joins
+the group (NCCL on CUDA, one card a process; gloo on the CPU), every rank
+builds the same global batches (the same shuffle) and trains on its share
+(``train.mesh.shard_batch``: ``x`` cut over the batch axis when it divides
+by N, else kept whole; the member mask never cut), and the
+trainer sums the gradients and the loss over the ranks, so every rank takes
+the same Adam step as one process on the whole batch. Evaluation runs on
+batches of 1, which every rank holds whole. The registry run, the
+checkpoints, the saved model, the test-loss metric, the GIFs and the JSON
+line belong to rank 0. One process starts no group and runs no collective.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ def main(config: GwenConfig, animate: bool = True, out_dir: str = "output",
         gnn_loss_fn,
         make_optimizer,
     )
+    from gwen_tpu_torch.train import mesh as pmesh
 
     setup_logger()
     dev = torch.device(device)
@@ -49,6 +58,10 @@ def main(config: GwenConfig, animate: bool = True, out_dir: str = "output",
         raise RuntimeError(
             "train-gnn: CUDA is not available; pass --device cpu to train on "
             "the CPU")
+    started_group = not torch.distributed.is_initialized()
+    dev = pmesh.initialize_distributed(dev)
+    mesh = pmesh.make_mesh(data=pmesh.world_size(), graph=1)
+    main_rank = pmesh.is_main_process()
     train_np, test_np, meta = load_data(config.data)
     tcfg = config.train
 
@@ -105,39 +118,46 @@ def main(config: GwenConfig, animate: bool = True, out_dir: str = "output",
     )
     state = TrainState(model=model, optimizer=opt)
 
-    run = registry.create_run(experiment, config.to_dict(), config.run.run_name)
-    ckpt = Checkpointer(Path(config.run.registry_root) / "checkpoints" / run.run_id,
-                        max_to_keep=tcfg.max_checkpoints)
+    run = ckpt = None
+    if main_rank:
+        run = registry.create_run(experiment, config.to_dict(), config.run.run_name)
+        ckpt = Checkpointer(
+            Path(config.run.registry_root) / "checkpoints" / run.run_id,
+            max_to_keep=tcfg.max_checkpoints)
     trainer = Trainer(
         gnn_loss_fn(model, graph, loss=tcfg.loss, mask_threshold_mask=feat_mask,
-                    var_reg_alpha=tcfg.var_reg_alpha),
-        dev, run=run, checkpointer=ckpt, log_every=tcfg.log_every,
+                    var_reg_alpha=tcfg.var_reg_alpha, mesh=mesh),
+        dev, run=run, checkpointer=ckpt, log_every=tcfg.log_every, mesh=mesh,
     )
+
+    def share(batches):
+        """This rank's share of each global batch (the member mask whole)."""
+        return (pmesh.shard_batch(mesh, {"x": x, "mask": m}, replicated=("mask",))
+                for x, m in batches)
 
     best = float("inf")
     if tcfg.retrain:
         def batches(ep):
-            return ({"x": x, "mask": m}
-                    for x, m in ds.batches(tcfg.batch_size, shuffle=True, seed=ep,
-                                           node_batch_size=tcfg.node_batch_size))
+            return share(ds.batches(tcfg.batch_size, shuffle=True, seed=ep,
+                                    node_batch_size=tcfg.node_batch_size))
         state, best = trainer.fit(
             state, batches, tcfg.epochs, checkpoint_every=tcfg.checkpoint_every
         )
-        run.save_model(model.state_dict(),
-                       {"hidden_feats": config.model.hidden_feats,
-                        "channels": ds.num_features},
-                       best_metric=best)
+        if main_rank:
+            run.save_model(model.state_dict(),
+                           {"hidden_feats": config.model.hidden_feats,
+                            "channels": ds.num_features},
+                           best_metric=best)
 
-    test_loss, preds = trainer.evaluate(
-        model, ({"x": x, "mask": m} for x, m in ds_test.batches(1)),
-    )
+    test_loss, preds = trainer.evaluate(model, share(ds_test.batches(1)))
     log.info("test loss: %.6f", test_loss)
-    run.log_metric("test_loss", test_loss)
-    run.finish()
-
     result = {"test_loss": test_loss, "best_train_loss": best,
-              "run_id": run.run_id, "device": str(dev)}
-    if animate and preds is not None:
+              "run_id": run.run_id if main_rank else None, "device": str(dev),
+              "world": mesh.world}
+    if main_rank:
+        run.log_metric("test_loss", test_loss)
+        run.finish()
+    if main_rank and animate and preds is not None:
         from gwen_tpu_torch import viz
 
         _, m_, h, c = test_np.shape
@@ -152,4 +172,5 @@ def main(config: GwenConfig, animate: bool = True, out_dir: str = "output",
             label="ICON"
         )
         result["animations"] = [str(p) for p in paths]
+    pmesh.finish_distributed(started_group)
     return result

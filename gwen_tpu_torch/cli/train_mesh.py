@@ -285,10 +285,7 @@ def main(config: GwenConfig, members: int = 4, steps: int = 16,
                                trainer.context, members, dev, best,
                                state.step, data,
                                pg.padded_nodes if use_partition else None))
-    if world > 1:
-        torch.distributed.barrier()
-        if started_group:
-            torch.distributed.destroy_process_group()
+    pmesh.finish_distributed(started_group)
     return out
 
 

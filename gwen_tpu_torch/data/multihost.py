@@ -1,6 +1,10 @@
 """Per-process slices of an axis and gathers across processes: counterpart
 of ``gwen_tpu.data.multihost`` on ``torch.distributed``. Both degrade to
-one process (the slice is everything, the gather the identity)."""
+one process (the slice is everything, the gather the identity). The
+reference's ``global_sharded_array`` assembles a ``jax.Array`` sharded
+over several processes' devices; a tensor here lives on one process's one
+device, so it has no counterpart (``train.mesh.shard_batch`` cuts a host
+batch instead)."""
 
 from __future__ import annotations
 

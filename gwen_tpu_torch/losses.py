@@ -10,7 +10,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -113,7 +112,7 @@ def masked_loss(pred: Tensor, target: Tensor, mask: Tensor,
     return (err * mask_b).sum() / torch.clamp(mask_b.sum(), min=1.0)
 
 
-def variance_mask(data: "np.ndarray | Tensor", threshold: float,
+def variance_mask(data: "numpy.ndarray | Tensor", threshold: float,
                   time_axis: int = 0) -> Tensor:
     """float32 mask of the cells whose (population) variance over time
     exceeds ``threshold``: 1.0 where the cell is active."""

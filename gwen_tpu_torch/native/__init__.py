@@ -45,6 +45,8 @@ def _build() -> ctypes.CDLL:
         ctypes.c_int64, ctypes.c_int64, i64p, i64p, i64p,
     ]
     lib.gwen_rcm_order.restype = ctypes.c_int
+    lib.gwen_bandwidth.argtypes = [ctypes.c_int64, i64p, i64p]
+    lib.gwen_bandwidth.restype = ctypes.c_int64
     return lib
 
 
@@ -73,3 +75,16 @@ def rcm_order(senders: np.ndarray, receivers: np.ndarray,
     if rc != 0:
         raise ValueError("native rcm_order: edge index out of range")
     return out
+
+
+def bandwidth(senders: np.ndarray, receivers: np.ndarray) -> Optional[int]:
+    """Native graph bandwidth max|s - r| (0 for no edges); returns None if
+    the library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    s = np.ascontiguousarray(senders, np.int64)
+    r = np.ascontiguousarray(receivers, np.int64)
+    if s.shape != r.shape:
+        raise ValueError("native bandwidth: senders and receivers differ in length")
+    return int(lib.gwen_bandwidth(len(s), s, r))

@@ -72,3 +72,11 @@ def mlp_apply(params, x: Tensor, activation=torch.relu) -> Tensor:
         if i < n - 1:
             x = activation(x)
     return x
+
+
+def count_params(params: "nn.Module | dict[str, Tensor]") -> int:
+    """The number of elements over a module's parameters or a state dict's
+    tensors."""
+    tensors = (params.parameters() if isinstance(params, nn.Module)
+               else params.values())
+    return sum(t.numel() for t in tensors)

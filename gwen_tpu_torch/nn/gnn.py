@@ -150,8 +150,9 @@ class EncodeProcessDecode(nn.Module):
     LayerNorm tail through the kernel wrappers, ``"plain"`` through the
     kernels' plain versions on the same path, ``"segment"`` the aggregation
     through its plain reference with the LayerNorm tail still on its
-    kernels, and any other value everything through the plain references. ``processor`` is ``"gcn"``, ``"attention"``
-    (with ``attn_heads``; ``attn_pack`` is accepted and changes nothing) or
+    kernels, and any other value everything through the plain references.
+    ``processor`` is ``"gcn"``, ``"attention"`` (with ``attn_heads``;
+    ``attn_pack`` is accepted and changes nothing) or
     ``"interaction"`` (COO graph only).
     """
 

@@ -9,12 +9,14 @@ from gwen_tpu_torch.train.mesh import (
     initialize_distributed,
     is_main_process,
     make_mesh,
+    shard_batch,
 )
 from gwen_tpu_torch.train.tasks import (
     cnn_loss_fn,
     ensemble_crps_loss_fn,
     gnn_loss_fn,
     mesh_graph_loss_fn,
+    mesh_loss_fn,
     partitioned_ensemble_crps_loss_fn,
     partitioned_mesh_loss_fn,
     partitioned_rollout_loss_fn,
@@ -37,10 +39,12 @@ __all__ = [
     "make_optimizer",
     "make_schedule",
     "mesh_graph_loss_fn",
+    "mesh_loss_fn",
     "partitioned_ensemble_crps_loss_fn",
     "partitioned_mesh_loss_fn",
     "partitioned_rollout_loss_fn",
     "remat_policy_for_budget",
     "rollout_loss_fn",
     "select_save_agg_steps",
+    "shard_batch",
 ]

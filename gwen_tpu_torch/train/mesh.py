@@ -7,7 +7,13 @@ halo exchange of one model replica runs between neighbouring ranks: a
 *graph* group per replica (halo exchange, the escape ``all_gather``) and a
 *data* group per partition. Parameters are replicated; their gradients are
 summed over every rank (:meth:`ProcessMesh.all_reduce_gradients`). One
-process needs no process group at all.
+process needs no process group at all. :func:`shard_batch` cuts a global
+host batch over the data axis.
+
+The reference's ``data_sharding``, ``node_sharding`` and ``replicated``
+name ``jax.sharding`` layouts of one process's devices; a process here holds
+one device, so they have no counterpart: a batch is cut by
+:func:`shard_batch` and a partition by ``PartitionedApply.shard``.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ from __future__ import annotations
 import datetime
 import os
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Any, Container, Iterable, Optional
 
 import torch
 import torch.distributed as dist
@@ -51,6 +57,17 @@ def initialize_distributed(device: "str | torch.device" = "cuda",
 
 def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def finish_distributed(started_group: bool) -> None:
+    """The end of a run over several processes: wait for every rank, then
+    leave the default group if this run joined it (``started_group``: no
+    group was up before :func:`initialize_distributed`). Nothing on one
+    process."""
+    if world_size() > 1:
+        dist.barrier()
+        if started_group:
+            dist.destroy_process_group()
 
 
 def is_main_process() -> bool:
@@ -126,3 +143,31 @@ def make_mesh(data: int = -1, graph: int = 1) -> ProcessMesh:
         if gi == g and data > 1:
             data_group = grp
     return ProcessMesh(data, graph, d, g, graph_group, data_group)
+
+
+def shard_batch(mesh: ProcessMesh, batch: Any, replicated: Container = ()) -> Any:
+    """This rank's share of a global host batch (numpy arrays or tensors,
+    alone or in a tuple, list or dict), as the reference's ``_shard_batch``
+    lays a batch out over its ``"data"`` axis. A leaf whose leading axis
+    divides ``mesh.data`` is cut into equal consecutive shares, the rank's
+    ``data_index``-th; any other leaf (a batch of 1, or 21 on 2 ranks) is
+    kept whole on every rank, the reference's degrade to replication. Dict
+    entries named in ``replicated`` (the member mask) are never cut.
+
+    Every loss of the data-parallel tasks is a mean with equal shares over
+    the batch axis, so ``local_mean / world`` summed over the ranks is the
+    global mean either way (``gnn_loss_fn``, ``cnn_loss_fn`` with a
+    mesh)."""
+    def cut(leaf):
+        if mesh.data == 1 or getattr(leaf, "ndim", 0) == 0:
+            return leaf
+        if leaf.shape[0] % mesh.data:
+            return leaf
+        per = leaf.shape[0] // mesh.data
+        return leaf[mesh.data_index * per:(mesh.data_index + 1) * per]
+
+    if isinstance(batch, dict):
+        return {k: v if k in replicated else cut(v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(cut(v) for v in batch)
+    return cut(batch)

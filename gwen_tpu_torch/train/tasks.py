@@ -5,7 +5,18 @@ and the tasks the ``train-mesh`` path trains:
 next-step prediction, fair-ensemble-CRPS training on perturbed members, and
 rollout-horizon training. Each mesh ``loss_fn(batch, graph) -> (loss,
 preds)`` closes over the model; the graph comes in as the Trainer's
-context.
+context. :func:`mesh_loss_fn` is the reference's apply-fn form of the
+next-step task.
+
+With a ``mesh`` (a :class:`~gwen_tpu_torch.train.mesh.ProcessMesh` of the
+data axis) the member-graph and UNet tasks train data-parallel: each rank
+takes its share of the global batch (``train.mesh.shard_batch``) and
+returns ``local_mean / world``. Each of their losses is a mean over the
+batch axis with equal shares (masked L1, ``masked_loss`` with its mask sum,
+which grows with the batch, the ensemble-variance L1 and the Gaussian CRPS
+surrogate over the member axis within each sample), so the trainer's sum
+over ranks is the mean over the global batch; a batch kept whole on every
+rank gives its full mean over ``world``, which sums to the same.
 
 The ``partitioned_*`` tasks run through a rank's
 :class:`~gwen_tpu_torch.parallel.apply.PartitionedApply`. Their batches are
@@ -26,7 +37,8 @@ from gwen_tpu_torch import ensemble, losses
 
 
 def gnn_loss_fn(model, graph, loss: str = "l1-masked",
-                mask_threshold_mask=None, var_reg_alpha: float = 0.1) -> Callable:
+                mask_threshold_mask=None, var_reg_alpha: float = 0.1,
+                mesh=None) -> Callable:
     """Member-graph GNN task. ``loss_fn(batch) -> (loss, preds)`` with
     ``batch = {"x": (B, members, features), "mask": (members,)}`` and,
     from datasets that zero the target rows of the input, ``"target"``
@@ -34,10 +46,12 @@ def gnn_loss_fn(model, graph, loss: str = "l1-masked",
     The loss is L1 over the target-masked member nodes, composed with the
     spatial variance mask ``mask_threshold_mask`` (one value per feature)
     when given; or the ensemble-variance regularizer; or the Gaussian CRPS
-    surrogate. ``graph`` must lie on the model's device."""
+    surrogate. ``graph`` must lie on the model's device. With ``mesh`` the
+    loss is ``local_mean / mesh.world`` (module docstring)."""
     if mask_threshold_mask is None and loss not in (
             "l1-masked", "ensemble-var-reg", "crps"):
         raise ValueError(f"unknown GNN loss {loss!r}")
+    world = 1 if mesh is None else mesh.world
 
     def loss_fn(batch):
         x, target_mask = batch["x"], batch["mask"]
@@ -56,28 +70,53 @@ def gnn_loss_fn(model, graph, loss: str = "l1-masked",
                 preds, target, alpha=var_reg_alpha, ensemble_axis=1)
         else:
             value = losses.crps_gaussian_surrogate(preds, target, ensemble_axis=1)
-        return value, preds
+        return value / world, preds
 
     return loss_fn
 
 
-def cnn_loss_fn(model, loss: str = "l1", spatial_mask=None) -> Callable:
+def cnn_loss_fn(model, loss: str = "l1", spatial_mask=None,
+                mesh=None) -> Callable:
     """UNet task: ``loss_fn((x, y)) -> (loss, preds)`` on member-channel
     fields ``(B, C, height, ncells)``. With ``spatial_mask`` (one value per
     ``(height, ncells)`` cell) the loss is :func:`losses.masked_loss` of
-    base ``loss``; otherwise L1 or MSE."""
+    base ``loss``; otherwise L1 or MSE. With ``mesh`` it is ``local_mean /
+    mesh.world`` (module docstring)."""
     if loss not in ("l1", "mse"):
         raise ValueError(f"unknown CNN loss {loss!r}")
     fn = losses.l1_loss if loss == "l1" else losses.mse_loss
+    world = 1 if mesh is None else mesh.world
 
     def loss_fn(batch):
         x, y = batch
         preds = model(x)
         if spatial_mask is None:
-            return fn(preds, y), preds
+            return fn(preds, y) / world, preds
         mask = torch.as_tensor(spatial_mask, dtype=preds.dtype,
                                device=preds.device)
-        return losses.masked_loss(preds, y, mask, base=loss), preds
+        return losses.masked_loss(preds, y, mask, base=loss) / world, preds
+
+    return loss_fn
+
+
+def mesh_loss_fn(apply_fn: Callable, loss: str = "mse") -> Callable:
+    """Next-step prediction through ``apply_fn(x) -> preds``, the
+    reference's apply-fn form of the task: ``loss_fn((x, y)) -> (loss,
+    preds)`` on ``(B, nodes, channels)`` node fields, ``loss`` ``"mse"`` or
+    ``"l1"``. ``apply_fn`` is a model bound to its graph, or a rank's
+    :class:`~gwen_tpu_torch.parallel.apply.PartitionedApply`; the latter
+    takes the partitioned rule of :func:`partitioned_mesh_loss_fn` (global
+    batches, ``local_mean / world``)."""
+    from gwen_tpu_torch.parallel.apply import PartitionedApply
+
+    if isinstance(apply_fn, PartitionedApply):
+        return partitioned_mesh_loss_fn(apply_fn, loss)
+    fn = _mean_loss(loss)
+
+    def loss_fn(batch):
+        x, y = batch
+        preds = apply_fn(x)
+        return fn(preds, y), preds
 
     return loss_fn
 

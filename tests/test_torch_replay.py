@@ -8,18 +8,23 @@ task and one global batch. :func:`run_case` runs it on the calling rank:
 the rank's predictions, the global loss, the summed gradients and the
 parameters after one Adam step; with ``crop`` also the loss and gradients
 of the mean over the real nodes only (what an unpartitioned model
-computes, which has no pad rows). A case with ``cli`` runs ``train-mesh``
-with those arguments instead and keeps rank 0's JSON line.
+computes, which has no pad rows). A case with ``cli`` runs the CLI with
+those arguments instead (``train-mesh``, ``train-gnn``, ``train-cnn``) and
+keeps rank 0's JSON line and the handlers of the rank's package logger;
+with ``init`` (``(module, class name, state dict)``) every model that class
+builds during the run starts from that state (the reference's initial
+parameters, converted).
 :func:`replay_rank` is the target for
 :func:`gwen_tpu_torch.dryrun.spawn_ranks` (importable by the spawned
 processes: they inherit ``sys.path`` with this directory on it): it joins a
-gloo group through a file store, runs every case of a file and writes
-``rank_<k>.pt``.
+gloo group through a file store, runs every case of a file in the output
+directory (where the logger's file lands) and writes ``rank_<k>.pt``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import os
@@ -42,23 +47,45 @@ def _grads(model) -> dict:
     return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
 
 
-def _run_cli(argv: list) -> dict:
+@contextlib.contextmanager
+def initial_state(module: str, name: str, state: dict):
+    """While inside, every instance of ``module.name`` built starts from
+    ``state``."""
+    mod = importlib.import_module(module)
+    cls = getattr(mod, name)
+
+    def build(*args, **kwargs):
+        model = cls(*args, **kwargs)
+        model.load_state_dict(state)
+        return model
+
+    setattr(mod, name, build)
+    try:
+        yield
+    finally:
+        setattr(mod, name, cls)
+
+
+def _run_cli(argv: list, init=None) -> dict:
     from gwen_tpu_torch.cli.main import main as cli
+    from gwen_tpu_torch.logging_utils import get_logger
     from gwen_tpu_torch.train.mesh import is_main_process
 
     buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), (
+            initial_state(*init) if init else contextlib.nullcontext()):
         rc = cli(argv)
     lines = buf.getvalue().strip().splitlines()
     return {"rc": rc, "main": is_main_process(),
-            "json": json.loads(lines[-1]) if lines else None}
+            "json": json.loads(lines[-1]) if lines else None,
+            "handlers": [type(h).__name__ for h in get_logger().handlers]}
 
 
 def run_case(case: dict, device="cpu") -> dict:
     """Run one case on this rank of the default process group (see the
     module docstring); every rank of the group must call it."""
     if "cli" in case:
-        return _run_cli(case["cli"])
+        return _run_cli(case["cli"], case.get("init"))
     mesh = make_mesh(data=case["data"], graph=case["graph"])
     pg = partition_graph(case["s"], case["r"], case["n"], num_parts=mesh.graph,
                          reorder=False, **case["partition"])
@@ -124,6 +151,7 @@ def replay_rank(rank: int, n: int, store: str, case_path: str, out_dir: str) -> 
     from gwen_tpu_torch.train.mesh import initialize_distributed
 
     torch.set_num_threads(1)
+    os.chdir(out_dir)
     initialize_distributed("cpu", f"file://{store}", n, rank, timeout_s=180)
     try:
         cases = torch.load(case_path, weights_only=False)

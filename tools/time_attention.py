@@ -109,37 +109,6 @@ def control_libs(ac, nvcc_build) -> dict:
     return libs
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_us(torch, fn, iters: int = 1) -> dict:
-    """The device time of ``iters`` calls of ``fn()`` by kernel name (µs),
-    under ``torch.profiler``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out: dict = {}
-    for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
-            out[ev.name] = out.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-    return out
-
-
 def held(torch, name: str, got, want) -> None:
     """max|got − want| ≤ 1e-2·max|want| (bf16 against float32 plain)."""
     err = (got.float() - want.float()).abs().max().item()
@@ -167,6 +136,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_attention: CUDA is not available", file=sys.stderr)
         return 1
+    from gwen_tpu_torch.profiling import cuda_ms, kernel_us
     from gwen_tpu_torch.graph import (apply_order, build_graph, icosphere_edges,
                                       kd_patch_order, to_diag_window)
     from gwen_tpu_torch.nn import EncodeProcessDecode
@@ -225,10 +195,10 @@ def main() -> int:
         }
         for key, (kernel, plain) in calls.items():
             name = f"{key}{'b' if nb > 1 else ''} nb {nb}"
-            times[name] = cuda_ms(torch, kernel, args.iters)
-            times[f"{name} device"] = sum(device_us(torch, kernel, args.iters).values()
+            times[name] = cuda_ms(kernel, args.iters)
+            times[f"{name} device"] = sum(kernel_us(kernel, args.iters).values()
                                           ) / args.iters / 1e3
-            times[f"{name} plain"] = cuda_ms(torch, plain, 3, 1)
+            times[f"{name} plain"] = cuda_ms(plain, 3, 1)
             print(f"  {name}: {times[name]:.4f} ms (device kernels "
                   f"{times[f'{name} device']:.4f}), plain {times[f'{name} plain']:.4f}",
                   flush=True)
@@ -280,7 +250,7 @@ def main() -> int:
                                 ("B5b nb 8", b5(lib, HEADS * BATCH)),
                                 ("B6b nb 8", b6(lib)), ("B7b nb 8", b7(lib))):
                     runs.setdefault(f"{key}, {name}", []).append(
-                        cuda_ms(torch, fn, args.iters))
+                        cuda_ms(fn, args.iters))
         for key, ms in runs.items():
             times[key] = sum(ms) / len(ms)
             print(f"  {key}: {times[key]:.4f} ms", flush=True)
@@ -325,8 +295,8 @@ def main() -> int:
             mp, lambda batch, _: part_loss(batch), (xp, 0.9 * xp + 0.1), None),
     }
     for name, step in steps.items():
-        times[name] = cuda_ms(torch, step, 3, 1)
-        by_name = device_us(torch, step)
+        times[name] = cuda_ms(step, 3, 1)
+        by_name = kernel_us(step)
         busy = sum(by_name.values())
         for key, kernel in (("B5", "attn_fwd_kernel"), ("B6", "attn_dq_kernel"),
                             ("B7", "attn_dkdv_kernel")):

@@ -100,37 +100,6 @@ def control_libs(spmm_cuda, vs=None) -> dict:
     return libs
 
 
-def cuda_ms(torch, fn, iters: int) -> float:
-    for _ in range(3):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(torch, fn, iters: int) -> float:
-    """The device kernels' time of one ``fn()`` under ``torch.profiler``
-    (the mean of ``iters`` calls after 3 warm-up calls): for a kernel
-    shorter than the host's enqueue of a call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(ev.time_range.elapsed_us() for ev in prof.events()
-               if ev.device_type == DeviceType.CUDA) / iters / 1e3
-
-
 def held(torch, name: str, got, want) -> float:
     """max|got − want| ≤ 1e-2·max|want| (bf16) or 1e-5·max|want| (float32)."""
     err = (got.float() - want.float()).abs().max().item()
@@ -167,6 +136,7 @@ def main() -> int:
                                       to_sliding_rank1, to_windowed_dense,
                                       window_mask)
     from gwen_tpu_torch.ops import spmm_cuda
+    from gwen_tpu_torch.profiling import cuda_ms, device_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -280,11 +250,12 @@ def main() -> int:
     for name, (kernel, plain) in calls.items():
         if plain is not None:
             held(torch, name, kernel(), plain())
-        times[name] = cuda_ms(torch, kernel, args.iters)
+        times[name] = cuda_ms(kernel, args.iters)
         print(f"  {name}: {times[name]:.4f} ms", flush=True)
     # B3 on the esc2 graph is shorter than the host's enqueue of a call.
     name = "B3 esc2, device kernels (profiler)"
-    times[name] = device_ms(torch, lambda: spmm_cuda.sliding_spmm(g2, x2), args.iters)
+    times[name] = device_ms(lambda: spmm_cuda.sliding_spmm(g2, x2), args.iters,
+                            warmup=3)
     print(f"  {name}: {times[name]:.4f} ms", flush=True)
     print(json.dumps({"tag": args.tag, "device": smi, "ms": times}))
     return 0
@@ -294,6 +265,8 @@ def run_controls(torch, spmm_cuda, tiles: dict, n: int, gen, args, smi) -> int:
     """B14 at batch 4 in both orders, the kernel as it is and each control,
     each control held to the kernel first, timed in turns and then in the
     reverse order."""
+    from gwen_tpu_torch.profiling import cuda_ms
+
     libs = {"as it is": spmm_cuda._lib(), **control_libs(spmm_cuda, args.vs)}
     x = torch.randn(BATCH, n, F, generator=gen, device="cuda").bfloat16()
     runs: dict = {}
@@ -320,7 +293,7 @@ def run_controls(torch, spmm_cuda, tiles: dict, n: int, gen, args, smi) -> int:
             for rnd in range(2):  # in turns, then reversed
                 for name, lib in (libs.items() if rnd == 0 else reversed(libs.items())):
                     runs.setdefault(f"B14 {order} batch {nb}, {name}", []).append(
-                        cuda_ms(torch, call(lib, t, out, nb), args.iters))
+                        cuda_ms(call(lib, t, out, nb), args.iters))
     times = {key: sum(ms) / len(ms) for key, ms in runs.items()}
     for key, ms in times.items():
         print(f"  {key}: {ms:.4f} ms", flush=True)

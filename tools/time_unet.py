@@ -48,46 +48,24 @@ def step_fn(model, x, y):
     return step
 
 
-def timed(fn, iters: int) -> float:
-    """Mean ms of ``fn()`` by CUDA events, after two warm-up calls."""
-    fn()
-    fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def profile(fn, tag: str, top: int = 12) -> dict:
-    """One ``fn()`` under ``torch.profiler``: device µs by kernel name and
-    the busy share of the span from the first kernel to the last."""
-    from torch.profiler import ProfilerActivity
-    from torch.profiler import profile as prof
+    """One ``fn()`` under ``torch.profiler`` after a warm-up call
+    (``profile_step``): logs the busy share of the span from the first
+    kernel to the last and the kernels by device time."""
+    from gwen_tpu_torch.profiling import profile_step
 
     fn()
-    torch.cuda.synchronize()
-    with prof(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
-    by_name, start, end = {}, float("inf"), float("-inf")
-    for ev in p.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us()
-            start = min(start, ev.time_range.start)
-            end = max(end, ev.time_range.end)
+    prof = profile_step(fn)
+    by_name = prof["kernels_us"]
     if not by_name:
         print(f"{tag}: the trace holds no device event; not measured")
         return {}
     busy = sum(by_name.values())
-    print(f"{tag}: device busy {busy / 1e3:.3f} ms of a {(end - start) / 1e3:.3f} "
-          f"ms span ({busy / (end - start):.1%}); by kernel:")
+    print(f"{tag}: device busy {prof['busy_ms']:.3f} ms of a {prof['span_ms']:.3f} "
+          f"ms span ({prof['busy_share']:.1%}); by kernel:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {us / 1e3:8.3f} ms {us / busy:6.1%}  {name[:100]}")
-    return {"busy_ms": busy / 1e3, "span_ms": (end - start) / 1e3}
+    return {"busy_ms": prof["busy_ms"], "span_ms": prof["span_ms"]}
 
 
 def main() -> int:
@@ -102,6 +80,7 @@ def main() -> int:
     from torch.utils.flop_counter import FlopCounterMode
 
     from gwen_tpu_torch.nn.unet import UNet
+    from gwen_tpu_torch.profiling import cuda_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -130,10 +109,10 @@ def main() -> int:
         torch.backends.cudnn.benchmark = bench
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        ms = timed(step, args.iters)
+        ms = cuda_ms(step, args.iters, warmup=2)
         peak = torch.cuda.max_memory_allocated() / 2**30
         with torch.no_grad():
-            fwd = timed(lambda: model(x), args.iters)
+            fwd = cuda_ms(lambda: model(x), args.iters, warmup=2)
         print(f"cudnn.benchmark={bench}: step {ms:.3f} ms ({bound / ms:.1%} of "
               f"the bound), peak {peak:.2f} GiB; forward {fwd:.3f} ms")
         out.setdefault(f"benchmark_{bench}", []).append(

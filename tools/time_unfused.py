@@ -147,36 +147,6 @@ def control_libs(uc, nvcc_build) -> dict:
     return libs
 
 
-def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(torch, fn, iters: int) -> float:
-    """The device time of one call of ``fn()`` (ms): its kernels' durations
-    over ``iters`` calls under ``torch.profiler``, summed, over ``iters``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(ev.time_range.elapsed_us() for ev in prof.events()
-             if ev.device_type == DeviceType.CUDA)
-    return us / iters / 1e3
-
-
 def held(name: str, got, want) -> None:
     """max|got − want| ≤ 1e-2·max|want| (bf16 against float32 plain)."""
     err = (got.float() - want.float()).abs().max().item()
@@ -210,6 +180,7 @@ def main() -> int:
                                       kd_patch_order, to_diag_window)
     from gwen_tpu_torch.ops import unfused_cuda as uc
     from gwen_tpu_torch.ops.attention import windowed_attention
+    from gwen_tpu_torch.profiling import cuda_ms, device_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -263,8 +234,8 @@ def main() -> int:
                     lambda: uc.spmm_t(graph, sm, g), bound_ms(sm, g, out)),
             }
             for name, (fn, bound) in calls.items():
-                times[name] = cuda_ms(torch, fn, args.iters)
-                times[f"{name} device"] = device_ms(torch, fn, args.iters)
+                times[name] = cuda_ms(fn, args.iters)
+                times[f"{name} device"] = device_ms(fn, args.iters, warmup=1)
                 times[f"{name} bound"] = bound
                 print(f"  {name}: {times[name]:.4f} ms (device kernels "
                       f"{times[f'{name} device']:.4f}); bound {bound:.4f} ms "
@@ -328,7 +299,7 @@ def main() -> int:
                          lambda: scores[0].fill_(1.0)),
                         ("copy of one item's scores (253 MB each way)",
                          lambda: other.copy_(scores[0]))):
-            times[f"torch {key}"] = cuda_ms(torch, fn, args.iters)
+            times[f"torch {key}"] = cuda_ms(fn, args.iters)
             print(f"  torch {key}: {times[f'torch {key}']:.4f} ms", flush=True)
         del other
         runs: dict = {}
@@ -339,7 +310,7 @@ def main() -> int:
                                 ("B9 nb 1", b9(lib, 1)), ("B9b nb 8", b9(lib, nbs)),
                                 ("B9 nb 1 f 256", b9_256(lib))):
                     runs.setdefault(f"{key}, {name}", []).append(
-                        cuda_ms(torch, fn, args.iters))
+                        cuda_ms(fn, args.iters))
         for key, ms in runs.items():
             times[key] = sum(ms) / len(ms)
             print(f"  {key}: {times[key]:.4f} ms", flush=True)
@@ -355,13 +326,13 @@ def main() -> int:
             return torch.autograd.grad(out, (q, k, v), cot)
 
         with torch.no_grad():
-            fwd = cuda_ms(torch, lambda: windowed_attention(graph, q, k, v,
-                                                            backend=backend), 5, 1)
+            fwd = cuda_ms(lambda: windowed_attention(graph, q, k, v,
+                                                     backend=backend), 5, 1)
         times[f"attention {backend} forward nb 2"] = fwd
         times[f"attention {backend} forward and backward nb 2"] = cuda_ms(
-            torch, both, 5, 1)
+            both, 5, 1)
         times[f"attention {backend} forward and backward nb 2 device"] = device_ms(
-            torch, both, 3)
+            both, 3, warmup=1)
         print(f"  windowed_attention backend={backend!r} nb 2: forward {fwd:.3f} ms, "
               f"forward and backward "
               f"{times[f'attention {backend} forward and backward nb 2']:.3f} ms "
