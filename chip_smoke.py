@@ -194,7 +194,24 @@ Drives ``gwen_tpu_torch`` only (no JAX); its timers are
    time and peak memory beside the card's name
    and power limit (cuDNN convs, no hand-written kernel). The stores are
    written and read with numpy and the standard library alone;
-12. last, in fresh child processes: one call of ``spmm_sliding_rank1``
+12. ``bench``: ``gwen_tpu_torch bench`` at its defaults (L7, F 256,
+   ``diag_packed``, bf16) through the CLI, with every count from 0 just
+   before it: exactly one stdout line with the reference's headline keys
+   and metric, ``value`` and ``vs_baseline`` finite and positive, the
+   reference's extras keys on its ``# train-step:`` line, the checkout's
+   ``BENCH_EXTRA.json`` byte for byte as before, the launch counts its
+   chains imply (packed B1 and B3 once an
+   aggregation, 8 a train step; B2 and B2b 4 a step; B5 once an attention
+   call; nothing else) and no plain version on the card; before it, one
+   call each of the bench's aggregation, train step and attention under
+   ``torch.profiler``, whose device kernels must include
+   ``packed_row1_kernel`` (aggregation and train step), ``ln_fwd`` and
+   ``ln_bwd`` (train step) and ``attn_fwd_kernel``; after it, B5 at f 256
+   on the packed L7 diag graph, on independent q, k and v, against its
+   plain version and ``scaled_dot_product_attention`` on the dense mask,
+   then the bench's own call (x as q, k and v) timed beside its plain
+   version and held to its bound. All of it in one fresh child process;
+13. last, in fresh child processes: one call of ``spmm_sliding_rank1``
    (unbatched and at batch 4) runs exactly one device kernel under
    ``torch.profiler``, the dense row gather, and one call of B5, B6 and B7
    (nb 1 and 8) exactly one, ``attn_fwd_kernel``, ``attn_dq_kernel`` and
@@ -810,6 +827,23 @@ def check_train_kernels(graph, device, batch: int = TRAIN_BATCH) -> dict:
     return results
 
 
+def dense_window_bias(graph) -> torch.Tensor:
+    """The window mask of a diag-window graph (weighted or packed) as a
+    dense additive ``(N, N8)`` bf16 bias on its device, ``N8`` the node
+    count rounded up to 8 (cut to ``[:, :N]`` for use): 0 on each row's
+    in-window neighbours, −inf elsewhere."""
+    from gwen_tpu_torch.graph import window_mask
+
+    n = graph.num_nodes
+    bias = torch.full((n, -(-n // 8) * 8), float("-inf"), dtype=torch.bfloat16,
+                      device=graph.window_start.device)
+    rows, rel = torch.nonzero(window_mask(graph), as_tuple=True)
+    cols = graph.window_start.long()[rows // graph.block_size] + rel
+    keep = (rows < n) & (cols < n)
+    bias[rows[keep], cols[keep]] = 0
+    return bias
+
+
 def sdpa_library_ms(graph, inputs: dict) -> dict:
     """Times of ``F.scaled_dot_product_attention`` and its autograd backward
     on a dense additive ``(N, N)`` mask (0 on the window's neighbours, −inf
@@ -828,13 +862,7 @@ def sdpa_library_ms(graph, inputs: dict) -> dict:
 
     n = graph.num_nodes
     torch.cuda.empty_cache()
-    bias = torch.full((n, -(-n // 8) * 8), float("-inf"), dtype=torch.bfloat16,
-                      device=graph.s_mat.device)
-    rows, rel = torch.nonzero(graph.s_mat, as_tuple=True)
-    cols = graph.window_start.long()[rows // graph.block_size] + rel
-    keep = (rows < n) & (cols < n)
-    bias[rows[keep], cols[keep]] = 0
-    del rows, rel, cols, keep
+    bias = dense_window_bias(graph)
     mask, out = bias[:, :n], {}
     for nb, (q, k, v, g) in inputs.items():
         dh = q.shape[-1]
@@ -3440,6 +3468,309 @@ def cnn_pipeline(device, workdir: Path) -> None:
                "TF32 off)", profile=True)
 
 
+# The reference's extras keys (``bench.py``'s ``extra`` on the diag layouts):
+# the port's ``# train-step:`` line carries the same set.
+BENCH_EXTRA_KEYS = {"metric", "level", "nodes", "edges", "latent",
+                    "process_steps", "kernel", "value", "unit",
+                    "train_edges_per_s", "agg_ms", "agg_edges_per_s",
+                    "vs_segment_baseline", "backend", "ts", "attn_agg_ms",
+                    "attn_agg_edges_per_s"}
+BENCH_HEADLINE_KEYS = ["metric", "value", "unit", "vs_baseline"]
+
+
+def bench_run() -> int:
+    """Phase 12, first part: ``gwen_tpu_torch bench`` at its defaults (L7, F
+    256, ``diag_packed``, bf16; every ``GWEN_BENCH_*`` knob unset for the
+    run) through the CLI in this process, its output captured, with every
+    count from 0 just before it. Fails unless it returns 0 with exactly one
+    stdout line, the reference's headline keys and metric with ``value``
+    and ``vs_baseline`` finite and positive, a ``# train-step:`` line with
+    the reference's extras keys and finite values on ``cuda``, the
+    checkout's ``BENCH_EXTRA.json`` (the reference's file) byte for byte as
+    before, no plain version on the card, and the launch counts its calls
+    imply: each ``scan_timeit`` chain of N makes 3N warm-up and 3·3N timed
+    calls, so 12·ITERS aggregations plus ``device_ms``'s ITERS + 5, and
+    12·max(ITERS // 4, 5) train steps of 8 aggregations (4 forward, 4
+    backward) and 4 ``h + LN(m)`` each way; packed B1 and B3 (the escape
+    contraction) once an aggregation, B5 once an attention call (12·ITERS),
+    nothing else. Logs the bench's lines and wall seconds; returns B5's
+    count."""
+    import contextlib
+    import io
+
+    import gwen_tpu_torch.bench as gb
+    from gwen_tpu_torch.cli.main import main as cli
+
+    reference_file = Path(__file__).resolve().parent / "BENCH_EXTRA.json"
+    before = reference_file.read_bytes() if reference_file.exists() else None
+    knobs = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("GWEN_BENCH_")}
+    out, err = io.StringIO(), io.StringIO()
+    counters = _counters()
+    try:
+        iters = gb.knobs()["iters"]
+        torch.cuda.empty_cache()
+        for c in counters.values():
+            c.launches = 0
+        PLAIN_ON_CUDA["calls"] = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(["bench"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.environ.update(knobs)
+    launches = {k: c.launches for k, c in counters.items()}
+    stdout, stderr = out.getvalue(), err.getvalue()
+    for line in stdout.splitlines() + stderr.splitlines():
+        if line.startswith(("{", "#")):
+            log(f"  bench: {line}")
+    log(f"  `gwen_tpu_torch bench` returned {rc} after {wall:.1f} s")
+    if rc:
+        raise AssertionError(f"bench returned {rc}:\n{stderr[-3000:]}")
+
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    if len(lines) != 1:
+        raise AssertionError(f"bench printed {len(lines)} stdout lines, want 1")
+    head = json.loads(lines[0])
+    if (list(head) != BENCH_HEADLINE_KEYS
+            or head["metric"] != "spmm_edges_per_sec_per_chip"
+            or head["unit"] != "edges/s"):
+        raise AssertionError(f"bench headline {head} is not the reference's")
+    for key in ("value", "vs_baseline"):
+        v = head[key]
+        if not (isinstance(v, (int, float)) and math.isfinite(v) and v > 0):
+            raise AssertionError(f"bench {key} = {v!r}, want finite and positive")
+    train = [ln for ln in stderr.splitlines() if ln.startswith("# train-step: ")]
+    if len(train) != 1:
+        raise AssertionError("bench printed no `# train-step:` line")
+    extra = json.loads(train[0][len("# train-step: "):])
+    if set(extra) != BENCH_EXTRA_KEYS:
+        raise AssertionError(f"bench extras keys {sorted(extra)} are not the "
+                             "reference's")
+    bad = [k for k, v in extra.items() if isinstance(v, float) and not math.isfinite(v)]
+    if bad or extra["backend"] != "cuda":
+        raise AssertionError(f"bench extras not finite ({bad}) or not on cuda")
+    after = reference_file.read_bytes() if reference_file.exists() else None
+    if after != before:
+        raise AssertionError("bench changed the reference's BENCH_EXTRA.json")
+    log("  the reference's BENCH_EXTRA.json is byte for byte as before")
+
+    aggs, steps = 12 * iters + iters + 5, 12 * max(iters // 4, 5)
+    want = {"B1p": aggs + 8 * steps, "B3": aggs + 8 * steps, "B2": 4 * steps,
+            "B2b": 4 * steps, "B5": 12 * iters}
+    got = {k: v for k, v in launches.items() if v}
+    log(f"  bench launches {got} (want {want}), plain versions on the card "
+        f"{PLAIN_ON_CUDA['calls']}")
+    if got != want or PLAIN_ON_CUDA["calls"]:
+        raise AssertionError(f"bench launches {got}, want {want}; "
+                             f"{PLAIN_ON_CUDA['calls']} plain calls on the card")
+    torch.cuda.empty_cache()
+    return launches["B5"]
+
+
+def bench_graphs(device) -> tuple:
+    """The bench's default graph, as ``bench.main`` builds it: L7 in KD
+    order, the packed diag window 384 in bf16, on ``device``, with its
+    attention transpose tables. Returns ``(graph, tables, nodes)``."""
+    import gwen_tpu_torch.bench as gb
+
+    t0 = time.perf_counter()
+    g_host, n = gb._build(LEVELS, "kd")
+    graph_host, _ = gb.aggregation_graph(g_host, "diag_packed", torch.bfloat16,
+                                         WINDOW)
+    out = (graph_host.to(device), gb.diag_transpose_tables(graph_host).to(device), n)
+    log(f"  the bench's L{LEVELS} packed diag graph and its attention tables "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def bench_attention(tg, n: int, device) -> dict:
+    """Phase 12: B5 at the bench's attention shape, f 256 on the bench's
+    packed L7 diag graph (KD order, window 384) with its transpose tables
+    ``tg``. Held with independent q, k and v, N(0, 1) rounded to bf16, at
+    the bench's scale f^-1/2: each score is then about N(0, 1), so the
+    softmax spreads over the window and no one row (the self edge where q
+    is k) decides the output. Against its plain version (bf16 at
+    ``BF16_TOL``, float32 at ``F32_TOL``) and
+    ``scaled_dot_product_attention`` on the dense mask; fails too where
+    the plain output lies within ``BF16_TOL`` of v itself, where the check
+    could not tell a kernel that attends to the self row alone. Then the
+    bench's own call (x as q, k and v) is run, timed beside its plain
+    version and held to its bound; the library's time is taken on the
+    independent inputs (a dense call, the same work whatever the values).
+    Returns the B5 f-256 row of the kernels line."""
+    from gwen_tpu_torch.ops import attention_cuda as ac
+
+    f = 256
+    scale = f ** -0.5
+    gen = torch.Generator(device=device).manual_seed(1)
+    q, k, v = (torch.randn(n, f, generator=gen, device=device).to(torch.bfloat16)
+               for _ in range(3))
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    want_out = ac.attention_fwd_plain(tg, q32, k32, v32, scale)
+    self_only = (want_out - v32).abs().max().item()
+    log(f"  B5 f 256 check inputs: max|plain − v| {self_only:.4g} against "
+        f"max|plain| {want_out.abs().max().item():.4g}")
+    if self_only <= BF16_TOL * want_out.abs().max().item():
+        raise AssertionError("B5 f 256: the plain output is v within the "
+                             "tolerance; the check cannot see the neighbours")
+    err = compare("B5 bf16 f 256 (independent q, k and v)",
+                  ac.attention_fwd(tg, q, k, v, scale), want_out, BF16_TOL)
+    compare("B5 f32 f 256 (independent q, k and v)",
+            ac.attention_fwd(tg, q32, k32, v32, scale), want_out, F32_TOL)
+    del want_out, q32, k32, v32
+    library_ms = sdpa_forward_ms(tg, q, k, v, ac.attention_fwd(tg, q, k, v, scale),
+                                 scale)
+    del q, k, v
+
+    # The bench's own call: x as q, k and v (the self edge's score, |x|²/16,
+    # outweighs the rest, so this shows the call runs, not that it is right).
+    x = torch.randn(n, f, generator=torch.Generator(device=device).manual_seed(0),
+                    device=device).to(torch.bfloat16)
+
+    def kern():
+        return ac.attention_fwd(tg, x, x, x, scale)
+
+    x32 = x.float()
+    compare("B5 bf16 f 256 (the bench's call, x as q, k and v)", kern(),
+            ac.attention_fwd_plain(tg, x32, x32, x32, scale), BF16_TOL)
+    del x32
+    ms, plain_ms = timed_pair(kern, lambda: ac.attention_fwd_plain(
+        tg, x, x, x, scale))
+    # Bytes: x once (q, k and v are the one input), the neighbour lists, the
+    # output; 4 operations per mask entry and column (scores, P·V).
+    nnz = int((tg.attn_nbr >= 0).sum())
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **roofline((x, tg.attn_nbr), (x,), 4.0 * f * nnz, torch.bfloat16),
+               library_ms=library_ms)
+    log(f"  B5 f 256: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+        f"scaled_dot_product_attention "
+        f"{'not run' if library_ms is None else f'{library_ms:.3f} ms'}")
+    del x
+    torch.cuda.empty_cache()
+    return row
+
+
+def bench_profile(graph, tg, n: int, device) -> None:
+    """Phase 12: one aggregation call, one EPD train step and one attention
+    aggregation of the bench's own functions, each under ``torch.profiler``.
+    Fails unless the aggregation ran ``packed_row1_kernel``, the train step
+    ``packed_row1_kernel``, ``ln_fwd`` and ``ln_bwd``, and the attention
+    ``attn_fwd_kernel``, each in one of ``PROFILE_TRIES`` windows: on the
+    H100 machine a window now and then comes back short of its device
+    events, even in a fresh process (one attention window of one call: 0
+    events), and a wrapper that ran no kernel shows it in none.
+    Logs the attention's device time."""
+    import gwen_tpu_torch.bench as gb
+    from gwen_tpu_torch.profiling import device_events
+
+    x = torch.randn(n, 256, device=device).bfloat16()
+    xb, y = gb.timed_input(graph, x), x * 0.9
+    state = gb.epd_state(256, device)
+    calls = {"aggregation": (lambda: gb.spmm_diag_window(graph, xb),
+                             ("packed_row1_kernel",)),
+             "train step": (lambda: gb.train_step(state, graph, x, y),
+                            ("packed_row1_kernel", "ln_fwd", "ln_bwd")),
+             "attention": (lambda: gb.attention_aggregation(tg, x),
+                           ("attn_fwd_kernel",))}
+    for what, (fn, kernels) in calls.items():
+        for attempt in range(1, PROFILE_TRIES + 1):
+            with torch.set_grad_enabled(what == "train step"):
+                fn()
+                names = [ev.name for ev in device_events(fn)]
+            log(f"  bench {what}, one call under torch.profiler (window "
+                f"{attempt}): {len(names)} device events, kernels "
+                f"{sorted({nm[:50] for nm in names})[:12]}")
+            missing = [k for k in kernels if not any(k in nm for nm in names)]
+            if not missing:
+                break
+        else:
+            raise AssertionError(f"bench {what}: no {missing} among its device "
+                                 f"kernels in {PROFILE_TRIES} windows")
+    with torch.no_grad():
+        ms = device_ms(calls["attention"][0], 20)
+    log(f"  bench attention (B5 at f 256): {ms:.4f} ms of device time a call "
+        "(device_ms, 20 calls)")
+    del state
+    torch.cuda.empty_cache()
+
+
+PROFILE_TRIES = 3
+BENCH_PHASE = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+device = torch.device("cuda", 0)
+cs.count_plain_calls_on_cuda()
+graph, tg, n = cs.bench_graphs(device)
+cs.bench_profile(graph, tg, n, device)
+del graph
+launches = cs.bench_run()
+row = cs.bench_attention(tg, n, device)
+print(json.dumps({"launches": launches, "row": row}))
+"""
+
+
+def bench_phase() -> tuple[int, dict]:
+    """Phase 12 in a fresh child process: on the bench's graph
+    (:func:`bench_graphs`) :func:`bench_profile`, then :func:`bench_run`
+    and :func:`bench_attention`. Not in this process: here, after eleven
+    phases, ``torch.profiler`` windows of the bench's calls came back
+    empty or short, and the bench reads one (``device_ms`` on its ``#
+    mesh`` line). Relays the child's log lines; fails where it fails.
+    Returns B5's launches in the bench's run and the B5 f-256 row."""
+    torch.cuda.empty_cache()  # the child allocates on the same card
+    res = subprocess.run([sys.executable, "-c", BENCH_PHASE,
+                          str(Path(__file__).resolve().parent)],
+                         timeout=900, capture_output=True, text=True)
+    lines = res.stdout.splitlines()
+    for line in lines[:-1] if res.returncode == 0 else lines:
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"phase 12's child failed:\n{res.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    return out["launches"], out["row"]
+
+
+def sdpa_forward_ms(graph, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kernel_out: torch.Tensor, scale: float) -> "float | None":
+    """``scaled_dot_product_attention`` (cuDNN) on the graph's dense window
+    mask (:func:`dense_window_bias`): held to the kernel's output on the
+    same q, k and v at two bf16 bounds, then timed. None, with the reason
+    logged, where the library refuses the shape."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    n, f = q.shape
+    torch.cuda.empty_cache()
+    bias = dense_window_bias(graph)
+    mask = bias[:, :n]
+    q4, k4, v4 = (t.reshape(1, 1, n, f) for t in (q, k, v))
+
+    def fwd():
+        with sdpa_kernel(SDPBackend.CUDNN_ATTENTION):
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  scale=scale)
+
+    try:
+        with torch.no_grad():
+            lib = fwd()
+            compare("B5 f 256 against scaled_dot_product_attention on a dense "
+                    "mask", kernel_out, lib.reshape(kernel_out.shape),
+                    2 * BF16_TOL)
+            out = cuda_ms(fwd, 2, 1)
+    except RuntimeError as e:
+        log(f"  scaled_dot_product_attention (cuDNN) refused f {f}: "
+            f"{str(e).splitlines()[0][:200]}")
+        out = None
+    del bias, mask
+    torch.cuda.empty_cache()
+    return out
+
+
 NCCL_PROBE = r"""
 import datetime, os, tempfile, torch, torch.distributed as dist
 store = os.path.join(tempfile.mkdtemp(), "store")
@@ -3628,6 +3959,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         member_graph_pipeline(device, Path(tmp))
         cnn_pipeline(device, Path(tmp))
+    log("== phase 12: `python -m gwen_tpu_torch bench` at its defaults; the "
+        "bench's aggregation, train step and attention on their kernels; B5 at "
+        "f 256")
+    t0 = time.perf_counter()
+    launches["B5f256"], results["B5f256"] = bench_phase()
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
     log("== last: one device kernel per int8 rank-1 call and per B5, B6 and "
         "B7 call (child processes under torch.profiler); the 1-rank NCCL probe")
     one_kernel_per_call(RANK1_PROFILE, "spmm_sliding_rank1", {"(": "dense_row"})
@@ -3720,6 +4057,11 @@ def main() -> int:
                        "256, unbatched: tile_walk_kernel; a batch lists them "
                        "once and gathers the list per item, tile_list_kernel)",
                        "cuda", cu, f"{spmm}:194"),
+               "B5f256": ("windowed attention forward at f 256 on the packed "
+                          "L7 diag graph: the bench's attention aggregation "
+                          "(attn_fwd_kernel; held on independent q, k and v; "
+                          "its launches are the bench run's)",
+                          "cuda", acu, f"{att}:522"),
                "B3r": ("int8 rank-1 banded SpMM a . K(a . x) on the RCM band "
                        "(unbatched): the dense row gather's batch-1 walk over "
                        "the int8 S01 with both scales inside "

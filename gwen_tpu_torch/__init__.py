@@ -9,7 +9,8 @@ member-graph GCN and UNet models; losses, ensembles and skill scores;
 training (one process, or one process per device under
 ``torch.distributed.run``: partitioned ``train-mesh``, data-parallel
 ``train-gnn`` and ``train-cnn``); checkpoints, the registry, serving,
-stores, profiling and every CLI subcommand of the reference but ``bench``.
+stores, profiling and every CLI subcommand of the reference, ``bench``
+included.
 """
 
 from gwen_tpu_torch.version import __author__, __version__

@@ -19,6 +19,7 @@ with ``section.key=value`` config overrides, each printing one JSON line::
     python -m gwen_tpu_torch runs [--experiment NAME] [--root runs]
     python -m gwen_tpu_torch gif --input data.zarr [--var theta_v]
         [--out output] [--member M]
+    python -m gwen_tpu_torch bench [--device cuda] [--extra-out PATH]
 
 ``train-mesh`` partitioned over several devices, and ``train-gnn`` and
 ``train-cnn`` data-parallel (each batch cut over the processes), run one
@@ -34,8 +35,11 @@ line::
 
 ``ingest`` needs ``h5py`` and ``gif`` (and ``train-gnn`` or ``train-cnn``
 without ``--no-animate``) matplotlib and Pillow, each imported where it is
-used; everything else runs on numpy and torch. Of the reference's
-subcommands only ``bench`` is not in the port.
+used; everything else runs on numpy and torch. ``bench`` measures the
+aggregation, the EPD train step and the attention aggregation on the
+card (:mod:`gwen_tpu_torch.bench`; the reference's ``GWEN_BENCH_*``
+environment knobs): one JSON line on stdout, the rest on stderr, and the
+extras written only to ``--extra-out``.
 """
 
 from __future__ import annotations
@@ -93,6 +97,11 @@ def main(argv: "list[str] | None" = None) -> int:
     rns = sub.add_parser("runs")
     rns.add_argument("--experiment", default=None, help="default: all experiments")
     rns.add_argument("--root", default="runs")
+    bch = sub.add_parser("bench")
+    bch.add_argument("--device", default="cuda", help=_DEVICE_HELP)
+    bch.add_argument("--extra-out", default=None,
+                     help="also write the extras (train step, attention) "
+                          "as JSON to this file")
     g = sub.add_parser("gif")
     g.add_argument("--input", default=None,
                    help="zarr store with (time, member, height, ncells); "
@@ -166,6 +175,10 @@ def main(argv: "list[str] | None" = None) -> int:
         out = predict_main(args.artifact, args.input, args.steps, args.out,
                            device=args.device)
         print(json.dumps(out))
+    elif args.cmd == "bench":
+        from gwen_tpu_torch.bench import main as bench
+
+        bench(device=args.device, extra_out=args.extra_out)
     elif args.cmd == "runs":
         from pathlib import Path
 

@@ -256,11 +256,13 @@ def test_cli_offers_the_ported_subcommands(capsys):
         cli(["--help"])
     text = capsys.readouterr().out
     for name in ("ingest", "preprocess", "train-gnn", "train-cnn", "train-mesh",
-                 "make-mesh-data", "export", "predict", "runs", "gif"):
+                 "make-mesh-data", "export", "predict", "runs", "gif", "bench"):
         assert name in text
-    # `bench` belongs to the port's benchmark, which is not there yet.
+    # `bench` is offered, with the options of the port's other subcommands.
     with pytest.raises(SystemExit):
-        cli(["bench"])
+        cli(["bench", "--help"])
+    text = capsys.readouterr().out
+    assert "--device" in text and "--extra-out" in text
 
 
 def test_missing_libraries_raise_where_they_are_used(monkeypatch, tmp_path):
