@@ -28,6 +28,7 @@ import torch
 
 from gwen_tpu_torch import losses
 from gwen_tpu_torch.ops.aggregate import aggregate
+from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 SIGMAS = (0.01, 0.02, 0.05, 0.1, 0.2)  # calibrate_sigma's default candidates
@@ -129,12 +130,19 @@ def generate_ensemble(model, graph, base_state: Tensor,
                       noise: Optional[Tensor] = None) -> Tensor:
     """Perturb, then roll every member forward: ``(K, T, nodes, channels)``.
     The members ride the model's batch axis (one forward per step for all of
-    them). Runs without gradients."""
-    with torch.no_grad():
-        members = sample_perturbed_members(
-            generator, base_state, num_members, sigma, graph, smoothing_steps,
-            noise=noise)
-        traj = rollout(lambda x: model(graph, x), members, num_steps)
+    them). Runs without gradients. Under a profiler the request is the span
+    ``gwen.ensemble`` over one ``gwen.perturb`` and a ``gwen.lead_step``
+    a step."""
+    def lead_step(x):
+        with annotate("gwen.lead_step"):
+            return model(graph, x)
+
+    with annotate("gwen.ensemble"), torch.no_grad():
+        with annotate("gwen.perturb"):
+            members = sample_perturbed_members(
+                generator, base_state, num_members, sigma, graph,
+                smoothing_steps, noise=noise)
+        traj = rollout(lead_step, members, num_steps)
     return traj.movedim(0, 1)
 
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from gwen_tpu_torch.profiling import annotate
+
 Tensor = torch.Tensor
 
 
@@ -35,8 +37,10 @@ def linear_init(d_in: int, d_out: int, generator: torch.Generator,
 
 
 def linear_apply(params, x: Tensor) -> Tensor:
-    """``x @ w + b`` in ``x.dtype`` (a bf16 product returns bf16)."""
-    return x @ params["w"].to(x.dtype) + params["b"].to(x.dtype)
+    """``x @ w + b`` in ``x.dtype`` (a bf16 product returns bf16); the span
+    ``gwen.op.linear`` under a profiler."""
+    with annotate("gwen.op.linear"):
+        return x @ params["w"].to(x.dtype) + params["b"].to(x.dtype)
 
 
 def layer_norm_init(dim: int, device) -> nn.ParameterDict:

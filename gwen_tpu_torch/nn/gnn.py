@@ -35,6 +35,10 @@ only real rows.
 * ``"nested:G"`` — checkpoint groups of G steps whose steps are
   themselves checkpointed: ``ceil(steps / G)`` live boundaries, one more
   forward recompute per step.
+
+Under a profiler (:func:`gwen_tpu_torch.profiling.annotate`) a forward
+opens the spans ``gwen.encoder``, one ``gwen.process`` a step (again for a
+step recomputed under ``checkpoint``) and ``gwen.decoder``.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from gwen_tpu_torch.nn.interaction import interaction_apply, interaction_init
 from gwen_tpu_torch.nn.layers import gcn_apply, gcn_init, gcn_post, gcn_pre
 from gwen_tpu_torch.ops.aggregate import aggregate
 from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
+from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -210,29 +215,31 @@ class EncodeProcessDecode(nn.Module):
                                      pack=self.attn_pack)
 
     def _step(self, p, graph, h: Tensor) -> Tensor:
-        if self.processor == "interaction":
-            return interaction_apply(p, graph, torch.relu(h))
-        if self.processor == "attention":
-            m = self._attend(p, graph, h)
-        else:
-            m = gcn_post(p["gcn"], aggregate(graph, gcn_pre(p["gcn"], torch.relu(h)),
-                                             backend=self.backend))
-        return self._norm_residual(p["norm"], m, h)
+        with annotate("gwen.process"):
+            if self.processor == "interaction":
+                return interaction_apply(p, graph, torch.relu(h))
+            if self.processor == "attention":
+                m = self._attend(p, graph, h)
+            else:
+                m = gcn_post(p["gcn"], aggregate(graph, gcn_pre(p["gcn"], torch.relu(h)),
+                                                 backend=self.backend))
+            return self._norm_residual(p["norm"], m, h)
 
     def _step_save_agg(self, p, graph, h: Tensor) -> Tensor:
         """One step that keeps only its input and its aggregation output:
         the dense ops on either side are recomputed in the backward. An
         attention step keeps ``m`` and recomputes the attention block."""
-        if self.processor == "attention":
-            m = checkpoint(functools.partial(self._attend, p, graph), h,
-                           use_reentrant=False)
-            return self._norm_residual(p["norm"], m, h)
-        pre = checkpoint(lambda t: gcn_pre(p["gcn"], torch.relu(t)), h,
-                         use_reentrant=False)
-        a = aggregate(graph, pre, backend=self.backend)
-        return checkpoint(
-            lambda a, t: self._norm_residual(p["norm"], gcn_post(p["gcn"], a), t),
-            a, h, use_reentrant=False)
+        with annotate("gwen.process"):
+            if self.processor == "attention":
+                m = checkpoint(functools.partial(self._attend, p, graph), h,
+                               use_reentrant=False)
+                return self._norm_residual(p["norm"], m, h)
+            pre = checkpoint(lambda t: gcn_pre(p["gcn"], torch.relu(t)), h,
+                             use_reentrant=False)
+            a = aggregate(graph, pre, backend=self.backend)
+            return checkpoint(
+                lambda a, t: self._norm_residual(p["norm"], gcn_post(p["gcn"], a), t),
+                a, h, use_reentrant=False)
 
     def _process(self, graph, h: Tensor) -> Tensor:
         kind, k = self._remat
@@ -262,8 +269,8 @@ class EncodeProcessDecode(nn.Module):
         return h
 
     def forward(self, graph, x: Tensor) -> Tensor:
-        h = x.to(self.compute_dtype)
-        h = core.mlp_apply(self.encoder, h)
+        with annotate("gwen.encoder"):
+            h = core.mlp_apply(self.encoder, x.to(self.compute_dtype))
 
         pad_rows = 0
         if (self.processor == "gcn" and self.latent_size % 128 == 0
@@ -277,5 +284,6 @@ class EncodeProcessDecode(nn.Module):
         h = self._process(graph, h)
         if pad_rows > 0:
             h = h[..., : h.shape[-2] - pad_rows, :]
-        h = core.mlp_apply(self.decoder, torch.relu(h))
+        with annotate("gwen.decoder"):
+            h = core.mlp_apply(self.decoder, torch.relu(h))
         return h.to(x.dtype)

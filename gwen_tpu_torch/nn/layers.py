@@ -7,6 +7,8 @@ otherwise: the same result, with the aggregation on the narrower side.
 :func:`gcn_pre` and :func:`gcn_post` are the dense parts on either side of
 the aggregation, so a remat policy can keep the aggregation output and
 recompute only them (the reference tags that output ``AGG_CKPT_NAME``).
+Each product with the weight, and the bias add, is the span
+``gwen.op.linear`` under a profiler.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from gwen_tpu_torch.nn import core
 from gwen_tpu_torch.ops.aggregate import aggregate
+from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -32,14 +35,18 @@ def gcn_pre(params, x: Tensor) -> Tensor:
     """The dense part before the aggregation (``x @ w`` when transforming
     first, else ``x``). The product is in ``x.dtype``: the weights are
     cast, not the product."""
-    return x @ params["w"].to(x.dtype) if _transform_first(params) else x
+    if not _transform_first(params):
+        return x
+    with annotate("gwen.op.linear"):
+        return x @ params["w"].to(x.dtype)
 
 
 def gcn_post(params, a: Tensor) -> Tensor:
     """The dense part after the aggregation output ``a``."""
-    if not _transform_first(params):
-        a = a @ params["w"].to(a.dtype)
-    return a + params["b"].to(a.dtype)
+    with annotate("gwen.op.linear"):
+        if not _transform_first(params):
+            a = a @ params["w"].to(a.dtype)
+        return a + params["b"].to(a.dtype)
 
 
 def gcn_apply(params, graph, x: Tensor, backend: str = "auto") -> Tensor:

@@ -53,6 +53,7 @@ from gwen_tpu_torch.graph.graph import (
     window_mask,
 )
 from gwen_tpu_torch.ops import spmm_cuda
+from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -186,16 +187,22 @@ def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:
     """Dispatch aggregation by graph container and backend: ``"auto"``
     runs the windowed kernels (on CUDA tensors), ``"plain"`` the same
     composite with the kernels' plain versions, anything else the plain
-    references above."""
+    references above. One span ``gwen.op.aggregate`` under a profiler,
+    whatever the container holds."""
+    with annotate("gwen.op.aggregate"):
+        return _dispatch(graph, x, backend)
+
+
+def _dispatch(graph, x: Tensor, backend: str) -> Tensor:
     # Late import: the halo composite runs this module's layouts locally.
     from gwen_tpu_torch.parallel.halo import HaloDiagGraph, HaloGraph, aggregate_halo
 
     plain = backend == "plain"
     kernels = backend in ("auto", "plain")
     if isinstance(graph, MultiLevelGraph):
-        out = aggregate(graph.subgraphs[0], x, backend=backend)
+        out = _dispatch(graph.subgraphs[0], x, backend)
         for sub in graph.subgraphs[1:]:
-            out = out + aggregate(sub, x, backend=backend)
+            out = out + _dispatch(sub, x, backend)
         return out
     if isinstance(graph, DenseGraph):
         return aggregate_dense(graph, x)

@@ -48,6 +48,7 @@ import torch
 from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
 from gwen_tpu_torch.ops import attention_cuda, unfused_cuda
 from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -173,12 +174,13 @@ class _WindowedAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        g = g.to(v.dtype).contiguous()
-        dq, stats = attention_cuda.attention_dq(ctx.graph, q, k, v, g,
-                                                ctx.scale)
-        dk, dv = attention_cuda.attention_dkdv(ctx.graph, q, k, v, g, stats,
-                                               ctx.scale)
+        with annotate("gwen.op.attention.bwd"):
+            q, k, v = ctx.saved_tensors
+            g = g.to(v.dtype).contiguous()
+            dq, stats = attention_cuda.attention_dq(ctx.graph, q, k, v, g,
+                                                    ctx.scale)
+            dk, dv = attention_cuda.attention_dkdv(ctx.graph, q, k, v, g,
+                                                   stats, ctx.scale)
         return dq, dk, dv, None, None
 
 
@@ -196,7 +198,16 @@ def windowed_attention(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     sub-heads (lanes ``[0, 64)`` and ``[64, 128)``, each zero-padded to 64)
     and needs ``f = 128`` and an explicit ``scale``; the port attends each
     sub-head as an ordinary 64-wide head, which is exact.
+
+    One span ``gwen.op.attention`` under a profiler, the folds of q, k and
+    v included.
     """
+    with annotate("gwen.op.attention"):
+        return _attend(graph, q, k, v, scale, backend, pack)
+
+
+def _attend(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
+            scale: Optional[float], backend: str, pack: bool) -> Tensor:
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of "
                          f"{_BACKENDS}")
@@ -216,8 +227,8 @@ def windowed_attention(graph: DiagWindowGraph, q: Tensor, k: Tensor,
                 "pack=True needs an explicit scale (1/sqrt(dh) of the "
                 "TRUE head width, not of the packed 128 lanes)")
         return torch.cat([
-            windowed_attention(graph, q[..., s], k[..., s], v[..., s],
-                               scale=scale, backend=backend)
+            _attend(graph, q[..., s], k[..., s], v[..., s], scale, backend,
+                    False)
             for s in (slice(0, 64), slice(64, 128))], dim=-1)
     if scale is None:
         scale = 1.0 / (f ** 0.5)

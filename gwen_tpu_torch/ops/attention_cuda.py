@@ -35,6 +35,7 @@ launches the kernel or raises. There is no fallback.
 from __future__ import annotations
 
 import ctypes
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -60,9 +61,12 @@ def build() -> tuple[Path, str]:
 
 
 def _lib() -> ctypes.CDLL:
+    """The library, built and loaded at first use; the load (not the build)
+    is counted in ``_lib.loads`` and ``_lib.load_seconds``."""
     global _LIB
     if _LIB is None:
         path, _ = build()
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(path))
         vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         tail = [ci, ci, ci, ci, ci, cf, ci, vp]  # nb, n_q, n_kv, deg, vpt,
@@ -73,7 +77,13 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.gwen_attn_fwd, lib.gwen_attn_dq, lib.gwen_attn_dkdv):
             fn.restype = ci
         _LIB = lib
+        _lib.loads += 1
+        _lib.load_seconds += time.perf_counter() - t0
     return _LIB
+
+
+_lib.loads = 0
+_lib.load_seconds = 0.0
 
 
 # ------------------------------------------------------------ plain versions

@@ -29,9 +29,12 @@ launch the kernels or raise.
 from __future__ import annotations
 
 import os
+import time
 from pathlib import Path
 
 import torch
+
+from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -142,6 +145,21 @@ def _kernels() -> dict:
     return _KERNELS
 
 
+def _first_call(fn, key: tuple, launch) -> None:
+    """``launch()``. The first call of a Triton specialisation (``key``:
+    the field's and the parameters' dtypes, the row count's divisibility
+    by 16 and the width), where Triton compiles or loads it from its cache,
+    adds one to ``fn.loads`` and its host seconds to ``fn.load_seconds``."""
+    if key in fn.specialisations:
+        launch()
+        return
+    t0 = time.perf_counter()
+    launch()
+    fn.specialisations.add(key)
+    fn.loads += 1
+    fn.load_seconds += time.perf_counter() - t0
+
+
 def _on_cuda(m: Tensor) -> bool:
     if m.device.type == "cpu":
         return False
@@ -181,9 +199,11 @@ def residual_layernorm_fwd(m: Tensor, h: Tensor, scale: Tensor,
     block_f, rows = _blocks(f)
     out = torch.empty_like(m)
     with torch.cuda.device(m.device):
-        _kernels()["fwd"][((n_rows + rows - 1) // rows,)](
-            m, h, scale, bias, out, n_rows, f, eps,
-            ROWS=rows, BLOCK_F=block_f, num_warps=4)
+        _first_call(residual_layernorm_fwd,
+                    (m.dtype, scale.dtype, n_rows % 16 == 0, n_rows == 1, f),
+                    lambda: _kernels()["fwd"][((n_rows + rows - 1) // rows,)](
+                        m, h, scale, bias, out, n_rows, f, eps,
+                        ROWS=rows, BLOCK_F=block_f, num_warps=4))
     residual_layernorm.launches += 1
     return out
 
@@ -206,14 +226,20 @@ def residual_layernorm_bwd(m: Tensor, g: Tensor, scale: Tensor,
     ds = torch.empty(programs, f, dtype=torch.float32, device=m.device)
     db = torch.empty(programs, f, dtype=torch.float32, device=m.device)
     with torch.cuda.device(m.device):
-        _kernels()["bwd"][(programs,)](
-            m, g, scale, dm, ds, db, n_rows, f, eps,
-            ROWS=rows, BLOCK_F=block_f, num_warps=BWD_WARPS)
+        _first_call(residual_layernorm_bwd,
+                    (m.dtype, scale.dtype, n_rows % 16 == 0, n_rows == 1, f),
+                    lambda: _kernels()["bwd"][(programs,)](
+                        m, g, scale, dm, ds, db, n_rows, f, eps,
+                        ROWS=rows, BLOCK_F=block_f, num_warps=BWD_WARPS))
     residual_layernorm_bwd.launches += 1
     return dm, ds.sum(0), db.sum(0)
 
 
 residual_layernorm_bwd.launches = 0
+residual_layernorm_fwd.loads, residual_layernorm_fwd.load_seconds = 0, 0.0
+residual_layernorm_fwd.specialisations = set()
+residual_layernorm_bwd.loads, residual_layernorm_bwd.load_seconds = 0, 0.0
+residual_layernorm_bwd.specialisations = set()
 
 
 class _ResidualLayerNorm(torch.autograd.Function):
@@ -228,9 +254,11 @@ class _ResidualLayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        m, scale = ctx.saved_tensors
-        dm, ds, db = residual_layernorm_bwd(m, g.contiguous(), scale, ctx.eps)
-        return dm, g, ds.to(scale.dtype), db.to(scale.dtype), None
+        with annotate("gwen.op.residual_ln.bwd"):
+            m, scale = ctx.saved_tensors
+            dm, ds, db = residual_layernorm_bwd(m, g.contiguous(), scale,
+                                                ctx.eps)
+            return dm, g, ds.to(scale.dtype), db.to(scale.dtype), None
 
 
 def residual_layernorm(m: Tensor, h: Tensor, scale: Tensor, bias: Tensor,
@@ -254,11 +282,13 @@ def fused_residual_layernorm(norm_params, m: Tensor, h: Tensor,
     Takes the composite ``h + core.layer_norm_apply(m)`` when the feature
     axis is not a multiple of 128 or the shapes differ — the reference's
     semantics, whose LayerNorm output is cast before the residual add.
+    One span ``gwen.op.residual_ln`` under a profiler.
     """
     from gwen_tpu_torch.nn import core
 
-    f = m.shape[-1]
-    if f % 128 != 0 or m.shape != h.shape:
-        return h + core.layer_norm_apply(norm_params, m, eps=eps)
-    fn = residual_layernorm if backend == "auto" else residual_layernorm_plain
-    return fn(m, h, norm_params["scale"], norm_params["bias"], eps)
+    with annotate("gwen.op.residual_ln"):
+        f = m.shape[-1]
+        if f % 128 != 0 or m.shape != h.shape:
+            return h + core.layer_norm_apply(norm_params, m, eps=eps)
+        fn = residual_layernorm if backend == "auto" else residual_layernorm_plain
+        return fn(m, h, norm_params["scale"], norm_params["bias"], eps)

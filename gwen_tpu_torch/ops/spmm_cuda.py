@@ -101,6 +101,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -116,6 +117,7 @@ from gwen_tpu_torch.graph.graph import (
     WindowedDenseGraph,
     unpack_bits,
 )
+from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -143,11 +145,13 @@ def nvcc_build(src: Path) -> tuple[Path, str]:
     """Compile the CUDA source ``src`` for sm_90a into a shared library in
     ``_build/`` (once per source hash). Returns the library path and the
     compiler's output (ptxas register and shared-memory use; empty when
-    already built)."""
+    already built). Each compile adds one to ``nvcc_build.loads`` and its
+    seconds to ``nvcc_build.load_seconds``."""
     tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{tag}.so"
     if out.exists():
         return out, ""
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
@@ -155,7 +159,13 @@ def nvcc_build(src: Path) -> tuple[Path, str]:
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, out)
+    nvcc_build.loads += 1
+    nvcc_build.load_seconds += time.perf_counter() - t0
     return out, res.stdout + res.stderr
+
+
+nvcc_build.loads = 0
+nvcc_build.load_seconds = 0.0
 
 
 def build() -> tuple[Path, str]:
@@ -164,9 +174,12 @@ def build() -> tuple[Path, str]:
 
 
 def _lib() -> ctypes.CDLL:
+    """The library, built and loaded at first use; the load (not the build)
+    is counted in ``_lib.loads`` and ``_lib.load_seconds``."""
     global _LIB
     if _LIB is None:
         path, _ = build()
+        t0 = time.perf_counter()
         lib = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
         # (s, x, window_start, esc_ptr, esc_rows, fix, out, n_pad, window,
@@ -191,7 +204,13 @@ def _lib() -> ctypes.CDLL:
         lib.gwen_tile_spmm.argtypes = [vp] * 6 + [ci] * 8 + [vp]
         lib.gwen_tile_spmm.restype = ci
         _LIB = lib
+        _lib.loads += 1
+        _lib.load_seconds += time.perf_counter() - t0
     return _LIB
+
+
+_lib.loads = 0
+_lib.load_seconds = 0.0
 
 
 # ------------------------------------------------------------ plain versions
@@ -922,8 +941,9 @@ class _SymmetricAggregation(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        gx = ctx.composite(ctx.graph, g.contiguous(), False)
-        return _fit_rows(gx, ctx.rows).to(g.dtype), None, None
+        with annotate("gwen.op.aggregate.bwd"):
+            gx = ctx.composite(ctx.graph, g.contiguous(), False)
+            return _fit_rows(gx, ctx.rows).to(g.dtype), None, None
 
 
 def _aggregate(composite, graph, x: Tensor, plain: bool) -> Tensor:

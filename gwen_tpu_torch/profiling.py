@@ -10,8 +10,9 @@ The reference's names, with the same return values:
   cost cancels.
 * :class:`StepTimer`: rolling per-step stats with derived throughput.
 * :func:`trace` and :func:`annotate`: a ``torch.profiler`` trace written
-  under a directory, and named ranges in it. :func:`start_server` has no
-  CUDA counterpart and raises.
+  under a directory, and named ranges in it (recorded only while a
+  profiler runs). :func:`start_server` has no CUDA counterpart and
+  raises.
 * :func:`device_memory_stats`: memory in use and the limit, per device.
 
 The card's timers, which ``chip_smoke.py`` and ``tools/time_*.py`` use:
@@ -38,6 +39,7 @@ from pathlib import Path
 from typing import Callable, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 def _sync() -> None:
@@ -162,9 +164,18 @@ def start_server(port: int = 9999) -> None:
         "gwen_tpu_torch.profiling.trace(log_dir) around the steps to capture")
 
 
+_NO_SPAN = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """Named range for the profiler's timeline (a context manager)."""
-    return torch.profiler.record_function(name)
+    """Named range for the profiler's timeline (a context manager). It
+    records only while a ``torch.profiler`` is running; otherwise it is one
+    shared null context, so a span left in a hot path costs a flag check.
+    The program's own spans are named ``gwen.*`` (``docs/torch/bench.md``
+    lists them)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def device_memory_stats() -> list[dict]:

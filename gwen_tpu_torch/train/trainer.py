@@ -28,6 +28,7 @@ import torch
 
 from gwen_tpu_torch.data.pipeline import prefetch as host_prefetch
 from gwen_tpu_torch.logging_utils import get_logger
+from gwen_tpu_torch.profiling import annotate
 from gwen_tpu_torch.registry import Run
 from gwen_tpu_torch.train.checkpoint import Checkpointer
 from gwen_tpu_torch.train.optim import Optimizer
@@ -96,16 +97,24 @@ class Trainer:
         return self.loss_fn(batch, self.context)
 
     def train_step(self, state: TrainState, batch) -> torch.Tensor:
-        """One update from a device batch; returns the loss (on device)."""
-        state.model.train()
-        loss, _ = self._call_loss(batch)
-        loss.backward()
-        loss = loss.detach()
-        if self.mesh is not None:
-            self.mesh.all_reduce_gradients(state.model.parameters())
-            loss = self.mesh.all_reduce_sum(loss)
-        state.optimizer.step(state.model.parameters())
-        state.step += 1
+        """One update from a device batch; returns the loss (on device).
+        Under a profiler the step is the span ``gwen.train_step`` over
+        ``gwen.forward``, ``gwen.backward``, ``gwen.allreduce`` (with a
+        mesh) and ``gwen.optimizer``."""
+        with annotate("gwen.train_step"):
+            state.model.train()
+            with annotate("gwen.forward"):
+                loss, _ = self._call_loss(batch)
+            with annotate("gwen.backward"):
+                loss.backward()
+            loss = loss.detach()
+            if self.mesh is not None:
+                with annotate("gwen.allreduce"):
+                    self.mesh.all_reduce_gradients(state.model.parameters())
+                    loss = self.mesh.all_reduce_sum(loss)
+            with annotate("gwen.optimizer"):
+                state.optimizer.step(state.model.parameters())
+            state.step += 1
         return loss
 
     def fit(self, state: TrainState, batches_per_epoch: Callable[[int], Iterable],
