@@ -215,7 +215,12 @@ Drives ``gwen_tpu_torch`` only (no JAX); its timers are
    (unbatched and at batch 4) runs exactly one device kernel under
    ``torch.profiler``, the dense row gather, and one call of B5, B6 and B7
    (nb 1 and 8) exactly one, ``attn_fwd_kernel``, ``attn_dq_kernel`` and
-   ``attn_dkdv_kernel``;
+   ``attn_dkdv_kernel``; then ``nn.core.linear`` at the benchmark cells'
+   row counts (327,684 to 3,440,682) with K = 1, K = N = 256 and N = 1
+   (:func:`check_linear`): within one bf16 ulp of the expression it
+   replaced, one GEMM with the bias epilogue a call and no pass over the
+   output where N > 1, its time beside the old expression's, its route
+   counts, and its gradients;
    then the NCCL probe.
 
 The second-to-last lines are a JSON object of the kernels and the
@@ -3788,6 +3793,140 @@ dist.destroy_process_group()
 """
 
 
+# The rows of every product with a weight in the benchmark's cells: the
+# L7 mesh's 163,842 nodes times 2, 4, 8 and 16 members and 21 samples.
+LINEAR_ROWS = (327_684, 655_368, 1_310_736, 2_621_472, 3_440_682)
+LINEAR_SHAPES = ((1, 256), (256, 256), (256, 1))  # (K, N)
+
+
+def is_gemm(name: str) -> bool:
+    return any(tag in name for tag in ("nvjet", "gemm", "gemv", "cutlass"))
+
+
+def old_linear(x, w, b, relu=False):
+    """The expression :func:`nn.core.linear` replaced."""
+    y = x @ w.to(x.dtype) + b.to(x.dtype)
+    return torch.relu(y) if relu else y
+
+
+def check_linear(device) -> None:
+    """``nn.core.linear`` at the cells' shapes (``LINEAR_ROWS`` × the
+    encoder's K = 1, the latent products, the decoder's N = 1; with and
+    without the ReLU where N > 1), bf16 operands and float32 parameters:
+    within one bf16 ulp at max|old| of the expression it replaced (one
+    rounding against two), its route counts, the device kernels of three
+    calls under ``torch.profiler``, and its time beside the old
+    expression's (CUDA events, in turns). With N > 1 each call runs one
+    GEMM with the bias (or ReLU-bias) epilogue and nothing else but a
+    memset, the casts of ``w`` and ``b`` to bf16 and, for K = 1, the zero
+    padding's fills and copies: no ``elementwise_kernel<128, 4>`` and no
+    other pass over the output. Then,
+    at the first row count, its gradients against autograd through the old
+    expression (``BF16_TOL``), the ReLU's mask taken from the helper's
+    output (the two roundings can differ in sign next to zero). First, the
+    allocator's growth over the process's first product and first
+    bias-epilogue product; last, the routes of one GCN and one attention
+    forward on the L7 graph: every product with a bias and more than one
+    output column in the epilogue, ``plain`` only for the decoder's N = 1."""
+    from gwen_tpu_torch.nn import core
+    from gwen_tpu_torch.profiling import device_events
+
+    gen = torch.Generator(device=device).manual_seed(21)
+    a, wb, bb = (torch.randn(*shape, device=device, generator=gen).bfloat16()
+                 for shape in ((1024, 256), (256, 256), (256,)))
+    held = [torch.cuda.memory_allocated()]
+    for product in (lambda: a @ wb, lambda: torch.addmm(bb, a, wb)):
+        product()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+    log(f"  the allocator holds {(held[1] - held[0]) / 2**20:.2f} MiB more after this "
+        f"process's first product and {(held[2] - held[1]) / 2**20:.2f} MiB more after "
+        "its first bias-epilogue product (the libraries' workspaces)")
+    pad = ("Memset", "Memcpy", "FillFunctor", "CatArrayBatchedCopy")
+    for k, n in LINEAR_SHAPES:
+        w = torch.randn(k, n, device=device, generator=gen) * k ** -0.5
+        b = torch.randn(n, device=device, generator=gen) * 0.1
+        for relu in (False, True) if n > 1 else (False,):
+            for m in LINEAR_ROWS:
+                x = torch.randn(m, k, device=device, generator=gen).bfloat16()
+                tag = f"linear K {k} N {n} M {m}{' relu' if relu else ''}"
+
+                def new(x=x, relu=relu):
+                    return core.linear(x, w, b, relu=relu)
+
+                before = dict(core.linear.routes)
+                compare(tag, new(), old_linear(x, w, b, relu), 0.0, ulps=1)
+                routes = {r: c - before[r] for r, c in core.linear.routes.items()
+                          if c != before[r]}
+                names = [ev.name for ev in device_events(new, 3)]
+                ms, old_ms = timed_pair(new, lambda x=x, relu=relu: old_linear(x, w, b, relu))
+                log(f"  {tag}: {ms:.4f} ms, old expression {old_ms:.4f} ms, "
+                    f"routes {routes}, 3 calls ran {[nm[:48] for nm in names]}")
+                if n == 1:
+                    continue
+                gemms = [nm for nm in names if is_gemm(nm)]
+                rest = [nm for nm in names if not is_gemm(nm) and not (
+                    nm.startswith("Memset") or "bfloat16_copy_kernel" in nm
+                    or k == 1 and any(p in nm for p in pad))]
+                if (routes != {"outer" if k == 1 else "epilogue": 1} or len(gemms) != 3
+                        or not all("bias" in nm for nm in gemms) or rest):
+                    raise AssertionError(f"{tag}: routes {routes}, kernels {names}")
+        relu = n > 1
+        x = torch.randn(LINEAR_ROWS[0], k, device=device, generator=gen).bfloat16()
+        cot = torch.randn(LINEAR_ROWS[0], n, device=device, generator=gen).bfloat16()
+        grads = []
+        for fn in (core.linear, old_linear):
+            leaves = [x.clone().requires_grad_(k > 1), w.clone().requires_grad_(),
+                      b.clone().requires_grad_()]
+            if fn is core.linear:
+                y = fn(*leaves, relu=relu)
+                y.backward(cot)
+            else:  # the ReLU's mask from the helper's output: one rounding
+                fn(*leaves).backward(cot * (y > 0) if relu else cot)
+            grads.append([t.grad for t in leaves if t.requires_grad])
+        for name, mine, theirs in zip(("dx", "dw", "db")[k == 1:], *grads):
+            compare(f"linear K {k} N {n} M {LINEAR_ROWS[0]}{' relu' if relu else ''} "
+                    f"{name} vs autograd through the old expression", mine, theirs,
+                    BF16_TOL)
+        del x, cot, grads, y
+        torch.cuda.empty_cache()
+    graph = build_serving_graph(device, torch.bfloat16)[0]
+    for processor, members, epilogue in (("gcn", 4, 2), ("attention", 2, 2 + 4 * PROCESS_STEPS)):
+        x = torch.randn(members, graph.num_nodes, CHANNELS, device=device, generator=gen)
+        model = _serving_model(device, processor)
+        before = dict(core.linear.routes)
+        with torch.no_grad():
+            model(graph, x)
+        routes = {r: c - before[r] for r, c in core.linear.routes.items()}
+        log(f"  one {processor} forward at {members} members: linear routes {routes}")
+        if routes != {"epilogue": epilogue, "outer": 1, "plain": 1}:
+            raise AssertionError(f"{processor} forward: routes {routes}, want "
+                                 f"{epilogue} epilogue, 1 outer, 1 plain (the decoder's N = 1)")
+
+
+LINEAR_CHECK = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+cs.check_linear(torch.device("cuda", 0))
+"""
+
+
+def linear_phase() -> None:
+    """:func:`check_linear` in a fresh child process (its profiler windows
+    are read there; see :func:`one_kernel_per_call`), its lines relayed."""
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, "-c", LINEAR_CHECK,
+                          str(Path(__file__).resolve().parent)],
+                         timeout=600, capture_output=True, text=True)
+    for line in res.stdout.splitlines():
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"the linear check failed:\n{res.stderr[-2000:]}")
+
+
 def nccl_one_rank_probe() -> None:
     """Whether this host's NCCL carries the collectives the partitioned
     path uses (``all_reduce`` for the gradients, ``all_gather`` for the
@@ -3971,6 +4110,9 @@ def main() -> int:
     one_kernel_per_call(ATTN_PROFILE, "windowed attention",
                         {"B5": "attn_fwd_kernel", "B6": "attn_dq_kernel",
                          "B7": "attn_dkdv_kernel"})
+    log("  nn.core.linear: the bias and ReLU in the product's epilogue at the "
+        "cells' shapes (a child process):")
+    linear_phase()
     # Last: after this child process the profiler traces of this one lose
     # device events, and the checks above read them.
     nccl_one_rank_probe()

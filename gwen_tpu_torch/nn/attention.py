@@ -18,9 +18,10 @@ contracts heads and head width together. The reference's ``pack`` option
 nothing: it is bit-exact against no packing there, and on the H100 each
 head runs at its own width.
 
-Under a profiler each of the four products (``wq``, ``wk``, ``wv`` with
-their bias adds, and ``wo``) is the span ``gwen.op.linear``; the head
-transposes on either side of the attention are outside it.
+Each of the four products, with its bias, is :func:`core.linear` (the
+bias in the product's epilogue; the span ``gwen.op.linear`` under a
+profiler); the head transposes on either side of the attention are
+outside it.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from torch import nn
 from gwen_tpu_torch.graph.graph import DiagWindowGraph
 from gwen_tpu_torch.nn import core
 from gwen_tpu_torch.ops.attention import windowed_attention
-from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
@@ -70,16 +70,12 @@ def graph_attention_apply(params, graph, x: Tensor, heads: int = 2,
     x2 = x.reshape(-1, latent)
 
     def proj(p):  # (M, latent) → (H, ..., N, dh)
-        with annotate("gwen.op.linear"):
-            y = x2 @ p["w"].to(x.dtype) + p["b"].to(x.dtype)
+        y = core.linear_apply(p, x2)
         return y.reshape(-1, heads, dh).transpose(0, 1).reshape(
             heads, *x.shape[:-1], dh)
 
     attend = attend_halo if isinstance(graph, HaloDiagGraph) else windowed_attention
     oh = attend(graph, proj(params["wq"]), proj(params["wk"]),
                 proj(params["wv"]), backend=backend)
-    wo = params["wo"]
     o2 = oh.reshape(heads, -1, dh).transpose(0, 1).reshape(-1, latent)
-    with annotate("gwen.op.linear"):
-        out = o2 @ wo["w"].to(x.dtype) + wo["b"].to(x.dtype)
-    return out.reshape(x.shape)
+    return core.linear_apply(params["wo"], o2).reshape(x.shape)

@@ -8,7 +8,8 @@ otherwise: the same result, with the aggregation on the narrower side.
 the aggregation, so a remat policy can keep the aggregation output and
 recompute only them (the reference tags that output ``AGG_CKPT_NAME``).
 Each product with the weight, and the bias add, is the span
-``gwen.op.linear`` under a profiler.
+``gwen.op.linear`` under a profiler; a product with its bias is
+:func:`core.linear`.
 """
 
 from __future__ import annotations
@@ -42,10 +43,12 @@ def gcn_pre(params, x: Tensor) -> Tensor:
 
 
 def gcn_post(params, a: Tensor) -> Tensor:
-    """The dense part after the aggregation output ``a``."""
+    """The dense part after the aggregation output ``a``: ``a @ w + b``
+    (:func:`core.linear`, the bias in the product's epilogue) when
+    aggregating first, else ``a + b``."""
+    if not _transform_first(params):
+        return core.linear_apply(params, a)
     with annotate("gwen.op.linear"):
-        if not _transform_first(params):
-            a = a @ params["w"].to(a.dtype)
         return a + params["b"].to(a.dtype)
 
 
