@@ -78,6 +78,13 @@ class GraphConfig:
     self_loops: bool = True
     # Aggregation backend: "auto", "dense", "segment", "pallas".
     backend: str = "auto"
+    # GraphCast (model.architecture "graphcast"): the latitude-longitude
+    # grid, poles included, and the grid2mesh radius as a share of the
+    # longest edge of the finest mesh (``refine`` is the multimesh's
+    # finest level).
+    grid_lat: int = 721
+    grid_lon: int = 1440
+    g2m_radius: float = 0.6
 
 
 @dataclass
@@ -95,7 +102,7 @@ class GNNModelConfig:
     down_layers: int = 3
     up_layers: int = 3
     # Optional encode-process-decode variant (mesh-scale models).
-    architecture: str = "gcn-stack"  # "gcn-stack" | "encode-process-decode"
+    architecture: str = "gcn-stack"  # "gcn-stack" | "encode-process-decode" | "graphcast"
     latent_size: int = 256
     process_steps: int = 4
     mlp_layers: int = 2
@@ -110,6 +117,10 @@ class GNNModelConfig:
     # Lane-pack attention head pairs in the fused kernels: "auto" (pack
     # when heads is even and latent/heads ≤ 64), "on", or "off".
     attn_pack: str = "auto"
+    # GraphCast's inputs and outputs per grid node (its processor layers
+    # are ``process_steps``, its latent and hidden width ``latent_size``).
+    channels_in: int = 474
+    channels_out: int = 227
 
 
 @dataclass

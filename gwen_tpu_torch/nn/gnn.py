@@ -132,6 +132,24 @@ def parse_remat(remat: "bool | str", process_steps: int
                      "'save_agg', 'save_agg:K' or 'nested:G'")
 
 
+def parse_block_remat(remat: "bool | str", blocks: tuple[str, ...]
+                      ) -> frozenset[str]:
+    """The ladder for a model made of named blocks (GraphCast's ``g2m``,
+    ``mesh``, ``m2g``): the blocks recomputed in the backward. ``False``
+    → none, ``True`` → every block, ``"blocks:a+b"`` → the blocks named.
+    Raises ``ValueError`` on anything else or on an unknown block."""
+    if remat is False or remat is None:
+        return frozenset()
+    if remat is True:
+        return frozenset(blocks)
+    if isinstance(remat, str) and remat.startswith("blocks:"):
+        names = frozenset(n for n in remat[len("blocks:"):].split("+") if n)
+        if names and names <= set(blocks):
+            return names
+    raise ValueError(f"unknown remat policy {remat!r}: use False, True or "
+                     f"'blocks:' with names from {'+'.join(blocks)}")
+
+
 def pack_mode(mode: "str | bool | None") -> "bool | None":
     """Config ``model.attn_pack`` (``"auto"``/``"on"``/``"off"``, or
     ``"true"``/``"false"``) → the model's ``attn_pack`` (None/True/False),

@@ -15,6 +15,7 @@ from gwen_tpu_torch.train.tasks import (
     cnn_loss_fn,
     ensemble_crps_loss_fn,
     gnn_loss_fn,
+    graphcast_loss_fn,
     mesh_graph_loss_fn,
     mesh_loss_fn,
     partitioned_ensemble_crps_loss_fn,
@@ -33,6 +34,7 @@ __all__ = [
     "cnn_loss_fn",
     "ensemble_crps_loss_fn",
     "gnn_loss_fn",
+    "graphcast_loss_fn",
     "initialize_distributed",
     "is_main_process",
     "make_mesh",

@@ -4,8 +4,9 @@
 :func:`make_schedule` returns the learning rate as a plain function of the
 update count (0 for the first update), with the optax schedules' values.
 :func:`make_optimizer` builds Adam — or AdamW when ``weight_decay > 0``:
-decoupled decay as in optax ``adamw`` — with a ``LambdaLR`` over the
-schedule and optional global-norm gradient clipping.
+decoupled decay as in optax ``adamw`` — with ``betas`` (torch's and
+optax's default ``(0.9, 0.999)``), a ``LambdaLR`` over the schedule and
+optional global-norm gradient clipping.
 """
 
 from __future__ import annotations
@@ -86,13 +87,14 @@ def make_optimizer(
     warmup_steps: int = 0,
     cycle_steps: int = 2_000,
     grad_clip: float = 0.0,
+    betas: tuple[float, float] = (0.9, 0.999),
 ) -> Optimizer:
     sched = make_schedule(lr, scheduler, total_steps, warmup_steps, cycle_steps)
     params = list(params)
     if weight_decay > 0:
-        optim = torch.optim.AdamW(params, lr=lr, weight_decay=weight_decay)
+        optim = torch.optim.AdamW(params, lr=lr, betas=betas, weight_decay=weight_decay)
     else:
-        optim = torch.optim.Adam(params, lr=lr)
+        optim = torch.optim.Adam(params, lr=lr, betas=betas)
     lam = torch.optim.lr_scheduler.LambdaLR(
         optim, lambda step: sched(step) / lr if lr else 0.0)
     return Optimizer(optim, lam, grad_clip)

@@ -29,8 +29,9 @@ both sums (``Trainer(mesh=...)``); the predictions stay local."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from gwen_tpu_torch import ensemble, losses
@@ -133,6 +134,63 @@ def mesh_graph_loss_fn(model, loss: str = "mse") -> Callable:
         x, y = batch
         preds = model(graph, x)
         return fn(preds, y), preds
+
+    return loss_fn
+
+
+# GraphCast's loss weights (Lam et al. 2023): the 37 pressure levels of its
+# 0.25° ERA5 model in hPa, and the weights of its 5 surface variables (2 m
+# temperature; 10 m u and v wind, mean sea-level pressure and total
+# precipitation), the 6 atmospheric variables weighing 1.
+PRESSURE_LEVELS_HPA = (1, 2, 3, 5, 7, 10, 20, 30, 50, 70, 100, 125, 150, 175,
+                       200, 225, 250, 300, 350, 400, 450, 500, 550, 600, 650,
+                       700, 750, 775, 800, 825, 850, 875, 900, 925, 950, 975,
+                       1000)
+SURFACE_WEIGHTS = (1.0, 0.1, 0.1, 0.1, 0.1)
+
+
+def latitude_weights(n_lat: int) -> np.ndarray:
+    """Each latitude row's cell area on a grid from −90° to 90° with the
+    poles, normalised to mean 1: ``cos(lat) · sin(Δ/2)``, the pole rows
+    ``sin²(Δ/4)``."""
+    lat = np.deg2rad(np.linspace(-90.0, 90.0, n_lat))
+    delta = np.pi / (n_lat - 1)
+    w = np.cos(lat) * np.sin(delta / 2)
+    w[[0, -1]] = np.sin(delta / 4) ** 2
+    return w / w.mean()
+
+
+def graphcast_channel_weights(levels: Sequence[float] = PRESSURE_LEVELS_HPA,
+                              atmospheric: int = 6,
+                              surface: Sequence[float] = SURFACE_WEIGHTS
+                              ) -> np.ndarray:
+    """``(atmospheric · len(levels) + len(surface),)``: the atmospheric
+    variables first, each over the levels with weights proportional to
+    pressure at mean 1, then the surface variables' weights."""
+    lv = np.asarray(levels, np.float64)
+    return np.concatenate([np.tile(lv / lv.mean(), atmospheric),
+                           np.asarray(surface, np.float64)])
+
+
+def graphcast_loss_fn(model, n_lat: int, n_lon: int,
+                      channel_weights: np.ndarray) -> Callable:
+    """GraphCast's next-step task: ``loss_fn((x, y), graphs) -> (loss,
+    preds)`` on grid fields ``(B, n_lat · n_lon, C)`` (latitude rows,
+    longitude fastest): the mean over samples, grid nodes and channels of
+    the squared error weighted by :func:`latitude_weights` of the node's
+    row and by ``channel_weights`` of the channel."""
+    host = (np.repeat(latitude_weights(n_lat), n_lon), np.asarray(channel_weights))
+    on: dict = {}
+
+    def loss_fn(batch, graphs):
+        x, y = batch
+        preds = model(graphs, x)
+        if preds.device not in on:
+            on[preds.device] = tuple(torch.as_tensor(w, dtype=torch.float32, device=preds.device)
+                                     for w in host)
+        w_node, w_chan = on[preds.device]
+        err = ((preds.float() - y) ** 2 * w_chan).mean(dim=-1)
+        return (err * w_node).mean(), preds
 
     return loss_fn
 

@@ -277,10 +277,24 @@ def test_losses_match_reference():
         np.testing.assert_allclose(got.item(), float(want), **TOL)
 
 
+# The port's GraphCast keys (model.architecture "graphcast"), which the
+# reference's configuration does not have.
+PORT_ONLY = {"graph": ("grid_lat", "grid_lon", "g2m_radius"),
+             "model": ("channels_in", "channels_out")}
+
+
+def shared_keys(cfg: GwenConfig) -> dict:
+    d = cfg.to_dict()
+    for section, keys in PORT_ONLY.items():
+        for k in keys:
+            del d[section][k]
+    return d
+
+
 def test_config_data_and_remat_helpers_match_reference():
-    assert GwenConfig().to_dict() == JConfig().to_dict()
+    assert shared_keys(GwenConfig()) == JConfig().to_dict()
     ov = ["train.remat=save_agg", "train.batch_size=4", "graph.refine=2"]
-    assert (GwenConfig().apply_overrides(ov).to_dict()
+    assert (shared_keys(GwenConfig().apply_overrides(ov))
             == JConfig().apply_overrides(ov).to_dict())
     fj, vj, sj, rj = j_synthetic(levels=2, members=3, steps=5, seed=7)
     fp, vp, sp, rp = mesh_ensemble_dataset(levels=2, members=3, steps=5, seed=7)
