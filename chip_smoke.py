@@ -10,8 +10,8 @@ Drives ``gwen_tpu_torch`` only (no JAX); its timers are
 1. the device (``nvidia-smi`` name and power limit, torch's device name);
    exits non-zero when CUDA is absent;
 2. builds the kernels from this checkout's sources (one nvcc for each of
-   ``csrc/window_spmm.cu``, ``csrc/window_attention.cu`` and
-   ``csrc/window_unfused.cu``, started together, while Triton compiles the
+   ``csrc/window_spmm.cu``, ``csrc/window_attention.cu``,
+   ``csrc/window_unfused.cu`` and ``csrc/edge_sum.cu``, started together, while Triton compiles the
    LayerNorm forward and backward);
 3. builds the L7 graph (with the attention tables) and checks each kernel
    against its plain PyTorch version at the shapes serving gives it (B1,
@@ -220,7 +220,11 @@ Drives ``gwen_tpu_torch`` only (no JAX); its timers are
    (:func:`check_linear`): within one bf16 ulp of the expression it
    replaced, one GEMM with the bias epilogue a call and no pass over the
    output where N > 1, its time beside the old expression's, its route
-   counts, and its gradients;
+   counts, and its gradients; then the segment sum of GraphCast's edge
+   operators on the 0.25° graphs, each block's receiver and sender side,
+   against its plain version, for the same bits, timed beside its bound,
+   the plain version and ``index_add_``, and one GraphCast train step
+   with its launches counted (:func:`check_segment_sum`);
    then the NCCL probe.
 
 The second-to-last lines are a JSON object of the kernels and the
@@ -3927,6 +3931,193 @@ def linear_phase() -> None:
         raise AssertionError(f"the linear check failed:\n{res.stderr[-2000:]}")
 
 
+# GraphCast's latent width and the published model's sizes: the segment
+# sums' shapes, and one training step of the model (every block recomputed)
+# whose sums are counted.
+GC_LATENT, GC_CHANNELS, GC_STEPS = 512, (474, 227), 16
+GC_LAUNCHES = 4 * (GC_STEPS + 2)  # sums forward, recomputed, two a backward
+
+
+def check_segment_sum(device) -> dict:
+    """The segment sum of ``ops/edges.py`` (``csrc/edge_sum.cu``) on the
+    0.25° GraphCast graphs, bf16 at L 512: for each block (grid2mesh, the
+    multimesh, mesh2grid) its receiver side (the receiver-sorted spans, as
+    ``edge_sum`` and the join's backward run it) and its sender side
+    (through ``sender_order``), each on the slice of an ``E × 3L`` join as
+    the backward reads it, against the plain version within one bf16 ulp at
+    max|plain|: both sum in float32 and round once, but in other orders
+    (the kernel in edge order, a long row in pieces added in order;
+    ``index_add_`` on the card by atomics), so a float32 sum can differ in
+    its last bits and its rounding fall the other way. The slice and a
+    contiguous copy give the same bits, and so do two calls. Each is timed
+    beside its byte bound (the edge rows and their indices read once, the
+    output written once), the plain version and the path it replaced
+    (a float32 copy, ``index_add_`` into a zeroed float32 buffer, a cast:
+    ``library_ms``). Then batch 2, float32, rows that are not 16-byte
+    aligned (the one-element form) and empty segments, and last one
+    ``Trainer.train_step`` of the published model with every block
+    recomputed: ``GC_LAUNCHES`` launches, no plain version on the card and
+    no ``index_add_`` kernel (``indexFuncLargeIndex``) among its device
+    kernels. Returns the kernel table's entry, at mesh2grid's sender side
+    (its largest sum)."""
+    from gwen_tpu_torch.graph.graphcast import BipartiteGraph, build_graphcast_graphs
+    from gwen_tpu_torch.ops import edges
+
+    t0 = time.perf_counter()
+    graphs = build_graphcast_graphs().to(device)
+    log(f"  0.25 deg graphs built and moved in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=device).manual_seed(23)
+    out = {}
+    for name in ("grid2mesh", "mesh", "mesh2grid"):
+        g = getattr(graphs, name)
+        joined = torch.randn(g.num_edges, 3 * GC_LATENT, device=device,
+                             generator=gen).bfloat16()
+        for side, offsets, order, index, src in (
+                ("receivers", g.receiver_offsets, None, g.receivers,
+                 joined[:, 2 * GC_LATENT:]),
+                ("senders", g.sender_offsets, g.sender_order, g.senders,
+                 joined[:, GC_LATENT:2 * GC_LATENT])):
+            out = _segment_side(f"segment sum {name} {side}", src, offsets, order, index)
+        del joined, src
+    torch.cuda.empty_cache()
+    g = graphs.mesh
+    for tag, src in (
+            ("batch 2, strided", torch.randn(
+                2, g.num_edges, 3 * GC_LATENT, device=device,
+                generator=gen).bfloat16()[..., GC_LATENT:2 * GC_LATENT]),
+            ("float32", torch.randn(g.num_edges, GC_LATENT, device=device, generator=gen)),
+            ("36 wide, not 16-byte aligned", torch.randn(
+                g.num_edges, 37, device=device, generator=gen).bfloat16()[:, 1:])):
+        for side, offsets, order in (("receivers", g.receiver_offsets, None),
+                                     ("senders", g.sender_offsets, g.sender_order)):
+            got = edges.segment_sum(src, offsets, order)
+            compare(f"segment sum mesh {side} {tag}", got,
+                    edges.segment_sum_plain(src, offsets, order), F32_TOL,
+                    ulps=0 if src.dtype == torch.float32 else 1)
+    empty = BipartiteGraph.from_edges(np.array([0, 2, 2, 1]), np.array([1, 1, 3, 3]), 3, 5,
+                                      np.zeros((4, 4), np.float32)).to(device)
+    src = torch.randn(4, GC_LATENT, device=device, generator=gen).bfloat16()
+    for offsets, order in ((empty.receiver_offsets, None),
+                           (empty.sender_offsets, empty.sender_order)):
+        got = edges.segment_sum(src, offsets, order)
+        if not torch.equal(got, edges.segment_sum_plain(src, offsets, order)):
+            raise AssertionError("segment sum with empty segments: other values")
+    log("  segment sum: batch 2, float32, the one-element form and empty segments agree")
+    del src, got
+    torch.cuda.empty_cache()
+    graphcast_step_launches(graphs, device)
+    return out
+
+
+def _segment_side(tag: str, src: torch.Tensor, offsets: torch.Tensor, order, index
+                  ) -> dict:
+    """One side of a block for :func:`check_segment_sum`: checks and times."""
+    from gwen_tpu_torch.ops import edges
+
+    rows = offsets.shape[0] - 1
+    seg = (offsets[1:] - offsets[:-1]).float()
+
+    def kernel():
+        return edges.segment_sum(src, offsets, order)
+
+    def plain():
+        return edges.segment_sum_plain(src, offsets, order)
+
+    def library():
+        buf = torch.zeros(rows, src.shape[-1], dtype=torch.float32, device=src.device)
+        return buf.index_add_(0, index, src.float()).to(src.dtype)
+
+    got = kernel()
+    err = compare(tag, got, plain(), 0.0, ulps=1)
+    compare(f"{tag} against the path it replaced", got, library(), 0.0, ulps=1)
+    same_bits(tag, (got,), lambda: (kernel(),))
+    if not torch.equal(edges.segment_sum(src.contiguous(), offsets, order), got):
+        raise AssertionError(f"{tag}: the slice and its copy give other bits")
+    ms, plain_ms = timed_pair(kernel, plain)
+    library_ms = cuda_ms(library)
+    tables = offsets.numel() * 4 + (0 if order is None else order.numel() * 4)
+    bound = roofline([src, tables], [got], float(src.numel()), torch.bfloat16)
+    log(f"  {tag}: rows {rows}, edges {src.shape[-2]}, a row's edges mean "
+        f"{seg.mean().item():.2f} max {int(seg.max().item())}; {ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+        f"{100 * bound['bound_ms'] / ms:.1f} %), plain {plain_ms:.4f} ms, "
+        f"library {library_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bound)
+
+
+def graphcast_step_launches(graphs, device) -> None:
+    """One ``Trainer.train_step`` of the published GraphCast (batch 1, bf16,
+    every block recomputed, AdamW) after one warm-up step: its segment-sum
+    launches, its plain-version calls on the card, its device kernels'
+    names, its time and peak memory."""
+    from gwen_tpu_torch.nn.graphcast import GraphCast
+    from gwen_tpu_torch.ops import edges
+    from gwen_tpu_torch.profiling import device_events
+    from gwen_tpu_torch.train import Trainer, TrainState, graphcast_loss_fn, make_optimizer
+    from gwen_tpu_torch.train.tasks import graphcast_channel_weights
+
+    cin, cout = GC_CHANNELS
+    model = GraphCast(cin, cout, device=device, latent_size=GC_LATENT,
+                      process_steps=GC_STEPS, remat=True)
+    opt = make_optimizer(model.parameters(), 1e-3, weight_decay=0.1, betas=(0.9, 0.95))
+    weights = graphcast_channel_weights(list(range(1, 38)), 6, [1.0, 0.1, 0.1, 0.1, 0.1])
+    trainer = Trainer(graphcast_loss_fn(model, *graphs.grid_shape, weights), device,
+                      context=graphs)
+    state = TrainState(model, opt)
+    gen = torch.Generator(device=device).manual_seed(29)
+    batch = (torch.randn(1, graphs.num_grid, cin, device=device, generator=gen),
+             torch.randn(1, graphs.num_grid, cout, device=device, generator=gen))
+    trainer.train_step(state, batch)
+    plain_calls = []
+    plain = edges.segment_sum_plain
+    edges.segment_sum_plain = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = edges.segment_sum.launches
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(state, batch))
+        step_s = time.perf_counter() - t0
+        launches = edges.segment_sum.launches - before
+        names = {ev.name for ev in device_events(lambda: trainer.train_step(state, batch))}
+    finally:
+        edges.segment_sum_plain = plain
+    sums = sorted(nm for nm in names if "segment_sum" in nm)
+    log(f"  GraphCast train step (batch 1, every block recomputed): loss {loss:.5f}, "
+        f"{step_s * 1e3:.1f} ms, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"segment-sum launches {launches} (want {GC_LAUNCHES}), plain versions on the "
+        f"card {len(plain_calls)}, kernels {[nm[:60] for nm in sums]}")
+    if (launches != GC_LAUNCHES or plain_calls or not sums or not math.isfinite(loss)
+            or any("indexFuncLargeIndex" in nm for nm in names)):
+        raise AssertionError("GraphCast train step: not every sum on the segment-sum "
+                             "kernel, or an index_add_ left")
+
+
+SEGMENT_CHECK = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+print(json.dumps(cs.check_segment_sum(torch.device("cuda", 0))))
+"""
+
+
+def segment_phase() -> dict:
+    """:func:`check_segment_sum` in a fresh child process (its profiler
+    window is read there; see :func:`one_kernel_per_call`), its lines
+    relayed; returns its kernel-table entry."""
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, "-c", SEGMENT_CHECK,
+                          str(Path(__file__).resolve().parent)],
+                         timeout=900, capture_output=True, text=True)
+    lines = res.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"the segment-sum check failed:\n{res.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
 def nccl_one_rank_probe() -> None:
     """Whether this host's NCCL carries the collectives the partitioned
     path uses (``all_reduce`` for the gradients, ``all_gather`` for the
@@ -3949,7 +4140,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda, unfused_cuda
+    from gwen_tpu_torch.ops import attention_cuda, edges, fused_ln, spmm_cuda, unfused_cuda
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3965,9 +4156,9 @@ def main() -> int:
     # One nvcc per CUDA source, started together, while Triton compiles the
     # LayerNorm kernels on their first launches.
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         nvcc_jobs = [pool.submit(mod.build)
-                     for mod in (spmm_cuda, attention_cuda, unfused_cuda)]
+                     for mod in (spmm_cuda, attention_cuda, unfused_cuda, edges)]
         z = torch.zeros(4, 256, device=device)
         fused_ln.residual_layernorm(z, z, z[0], z[0])
         fused_ln.residual_layernorm_bwd(z, z, z[0])
@@ -4113,6 +4304,10 @@ def main() -> int:
     log("  nn.core.linear: the bias and ReLU in the product's epilogue at the "
         "cells' shapes (a child process):")
     linear_phase()
+    log("  the segment sum of GraphCast's edge operators at the 0.25 deg shapes and "
+        "one GraphCast train step (a child process):")
+    results["SS"] = segment_phase()
+    launches["SS"] = GC_LAUNCHES
     # Last: after this child process the profiler traces of this one lose
     # device events, and the checks above read them.
     nccl_one_rank_probe()
@@ -4211,7 +4406,12 @@ def main() -> int:
                "B10r": ("int8 rank-1 banded SpMM on the RCM band (batch 4): the "
                         "dense row gather over the int8 S01 with both scales "
                         "inside (dense_rows_kernel; one count with B3r)", "cuda",
-                        cu, f"{spmm}:609")}
+                        cu, f"{spmm}:609"),
+               "SS": ("segment sum of GraphCast's edge operators (mesh2grid's sender "
+                      "side, bf16, L 512; launches a train step): a thread group a "
+                      "row walks its span of the sorted edges, no atomics "
+                      "(segment_sum_kernel)", "cuda", "gwen_tpu_torch/csrc/edge_sum.cu",
+                      "none: the JAX package has no GraphCast")}
     counted_as = {"B5b": "B5", "B6b": "B6", "B7b": "B7", "B9b": "B9", "B13u": "B13",
                   "B10r": "B3r"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -20,7 +20,9 @@ and its 3 components in the receiver's local frame (the rotation that
 takes the receiver to latitude 0, longitude 0), all divided by the longest
 edge of the set. Mesh node features: cos latitude, sin longitude, cos
 longitude. Every edge list is in its natural order: sorted by receiver,
-then sender.
+then sender; each graph carries the segment tables that the edge sums walk
+(each receiver's span of the edges, the edges in sender order and each
+sender's span of that).
 """
 
 from __future__ import annotations
@@ -48,22 +50,54 @@ TIE = 1e-9
 class BipartiteGraph:
     """COO edges from one node set to another (the same set for the
     multimesh): ``senders`` index the sender set, ``receivers`` the
-    receiver set, both int32; ``edge_features`` is ``(E, 4)`` float32."""
+    receiver set, both int32 and sorted by receiver; ``edge_features`` is
+    ``(E, 4)`` float32. The segment tables of the edge sums, int32:
+    ``receiver_offsets`` ``(num_receivers + 1,)``, where receiver ``r``'s
+    edges are ``receiver_offsets[r]:receiver_offsets[r + 1]``;
+    ``sender_order`` ``(E,)``, the edges in sender order (a stable sort),
+    and ``sender_offsets`` ``(num_senders + 1,)``, each sender's span of
+    it. :meth:`from_edges` builds them."""
 
     senders: Tensor
     receivers: Tensor
     num_senders: int
     num_receivers: int
     edge_features: Tensor
+    receiver_offsets: Tensor
+    sender_order: Tensor
+    sender_offsets: Tensor
+
+    @classmethod
+    def from_edges(cls, senders: np.ndarray, receivers: np.ndarray, num_senders: int,
+                   num_receivers: int, edge_features: np.ndarray) -> "BipartiteGraph":
+        """The graph of edges sorted by receiver, with its segment tables."""
+        if np.any(np.diff(receivers) < 0):
+            raise ValueError("the edges must be sorted by receiver")
+
+        def table(a: np.ndarray) -> Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+        return cls(table(senders), table(receivers), num_senders, num_receivers,
+                   torch.from_numpy(edge_features),
+                   table(segment_offsets(receivers, num_receivers)),
+                   table(np.argsort(senders, kind="stable")),
+                   table(segment_offsets(senders, num_senders)))
 
     @property
     def num_edges(self) -> int:
         return int(self.senders.shape[0])
 
     def to(self, device) -> "BipartiteGraph":
-        return replace(self, senders=self.senders.to(device),
-                       receivers=self.receivers.to(device),
-                       edge_features=self.edge_features.to(device))
+        return replace(self, **{k: getattr(self, k).to(device) for k in (
+            "senders", "receivers", "edge_features", "receiver_offsets",
+            "sender_order", "sender_offsets")})
+
+
+def segment_offsets(index: np.ndarray, n: int) -> np.ndarray:
+    """``(n + 1,)``: where each of ``n`` segments starts among the entries
+    of ``index`` in sorted order, and the end (a segment with no entry
+    starts where the next does)."""
+    return np.concatenate([[0], np.cumsum(np.bincount(index, minlength=n))])
 
 
 @dataclass
@@ -272,9 +306,8 @@ def mesh_node_features(verts: np.ndarray) -> np.ndarray:
 
 def _bipartite(s: np.ndarray, r: np.ndarray, s_xyz: np.ndarray,
                r_xyz: np.ndarray) -> BipartiteGraph:
-    return BipartiteGraph(
-        torch.from_numpy(s.astype(np.int32)), torch.from_numpy(r.astype(np.int32)),
-        len(s_xyz), len(r_xyz), torch.from_numpy(edge_features(s_xyz[s], r_xyz[r])))
+    return BipartiteGraph.from_edges(s, r, len(s_xyz), len(r_xyz),
+                                     edge_features(s_xyz[s], r_xyz[r]))
 
 
 def build_graphcast_graphs(n_lat: int = 721, n_lon: int = 1440,

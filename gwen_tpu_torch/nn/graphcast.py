@@ -19,7 +19,8 @@ width the latent width ``L``:
 
 The gathers and the sums over each receiver's edges are
 :func:`~gwen_tpu_torch.ops.edges.gather_join` and
-:func:`~gwen_tpu_torch.ops.edges.edge_sum` (float32 accumulation); each
+:func:`~gwen_tpu_torch.ops.edges.edge_sum` (float32 accumulation, one
+segment-sum kernel a sum on the card); each
 product is :func:`core.linear`; a LayerNorm with its residual is the
 fused kernel (:func:`fused_residual_layernorm`), one without is
 ``F.layer_norm`` on the compute dtype. Parameters are float32, cast to
@@ -177,10 +178,10 @@ class GraphCast(nn.Module):
         """The edge update and each receiver's sum over its edges:
         ``(e′, Σ e′)``."""
         _count(block, "gather")
-        joined = gather_join(e, xs, g.senders, xr, g.receivers)
+        joined = gather_join(e, xs, xr, g)
         e = mlp_apply(params, joined, e if residual else None)
         _count(block, "edge_sum")
-        return e, edge_sum(e, g.receivers, g.num_receivers)
+        return e, edge_sum(e, g)
 
     def _grid2mesh(self, graphs: GraphCastGraphs, vg: Tensor, vm: Tensor):
         with annotate("gwen.graphcast.grid2mesh"):

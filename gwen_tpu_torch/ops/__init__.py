@@ -1,4 +1,4 @@
-from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda, unfused_cuda
+from gwen_tpu_torch.ops import attention_cuda, edges, fused_ln, spmm_cuda, unfused_cuda
 from gwen_tpu_torch.ops.aggregate import (
     aggregate,
     aggregate_block_ell_reference,
@@ -58,13 +58,13 @@ __all__ = [
 def kernel_loads() -> dict[str, dict]:
     """``{name: {"count", "seconds"}}`` of the kernels' loads in this
     process, on the host's clock: ``nvcc`` (compiles of a CUDA source),
-    ``window_spmm``, ``window_attention`` and ``window_unfused`` (their
-    libraries' loads), ``ln_fwd`` and ``ln_bwd`` (each Triton kernel's
-    first call per specialisation). Counted always, outside the per-call
-    path of the built kernels."""
+    ``window_spmm``, ``window_attention``, ``window_unfused`` and
+    ``edge_sum`` (their libraries' loads), ``ln_fwd`` and ``ln_bwd`` (each
+    Triton kernel's first call per specialisation). Counted always,
+    outside the per-call path of the built kernels."""
     held = {"nvcc": spmm_cuda.nvcc_build, "window_spmm": spmm_cuda._lib,
             "window_attention": attention_cuda._lib,
-            "window_unfused": unfused_cuda._lib,
+            "window_unfused": unfused_cuda._lib, "edge_sum": edges._lib,
             "ln_fwd": fused_ln.residual_layernorm_fwd,
             "ln_bwd": fused_ln.residual_layernorm_bwd}
     return {name: {"count": fn.loads, "seconds": fn.load_seconds}

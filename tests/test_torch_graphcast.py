@@ -3,15 +3,18 @@ benchmark's plain reference (``portbench/reference/graphcast.py``) on the
 CPU at a small size: a 10° grid (19 × 36), the multimesh M0–M2, latent 32,
 2 processor layers, 6 inputs and 4 outputs, seeded weights. Also the
 graph builders against the reference's own, the published graph sizes,
-the spans and the call counter, the configuration and the trainer."""
+the segment tables and the edge sums (against numpy, float64 and the
+``index_add_`` operators they replaced), the spans and the call counter,
+the configuration and the trainer."""
 
 import numpy as np
 import pytest
 import torch
 
 from gwen_tpu_torch.config import GwenConfig
-from gwen_tpu_torch.graph.graphcast import build_graphcast_graphs, multimesh
+from gwen_tpu_torch.graph.graphcast import BipartiteGraph, build_graphcast_graphs, multimesh
 from gwen_tpu_torch.nn import graphcast as gc
+from gwen_tpu_torch.ops import edges
 from gwen_tpu_torch.nn.gnn import parse_block_remat
 from gwen_tpu_torch.train import Trainer, TrainState, graphcast_loss_fn, make_optimizer
 from gwen_tpu_torch.train.tasks import graphcast_channel_weights
@@ -95,6 +98,137 @@ def test_published_grid_graphs(published):
     # vertex at each pole, GraphCast's is rotated.
     assert abs(g.grid2mesh.num_edges / 1_618_746 - 1) < 0.01
     assert g.mesh2grid.num_edges == 3_114_720 and g.mesh.num_edges == 327_660
+
+
+BLOCKS = ("grid2mesh", "mesh", "mesh2grid")
+
+
+@pytest.mark.parametrize("block", BLOCKS)
+def test_segment_tables_match_numpy(small, block):
+    g = getattr(small[0], block)
+    s, r = g.senders.numpy(), g.receivers.numpy()
+    for table in (g.receiver_offsets, g.sender_order, g.sender_offsets):
+        assert table.dtype == torch.int32 and table.is_contiguous()
+    np.testing.assert_array_equal(g.receiver_offsets.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(r, minlength=g.num_receivers))]))
+    np.testing.assert_array_equal(g.sender_order.numpy(), np.argsort(s, kind="stable"))
+    np.testing.assert_array_equal(g.sender_offsets.numpy(), np.concatenate(
+        [[0], np.cumsum(np.bincount(s, minlength=g.num_senders))]))
+
+
+def test_empty_segments_and_unsorted_edges():
+    """A node with no edge spans nothing (an offset step of 0) and sums to
+    zero; edges out of receiver order are refused."""
+    feats = np.zeros((4, 4), np.float32)
+    g = BipartiteGraph.from_edges(np.array([0, 2, 2, 1]), np.array([1, 1, 3, 3]), 4, 5,
+                                  feats).to("cpu")
+    assert g.receiver_offsets.tolist() == [0, 0, 2, 2, 4, 4]
+    assert g.sender_offsets.tolist() == [0, 1, 2, 4, 4]
+    assert g.sender_order.tolist() == [0, 3, 1, 2]
+    x = torch.arange(8.0).reshape(4, 2)
+    assert edges.segment_sum(x, g.receiver_offsets).tolist() == [
+        [0, 0], [2, 4], [0, 0], [10, 12], [0, 0]]
+    assert edges.segment_sum(x, g.sender_offsets, g.sender_order).tolist() == [
+        [0, 1], [6, 7], [6, 8], [0, 0]]
+    with pytest.raises(ValueError):
+        BipartiteGraph.from_edges(np.array([0, 1]), np.array([1, 0]), 2, 2, feats[:2])
+
+
+def _operand(shape: tuple, layout: str, dtype=torch.float32, seed: int = 5) -> torch.Tensor:
+    """Normal values of ``shape``; ``"strided"``: the middle third of a
+    tensor three times as wide, as the join's cotangent is read."""
+    gen = torch.Generator().manual_seed(seed)
+    if layout == "contiguous":
+        return torch.randn(*shape, generator=gen).to(dtype)
+    f = shape[-1]
+    return torch.randn(*shape[:-1], 3 * f, generator=gen).to(dtype)[..., f:2 * f]
+
+
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("block", BLOCKS)
+def test_plain_segment_sum_matches_float64(small, block, layout):
+    """Each side of a block through its segment tables against a float64
+    ``index_add_`` on the edges' own indices: float32 sums, so to 1e-5."""
+    g = getattr(small[0], block)
+    src = _operand((2, g.num_edges, 24), layout)
+    for offsets, order, index, rows in (
+            (g.receiver_offsets, None, g.receivers, g.num_receivers),
+            (g.sender_offsets, g.sender_order, g.senders, g.num_senders)):
+        got = edges.segment_sum_plain(src, offsets, order)
+        want = torch.zeros(2, rows, 24, dtype=torch.float64).index_add_(
+            1, index.long(), src.double())
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-5)
+
+
+def _sum_into_before(src, index, num_rows):
+    """The edge sums before the segment tables: ``index_add_`` on the
+    edges' indices into float32, in chunks of 2**18 edges."""
+    out = src.new_zeros(*src.shape[:-2], num_rows, src.shape[-1], dtype=torch.float32)
+    for lo in range(0, index.shape[0], 1 << 18):
+        out.index_add_(-2, index[lo:lo + (1 << 18)], src[..., lo:lo + (1 << 18), :].float())
+    return out.to(src.dtype)
+
+
+@pytest.mark.parametrize("layout", ["strided", "contiguous"])
+@pytest.mark.parametrize("block", BLOCKS)
+def test_edge_operators_match_the_index_add_path(small, block, layout):
+    """``edge_sum`` and ``gather_join`` forward and every gradient in bf16
+    against the index_add_ path they replaced (its two operators as they
+    were): the sums add in the same order, so bit for bit."""
+    g = getattr(small[0], block)
+    e = _operand((2, g.num_edges, 16), layout, torch.bfloat16, 1).requires_grad_()
+    xs = _operand((2, g.num_senders, 16), layout, torch.bfloat16, 2).requires_grad_()
+    xr = _operand((2, g.num_receivers, 16), layout, torch.bfloat16, 3).requires_grad_()
+    cot = _operand((2, g.num_edges, 48), "contiguous", torch.bfloat16, 4)
+    cot_sum = _operand((2, g.num_receivers, 16), "contiguous", torch.bfloat16, 6)
+
+    def before(e, xs, xr):
+        return (_GatherBefore.apply(e, xs, g.senders, xr, g.receivers),
+                _SumBefore.apply(e, g.receivers, g.num_receivers))
+
+    runs = []
+    for fn in (lambda e, xs, xr: (edges.gather_join(e, xs, xr, g), edges.edge_sum(e, g)),
+               before):
+        leaves = [t.detach().requires_grad_() for t in (e, xs, xr)]
+        joined, summed = fn(*leaves)
+        torch.autograd.backward([joined, summed], [cot, cot_sum])
+        runs.append([joined, summed] + [t.grad for t in leaves])
+    for got, want in zip(*runs):
+        assert torch.equal(got, want)
+
+
+class _GatherBefore(torch.autograd.Function):
+    """The gather and join before, with its float32 sums as the gradient."""
+
+    @staticmethod
+    def forward(ctx, e, xs, senders, xr, receivers):
+        ctx.save_for_backward(senders, receivers)
+        ctx.shapes = e.shape[-1], xs.shape[-2], xs.shape[-1], xr.shape[-2]
+        return torch.cat([e, xs.index_select(-2, senders),
+                          xr.index_select(-2, receivers)], dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        senders, receivers = ctx.saved_tensors
+        fe, ns, fs, nr = ctx.shapes
+        return (grad[..., :fe], _sum_into_before(grad[..., fe:fe + fs], senders, ns), None,
+                _sum_into_before(grad[..., fe + fs:], receivers, nr), None)
+
+
+class _SumBefore(torch.autograd.Function):
+    """The edge sum before, with its gradient: the receiver's cotangent
+    row for each edge."""
+
+    @staticmethod
+    def forward(ctx, e, receivers, num_rows):
+        ctx.save_for_backward(receivers)
+        return _sum_into_before(e, receivers, num_rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (receivers,) = ctx.saved_tensors
+        return grad.index_select(-2, receivers), None, None
 
 
 # ----------------------------------------------------- model and reference

@@ -23,7 +23,7 @@ from gwen_tpu_torch.graph import (
     to_diag_window,
 )
 from gwen_tpu_torch.nn import EncodeProcessDecode
-from gwen_tpu_torch.ops import attention_cuda, fused_ln, spmm_cuda, unfused_cuda
+from gwen_tpu_torch.ops import attention_cuda, edges, fused_ln, spmm_cuda, unfused_cuda
 from gwen_tpu_torch.train import Trainer, TrainState, make_optimizer, mesh_graph_loss_fn
 
 STEPS, MLP, SMOOTHING, LEAD = 2, 2, 2, 3
@@ -172,7 +172,7 @@ class _FakeLib:
 
 OWNERS = {"nvcc": spmm_cuda.nvcc_build, "window_spmm": spmm_cuda._lib,
           "window_attention": attention_cuda._lib, "window_unfused": unfused_cuda._lib,
-          "ln_fwd": fused_ln.residual_layernorm_fwd,
+          "edge_sum": edges._lib, "ln_fwd": fused_ln.residual_layernorm_fwd,
           "ln_bwd": fused_ln.residual_layernorm_bwd}
 
 
@@ -195,9 +195,9 @@ def _load_twice(name, monkeypatch, tmp_path):
         for _ in range(2):
             spmm_cuda.nvcc_build(src)
         return
-    if name.startswith("window_"):
+    if name.startswith("window_") or name == "edge_sum":
         module = {"window_spmm": spmm_cuda, "window_attention": attention_cuda,
-                  "window_unfused": unfused_cuda}[name]
+                  "window_unfused": unfused_cuda, "edge_sum": edges}[name]
         monkeypatch.setattr(module, "_LIB", None)
         monkeypatch.setattr(module, "build", lambda: (Path("libfake.so"), ""))
         monkeypatch.setattr(module.ctypes, "CDLL", _FakeLib)
