@@ -385,10 +385,10 @@ def sparse_mm_ms(csr: tuple, x: torch.Tensor, iters: int = 20,
     region), in x's type where cuSPARSE takes it, else in float32, taken
     with ``timer`` (:func:`cuda_ms` or :func:`device_ms`). The library
     yardstick of the SpMM kernels; the port never calls it."""
-    from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+    from gwen_tpu_torch.ops.cuda_lib import fit_rows
 
     crow, cols, vals, size = csr
-    x2 = _fit_rows(x, size[1])
+    x2 = fit_rows(x, size[1])
     if x2.dim() == 3:
         x2 = x2.transpose(0, 1).reshape(size[1], -1)
     for dtype in (x.dtype, torch.float32):
@@ -431,15 +431,15 @@ def sampled_addmm_ms(graph, a: torch.Tensor, b: torch.Tensor,
     ``(N_pad, W)`` tile), held to ``kernel_out`` first. In a's type where
     the library takes it, else in float32; pattern and padded operands are
     built outside the timed region. The port never calls it."""
-    from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+    from gwen_tpu_torch.ops.cuda_lib import fit_rows
 
     crow, cols, size = full_window_pattern(graph)
     for dtype in (a.dtype, torch.float32):
         pat = torch.sparse_csr_tensor(
             crow, cols, torch.zeros(cols.numel(), dtype=dtype, device=a.device),
             size=size)
-        ap = _fit_rows(a.to(dtype), size[0])
-        bt = _fit_rows(b.to(dtype), size[1]).t()
+        ap = fit_rows(a.to(dtype), size[0])
+        bt = fit_rows(b.to(dtype), size[1]).t()
         try:
             out = torch.sparse.sampled_addmm(pat, ap, bt, beta=0.0)
         except (RuntimeError, NotImplementedError) as err:
@@ -468,14 +468,14 @@ def sparse_mm_t_ms(graph, s: torch.Tensor, g: torch.Tensor,
     copy) is inside the timed region; the pattern and the padded ``g`` are
     not. In s's type where the library takes it, else in float32. The port
     never calls it."""
-    from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+    from gwen_tpu_torch.ops.cuda_lib import fit_rows
 
     nb = 1 if s.dim() == 2 else s.shape[0]
     crow, cols, size = full_window_pattern(graph, nb)
 
     def call_in(dtype):
         sv = s.to(dtype)
-        gp = _fit_rows(g.to(dtype), graph.num_padded_nodes).reshape(size[0], -1)
+        gp = fit_rows(g.to(dtype), graph.num_padded_nodes).reshape(size[0], -1)
 
         def call():
             op = torch.sparse_csr_tensor(crow, cols, sv.reshape(-1), size=size)
@@ -2788,7 +2788,7 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
     version; timed beside the plain version, the bound (x, the output and
     the tables as the port stores them) and ``torch.sparse.mm`` on the same
     operator as a bf16 CSR, held to the kernel first."""
-    from gwen_tpu_torch.ops import aggregate_segment, spmm_cuda
+    from gwen_tpu_torch.ops import aggregate_segment, cuda_lib, spmm_cuda
 
     gen = torch.Generator(device=device).manual_seed(11)
 
@@ -2823,7 +2823,7 @@ def check_tile_kernels(layouts: dict, device, batch: int = TRAIN_BATCH) -> dict:
             if nb > batch:  # correctness only
                 del want, x, got
                 continue
-            x2 = spmm_cuda._fit_rows(x, t.num_src_rows)
+            x2 = cuda_lib.fit_rows(x, t.num_src_rows)
             x2 = x2.transpose(0, 1).reshape(t.num_src_rows, -1) if nb > 1 else x2
             # The same function: held in float32, where the library rounds once.
             lib_out = torch.sparse.mm(torch.sparse_csr_tensor(
@@ -4140,7 +4140,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
-    from gwen_tpu_torch.ops import attention_cuda, edges, fused_ln, spmm_cuda, unfused_cuda
+    from gwen_tpu_torch.ops import cuda_lib, fused_ln
 
     device = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4157,8 +4157,7 @@ def main() -> int:
     # LayerNorm kernels on their first launches.
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
-        nvcc_jobs = [pool.submit(mod.build)
-                     for mod in (spmm_cuda, attention_cuda, unfused_cuda, edges)]
+        nvcc_jobs = [pool.submit(lib.build) for lib in cuda_lib.LIBRARIES]
         z = torch.zeros(4, 256, device=device)
         fused_ln.residual_layernorm(z, z, z[0], z[0])
         fused_ln.residual_layernorm_bwd(z, z, z[0])

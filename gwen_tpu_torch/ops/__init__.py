@@ -1,4 +1,6 @@
-from gwen_tpu_torch.ops import attention_cuda, edges, fused_ln, spmm_cuda, unfused_cuda
+# The kernel modules declare their CUDA libraries in cuda_lib.LIBRARIES.
+from gwen_tpu_torch.ops import attention_cuda, edges, spmm_cuda, unfused_cuda  # noqa: F401
+from gwen_tpu_torch.ops import cuda_lib, fused_ln
 from gwen_tpu_torch.ops.aggregate import (
     aggregate,
     aggregate_block_ell_reference,
@@ -57,14 +59,14 @@ __all__ = [
 
 def kernel_loads() -> dict[str, dict]:
     """``{name: {"count", "seconds"}}`` of the kernels' loads in this
-    process, on the host's clock: ``nvcc`` (compiles of a CUDA source),
-    ``window_spmm``, ``window_attention``, ``window_unfused`` and
-    ``edge_sum`` (their libraries' loads), ``ln_fwd`` and ``ln_bwd`` (each
-    Triton kernel's first call per specialisation). Counted always,
-    outside the per-call path of the built kernels."""
-    held = {"nvcc": spmm_cuda.nvcc_build, "window_spmm": spmm_cuda._lib,
-            "window_attention": attention_cuda._lib,
-            "window_unfused": unfused_cuda._lib, "edge_sum": edges._lib,
+    process, on the host's clock: ``nvcc`` (compiles of a CUDA source), one
+    entry per CUDA library named by its source (``window_spmm``,
+    ``window_attention``, ``window_unfused``, ``edge_sum``: its loads),
+    ``ln_fwd`` and ``ln_bwd`` (each Triton kernel's first call per
+    specialisation). Counted always, outside the per-call path of the built
+    kernels."""
+    held = {"nvcc": cuda_lib.nvcc_build,
+            **{lib.source.stem: lib for lib in cuda_lib.LIBRARIES},
             "ln_fwd": fused_ln.residual_layernorm_fwd,
             "ln_bwd": fused_ln.residual_layernorm_bwd}
     return {name: {"count": fn.loads, "seconds": fn.load_seconds}

@@ -53,6 +53,7 @@ from gwen_tpu_torch.graph.graph import (
     window_mask,
 )
 from gwen_tpu_torch.ops import spmm_cuda
+from gwen_tpu_torch.ops.cuda_lib import fit_rows
 from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
@@ -180,7 +181,7 @@ def aggregate_sliding_rank1_reference(graph: SlidingRank1Graph,
 def _pad_src(graph, x: Tensor) -> Tensor:
     """x zero-padded to the layout's source rows (after the row check)."""
     spmm_cuda._check_rows(graph, x)
-    return spmm_cuda._fit_rows(x, graph.num_src_rows)
+    return fit_rows(x, graph.num_src_rows)
 
 
 def aggregate(graph, x: Tensor, backend: str = "auto") -> Tensor:

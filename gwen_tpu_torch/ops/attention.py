@@ -47,7 +47,7 @@ import torch
 
 from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
 from gwen_tpu_torch.ops import attention_cuda, unfused_cuda
-from gwen_tpu_torch.ops.spmm_cuda import _fit_rows
+from gwen_tpu_torch.ops.cuda_lib import fit_rows
 from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
@@ -91,8 +91,8 @@ class _SDDMM(torch.autograd.Function):
         gs = g.to(b.dtype).contiguous()
         da = unfused_cuda.matvec(ctx.graph, gs, b)
         db = unfused_cuda.spmm_t(ctx.graph, gs, a)
-        return (_fit_rows(da, a.shape[-2]).to(a.dtype),
-                _fit_rows(db, b.shape[-2]).to(b.dtype), None)
+        return (fit_rows(da, a.shape[-2]).to(a.dtype),
+                fit_rows(db, b.shape[-2]).to(b.dtype), None)
 
 
 class _MatVec(torch.autograd.Function):
@@ -112,7 +112,7 @@ class _MatVec(torch.autograd.Function):
         g = g.to(x.dtype).contiguous()
         ds = unfused_cuda.sddmm(ctx.graph, g, x)
         dx = unfused_cuda.spmm_t(ctx.graph, s, g)
-        return ds.to(s.dtype), _fit_rows(dx, x.shape[-2]).to(x.dtype), None
+        return ds.to(s.dtype), fit_rows(dx, x.shape[-2]).to(x.dtype), None
 
 
 def diag_sddmm(graph: DiagWindowGraph, a: Tensor, b: Tensor) -> Tensor:
@@ -159,7 +159,7 @@ def _unfused_item(graph: DiagWindowGraph, mask: Tensor, q: Tensor, k: Tensor,
     logits = torch.where(mask, scores, -1e30)
     p, _, _ = attention_cuda._softmax(logits, mask)
     out = diag_matvec(graph, p.to(v.dtype), v)
-    return _fit_rows(out, q.shape[-2])
+    return fit_rows(out, q.shape[-2])
 
 
 class _WindowedAttention(torch.autograd.Function):

@@ -34,56 +34,23 @@ launches the kernel or raises. There is no fallback.
 
 from __future__ import annotations
 
-import ctypes
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
-from gwen_tpu_torch.ops.spmm_cuda import _fit_rows, nvcc_build
+from gwen_tpu_torch.ops import cuda_lib
+from gwen_tpu_torch.ops.cuda_lib import DTYPE_CODE, FLOAT, INT, PTR, CudaLib, fit_rows
 
 Tensor = torch.Tensor
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "window_attention.cu"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Head widths the kernels take (32 lanes × 1, 2, 4, 8 or 16 values); the
 # wrappers zero-pad dh up to the next one (zero lanes change no dot product).
 LANE_WIDTHS = (32, 64, 128, 256, 512)
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/window_attention.cu`` (see ``spmm_cuda.nvcc_build``)."""
-    return nvcc_build(_SRC)
-
-
-def _lib() -> ctypes.CDLL:
-    """The library, built and loaded at first use; the load (not the build)
-    is counted in ``_lib.loads`` and ``_lib.load_seconds``."""
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(path))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [ci, ci, ci, ci, ci, cf, ci, vp]  # nb, n_q, n_kv, deg, vpt,
-        # scale, dtype, stream
-        lib.gwen_attn_fwd.argtypes = [vp] * 5 + tail
-        lib.gwen_attn_dq.argtypes = [vp] * 7 + tail
-        lib.gwen_attn_dkdv.argtypes = [vp] * 8 + tail
-        for fn in (lib.gwen_attn_fwd, lib.gwen_attn_dq, lib.gwen_attn_dkdv):
-            fn.restype = ci
-        _LIB = lib
-        _lib.loads += 1
-        _lib.load_seconds += time.perf_counter() - t0
-    return _LIB
-
-
-_lib.loads = 0
-_lib.load_seconds = 0.0
+_TAIL = [INT] * 5 + [FLOAT, INT, PTR]  # nb, n_q, n_kv, deg, vpt, scale, dtype, stream
+LIB = CudaLib("window_attention.cu", gwen_attn_fwd=[PTR] * 5 + _TAIL,
+              gwen_attn_dq=[PTR] * 7 + _TAIL, gwen_attn_dkdv=[PTR] * 8 + _TAIL)
 
 
 # ------------------------------------------------------------ plain versions
@@ -105,11 +72,11 @@ def _tiles(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
            + torch.arange(w, device=q.device)[None, :]).reshape(-1)
 
     def rows(x):
-        return _fit_rows(x, graph.num_padded_nodes).float().reshape(
+        return fit_rows(x, graph.num_padded_nodes).float().reshape(
             nb, blocks, block, f)
 
     def window(x):
-        return _fit_rows(x, graph.num_src_rows).index_select(1, idx).float(
+        return fit_rows(x, graph.num_src_rows).index_select(1, idx).float(
         ).reshape(nb, blocks, w, f)
 
     qt, kw, vw = rows(q), window(k), window(v)
@@ -173,7 +140,7 @@ def attention_dkdv_plain(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     q3 = _as3(q)
     qt, gt, kw, vw, mask, idx, logits = _tiles(graph, q3, _as3(k), _as3(v),
                                                _as3(g), scale)
-    st = _fit_rows(_as3(stats), graph.num_padded_nodes).reshape(
+    st = fit_rows(_as3(stats), graph.num_padded_nodes).reshape(
         *qt.shape[:-1], 3)
     mx, den, delta = st[..., 0:1], st[..., 1:2], st[..., 2:3]
     p = torch.exp(logits - mx) * mask / torch.where(den == 0, 1.0, den)
@@ -187,19 +154,11 @@ def attention_dkdv_plain(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     dk = scatter(torch.matmul(dl.to(q.dtype).float().transpose(-1, -2), qt))
     dv = scatter(torch.matmul(p.to(g.dtype).float().transpose(-1, -2), gt))
     n_kv = k.shape[-2]
-    dk, dv = _fit_rows(dk, n_kv).to(k.dtype), _fit_rows(dv, n_kv).to(v.dtype)
+    dk, dv = fit_rows(dk, n_kv).to(k.dtype), fit_rows(dv, n_kv).to(v.dtype)
     return (dk, dv) if q.dim() == 3 else (dk[0], dv[0])
 
 
 # ------------------------------------------------------------ kernel wrappers
-
-
-def _on_cuda(x: Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"no windowed-attention kernel for device {x.device}")
-    return True
 
 
 def _lanes(f: int) -> int:
@@ -219,7 +178,7 @@ def check_operands(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
     if q.dim() not in (2, 3):
         raise ValueError(f"q must be (N, dh) or (nb, N, dh); got shape "
                          f"{tuple(q.shape)} (fold other leading axes)")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in DTYPE_CODE:
         raise TypeError(f"the attention kernels take float32 or bfloat16, "
                         f"not {q.dtype}")
     if graph.attn_nbr is None:
@@ -260,14 +219,8 @@ def _args(q: Tensor, k: Tensor, table: Tensor, scale: float) -> list:
     """The launch's shared trailing arguments."""
     q3, k3 = _as3(q), _as3(k)
     return [q3.shape[0], q3.shape[1], k3.shape[1], table.shape[1],
-            _lanes(q.shape[-1]) // 32, float(scale), _DTYPE_CODE[q.dtype],
+            _lanes(q.shape[-1]) // 32, float(scale), DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream]
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
 
 
 def _cut(t: Tensor, f: int, like: Tensor) -> Tensor:
@@ -281,15 +234,16 @@ def attention_fwd(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                   scale: float) -> Tensor:
     """Kernels B5 (``q`` 2-D) and B5b (3-D): the attention output, shaped
     like q, in q's type."""
-    if not _on_cuda(q):
+    if not cuda_lib.on_cuda(q, "windowed-attention"):
         return attention_fwd_plain(graph, q, k, v, scale)
     check_operands(graph, q, k, v)
     qp, kp, vp = _lane_pad(q), _lane_pad(k), _lane_pad(v)
     out = torch.empty_like(qp)
-    rc = _lib().gwen_attn_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                              graph.attn_nbr.data_ptr(), out.data_ptr(),
-                              *_args(q, k, graph.attn_nbr, scale))
-    _raise_on(rc, "B5")
+    rc = LIB().gwen_attn_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                             graph.attn_nbr.data_ptr(), out.data_ptr(),
+                             *_args(q, k, graph.attn_nbr, scale))
+    if rc != 0:
+        raise cuda_lib.launch_failed("B5", rc)
     attention_fwd.launches += 1
     return _cut(out, q.shape[-1], q)
 
@@ -298,18 +252,19 @@ def attention_dq(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                  g: Tensor, scale: float) -> tuple[Tensor, Tensor]:
     """Kernels B6/B6b: ``(dq, stats)`` for the output cotangent ``g``
     (shaped like q, in v's type); stats ``(..., N, 3)`` float32."""
-    if not _on_cuda(q):
+    if not cuda_lib.on_cuda(q, "windowed-attention"):
         return attention_dq_plain(graph, q, k, v, g, scale)
     check_operands(graph, q, k, v, g)
     qp, kp, vp, gp = _lane_pad(q), _lane_pad(k), _lane_pad(v), _lane_pad(g)
     dq = torch.empty_like(qp)
     stats = torch.empty(*qp.shape[:-1], 3, dtype=torch.float32,
                         device=q.device)
-    rc = _lib().gwen_attn_dq(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                             gp.data_ptr(), graph.attn_nbr.data_ptr(),
-                             dq.data_ptr(), stats.data_ptr(),
-                             *_args(q, k, graph.attn_nbr, scale))
-    _raise_on(rc, "B6")
+    rc = LIB().gwen_attn_dq(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                            gp.data_ptr(), graph.attn_nbr.data_ptr(),
+                            dq.data_ptr(), stats.data_ptr(),
+                            *_args(q, k, graph.attn_nbr, scale))
+    if rc != 0:
+        raise cuda_lib.launch_failed("B6", rc)
     attention_dq.launches += 1
     return _cut(dq, q.shape[-1], q), stats if q.dim() == 3 else stats[0]
 
@@ -319,7 +274,7 @@ def attention_dkdv(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                    ) -> tuple[Tensor, Tensor]:
     """Kernels B7/B7b: ``(dk, dv)``, shaped like k, from the stats of
     :func:`attention_dq`."""
-    if not _on_cuda(q):
+    if not cuda_lib.on_cuda(q, "windowed-attention"):
         return attention_dkdv_plain(graph, q, k, v, g, stats, scale)
     check_operands(graph, q, k, v, g)
     if (stats.dtype != torch.float32 or stats.shape != (*q.shape[:-1], 3)
@@ -328,12 +283,13 @@ def attention_dkdv(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                          f"{(*q.shape[:-1], 3)} on {q.device}")
     qp, kp, vp, gp = _lane_pad(q), _lane_pad(k), _lane_pad(v), _lane_pad(g)
     dk, dv = torch.empty_like(kp), torch.empty_like(vp)
-    rc = _lib().gwen_attn_dkdv(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                               gp.data_ptr(), stats.data_ptr(),
-                               graph.attn_nbr_t.data_ptr(), dk.data_ptr(),
-                               dv.data_ptr(),
-                               *_args(q, k, graph.attn_nbr_t, scale))
-    _raise_on(rc, "B7")
+    rc = LIB().gwen_attn_dkdv(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                              gp.data_ptr(), stats.data_ptr(),
+                              graph.attn_nbr_t.data_ptr(), dk.data_ptr(),
+                              dv.data_ptr(),
+                              *_args(q, k, graph.attn_nbr_t, scale))
+    if rc != 0:
+        raise cuda_lib.launch_failed("B7", rc)
     attention_dkdv.launches += 1
     return _cut(dk, k.shape[-1], q), _cut(dv, v.shape[-1], q)
 

@@ -22,51 +22,22 @@ Leading axes before the node or edge axis (``-2``) are batch axes.
 
 from __future__ import annotations
 
-import ctypes
 import math
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
 
 from gwen_tpu_torch.graph.graphcast import BipartiteGraph
-from gwen_tpu_torch.ops.spmm_cuda import nvcc_build
+from gwen_tpu_torch.ops import cuda_lib
+from gwen_tpu_torch.ops.cuda_lib import DTYPE_CODE, INT, LONG, PTR, CudaLib
 from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "edge_sum.cu"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/edge_sum.cu`` (see ``spmm_cuda.nvcc_build``)."""
-    return nvcc_build(_SRC)
-
-
-def _lib() -> ctypes.CDLL:
-    """The library, built and loaded at first use; the load (not the build)
-    is counted in ``_lib.loads`` and ``_lib.load_seconds``."""
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(path))
-        vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        # (src, offsets, order, out, row_stride, batch_stride, num_rows,
-        #  num_edges, f, batch, dtype, stream)
-        lib.gwen_segment_sum.argtypes = [vp] * 4 + [cl, cl, ci, cl, ci, ci, ci, vp]
-        lib.gwen_segment_sum.restype = ci
-        _LIB = lib
-        _lib.loads += 1
-        _lib.load_seconds += time.perf_counter() - t0
-    return _LIB
-
-
-_lib.loads = 0
-_lib.load_seconds = 0.0
+# (src, offsets, order, out, row_stride, batch_stride, num_rows, num_edges,
+#  f, batch, dtype, stream)
+LIB = CudaLib("edge_sum.cu",
+              gwen_segment_sum=[PTR] * 4 + [LONG, LONG, INT, LONG, INT, INT, INT, PTR])
 
 
 def segment_sum_plain(src: Tensor, offsets: Tensor,
@@ -88,9 +59,9 @@ def segment_sum(src: Tensor, offsets: Tensor, order: Optional[Tensor] = None) ->
     the int32 tables ``offsets`` ``(rows + 1,)`` and ``order`` ``(E,)``.
     ``src`` may be a slice of a wider tensor: its last axis must be
     contiguous. Launches are counted in ``segment_sum.launches``."""
-    if not src.is_cuda:
+    if not cuda_lib.on_cuda(src, "segment sum"):
         return segment_sum_plain(src, offsets, order)
-    if src.dtype not in _DTYPE_CODE:
+    if src.dtype not in DTYPE_CODE:
         raise TypeError(f"segment_sum takes float32 or bfloat16, not {src.dtype}")
     tables = (offsets,) if order is None else (offsets, order)
     for t in tables:
@@ -107,13 +78,12 @@ def segment_sum(src: Tensor, offsets: Tensor, order: Optional[Tensor] = None) ->
     out = torch.empty(*src.shape[:-2], rows, f, dtype=src.dtype, device=src.device)
     if out.numel() == 0:
         return out
-    rc = _lib().gwen_segment_sum(
+    rc = LIB().gwen_segment_sum(
         flat.data_ptr(), offsets.data_ptr(), None if order is None else order.data_ptr(),
         out.data_ptr(), flat.stride(1), flat.stride(0), rows, edges, f, flat.shape[0],
-        _DTYPE_CODE[src.dtype], torch.cuda.current_stream(src.device).cuda_stream)
+        DTYPE_CODE[src.dtype], torch.cuda.current_stream(src.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError("segment sum launch failed: "
-                           f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
+        raise cuda_lib.launch_failed("segment sum", rc)
     segment_sum.launches += 1
     return out
 

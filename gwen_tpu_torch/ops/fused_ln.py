@@ -34,6 +34,7 @@ from pathlib import Path
 
 import torch
 
+from gwen_tpu_torch.ops import cuda_lib
 from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
@@ -160,14 +161,6 @@ def _first_call(fn, key: tuple, launch) -> None:
     fn.load_seconds += time.perf_counter() - t0
 
 
-def _on_cuda(m: Tensor) -> bool:
-    if m.device.type == "cpu":
-        return False
-    if m.device.type != "cuda":
-        raise ValueError(f"no fused LayerNorm kernel for device {m.device}")
-    return True
-
-
 def _check(m: Tensor, other: Tensor, params: tuple[Tensor, ...]) -> None:
     f = m.shape[-1]
     if other.shape != m.shape or other.dtype != m.dtype:
@@ -191,7 +184,7 @@ def residual_layernorm_fwd(m: Tensor, h: Tensor, scale: Tensor,
                            bias: Tensor, eps: float = 1e-6) -> Tensor:
     """Kernel B2: ``h + layer_norm(m)`` over the last axis (no autograd;
     :func:`residual_layernorm` is the differentiable entry)."""
-    if not _on_cuda(m):
+    if not cuda_lib.on_cuda(m, "fused LayerNorm"):
         return residual_layernorm_plain(m, h, scale, bias, eps)
     _check(m, h, (scale, bias))
     f = m.shape[-1]
@@ -213,7 +206,7 @@ def residual_layernorm_bwd(m: Tensor, g: Tensor, scale: Tensor,
                            ) -> tuple[Tensor, Tensor, Tensor]:
     """Kernel B2b: ``(dm, dscale, dbias)`` of ``h + layer_norm(m)`` for the
     cotangent ``g``; dscale and dbias are float32."""
-    if not _on_cuda(m):
+    if not cuda_lib.on_cuda(m, "fused LayerNorm"):
         return residual_layernorm_bwd_plain(m, g, scale, eps)
     _check(m, g, (scale,))
     f = m.shape[-1]

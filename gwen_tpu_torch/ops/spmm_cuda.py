@@ -96,13 +96,6 @@ the tables get no gradient.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -117,100 +110,31 @@ from gwen_tpu_torch.graph.graph import (
     WindowedDenseGraph,
     unpack_bits,
 )
+from gwen_tpu_torch.ops import cuda_lib
+from gwen_tpu_torch.ops.cuda_lib import DTYPE_CODE, INT, PTR, CudaLib, fit_rows
 from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
 
-BLOCK = 128  # destination rows per graph block of the unfused kernels
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "window_spmm.cu"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIB: Optional[ctypes.CDLL] = None
-
-
-# ------------------------------------------------------------ build and bind
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(nvcc).exists():
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the kernels in csrc/")
-    return nvcc
-
-
-def nvcc_build(src: Path) -> tuple[Path, str]:
-    """Compile the CUDA source ``src`` for sm_90a into a shared library in
-    ``_build/`` (once per source hash). Returns the library path and the
-    compiler's output (ptxas register and shared-memory use; empty when
-    already built). Each compile adds one to ``nvcc_build.loads`` and its
-    seconds to ``nvcc_build.load_seconds``."""
-    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{src.stem}_{tag}.so"
-    if out.exists():
-        return out, ""
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
-    nvcc_build.loads += 1
-    nvcc_build.load_seconds += time.perf_counter() - t0
-    return out, res.stdout + res.stderr
-
-
-nvcc_build.loads = 0
-nvcc_build.load_seconds = 0.0
-
-
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/window_spmm.cu`` (see :func:`nvcc_build`)."""
-    return nvcc_build(_SRC)
-
-
-def _lib() -> ctypes.CDLL:
-    """The library, built and loaded at first use; the load (not the build)
-    is counted in ``_lib.loads`` and ``_lib.load_seconds``."""
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        # (s, x, window_start, esc_ptr, esc_rows, fix, out, n_pad, window,
-        #  block, f, x_rows, batch, n_fix, dtype, stream)
-        lib.gwen_window_spmm_streamed.argtypes = [vp] * 7 + [ci] * 8 + [vp]
-        lib.gwen_window_spmm_streamed.restype = ci
-        # (bits, col_scale, row_scale, x, window_start, esc_ptr, esc_rows,
-        #  fix, out, n_pad, words, block, f, x_rows, batch, n_fix, dtype,
-        #  stream)
-        lib.gwen_sliding_packed_spmm.argtypes = [vp] * 9 + [ci] * 8 + [vp]
-        lib.gwen_sliding_packed_spmm.restype = ci
-        # (s, col_scale, row_scale, x, window_start, out, n_pad, window,
-        #  block, f, x_rows, batch, dtype, stream)
-        lib.gwen_rank1_spmm.argtypes = [vp] * 6 + [ci] * 7 + [vp]
-        lib.gwen_rank1_spmm.restype = ci
-        # (nbr, w, window_start, x, out, n_pad, deg, block, f, x_rows,
-        #  batch, dtype, stream)
-        lib.gwen_ell_spmm.argtypes = [vp] * 5 + [ci] * 7 + [vp]
-        lib.gwen_ell_spmm.restype = ci
-        # (tile_idx, n_active, tnbr, tw, x, out, n_pad, tiles_max,
-        #  tile_degree, block, f, x_rows, batch, dtype, stream)
-        lib.gwen_tile_spmm.argtypes = [vp] * 6 + [ci] * 8 + [vp]
-        lib.gwen_tile_spmm.restype = ci
-        _LIB = lib
-        _lib.loads += 1
-        _lib.load_seconds += time.perf_counter() - t0
-    return _LIB
-
-
-_lib.loads = 0
-_lib.load_seconds = 0.0
+LIB = CudaLib(
+    "window_spmm.cu",
+    # (s, x, window_start, esc_ptr, esc_rows, fix, out, n_pad, window,
+    #  block, f, x_rows, batch, n_fix, dtype, stream)
+    gwen_window_spmm_streamed=[PTR] * 7 + [INT] * 8 + [PTR],
+    # (bits, col_scale, row_scale, x, window_start, esc_ptr, esc_rows,
+    #  fix, out, n_pad, words, block, f, x_rows, batch, n_fix, dtype,
+    #  stream)
+    gwen_sliding_packed_spmm=[PTR] * 9 + [INT] * 8 + [PTR],
+    # (s, col_scale, row_scale, x, window_start, out, n_pad, window,
+    #  block, f, x_rows, batch, dtype, stream)
+    gwen_rank1_spmm=[PTR] * 6 + [INT] * 7 + [PTR],
+    # (nbr, w, window_start, x, out, n_pad, deg, block, f, x_rows,
+    #  batch, dtype, stream)
+    gwen_ell_spmm=[PTR] * 5 + [INT] * 7 + [PTR],
+    # (tile_idx, n_active, tnbr, tw, x, out, n_pad, tiles_max,
+    #  tile_degree, block, f, x_rows, batch, dtype, stream)
+    gwen_tile_spmm=[PTR] * 6 + [INT] * 8 + [PTR],
+)
 
 
 # ------------------------------------------------------------ plain versions
@@ -323,7 +247,7 @@ def block_ell_spmm_plain(graph: BlockEllGraph, x: Tensor) -> Tensor:
     source rows times the weights (rounded to ``x.dtype``), summed in
     float32 in slot order and cast once. ``x`` is ``(rows, F)`` or ``(B,
     rows, F)``; rows at or past ``x.shape[-2]`` read as zero."""
-    x = _fit_rows(x, graph.num_src_rows)
+    x = fit_rows(x, graph.num_src_rows)
     start = graph.window_start.long().repeat_interleave(graph.block_size)
     w = graph.nbr_weight.to(x.dtype).float()
     acc = torch.zeros(*x.shape[:-2], graph.num_padded_nodes, x.shape[-1],
@@ -341,7 +265,7 @@ def block_tiles_spmm_plain(graph: BlockTileGraph, x: Tensor) -> Tensor:
     order over the slots of active tiles, and cast once. ``x`` is ``(rows,
     F)`` or ``(B, rows, F)``; rows at or past ``x.shape[-2]`` read as
     zero."""
-    x = _fit_rows(x, graph.num_src_rows)
+    x = fit_rows(x, graph.num_src_rows)
     block, deg = graph.block_size, graph.tile_degree
     n_pad = graph.num_padded_nodes
     blk = torch.arange(n_pad, device=x.device) // block
@@ -373,7 +297,7 @@ def _check(x: Tensor, window_start: Tensor, n_pad: int, w: int,
         raise ValueError(f"x must be (rows, F) or (B, rows, F); got shape "
                          f"{tuple(x.shape)} (fold other batched inputs into "
                          "one leading axis, as the graph-level composites do)")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in DTYPE_CODE:
         raise TypeError(f"window SpMM kernel takes float32 or bfloat16, "
                         f"not {x.dtype}")
     nb = window_start.shape[0]
@@ -417,10 +341,10 @@ def _kernel_code(s_dtype: torch.dtype, x: Tensor, streamed: bool = False) -> int
     no escape rows, B11's operand) bfloat16 x on a float32 S, 4 and 5
     float32 and bfloat16 x on an int8 S (the 0/1 pattern of a rank-1
     layout; no escapes)."""
-    if s_dtype == x.dtype and x.dtype in _DTYPE_CODE:
-        return _DTYPE_CODE[x.dtype]
-    if s_dtype == torch.int8 and x.dtype in _DTYPE_CODE:
-        return 4 + _DTYPE_CODE[x.dtype]
+    if s_dtype == x.dtype and x.dtype in DTYPE_CODE:
+        return DTYPE_CODE[x.dtype]
+    if s_dtype == torch.int8 and x.dtype in DTYPE_CODE:
+        return 4 + DTYPE_CODE[x.dtype]
     if s_dtype == torch.bfloat16 and x.dtype == torch.float32:
         return 2
     if streamed and s_dtype == torch.float32 and x.dtype == torch.bfloat16:
@@ -442,11 +366,6 @@ def _batch(x: Tensor) -> int:
     return x.shape[0] if x.dim() == 3 else 1
 
 
-def _launch_failed(name: str, rc: int) -> RuntimeError:
-    return RuntimeError(f"{name} launch failed: "
-                        f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
-
-
 def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
                      x: Tensor, esc_ptr: Optional[Tensor] = None,
                      esc_rows: Optional[Tensor] = None,
@@ -465,12 +384,12 @@ def _launch_streamed(s_mat: Tensor, window_start: Tensor, block: int,
     out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
                       device=x.device)
     esc_p, rows_p, fix_p, n_fix = _escape_args(esc_ptr, esc_rows, fix)
-    rc = _lib().gwen_window_spmm_streamed(
+    rc = LIB().gwen_window_spmm_streamed(
         s_mat.data_ptr(), x.data_ptr(), window_start.data_ptr(), esc_p, rows_p,
         fix_p, out.data_ptr(), n_pad, w, block, x.shape[-1], x.shape[-2],
         _batch(x), n_fix, code, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise _launch_failed("dense-row gather", rc)
+        raise cuda_lib.launch_failed("dense-row gather", rc)
     return out
 
 
@@ -507,23 +426,15 @@ def _launch_packed_rows(bits: Tensor, col_scale: Tensor, row_scale: Tensor,
     out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
                       device=x.device)
     esc_p, rows_p, fix_p, n_fix = _escape_args(esc_ptr, esc_rows, fix)
-    rc = _lib().gwen_sliding_packed_spmm(
+    rc = LIB().gwen_sliding_packed_spmm(
         bits.data_ptr(), col_scale.data_ptr(), row_scale.data_ptr(),
         x.data_ptr(), window_start.data_ptr(), esc_p, rows_p, fix_p,
         out.data_ptr(), n_pad, words, block, x.shape[-1], x.shape[-2],
-        _batch(x), n_fix, _DTYPE_CODE[x.dtype],
+        _batch(x), n_fix, DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise _launch_failed("bit-row gather", rc)
+        raise cuda_lib.launch_failed("bit-row gather", rc)
     return out
-
-
-def _on_cuda(x: Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"no window SpMM kernel for device {x.device}")
-    return True
 
 
 def _check_dim(x: Tensor, dim: int, name: str) -> None:
@@ -538,7 +449,7 @@ def diag_window_spmm(graph: DiagWindowGraph, x: Tensor,
     (``fix``: ``(U, F)`` in receiver order, or None). ``(N_pad, F)``. The
     dense row gather's batch-1 walk with the graph's own block size."""
     _check_dim(x, 2, "B1")
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return diag_window_spmm_plain(graph, x, fix)
     out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size,
                            x, graph.esc_ptr,
@@ -552,7 +463,7 @@ def diag_window_spmm_b(graph: DiagWindowGraph, x: Tensor,
     """Kernel B4: B1 on ``(B, rows, F)`` with fix ``(B, U, F)``, on the
     dense row gather with the graph's own block size. ``(B, N_pad, F)``."""
     _check_dim(x, 3, "B4")
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return diag_window_spmm_plain(graph, x, fix)
     out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size,
                            x, graph.esc_ptr,
@@ -572,7 +483,7 @@ def window_matvec(s_mat: Tensor, graph: DiagWindowGraph, x: Tensor) -> Tensor:
     if s_mat.shape != (graph.num_padded_nodes, graph.window_size):
         raise ValueError(f"s must be {(graph.num_padded_nodes, graph.window_size)}"
                          f"; got {tuple(s_mat.shape)}")
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return window_spmm_plain(s_mat, graph.window_start, x,
                                  graph.num_src_rows)
     out = _launch_streamed(s_mat, graph.window_start, graph.block_size, x)
@@ -585,7 +496,7 @@ def sliding_spmm(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
     row gather's batch-1 walk at every window width (the esc2 contraction,
     the RCM band of a partition), with the graph's own block size."""
     _check_dim(x, 2, "B3")
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return sliding_spmm_plain(graph, x)
     out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size, x)
     sliding_spmm.launches += 1
@@ -596,7 +507,7 @@ def sliding_spmm_b(graph: SlidingDenseGraph, x: Tensor) -> Tensor:
     """Kernel B10: B3 on ``(B, rows, F)``. ``(B, N_pad, F)``. B11's row
     gather at every window width, the batch inside the kernel."""
     _check_dim(x, 3, "B10")
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return sliding_spmm_plain(graph, x)
     out = _launch_streamed(graph.s_mat, graph.window_start, graph.block_size, x)
     sliding_spmm_b.launches += 1
@@ -608,7 +519,7 @@ def windowed_dense_spmm(graph: WindowedDenseGraph, x: Tensor) -> Tensor:
     ``(B, rows, F)`` with at most ``num_src_rows`` rows (missing rows read
     as zero). ``(..., N_pad, F)`` in x's type; S in x's type, bfloat16
     under a float32 x or float32 under a bfloat16 x."""
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return windowed_dense_spmm_plain(graph, x)
     if x.shape[-2] > graph.num_src_rows:
         raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
@@ -622,10 +533,10 @@ def block_ell_spmm(graph: BlockEllGraph, x: Tensor) -> Tensor:
     """Kernel B12: ``out[i] = Σ_d w[i, d] · x[ws(i) + nbr[i, d]]``, x
     ``(rows, F)`` or ``(B, rows, F)`` with at most ``num_src_rows`` rows
     (missing rows read as zero). ``(..., N_pad, F)`` in x's type."""
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return block_ell_spmm_plain(graph, x)
     n_pad, deg = graph.nbr.shape
-    if x.dim() not in (2, 3) or x.dtype not in _DTYPE_CODE:
+    if x.dim() not in (2, 3) or x.dtype not in DTYPE_CODE:
         raise ValueError(f"B12 takes a float32 or bfloat16 (rows, F) or (B, "
                          f"rows, F); got {x.dtype} {tuple(x.shape)}")
     f = x.shape[-1]
@@ -646,14 +557,14 @@ def block_ell_spmm(graph: BlockEllGraph, x: Tensor) -> Tensor:
             raise ValueError("B12 operands must be contiguous, 16-byte "
                              f"aligned and on {x.device}")
     out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
-    rc = _lib().gwen_ell_spmm(
+    rc = LIB().gwen_ell_spmm(
         graph.nbr.data_ptr(), graph.nbr_weight.data_ptr(),
         graph.window_start.data_ptr(), x.data_ptr(), out.data_ptr(), n_pad,
         deg, graph.block_size, f, x.shape[-2],
-        x.shape[0] if x.dim() == 3 else 1, _DTYPE_CODE[x.dtype],
+        x.shape[0] if x.dim() == 3 else 1, DTYPE_CODE[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise _launch_failed("B12", rc)
+        raise cuda_lib.launch_failed("B12", rc)
     block_ell_spmm.launches += 1
     return out
 
@@ -663,10 +574,10 @@ def block_tiles_spmm(graph: BlockTileGraph, x: Tensor) -> Tensor:
     x[tile_idx[b, t]·block + tnbr[i, tD+d]]`` with ``b = i // block``, x
     ``(rows, F)`` or ``(B, rows, F)`` with at most ``num_src_rows`` rows
     (missing rows read as zero). ``(..., N_pad, F)`` in x's type."""
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return block_tiles_spmm_plain(graph, x)
     n_pad, flat = graph.tnbr.shape
-    if x.dim() not in (2, 3) or x.dtype not in _DTYPE_CODE:
+    if x.dim() not in (2, 3) or x.dtype not in DTYPE_CODE:
         raise ValueError(f"B14 takes a float32 or bfloat16 (rows, F) or (B, "
                          f"rows, F); got {x.dtype} {tuple(x.shape)}")
     f = x.shape[-1]
@@ -693,14 +604,14 @@ def block_tiles_spmm(graph: BlockTileGraph, x: Tensor) -> Tensor:
             raise ValueError("B14 operands must be contiguous, 16-byte "
                              f"aligned and on {x.device}")
     out = torch.empty(*x.shape[:-2], n_pad, f, dtype=x.dtype, device=x.device)
-    rc = _lib().gwen_tile_spmm(
+    rc = LIB().gwen_tile_spmm(
         graph.tile_idx.data_ptr(), graph.n_active.data_ptr(),
         graph.tnbr.data_ptr(), graph.tw.data_ptr(), x.data_ptr(),
         out.data_ptr(), n_pad, graph.tiles_max, graph.tile_degree,
         graph.block_size, f, x.shape[-2], x.shape[0] if x.dim() == 3 else 1,
-        _DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+        DTYPE_CODE[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise _launch_failed("B14", rc)
+        raise cuda_lib.launch_failed("B14", rc)
     block_tiles_spmm.launches += 1
     return out
 
@@ -712,7 +623,7 @@ def diag_window_spmm_packed(graph: DiagWindowGraph, x: Tensor,
     ``(N_pad, F)``. The bit-row gather's batch-1 walk with the graph's own
     block size."""
     _check_dim(x, 2, "packed B1")
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return diag_window_spmm_packed_plain(graph, x, fix)
     out = _launch_packed_rows(graph.s_pack, graph.r1_col, graph.r1_row,
                               graph.window_start, graph.block_size,
@@ -728,7 +639,7 @@ def diag_window_spmm_packed_b(graph: DiagWindowGraph, x: Tensor,
     the row gather over the set bits (B13's) with the graph's own block
     size. ``(B, N_pad, F)``."""
     _check_dim(x, 3, "packed B4")
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return diag_window_spmm_packed_plain(graph, x, fix)
     out = _launch_packed_rows(graph.s_pack, graph.r1_col, graph.r1_row,
                               graph.window_start, graph.block_size,
@@ -742,7 +653,7 @@ def sliding_packed_spmm(graph: SlidingPackedGraph, x: Tensor) -> Tensor:
     """Kernel B13: ``a ⊙ S01·(a ⊙ x)`` on the bit-packed banded layout, x
     ``(rows, F)`` or ``(B, rows, F)`` with at most ``num_src_rows`` rows
     (missing rows read as zero). ``(..., N_pad, F)``."""
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return sliding_packed_spmm_plain(graph, x)
     if x.shape[-2] > graph.num_src_rows:
         raise ValueError(f"x has {x.shape[-2]} rows; the layout reads "
@@ -760,7 +671,7 @@ def sliding_rank1_spmm(graph: SlidingRank1Graph, x: Tensor) -> Tensor:
     row i of the core's int8 S01, in float32 and rounded once (``T()``
     rounds to x's type). ``(..., N_pad, F)``. The dense row gather with both
     scales folded in, the graph's own block size."""
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "window SpMM"):
         return sliding_rank1_spmm_plain(graph, x)
     core = graph.core
     n_pad, w = core.s_mat.shape
@@ -770,14 +681,14 @@ def sliding_rank1_spmm(graph: SlidingRank1Graph, x: Tensor) -> Tensor:
            [core.s_mat, graph.col_scale, graph.row_scale], core.block_size)
     out = torch.empty(*x.shape[:-2], n_pad, x.shape[-1], dtype=x.dtype,
                       device=x.device)
-    rc = _lib().gwen_rank1_spmm(
+    rc = LIB().gwen_rank1_spmm(
         core.s_mat.data_ptr(), graph.col_scale.data_ptr(),
         graph.row_scale.data_ptr(), x.data_ptr(), core.window_start.data_ptr(),
         out.data_ptr(), n_pad, w, core.block_size, x.shape[-1], x.shape[-2],
         _batch(x), _kernel_code(core.s_mat.dtype, x),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise _launch_failed("int8 rank-1 row gather", rc)
+        raise cuda_lib.launch_failed("int8 rank-1 row gather", rc)
     sliding_rank1_spmm.launches += 1
     return out
 
@@ -825,15 +736,6 @@ def _check_rows(graph, x: Tensor) -> int:
             f"x has {n} node rows; graph expects {graph.num_nodes} "
             f"({n_pad} padded dst, {src} src)")
     return n if n in (n_pad, src) else graph.num_nodes
-
-
-def _fit_rows(t: Tensor, rows: int) -> Tensor:
-    """``t`` cut or zero-padded to ``rows`` node rows."""
-    have = t.shape[-2]
-    if have >= rows:
-        return t[..., :rows, :]
-    return torch.cat([t, t.new_zeros(*t.shape[:-2], rows - have, t.shape[-1])],
-                     dim=-2)
 
 
 def _fold(x: Tensor) -> tuple[Tensor, tuple, int]:
@@ -943,7 +845,7 @@ class _SymmetricAggregation(torch.autograd.Function):
     def backward(ctx, g):
         with annotate("gwen.op.aggregate.bwd"):
             gx = ctx.composite(ctx.graph, g.contiguous(), False)
-            return _fit_rows(gx, ctx.rows).to(g.dtype), None, None
+            return fit_rows(gx, ctx.rows).to(g.dtype), None, None
 
 
 def _aggregate(composite, graph, x: Tensor, plain: bool) -> Tensor:

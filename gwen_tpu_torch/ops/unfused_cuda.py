@@ -36,54 +36,25 @@ launches the kernel or raises. There is no fallback.
 
 from __future__ import annotations
 
-import ctypes
-import time
-from pathlib import Path
-from typing import Optional
-
 import torch
 import torch.nn.functional as F
 
 from gwen_tpu_torch.graph.graph import DiagWindowGraph
-from gwen_tpu_torch.ops import spmm_cuda
-from gwen_tpu_torch.ops.spmm_cuda import BLOCK, _fit_rows, nvcc_build
+from gwen_tpu_torch.ops import cuda_lib, spmm_cuda
+from gwen_tpu_torch.ops.cuda_lib import DTYPE_CODE, INT, PTR, CudaLib, fit_rows
 
 Tensor = torch.Tensor
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "window_unfused.cu"
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIB: Optional[ctypes.CDLL] = None
-
-
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/window_unfused.cu`` (see ``spmm_cuda.nvcc_build``)."""
-    return nvcc_build(_SRC)
-
-
-def _lib() -> ctypes.CDLL:
-    """The library, built and loaded at first use; the load (not the build)
-    is counted in ``_lib.loads`` and ``_lib.load_seconds``."""
-    global _LIB
-    if _LIB is None:
-        path, _ = build()
-        t0 = time.perf_counter()
-        lib = ctypes.CDLL(str(path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        # (a, b, window_start, out, nb, num_blocks, window, f, a_rows,
-        #  b_rows, dtype, stream)
-        lib.gwen_sddmm.argtypes = [vp] * 4 + [ci] * 7 + [vp]
-        # (s, g, window_start, t_lo, t_cnt, out, nb, num_blocks, ns_blocks,
-        #  window, f, g_rows, dtype, stream)
-        lib.gwen_spmm_t.argtypes = [vp] * 6 + [ci] * 7 + [vp]
-        lib.gwen_sddmm.restype = lib.gwen_spmm_t.restype = ci
-        _LIB = lib
-        _lib.loads += 1
-        _lib.load_seconds += time.perf_counter() - t0
-    return _LIB
-
-
-_lib.loads = 0
-_lib.load_seconds = 0.0
+BLOCK = 128  # destination rows per graph block of the kernels
+LIB = CudaLib(
+    "window_unfused.cu",
+    # (a, b, window_start, out, nb, num_blocks, window, f, a_rows, b_rows,
+    #  dtype, stream)
+    gwen_sddmm=[PTR] * 4 + [INT] * 7 + [PTR],
+    # (s, g, window_start, t_lo, t_cnt, out, nb, num_blocks, ns_blocks,
+    #  window, f, g_rows, dtype, stream)
+    gwen_spmm_t=[PTR] * 6 + [INT] * 7 + [PTR],
+)
 
 
 # ------------------------------------------------------------ plain versions
@@ -103,9 +74,9 @@ def sddmm_plain(graph: DiagWindowGraph, a: Tensor, b: Tensor) -> Tensor:
     ``(..., ≤ num_src_rows, f)``; missing rows read as zero."""
     blocks, block, w = graph.num_blocks, graph.block_size, graph.window_size
     lead, f = a.shape[:-2], a.shape[-1]
-    at = _fit_rows(a, graph.num_padded_nodes).float().reshape(
+    at = fit_rows(a, graph.num_padded_nodes).float().reshape(
         *lead, blocks, block, f)
-    bw = _fit_rows(b, graph.num_src_rows).index_select(
+    bw = fit_rows(b, graph.num_src_rows).index_select(
         -2, _window_rows(graph, a.device)).float().reshape(*lead, blocks, w, f)
     return torch.matmul(at, bw.transpose(-1, -2)).reshape(
         *lead, graph.num_padded_nodes, w)
@@ -120,7 +91,7 @@ def spmm_t_plain(graph: DiagWindowGraph, s: Tensor, g: Tensor) -> Tensor:
     blocks, block, w = graph.num_blocks, graph.block_size, graph.window_size
     lead, f = g.shape[:-2], g.shape[-1]
     st = s.to(g.dtype).float().reshape(*lead, blocks, block, w)
-    gt = _fit_rows(g, graph.num_padded_nodes).float().reshape(
+    gt = fit_rows(g, graph.num_padded_nodes).float().reshape(
         *lead, blocks, block, f)
     tile = torch.matmul(st.transpose(-1, -2), gt)  # (..., blocks, W, f)
     out = tile.new_zeros(*lead, graph.num_src_rows, f)
@@ -140,15 +111,6 @@ def matvec_plain(graph: DiagWindowGraph, s: Tensor, x: Tensor) -> Tensor:
 # ------------------------------------------------------------ kernel wrappers
 
 
-def _on_cuda(x: Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"no SDDMM or transpose-SpMM kernel for device "
-                         f"{x.device}")
-    return True
-
-
 def _check(graph: DiagWindowGraph, name: str, first: Tensor, second: Tensor,
            first_rows: int, second_rows: int, tables: bool) -> None:
     """Raise on operands the kernels do not take: both 2-d or both 3-d with
@@ -160,7 +122,7 @@ def _check(graph: DiagWindowGraph, name: str, first: Tensor, second: Tensor,
         raise ValueError(f"{name}: operands must both be 2-d or both 3-d "
                          f"with the same items; got {tuple(first.shape)} and "
                          f"{tuple(second.shape)}")
-    if second.dtype not in _DTYPE_CODE or first.dtype != second.dtype:
+    if second.dtype not in DTYPE_CODE or first.dtype != second.dtype:
         raise TypeError(f"{name}: operands must both be float32 or both "
                         f"bfloat16; got {first.dtype} and {second.dtype}")
     if first.shape[-2] > first_rows or second.shape[-2] > second_rows:
@@ -193,18 +155,12 @@ def _vec_pad(t: Tensor) -> Tensor:
     return t if rest == 0 else F.pad(t, (0, vec - rest))
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{'arguments refused' if rc < 0 else f'CUDA error {rc}'}")
-
-
 def sddmm(graph: DiagWindowGraph, a: Tensor, b: Tensor) -> Tensor:
     """Kernel B8: ``out[i, j] = a[i] · b[ws(i) + j]``, float32
     ``(N_pad, W)`` (or ``(nb, N_pad, W)`` for 3-d operands). ``a`` holds at
     most ``N_pad`` destination rows and ``b`` at most ``num_src_rows``
     source rows; missing rows read as zero."""
-    if not _on_cuda(a):
+    if not cuda_lib.on_cuda(a, "SDDMM or transpose-SpMM"):
         return sddmm_plain(graph, a, b)
     if a.shape[-1] != b.shape[-1]:
         raise ValueError(f"B8: feature widths {a.shape[-1]} and {b.shape[-1]}")
@@ -214,12 +170,13 @@ def sddmm(graph: DiagWindowGraph, a: Tensor, b: Tensor) -> Tensor:
     nb = a.shape[0] if a.dim() == 3 else 1
     out = torch.empty(*a.shape[:-2], graph.num_padded_nodes,
                       graph.window_size, dtype=torch.float32, device=a.device)
-    rc = _lib().gwen_sddmm(
+    rc = LIB().gwen_sddmm(
         ap.data_ptr(), bp.data_ptr(), graph.window_start.data_ptr(),
         out.data_ptr(), nb, graph.num_blocks, graph.window_size, ap.shape[-1],
-        a.shape[-2], b.shape[-2], _DTYPE_CODE[a.dtype],
+        a.shape[-2], b.shape[-2], DTYPE_CODE[a.dtype],
         torch.cuda.current_stream(a.device).cuda_stream)
-    _raise_on(rc, "B8")
+    if rc != 0:
+        raise cuda_lib.launch_failed("B8", rc)
     sddmm.launches += 1
     return out
 
@@ -233,7 +190,7 @@ def spmm_t(graph: DiagWindowGraph, s: Tensor, g: Tensor) -> Tensor:
         raise ValueError(
             f"B9: s must be (..., {graph.num_padded_nodes}, "
             f"{graph.window_size}); got {tuple(s.shape)}")
-    if not _on_cuda(g):
+    if not cuda_lib.on_cuda(g, "SDDMM or transpose-SpMM"):
         return spmm_t_plain(graph, s, g)
     s = s.to(g.dtype)
     _check(graph, "B9", s, g, graph.num_padded_nodes, graph.num_padded_nodes,
@@ -247,13 +204,14 @@ def spmm_t(graph: DiagWindowGraph, s: Tensor, g: Tensor) -> Tensor:
     nb = g.shape[0] if g.dim() == 3 else 1
     out = torch.empty(*g.shape[:-2], graph.num_src_rows, gp.shape[-1],
                       dtype=g.dtype, device=g.device)
-    rc = _lib().gwen_spmm_t(
+    rc = LIB().gwen_spmm_t(
         s.data_ptr(), gp.data_ptr(), graph.window_start.data_ptr(),
         graph.t_lo.data_ptr(), graph.t_cnt.data_ptr(), out.data_ptr(), nb,
         graph.num_blocks, ns_blocks, graph.window_size, gp.shape[-1],
-        g.shape[-2], _DTYPE_CODE[g.dtype],
+        g.shape[-2], DTYPE_CODE[g.dtype],
         torch.cuda.current_stream(g.device).cuda_stream)
-    _raise_on(rc, "B9")
+    if rc != 0:
+        raise cuda_lib.launch_failed("B9", rc)
     spmm_t.launches += 1
     return out if gp.shape[-1] == f else out[..., :f]
 
@@ -262,7 +220,7 @@ def matvec(graph: DiagWindowGraph, s: Tensor, x: Tensor) -> Tensor:
     """``S @ X`` for a runtime window-relative ``s`` ``(N_pad, W)`` (cast to
     x's type) and ``x`` ``(≤ num_src_rows, f)``: ``(N_pad, f)`` in x's
     type. Kernel B1 on CUDA."""
-    if not _on_cuda(x):
+    if not cuda_lib.on_cuda(x, "SDDMM or transpose-SpMM"):
         return matvec_plain(graph, s, x)
     f = x.shape[-1]
     xp = _vec_pad(x)

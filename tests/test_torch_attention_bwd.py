@@ -25,6 +25,7 @@ import gwen_tpu.graph as J
 import gwen_tpu_torch.graph as P
 from gwen_tpu.ops.attention_pallas import windowed_attention as j_windowed
 from gwen_tpu_torch.ops import attention_cuda
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 KW = dict(window_size=128, block_size=32, superblock=4, transpose_tables=True)
@@ -104,30 +105,6 @@ def test_plain_backward_matches_reference(kind, lead, padded):
 
 
 # ------------------------------------------------- dispatch to the kernels
-
-
-class _FakeLib:
-    """Stands in for the built library: records each entry point's
-    arguments."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append((name, args))
-            return 0
-        return entry
-
-
-@pytest.fixture
-def fake_lib(monkeypatch):
-    lib = _FakeLib()
-    monkeypatch.setattr(attention_cuda, "_lib", lambda: lib)
-    monkeypatch.setattr(attention_cuda, "_on_cuda", lambda x: True)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
-    return lib
 
 
 @pytest.mark.parametrize("kind", ["mesh", "wide"])

@@ -23,7 +23,8 @@ import torch
 
 from gwen_tpu.ops.attention_pallas import windowed_attention as j_windowed
 from gwen_tpu_torch.ops import attention_cuda
-from test_torch_attention_bwd import CHUNK, _pair, _port, fake_lib  # noqa: F401
+from test_torch_attention_bwd import CHUNK, _pair, _port
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = 1e-2

@@ -25,7 +25,7 @@ import gwen_tpu.graph as J
 import gwen_tpu_torch.graph as P
 from gwen_tpu.ops.spmm_pallas import spmm_block_tiles as j_tiles
 from gwen_tpu_torch.ops import spmm_cuda
-from test_torch_wide_windows import fake_lib  # noqa: F401 (fixture)
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = 1e-2

@@ -42,7 +42,7 @@ import gwen_tpu_torch.graph as P
 from gwen_tpu.ops.spmm_pallas import spmm_diag_window as j_diag
 from gwen_tpu_torch.ops import spmm_cuda
 from test_torch_ops import same_rcm  # noqa: F401 (fixture)
-from test_torch_wide_windows import fake_lib  # noqa: F401 (fixture)
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LEVEL, BLOCK, WINDOW = 3, 64, 128

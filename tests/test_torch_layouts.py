@@ -25,7 +25,7 @@ from gwen_tpu.ops.spmm_pallas import spmm_block_tiles as j_tiles
 from gwen_tpu.ops.spmm_pallas import spmm_sliding_rank1 as j_rank1
 from gwen_tpu_torch.nn import EncodeProcessDecode, gcn_apply, params_from_jax
 from gwen_tpu_torch.ops import aggregate, aggregate_segment, spmm_cuda
-from test_torch_wide_windows import fake_lib  # noqa: F401 (fixture)
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -33,7 +33,7 @@ from gwen_tpu_torch.ops.attention import windowed_attention
 from gwen_tpu_torch.train import mesh_graph_loss_fn
 from test_torch_ops import DIAG_CASES, _ordered, same_rcm  # noqa: F401
 from test_torch_train import _flat
-from test_torch_wide_windows import fake_lib  # noqa: F401 (fixture)
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

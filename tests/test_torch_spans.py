@@ -5,7 +5,6 @@ documented tree of ``gwen.*`` spans; numbers are bit-equal with the
 profiler on and off; each kernel load is counted once."""
 
 import contextlib
-import types
 from pathlib import Path
 
 import numpy as np
@@ -23,8 +22,9 @@ from gwen_tpu_torch.graph import (
     to_diag_window,
 )
 from gwen_tpu_torch.nn import EncodeProcessDecode
-from gwen_tpu_torch.ops import attention_cuda, edges, fused_ln, spmm_cuda, unfused_cuda
+from gwen_tpu_torch.ops import cuda_lib, fused_ln
 from gwen_tpu_torch.train import Trainer, TrainState, make_optimizer, mesh_graph_loss_fn
+from test_torch_cuda_lib import LoadedLib
 
 STEPS, MLP, SMOOTHING, LEAD = 2, 2, 2, 3
 PROCESSORS = ["gcn", "attention"]
@@ -158,22 +158,9 @@ def test_numbers_are_bit_equal_with_the_profiler_on_and_off(graphs, processor, e
         assert torch.equal(off[name], on[name]), name
 
 
-class _FakeLib:
-    """Stands for a loaded CUDA library: any entry point, any argtypes."""
-
-    def __init__(self, path):
-        self.path = path
-
-    def __getattr__(self, name):
-        entry = types.SimpleNamespace()
-        setattr(self, name, entry)
-        return entry
-
-
-OWNERS = {"nvcc": spmm_cuda.nvcc_build, "window_spmm": spmm_cuda._lib,
-          "window_attention": attention_cuda._lib, "window_unfused": unfused_cuda._lib,
-          "edge_sum": edges._lib, "ln_fwd": fused_ln.residual_layernorm_fwd,
-          "ln_bwd": fused_ln.residual_layernorm_bwd}
+OWNERS = {"nvcc": cuda_lib.nvcc_build,
+          **{lib.source.stem: lib for lib in cuda_lib.LIBRARIES},
+          "ln_fwd": fused_ln.residual_layernorm_fwd, "ln_bwd": fused_ln.residual_layernorm_bwd}
 
 
 def _load_twice(name, monkeypatch, tmp_path):
@@ -190,18 +177,16 @@ def _load_twice(name, monkeypatch, tmp_path):
         nvcc.chmod(0o755)
         src = tmp_path / "k.cu"
         src.write_text("// a kernel\n")
-        monkeypatch.setattr(spmm_cuda, "_nvcc", lambda: str(nvcc))
-        monkeypatch.setattr(spmm_cuda, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(cuda_lib, "_nvcc", lambda: str(nvcc))
+        monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
         for _ in range(2):
-            spmm_cuda.nvcc_build(src)
+            cuda_lib.nvcc_build(src)
         return
-    if name.startswith("window_") or name == "edge_sum":
-        module = {"window_spmm": spmm_cuda, "window_attention": attention_cuda,
-                  "window_unfused": unfused_cuda, "edge_sum": edges}[name]
-        monkeypatch.setattr(module, "_LIB", None)
-        monkeypatch.setattr(module, "build", lambda: (Path("libfake.so"), ""))
-        monkeypatch.setattr(module.ctypes, "CDLL", _FakeLib)
-        assert module._lib() is module._lib()
+    if isinstance(owner, cuda_lib.CudaLib):
+        monkeypatch.setattr(owner, "lib", None)
+        monkeypatch.setattr(owner, "build", lambda: (Path("libfake.so"), ""))
+        monkeypatch.setattr(cuda_lib.ctypes, "CDLL", LoadedLib)
+        assert owner() is owner()
         return
     monkeypatch.setattr(owner, "specialisations", set())
     launched = []

@@ -29,6 +29,7 @@ import gwen_tpu.graph as J
 import gwen_tpu_torch.graph as P
 from gwen_tpu.ops import attention_pallas as jap
 from gwen_tpu_torch.ops import unfused_cuda
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 KW = dict(window_size=384, block_size=128, transpose_tables=True)
@@ -152,30 +153,6 @@ def test_spmm_t_plain_batched_matches_reference(nb, f, rows, dtype):
 
 
 # ------------------------------------------------- dispatch to the kernels
-
-
-class _FakeLib:
-    """Stands in for the built library: records each entry point's
-    arguments."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append((name, args))
-            return 0
-        return entry
-
-
-@pytest.fixture
-def fake_lib(monkeypatch):
-    lib = _FakeLib()
-    monkeypatch.setattr(unfused_cuda, "_lib", lambda: lib)
-    monkeypatch.setattr(unfused_cuda, "_on_cuda", lambda x: True)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
-    return lib
 
 
 @pytest.mark.parametrize("f", [8, 130, 264])

@@ -35,6 +35,7 @@ from gwen_tpu.parallel import partition_graph as j_partition
 from gwen_tpu_torch import dryrun
 from gwen_tpu_torch.ops import aggregate, aggregate_segment, spmm_cuda
 from gwen_tpu_torch.parallel import local_graph, partition_graph
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 from test_torch_ops import same_rcm  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -300,30 +301,6 @@ def test_wrappers_read_rows_past_x_as_zero(layout, same_rcm):
 
 
 # ------------------------------------------------- dispatch to the kernels
-
-
-class _FakeLib:
-    """Stands in for the built library: records each entry point's
-    arguments."""
-
-    def __init__(self):
-        self.calls = []
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append((name, args))
-            return 0
-        return entry
-
-
-@pytest.fixture
-def fake_lib(monkeypatch):
-    lib = _FakeLib()
-    monkeypatch.setattr(spmm_cuda, "_lib", lambda: lib)
-    monkeypatch.setattr(spmm_cuda, "_on_cuda", lambda x: True)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: type("Stream", (), {"cuda_stream": 0})())
-    return lib
 
 
 def _rcm_graph():

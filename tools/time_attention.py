@@ -18,8 +18,8 @@ partitioned path on one rank (``diag`` layout, zero halos); each by CUDA
 events over 3 steps after a warm-up, then one step under
 ``torch.profiler`` for B5's, B6's and B7's device time in it. ``--root``
 imports ``gwen_tpu_torch`` from another checkout (say the parent commit
-unpacked with ``git archive``), so that two versions can be timed in
-turns, in separate processes, on one card.
+unpacked with ``git archive``; one that has ``ops/cuda_lib.py``), so that
+two versions can be timed in turns, in separate processes, on one card.
 
 ``--controls`` times, instead of the steps, B5b (nb 2 and 8), B6b and B7b
 built from this checkout's ``csrc/window_attention.cu`` with one change
@@ -81,7 +81,7 @@ def control_libs(ac, nvcc_build) -> dict:
     them."""
     import ctypes
 
-    src = ac._SRC.read_text()
+    src = ac.LIB.source.read_text()
     libs = {}
     for name, edits in CONTROLS.items():
         text = src
@@ -89,7 +89,7 @@ def control_libs(ac, nvcc_build) -> dict:
             if text.count(old) != 1:
                 raise AssertionError(f"control {name!r}: {old!r} not found once")
             text = text.replace(old, new)
-        path = ac._SRC.parents[1] / "_build" / f"window_attention_{len(libs)}.cu"
+        path = ac.LIB.source.parents[1] / "_build" / f"window_attention_{len(libs)}.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(text)
         lib_path, ptxas = nvcc_build(path)
@@ -100,11 +100,9 @@ def control_libs(ac, nvcc_build) -> dict:
             elif "bfloat16Li4E" in entry and ("spill" in line or "registers" in line):
                 print(f"  {name}: ptxas: {entry.split('attn_')[1][:12]} {line.strip()[-60:]}")
         lib = ctypes.CDLL(str(lib_path))
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        tail = [ci, ci, ci, ci, ci, cf, ci, vp]
-        lib.gwen_attn_fwd.argtypes = [vp] * 5 + tail
-        lib.gwen_attn_dq.argtypes = [vp] * 7 + tail
-        lib.gwen_attn_dkdv.argtypes = [vp] * 8 + tail
+        for entry_name, argtypes in ac.LIB.entries.items():
+            fn = getattr(lib, entry_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -149,7 +147,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"{args.tag}: {ac.__file__} on {smi}", flush=True)
-    _, ptxas = ac.build()
+    _, ptxas = ac.LIB.build()
     for line in ptxas.splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
@@ -206,9 +204,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     if args.controls:
-        from gwen_tpu_torch.ops.spmm_cuda import nvcc_build
+        from gwen_tpu_torch.ops.cuda_lib import nvcc_build
 
-        libs = {"as they are": ac._lib(), **control_libs(ac, nvcc_build)}
+        libs = {"as they are": ac.LIB(), **control_libs(ac, nvcc_build)}
         q, k, v, g = (torch.randn(HEADS * BATCH, n, 128, generator=gen,
                                   device=dev).bfloat16() for _ in range(4))
         scale = 128 ** -0.5

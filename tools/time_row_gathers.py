@@ -18,9 +18,9 @@ KD-patch order, unbatched and at batch 4, and the two row gathers
 launched directly with one item on B1's and packed B1's operands
 (``_launch_streamed``, ``_launch_packed_rows``: the same call as B1 where B1
 takes the gathers). ``--root`` imports ``gwen_tpu_torch`` from another
-checkout (say the parent commit unpacked with ``git archive``), so that
-two versions can be timed in turns, in separate processes, in one session
-on one card. Prints the card
+checkout (say the parent commit unpacked with ``git archive``; one that
+has ``ops/cuda_lib.py``), so that two versions can be timed in turns, in
+separate processes, in one session on one card. Prints the card
 (``nvidia-smi`` name and power limit), the compiler's register lines, and
 one JSON line of times in ms (CUDA events, the mean of ``--iters`` calls
 after 3 warm-up calls; B3 on the esc2 graph also by its device kernels
@@ -70,7 +70,9 @@ def control_libs(spmm_cuda, vs=None) -> dict:
     is (its name the checkout's path)."""
     import ctypes
 
-    src = spmm_cuda._SRC.read_text()
+    from gwen_tpu_torch.ops.cuda_lib import nvcc_build
+
+    src = spmm_cuda.LIB.source.read_text()
     libs = {}
     controls = dict(CONTROLS)
     if vs is not None:
@@ -82,10 +84,10 @@ def control_libs(spmm_cuda, vs=None) -> dict:
             if text.count(old) != 1:
                 raise AssertionError(f"control {name!r}: {old!r} not found once")
             text = text.replace(old, new)
-        path = spmm_cuda._SRC.parents[1] / "_build" / f"window_spmm_{len(libs)}.cu"
+        path = spmm_cuda.LIB.source.parents[1] / "_build" / f"window_spmm_{len(libs)}.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(text)
-        lib_path, ptxas = spmm_cuda.nvcc_build(path)
+        lib_path, ptxas = nvcc_build(path)
         entry = ""
         for line in ptxas.splitlines():  # B14's register and spill lines
             if "Compiling entry" in line:
@@ -93,9 +95,8 @@ def control_libs(spmm_cuda, vs=None) -> dict:
             elif "tile_" in entry and ("registers" in line or "spill" in line):
                 print(f"  {name}: ptxas: {line.strip()[-90:]}")
         lib = ctypes.CDLL(str(lib_path))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.gwen_tile_spmm.argtypes = [vp] * 6 + [ci] * 8 + [vp]
-        lib.gwen_tile_spmm.restype = ci
+        lib.gwen_tile_spmm.argtypes = spmm_cuda.LIB.entries["gwen_tile_spmm"]
+        lib.gwen_tile_spmm.restype = ctypes.c_int
         libs[name] = lib
     return libs
 
@@ -142,7 +143,7 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"{args.tag}: {spmm_cuda.__file__} on {smi}", flush=True)
-    _, ptxas = spmm_cuda.build()
+    _, ptxas = spmm_cuda.LIB.build()
     for line in ptxas.splitlines():
         if "registers" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}")
@@ -267,7 +268,7 @@ def run_controls(torch, spmm_cuda, tiles: dict, n: int, gen, args, smi) -> int:
     reverse order."""
     from gwen_tpu_torch.profiling import cuda_ms
 
-    libs = {"as it is": spmm_cuda._lib(), **control_libs(spmm_cuda, args.vs)}
+    libs = {"as it is": spmm_cuda.LIB(), **control_libs(spmm_cuda, args.vs)}
     x = torch.randn(BATCH, n, F, generator=gen, device="cuda").bfloat16()
     runs: dict = {}
 

@@ -17,8 +17,8 @@ B8; s, g and the output for B9). Then ``windowed_attention(backend=
 item), beside ``backend="auto"``. The bf16 forms' shared memory and CTAs an
 SM are printed where the library reports them. ``--root`` imports
 ``gwen_tpu_torch`` from another checkout (say the parent commit unpacked
-with ``git archive``), so that two versions can be timed in turns, in
-separate processes, on one card.
+with ``git archive``; one that has ``ops/cuda_lib.py``), so that two
+versions can be timed in turns, in separate processes, on one card.
 
 ``--controls`` times, instead of the attention step, B8 (nb 1 and 8, f
 128; nb 1, f 256), B9 (nb 1, f 128 and 256) and B9b (nb 8, f 128) built
@@ -104,12 +104,12 @@ CONTROLS = {
 }
 
 
-def bind(lib):
-    """Types a library's C entries as the wrapper types them."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.gwen_sddmm.argtypes = [vp] * 4 + [ci] * 7 + [vp]
-    lib.gwen_spmm_t.argtypes = [vp] * 6 + [ci] * 7 + [vp]
-    lib.gwen_sddmm.restype = lib.gwen_spmm_t.restype = ci
+def bind(lib, declared):
+    """Types a library's C entries as ``declared`` (the wrapper's library
+    object) types them."""
+    for name, argtypes in declared.entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return lib
 
 
@@ -126,7 +126,7 @@ def ptxas_lines(log: str, tag: str) -> None:
 def control_libs(uc, nvcc_build) -> dict:
     """Each control's library, built from a changed copy of the kernels'
     source in the build directory, all at once."""
-    src = uc._SRC.read_text()
+    src = uc.LIB.source.read_text()
     paths = {}
     for k, (name, (edits, _)) in enumerate(CONTROLS.items()):
         text = src
@@ -134,7 +134,7 @@ def control_libs(uc, nvcc_build) -> dict:
             if text.count(old) != 1:
                 raise AssertionError(f"control {name!r}: {old!r} not found once")
             text = text.replace(old, new)
-        path = uc._SRC.parents[1] / "_build" / f"window_unfused_{k}.cu"
+        path = uc.LIB.source.parents[1] / "_build" / f"window_unfused_{k}.cu"
         path.parent.mkdir(parents=True, exist_ok=True)
         path.write_text(text)
         paths[name] = path
@@ -143,7 +143,7 @@ def control_libs(uc, nvcc_build) -> dict:
     libs = {}
     for name, (lib_path, log) in built.items():
         ptxas_lines(log, name)
-        libs[name] = bind(ctypes.CDLL(str(lib_path)))
+        libs[name] = bind(ctypes.CDLL(str(lib_path)), uc.LIB)
     return libs
 
 
@@ -186,11 +186,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(f"{args.tag}: {uc.__file__} on {smi}", flush=True)
-    _, log = uc.build()
+    _, log = uc.LIB.build()
     ptxas_lines(log, args.tag)
     dev = torch.device("cuda", 0)
     times: dict = {}
-    occupancy = getattr(uc._lib(), "gwen_unfused_occupancy", None)
+    occupancy = getattr(uc.LIB(), "gwen_unfused_occupancy", None)
     if occupancy is not None:  # (kernel: 0 B8, 1 B9; f; out bytes; out CTAs an SM)
         occupancy.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
                               ctypes.c_void_p]
@@ -244,13 +244,13 @@ def main() -> int:
             torch.cuda.empty_cache()
 
     if args.controls:
-        from gwen_tpu_torch.ops.spmm_cuda import nvcc_build
+        from gwen_tpu_torch.ops.cuda_lib import nvcc_build
 
-        libs = {"as they are": bind(uc._lib()), **control_libs(uc, nvcc_build)}
+        libs = {"as they are": uc.LIB(), **control_libs(uc, nvcc_build)}
         for src in args.vs:
             lib_path, log = nvcc_build(Path(src).resolve())
             ptxas_lines(log, src)
-            libs[f"vs {src}"] = bind(ctypes.CDLL(str(lib_path)))
+            libs[f"vs {src}"] = bind(ctypes.CDLL(str(lib_path)), uc.LIB)
         f, nbs = 128, HEADS * BATCH
         a, b = randn(nbs, n, f), randn(nbs, n, f)
         sm, g = randn(nbs, n_pad, w), randn(nbs, n, f)
