@@ -215,8 +215,14 @@ Drives ``gwen_tpu_torch`` only (no JAX); its timers are
    (unbatched and at batch 4) runs exactly one device kernel under
    ``torch.profiler``, the dense row gather, and one call of B5, B6 and B7
    (nb 1 and 8) exactly one, ``attn_fwd_kernel``, ``attn_dq_kernel`` and
-   ``attn_dkdv_kernel``; then ``nn.core.linear`` at the benchmark cells'
-   row counts (327,684 to 3,440,682) with K = 1, K = N = 256 and N = 1
+   ``attn_dkdv_kernel``; then B5b, B6b and B7b on the attention cells'
+   operands, ``(H, B, N, dh)`` views of ``(21, N, 256)`` products (nb 42),
+   bit for bit as on contiguous copies and at most 3 % slower, and one
+   attention train step (batch 21) and ensemble request (8 members × 4
+   lead steps) with no ``elementwise_kernel<128, 4>`` between the q/k/v
+   products and the output projection and no operand copied
+   (:func:`check_strided_attention`); then ``nn.core.linear`` at the
+   benchmark cells' row counts (327,684 to 3,440,682) with K = 1, K = N = 256 and N = 1
    (:func:`check_linear`): within one bf16 ulp of the expression it
    replaced, one GEMM with the bias epilogue a call and no pass over the
    output where N > 1, its time beside the old expression's, its route
@@ -3931,6 +3937,152 @@ def linear_phase() -> None:
         raise AssertionError(f"the linear check failed:\n{res.stderr[-2000:]}")
 
 
+def copy_kernels(names: list, first: str, last: str) -> list:
+    """The non-vectorised ``elementwise_kernel`` launches (the strided copy
+    of a tensor between layouts) among the kernels ``names`` (in launch
+    order) that lie between the last GEMM before each launch of ``first``
+    and the first GEMM after the next launch of ``last``: between the
+    products that feed the attention kernels and the products that read
+    what they write."""
+    found = []
+    for i, nm in enumerate(names):
+        if first not in nm:
+            continue
+        a = max((j for j in range(i) if is_gemm(names[j])), default=-1)
+        end = next(j for j in range(i, len(names)) if last in names[j])
+        z = next((j for j in range(end, len(names)) if is_gemm(names[j])), len(names))
+        found += [x for x in names[a + 1:z] if "native::elementwise_kernel<" in x]
+    return found
+
+
+def check_strided_attention(device) -> dict:
+    """B5b, B6b and B7b on the operands as the attention cells give them:
+    ``(H, B, N, dh)`` views of ``(B, N, H·dh)`` products (batch 21, 2 heads
+    of 128: nb 42, heads 128 values apart, rows 256), against the same
+    calls on contiguous ``(42, N, 128)`` copies: the same bits in every
+    output (the outputs in the products' layout), and each strided call at
+    most 3 % slower (CUDA events, in turns), no operand copied. Then one
+    ``Trainer.train_step`` of the attention model at batch 21 and one
+    ensemble request of 8 members × 4 lead steps under ``torch.profiler``:
+    no ``elementwise_kernel<128, 4>`` between the q/k/v products and the
+    output projection, forward or backward, and ``operand_copies`` 0.
+    Returns the timings and bounds."""
+    from gwen_tpu_torch.ensemble import generate_ensemble
+    from gwen_tpu_torch.ops import attention_cuda as ac
+    from gwen_tpu_torch.profiling import device_events
+    from gwen_tpu_torch.train import Trainer, TrainState, make_optimizer, mesh_graph_loss_fn
+
+    graph = build_serving_graph(device, torch.bfloat16)[0]
+    n, heads, batch = graph.num_nodes, ATTN_HEADS, DEFAULT_BATCH
+    dh = LATENT // heads
+    gen = torch.Generator(device=device).manual_seed(25)
+    scale = dh ** -0.5
+
+    def heads_first(y):
+        return y.view(batch, n, heads, dh).movedim(-2, 0)
+
+    products = [torch.randn(batch, n, LATENT, device=device, generator=gen).bfloat16()
+                for _ in range(4)]  # q, k, v and the output cotangent
+    strided = [heads_first(y) for y in products]
+    flat = [t.contiguous().view(heads * batch, n, dh) for t in strided]
+    copies = ac.operand_copies
+    st = {}
+
+    def calls(ts, key):
+        return {"B5b": lambda: (ac.attention_fwd(graph, *ts[:3], scale),),
+                "B6b": lambda: ac.attention_dq(graph, *ts, scale),
+                "B7b": lambda: ac.attention_dkdv(graph, *ts, st[key], scale)}
+
+    st["strided"] = ac.attention_dq(graph, *strided, scale)[1]
+    st["flat"] = ac.attention_dq(graph, *flat, scale)[1]
+    nnz = int((graph.attn_nbr >= 0).sum())
+    io = {"B5b": ((*flat[:3], graph.attn_nbr), flat[:1], 4),
+          "B6b": ((*flat, graph.attn_nbr), (flat[0], st["flat"]), 6),
+          "B7b": ((*flat, st["flat"], graph.attn_nbr_t), flat[1:3], 8)}
+    out = {}
+    for key in ("B5b", "B6b", "B7b"):
+        s_call, f_call = calls(strided, "strided")[key], calls(flat, "flat")[key]
+        got, want = s_call(), f_call()
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            if not torch.equal(a.reshape(b.shape), b):
+                raise AssertionError(f"{key} output {i}: strided operands gave "
+                                     "other bits than contiguous copies")
+        if got[0].stride() != strided[0].stride():
+            raise AssertionError(f"{key}: the output is not in the products' layout")
+        del got, want
+        ms, flat_ms = timed_pair(s_call, f_call, 20)
+        ins, outs, ops = io[key]
+        bound = roofline(ins, outs, float(ops) * dh * nnz * heads * batch,
+                         torch.bfloat16)["bound_ms"]
+        out[key] = dict(strided_ms=ms, contiguous_ms=flat_ms, bound_ms=bound)
+        log(f"  {key} nb {heads * batch} on ({batch}, N, {LATENT}) products: strided {ms:.4f} ms, "
+            f"contiguous copies {flat_ms:.4f} ms ({ms / flat_ms - 1:+.2%}), bound "
+            f"{bound:.4f} ms ({bound / ms:.1%}); the same bits")
+        if ms > 1.03 * flat_ms:
+            raise AssertionError(f"{key}: strided operands {ms:.4f} ms, over 3 % "
+                                 f"slower than contiguous copies ({flat_ms:.4f} ms)")
+    if ac.operand_copies != copies:
+        raise AssertionError(f"{ac.operand_copies - copies} operand copies on "
+                             "the products' views")
+    del products, strided, flat, st
+    torch.cuda.empty_cache()
+
+    model = _train_model(device, CHANNELS, processor="attention")
+    trainer = Trainer(mesh_graph_loss_fn(model, "mse"), device, context=graph)
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-4))
+    x = torch.randn(batch, n, CHANNELS, device=device, generator=gen)
+    data = (x, 0.9 * x + 0.1)
+    base = torch.randn(n, CHANNELS, device=device, generator=gen)
+    runs = {"train step": lambda: trainer.train_step(state, data),
+            "ensemble request": lambda: generate_ensemble(
+                model, graph, base, gen, 8, 4, sigma=0.1, smoothing_steps=2)}
+    for what, run in runs.items():
+        run()
+        copies = ac.operand_copies
+        names = [ev.name for ev in sorted(device_events(run),
+                                          key=lambda ev: ev.time_range.start)]
+        found = (copy_kernels(names, "attn_fwd_kernel", "attn_fwd_kernel")
+                 + copy_kernels(names, "attn_dq_kernel", "attn_dkdv_kernel"))
+        counts = {k: sum(k in nm for nm in names) for k in
+                  ("attn_fwd_kernel", "attn_dq_kernel", "attn_dkdv_kernel")}
+        log(f"  one attention {what} at the cell's shape: {len(names)} kernels, "
+            f"{counts}; elementwise_kernel<128, 4> between the q/k/v products and "
+            f"wo: {len(found)}; operand copies {ac.operand_copies - copies}; "
+            f"elementwise_kernel<128, 4> in all: "
+            f"{sum('native::elementwise_kernel<' in nm for nm in names)}")
+        want = 0 if what == "ensemble request" else PROCESS_STEPS
+        if (found or ac.operand_copies != copies or counts["attn_fwd_kernel"] < 4
+                or counts["attn_dq_kernel"] != want or counts["attn_dkdv_kernel"] != want):
+            raise AssertionError(f"attention {what}: copies {found[:4]}, operand "
+                                 f"copies {ac.operand_copies - copies}, kernels {counts}")
+    return out
+
+
+STRIDED_CHECK = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+print(json.dumps(cs.check_strided_attention(torch.device("cuda", 0))))
+"""
+
+
+def strided_attention_phase() -> dict:
+    """:func:`check_strided_attention` in a fresh child process (its
+    profiler windows are read there; see :func:`one_kernel_per_call`), its
+    lines relayed; returns its timings."""
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, "-c", STRIDED_CHECK,
+                          str(Path(__file__).resolve().parent)],
+                         timeout=900, capture_output=True, text=True)
+    lines = res.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"the strided attention check failed:\n{res.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
 # GraphCast's latent width and the published model's sizes: the segment
 # sums' shapes, and one training step of the model (every block recomputed)
 # whose sums are counted.
@@ -4300,6 +4452,10 @@ def main() -> int:
     one_kernel_per_call(ATTN_PROFILE, "windowed attention",
                         {"B5": "attn_fwd_kernel", "B6": "attn_dq_kernel",
                          "B7": "attn_dkdv_kernel"})
+    log("  B5b, B6b and B7b on the products' strided rows against contiguous "
+        "copies, and one attention train step and ensemble request without "
+        "layout copies (a child process):")
+    strided_attention_phase()
     log("  nn.core.linear: the bias and ReLU in the product's epilogue at the "
         "cells' shapes (a child process):")
     linear_phase()

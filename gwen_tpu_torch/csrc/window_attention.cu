@@ -11,7 +11,15 @@
 //   B7b  _attn_dkdv_kernel_b  (through _attn_dkdv_impl_b)
 // Each kernel here takes the folded batch (heads x batch items) as grid
 // dimension y, so one kernel serves the unbatched form (nb = 1) and the
-// batched one alike.
+// batched one alike. The operands are addressed through strides (Rows
+// below): an item of the grid is (b / inner, b % inner) of the wrapper's
+// fold, a row a row stride further on; q, g, out and dq share one layout,
+// k, v, dk and dv another. So q, k, v and the output cotangent are read,
+// and the outputs written, where the q/k/v and output projections keep
+// them: (..., N, H dh) rows, a head's dh values at a head offset; the
+// contiguous (nb, N, dh) form is one case of the same strides. A row's
+// offset is computed once for the operands that share it, and k's and v's
+// gathers share each neighbour's, as with the contiguous form.
 //
 // What they compute, per destination row i of item b, over the source rows
 // j that the mask S != 0 holds in i's window (the reference's math):
@@ -124,6 +132,25 @@ struct Lane {
 // that holds it.
 
 constexpr int CTA_ROWS = 64;  // consecutive rows of one item a CTA
+
+// Where an operand's rows lie, in elements: the items of the wrapper's fold
+// `outer` and `inner` apart, a row `row` further on (a 32-bit stride, so a
+// row's offset is one wide multiply; offsets are 64-bit). Row starts are
+// 16-byte aligned (the wrappers copy an operand that is not, and count it).
+struct Rows {
+  int64_t outer, inner;
+  int row;
+};
+
+// Item b of the grid as (b / inner, b % inner) of the fold: divided once a
+// thread, in 32 bits, and shared by every operand.
+struct Item {
+  int o, i;
+  __device__ __forceinline__ Item(int b, int inner) : o(b / inner), i(b % inner) {}
+  __device__ __forceinline__ int64_t at(const Rows& r) const {
+    return o * r.outer + i * r.inner;
+  }
+};
 
 constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
 
@@ -263,19 +290,20 @@ __device__ __forceinline__ int list_chunk(const int* list, int base, int deg,
   return cnt;
 }
 
-// The rows j[d] of a (rows, dh) matrix seen from this lane (`base` holds
-// the lane's offset). A row at or past `rows`, or -1, loads row 0 instead
-// and is masked by the caller (its bit in the returned mask is clear).
+// The rows j[d] of a (rows, dh) matrix `rs` elements apart, seen from this
+// lane (`base` holds the item's and the lane's offset). A row at or past
+// `rows`, or -1, loads row 0 instead and is masked by the caller (its bit
+// in the returned mask is clear).
 template <typename T, int NC, int CAP>
 __device__ __forceinline__ unsigned gather(const T* base, const int (&j)[CAP],
-                                           int rows, int dh,
+                                           int rows, int rs,
                                            Piece<T, NC> (&out)[CAP]) {
   unsigned real = 0;
 #pragma unroll
   for (int d = 0; d < CAP; ++d) {
     const bool in = j[d] >= 0 && j[d] < rows;
     real |= (in ? 1u : 0u) << d;
-    out[d].load(base + (int64_t)(in ? j[d] : 0) * dh);
+    out[d].load(base + (int64_t)(in ? j[d] : 0) * rs);
   }
   return real;
 }
@@ -376,8 +404,8 @@ struct Fwd {
   // time, with no shared scratch (no width is refused): the max and den
   // first (den rescaled whenever the max grows), then round(p) v.
   static __device__ void wide(const P& qi, const int* row, int deg, const T* kb,
-                              const T* vb, int n_kv, float scale,
-                              const Group<G>& grp, float (&acc)[V]) {
+                              const T* vb, int rs, int n_kv,
+                              float scale, const Group<G>& grp, float (&acc)[V]) {
     const int slot = grp.lane % W;
     float mx = NEG_BIG, den = 0.f;
     for (int base = 0; base < deg; base += CAP) {
@@ -385,7 +413,7 @@ struct Fwd {
       bool more;
       const int cnt = list_chunk<CAP>(row, base, deg, j, more);
       P kr[CAP];
-      const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, Gm::DH, kr);
+      const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, rs, kr);
       float sc[CAP], e[SL];
       scores(qi, kr, real, scale, grp.mask, sc);
       float m = mx;
@@ -404,8 +432,8 @@ struct Fwd {
       bool more;
       const int cnt = list_chunk<CAP>(row, base, deg, j, more);
       P kr[CAP], vr[CAP];
-      const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, Gm::DH, kr);
-      gather<T, NC, CAP>(vb, j, n_kv, Gm::DH, vr);
+      const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, rs, kr);
+      gather<T, NC, CAP>(vb, j, n_kv, rs, vr);
       float sc[CAP], e[SL];
       scores(qi, kr, real, scale, grp.mask, sc);
       slot_exps(sc, cnt, mx, slot, e);
@@ -424,19 +452,21 @@ template <typename T, int VPT>
 __global__ void __launch_bounds__(NT, 3)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const int* __restrict__ nbr,
-                T* __restrict__ out, int n_q, int n_kv, int deg, float scale) {
+                T* __restrict__ out, Rows lq, Rows lk, int inner, int n_q,
+                int n_kv, int deg, float scale) {
   using F = Fwd<T, VPT>;
-  constexpr int DH = F::Gm::DH, G = F::G, CAP = F::CAP, V = F::V;
+  constexpr int G = F::G, CAP = F::CAP, V = F::V;
   constexpr int NG = WARPS * F::Gm::GPW;  // groups a CTA
   const int sub = (threadIdx.x & 31) / G;
   const Group<G> grp(sub);
-  const int64_t b = blockIdx.y;
+  const Item it((int)blockIdx.y, inner);
   const int end = min(n_q, ((int)blockIdx.x + 1) * CTA_ROWS);
-  const T* kb = k + b * n_kv * DH + grp.lane * V;
-  const T* vb = v + b * n_kv * DH + grp.lane * V;
+  const int64_t qo = it.at(lq) + grp.lane * V;
+  const T* kb = k + it.at(lk) + grp.lane * V;
+  const T* vb = v + it.at(lk) + grp.lane * V;
   for (int i = (int)blockIdx.x * CTA_ROWS + (int)(threadIdx.x >> 5) * F::Gm::GPW + sub;
        i < end; i += NG) {
-    const int64_t at = (b * n_q + i) * DH + grp.lane * V;
+    const int64_t at = qo + (int64_t)i * lq.row;
     const int* row = nbr + (int64_t)i * deg;
     typename F::P qi;
     qi.load(q + at);
@@ -448,11 +478,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < V; ++e) acc[e] = 0.f;
     if (!more) {
       typename F::P kr[CAP], vr[CAP];
-      const unsigned real = gather<T, F::NC, CAP>(kb, j, n_kv, DH, kr);
-      gather<T, F::NC, CAP>(vb, j, n_kv, DH, vr);
+      const unsigned real = gather<T, F::NC, CAP>(kb, j, n_kv, lk.row, kr);
+      gather<T, F::NC, CAP>(vb, j, n_kv, lk.row, vr);
       F::row(qi, kr, vr, cnt, real, scale, grp, acc);
     } else {
-      F::wide(qi, row, deg, kb, vb, n_kv, scale, grp, acc);
+      F::wide(qi, row, deg, kb, vb, lk.row, n_kv, scale, grp, acc);
     }
     Lane<T, V>::store(out + at, acc);
   }
@@ -531,8 +561,9 @@ struct Dq {
   // delta, dq), gathered again each time, with every lane taking every
   // slot; no shared scratch, so no width is refused.
   static __device__ void wide(const P& qi, const P& gi, const int* row,
-                              int deg, const T* kb, const T* vb, int n_kv,
-                              float scale, const Group<G>& grp, float& mx,
+                              int deg, const T* kb, const T* vb, int rs,
+                              int n_kv, float scale,
+                              const Group<G>& grp, float& mx,
                               float& den, float& delta, float (&acc)[V]) {
     float div = 1.f;
     mx = NEG_BIG;
@@ -543,8 +574,8 @@ struct Dq {
         bool more;
         const int cnt = list_chunk<CAP>(row, base, deg, j, more);
         P kr[CAP], vr[CAP];
-        const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, Gm::DH, kr);
-        gather<T, NC, CAP>(vb, j, n_kv, Gm::DH, vr);
+        const unsigned real = gather<T, NC, CAP>(kb, j, n_kv, rs, kr);
+        gather<T, NC, CAP>(vb, j, n_kv, rs, vr);
         float s[2 * CAP], h[CAP], hs[CAP];
 #pragma unroll
         for (int d = 0; d < CAP; ++d) {
@@ -596,20 +627,21 @@ __global__ void __launch_bounds__(NT, 3)
 attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                const T* __restrict__ v, const T* __restrict__ g,
                const int* __restrict__ nbr, T* __restrict__ dq,
-               float* __restrict__ stats, int n_q, int n_kv, int deg,
-               float scale) {
+               float* __restrict__ stats, Rows lq, Rows lk, int inner,
+               int n_q, int n_kv, int deg, float scale) {
   using W = Dq<T, VPT>;
-  constexpr int DH = W::Gm::DH, G = W::G, CAP = W::CAP, V = W::V;
+  constexpr int G = W::G, CAP = W::CAP, V = W::V;
   constexpr int NG = WARPS * W::Gm::GPW;  // groups a CTA
   const int sub = (threadIdx.x & 31) / G;
   const Group<G> grp(sub);
-  const int64_t b = blockIdx.y;
+  const Item it((int)blockIdx.y, inner);
   const int end = min(n_q, ((int)blockIdx.x + 1) * CTA_ROWS);
-  const T* kb = k + b * n_kv * DH + grp.lane * V;
-  const T* vb = v + b * n_kv * DH + grp.lane * V;
+  const int64_t qo = it.at(lq) + grp.lane * V;
+  const T* kb = k + it.at(lk) + grp.lane * V;
+  const T* vb = v + it.at(lk) + grp.lane * V;
   for (int i = (int)blockIdx.x * CTA_ROWS + (int)(threadIdx.x >> 5) * W::Gm::GPW + sub;
        i < end; i += NG) {
-    const int64_t at = (b * n_q + i) * DH + grp.lane * V;
+    const int64_t at = qo + (int64_t)i * lq.row;
     const int* row = nbr + (int64_t)i * deg;
     typename W::P qi, gi;
     qi.load(q + at);
@@ -622,15 +654,16 @@ attn_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < V; ++e) acc[e] = 0.f;
     if (!more) {
       typename W::P kr[CAP], vr[CAP];
-      const unsigned real = gather<T, W::NC, CAP>(kb, j, n_kv, DH, kr);
-      gather<T, W::NC, CAP>(vb, j, n_kv, DH, vr);
+      const unsigned real = gather<T, W::NC, CAP>(kb, j, n_kv, lk.row, kr);
+      gather<T, W::NC, CAP>(vb, j, n_kv, lk.row, vr);
       W::row(qi, gi, kr, vr, cnt, real, scale, grp, mx, den, delta, acc);
     } else {
-      W::wide(qi, gi, row, deg, kb, vb, n_kv, scale, grp, mx, den, delta, acc);
+      W::wide(qi, gi, row, deg, kb, vb, lk.row, n_kv, scale, grp, mx, den,
+              delta, acc);
     }
     Lane<T, V>::store(dq + at, acc);
     if (grp.lane == 0) {
-      float* st = stats + (b * n_q + i) * 3;
+      float* st = stats + ((int64_t)blockIdx.y * n_q + i) * 3;
       st[0] = mx;
       st[1] = den;
       st[2] = delta;
@@ -652,24 +685,26 @@ attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ g,
                  const float* __restrict__ stats,
                  const int* __restrict__ nbr_t, T* __restrict__ dk,
-                 T* __restrict__ dv, int n_q, int n_kv, int deg_t,
-                 float scale) {
+                 T* __restrict__ dv, Rows lq, Rows lk, int inner, int n_q,
+                 int n_kv, int deg_t, float scale) {
   using Gm = Geo<T, VPT>;
-  constexpr int DH = Gm::DH, G = Gm::G, CAP = Gm::CAP, V = Gm::V;
+  constexpr int G = Gm::G, CAP = Gm::CAP, V = Gm::V;
   constexpr int W = Gm::W, SL = Gm::SL, NG = WARPS * Gm::GPW;
   using P = Piece<T, Gm::NC>;
   const int sub = (threadIdx.x & 31) / G;
   const Group<G> grp(sub);
+  const Item it((int)blockIdx.y, inner);
   const int64_t b = blockIdx.y;
   const int end = min(n_kv, ((int)blockIdx.x + 1) * CTA_ROWS);
   const int slot = grp.lane % W;
-  const T* qb = q + b * n_q * DH + grp.lane * V;
-  const T* gb = g + b * n_q * DH + grp.lane * V;
+  const T* qb = q + it.at(lq) + grp.lane * V;
+  const T* gb = g + it.at(lq) + grp.lane * V;
+  const int64_t ko = it.at(lk) + grp.lane * V;
   const float* sb = stats + b * n_q * 3;
   for (int c = (int)blockIdx.x * CTA_ROWS + (threadIdx.x >> 5) * Gm::GPW + sub;
        c < end; c += NG) {
     const int* col = nbr_t + (int64_t)c * deg_t;
-    const int64_t at = (b * n_kv + c) * DH + grp.lane * V;
+    const int64_t at = ko + (int64_t)c * lk.row;
     P kc, vc;
     kc.load(k + at);
     vc.load(v + at);
@@ -682,8 +717,8 @@ attn_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       list_chunk<CAP>(col, base, deg_t, ii, more);
       P qr[CAP], gr[CAP];
       // A row at or past n_q is a zero q and g row: it adds nothing.
-      const unsigned live = gather<T, Gm::NC, CAP>(qb, ii, n_q, DH, qr);
-      gather<T, Gm::NC, CAP>(gb, ii, n_q, DH, gr);
+      const unsigned live = gather<T, Gm::NC, CAP>(qb, ii, n_q, lq.row, qr);
+      gather<T, Gm::NC, CAP>(gb, ii, n_q, lq.row, gr);
       int mine[SL];  // this lane's slots' rows
       float mx[SL], den[SL], dlt[SL];
 #pragma unroll
@@ -740,43 +775,60 @@ dim3 rows_grid(int rows, int nb) {
   return dim3((unsigned)((rows + CTA_ROWS - 1) / CTA_ROWS), (unsigned)nb);
 }
 
+// The layout of operand `at` from the entry's table: (outer, inner, row).
+Rows rows_of(const long long* lay, int at) {
+  return Rows{(int64_t)lay[3 * at], (int64_t)lay[3 * at + 1],
+              (int)lay[3 * at + 2]};
+}
+
 template <typename T, int VPT>
 int launch_fwd(const void* q, const void* k, const void* v, const int* nbr,
-               void* out, int nb, int n_q, int n_kv, int deg, float scale,
-               cudaStream_t st) {
+               void* out, const long long* lay, int nb, int inner, int n_q,
+               int n_kv, int deg, float scale, cudaStream_t st) {
   attn_fwd_kernel<T, VPT><<<rows_grid(n_q, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), nbr, static_cast<T*>(out), n_q, n_kv, deg,
-      scale);
+      static_cast<const T*>(v), nbr, static_cast<T*>(out), rows_of(lay, 0),
+      rows_of(lay, 1), inner, n_q, n_kv, deg, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int VPT>
 int launch_dq(const void* q, const void* k, const void* v, const void* g,
-              const int* nbr, void* dq, float* stats, int nb, int n_q,
-              int n_kv, int deg, float scale, cudaStream_t st) {
+              const int* nbr, void* dq, float* stats, const long long* lay,
+              int nb, int inner, int n_q, int n_kv, int deg, float scale,
+              cudaStream_t st) {
   attn_dq_kernel<T, VPT><<<rows_grid(n_q, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), nbr,
-      static_cast<T*>(dq), stats, n_q, n_kv, deg, scale);
+      static_cast<T*>(dq), stats, rows_of(lay, 0), rows_of(lay, 1), inner,
+      n_q, n_kv, deg, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int VPT>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* g,
                 const float* stats, const int* nbr_t, void* dk, void* dv,
-                int nb, int n_q, int n_kv, int deg_t, float scale,
-                cudaStream_t st) {
+                const long long* lay, int nb, int inner, int n_q, int n_kv,
+                int deg_t, float scale, cudaStream_t st) {
   attn_dkdv_kernel<T, VPT><<<rows_grid(n_kv, nb), NT, 0, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(g), stats, nbr_t,
-      static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_kv, deg_t, scale);
+      static_cast<T*>(dk), static_cast<T*>(dv), rows_of(lay, 0),
+      rows_of(lay, 1), inner, n_q, n_kv, deg_t, scale);
   return (int)cudaGetLastError();
 }
 
-bool args_ok(int nb, int n_q, int n_kv, int deg, int vpt, int dtype) {
-  return nb >= 1 && nb <= 65535 && n_q >= 1 && n_kv >= 1 && deg >= 1 &&
-         vpt >= 1 && vpt <= 16 && (dtype == 0 || dtype == 1);
+// The launch's sizes, and the two layouts in `lay`: row strides that fit
+// the kernels' 32 bits.
+bool args_ok(const long long* lay, int nb, int inner, int n_q, int n_kv,
+             int deg, int vpt, int dtype) {
+  if (lay == nullptr) return false;
+  for (int at = 0; at < 2; ++at) {
+    if (lay[3 * at + 2] < 0 || lay[3 * at + 2] > 0x7fffffffLL) return false;
+  }
+  return nb >= 1 && nb <= 65535 && inner >= 1 && nb % inner == 0 &&
+         n_q >= 1 && n_kv >= 1 && deg >= 1 && vpt >= 1 && vpt <= 16 &&
+         (dtype == 0 || dtype == 1);
 }
 
 }  // namespace
@@ -802,44 +854,53 @@ bool args_ok(int nb, int n_q, int n_kv, int deg, int vpt, int dtype) {
     }                                                                       \
   } while (0)
 
+// Every operand is nb = n0 x inner items of rows of dh values; `lay` holds
+// two layouts of three int64 strides, in elements, (outer, inner, row):
+// q's, which g, out and dq share, then k's, which v, dk and dv share. Item
+// b, row i starts at (b / inner) outer + (b % inner) inner + i row. Row
+// starts are 16-byte aligned, a row's values consecutive, and a row
+// stride below 2^31.
+
 // Forward: q (nb, n_q, dh), k and v (nb, n_kv, dh), nbr (N_pad, deg) int32
 // with n_q <= N_pad, out (nb, n_q, dh).
 extern "C" int gwen_attn_fwd(const void* q, const void* k, const void* v,
-                             const void* nbr, void* out, int nb, int n_q,
-                             int n_kv, int deg, int vpt, float scale,
-                             int dtype, void* stream) {
-  if (!args_ok(nb, n_q, n_kv, deg, vpt, dtype)) return -1;
+                             const void* nbr, void* out, const long long* lay,
+                             int nb, int inner, int n_q, int n_kv, int deg,
+                             int vpt, float scale, int dtype, void* stream) {
+  if (!args_ok(lay, nb, inner, n_q, n_kv, deg, vpt, dtype)) return -1;
   const int* nb_ = static_cast<const int*>(nbr);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GWEN_ATTN_DISPATCH(launch_fwd, q, k, v, nb_, out, nb, n_q, n_kv, deg,
-                     scale, st);
+  GWEN_ATTN_DISPATCH(launch_fwd, q, k, v, nb_, out, lay, nb, inner, n_q,
+                     n_kv, deg, scale, st);
 }
 
-// dQ and the stats: g and dq like q, stats (nb, n_q, 3) float32 holding
-// (mx, den, delta) per row.
+// dQ and the stats: g and dq like q, stats (nb, n_q, 3) float32, contiguous,
+// holding (mx, den, delta) per row.
 extern "C" int gwen_attn_dq(const void* q, const void* k, const void* v,
                             const void* g, const void* nbr, void* dq,
-                            void* stats, int nb, int n_q, int n_kv, int deg,
-                            int vpt, float scale, int dtype, void* stream) {
-  if (!args_ok(nb, n_q, n_kv, deg, vpt, dtype)) return -1;
+                            void* stats, const long long* lay, int nb,
+                            int inner, int n_q, int n_kv, int deg, int vpt,
+                            float scale, int dtype, void* stream) {
+  if (!args_ok(lay, nb, inner, n_q, n_kv, deg, vpt, dtype)) return -1;
   const int* nb_ = static_cast<const int*>(nbr);
   float* sp = static_cast<float*>(stats);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GWEN_ATTN_DISPATCH(launch_dq, q, k, v, g, nb_, dq, sp, nb, n_q, n_kv, deg,
-                     scale, st);
+  GWEN_ATTN_DISPATCH(launch_dq, q, k, v, g, nb_, dq, sp, lay, nb, inner, n_q,
+                     n_kv, deg, scale, st);
 }
 
 // dK and dV: nbr_t (num_src_rows, deg_t) int32 with n_kv <= num_src_rows;
 // dk and dv like k.
 extern "C" int gwen_attn_dkdv(const void* q, const void* k, const void* v,
                               const void* g, const void* stats,
-                              const void* nbr_t, void* dk, void* dv, int nb,
+                              const void* nbr_t, void* dk, void* dv,
+                              const long long* lay, int nb, int inner,
                               int n_q, int n_kv, int deg_t, int vpt,
                               float scale, int dtype, void* stream) {
-  if (!args_ok(nb, n_q, n_kv, deg_t, vpt, dtype)) return -1;
+  if (!args_ok(lay, nb, inner, n_q, n_kv, deg_t, vpt, dtype)) return -1;
   const float* sp = static_cast<const float*>(stats);
   const int* nt = static_cast<const int*>(nbr_t);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  GWEN_ATTN_DISPATCH(launch_dkdv, q, k, v, g, sp, nt, dk, dv, nb, n_q, n_kv,
-                     deg_t, scale, st);
+  GWEN_ATTN_DISPATCH(launch_dkdv, q, k, v, g, sp, nt, dk, dv, lay, nb, inner,
+                     n_q, n_kv, deg_t, scale, st);
 }

@@ -11,17 +11,23 @@ the reference's: ``wq``, ``wk``, ``wv`` and ``wo``, each a linear
 ``{"w": (latent, latent), "b": (latent,)}``, so ``params_from_jax`` loads
 ``process_i.attn.wq.w`` unchanged.
 
-The projections emit ``(H, ..., N, dh)``, heads in front, and the heads
-fold with the batch into the kernels' item axis; the output projection
-contracts heads and head width together. The reference's ``pack`` option
+Each projection's ``(M, H·dh)`` product is handed to the attention as a
+view, ``(..., N, H, dh)`` with the head axis moved in front, ``(H, ...,
+N, dh)``: the heads fold with the batch into the kernels' items, and the
+kernels read each head's ``dh`` values at its offset in the product's rows
+(see :mod:`~gwen_tpu_torch.ops.attention_cuda`). The attention output takes
+the same layout, so it is the ``(M, H·dh)`` buffer that the output
+projection reads, heads and head width contracted together; in the
+backward the cotangents pass the same way. No copy runs between the
+products and the kernels in either direction; a copy the wrappers would
+make is counted in ``attention_cuda.operand_copies``. The reference's ``pack`` option
 (lane-packing head pairs into 128-lane TPU tiles) is accepted and changes
 nothing: it is bit-exact against no packing there, and on the H100 each
 head runs at its own width.
 
 Each of the four products, with its bias, is :func:`core.linear` (the
 bias in the product's epilogue; the span ``gwen.op.linear`` under a
-profiler); the head transposes on either side of the attention are
-outside it.
+profiler).
 """
 
 from __future__ import annotations
@@ -69,13 +75,14 @@ def graph_attention_apply(params, graph, x: Tensor, heads: int = 2,
     dh = latent // heads
     x2 = x.reshape(-1, latent)
 
-    def proj(p):  # (M, latent) → (H, ..., N, dh)
+    def proj(p):  # (M, latent) → a view (H, ..., N, dh) of the product
         y = core.linear_apply(p, x2)
-        return y.reshape(-1, heads, dh).transpose(0, 1).reshape(
-            heads, *x.shape[:-1], dh)
+        return y.view(*x.shape[:-1], heads, dh).movedim(-2, 0)
 
     attend = attend_halo if isinstance(graph, HaloDiagGraph) else windowed_attention
     oh = attend(graph, proj(params["wq"]), proj(params["wk"]),
                 proj(params["wv"]), backend=backend)
-    o2 = oh.reshape(heads, -1, dh).transpose(0, 1).reshape(-1, latent)
+    # (H, ..., N, dh) → (M, latent): a view where oh is in the products'
+    # layout, as the kernels write it.
+    o2 = oh.movedim(0, -2).reshape(-1, latent)
     return core.linear_apply(params["wo"], o2).reshape(x.shape)

@@ -164,7 +164,10 @@ def _unfused_item(graph: DiagWindowGraph, mask: Tensor, q: Tensor, k: Tensor,
 
 class _WindowedAttention(torch.autograd.Function):
     """Forward B5; backward B6 then B7 on the saved q, k and v (the
-    reference's flash-style backward: P is recomputed, never stored)."""
+    reference's flash-style backward: P is recomputed, never stored). The
+    operands are saved and read as the caller's views, and dq, dk and dv
+    come back in their layouts (see :mod:`~gwen_tpu_torch.ops.attention_cuda`),
+    so nothing is copied around the kernels in either direction."""
 
     @staticmethod
     def forward(ctx, q, k, v, graph, scale):
@@ -176,7 +179,7 @@ class _WindowedAttention(torch.autograd.Function):
     def backward(ctx, g):
         with annotate("gwen.op.attention.bwd"):
             q, k, v = ctx.saved_tensors
-            g = g.to(v.dtype).contiguous()
+            g = g.to(v.dtype)
             dq, stats = attention_cuda.attention_dq(ctx.graph, q, k, v, g,
                                                     ctx.scale)
             dk, dv = attention_cuda.attention_dkdv(ctx.graph, q, k, v, g,
@@ -199,8 +202,10 @@ def windowed_attention(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     and needs ``f = 128`` and an explicit ``scale``; the port attends each
     sub-head as an ordinary 64-wide head, which is exact.
 
-    One span ``gwen.op.attention`` under a profiler, the folds of q, k and
-    v included.
+    One span ``gwen.op.attention`` under a profiler. On ``"auto"`` the
+    kernels read q, k and v where they lie (any strides; see
+    :mod:`~gwen_tpu_torch.ops.attention_cuda`) and the result takes q's
+    layout; the other backends fold the leading axes as torch does.
     """
     with annotate("gwen.op.attention"):
         return _attend(graph, q, k, v, scale, backend, pack)
@@ -235,10 +240,10 @@ def _attend(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
     if k.shape[:-2] != q.shape[:-2] or v.shape != k.shape:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must share their leading axes")
-    q3, k3, v3 = (t.reshape(-1, *t.shape[-2:]).contiguous() for t in (q, k, v))
     if backend == "auto":
-        out = _WindowedAttention.apply(q3, k3, v3, graph, float(scale))
-    elif backend == "unfused":
+        return _WindowedAttention.apply(q, k, v, graph, float(scale))
+    q3, k3, v3 = (t.reshape(-1, *t.shape[-2:]) for t in (q, k, v))
+    if backend == "unfused":
         mask = window_mask(graph)
         out = torch.stack([_unfused_item(graph, mask, qi, ki, vi, float(scale))
                            for qi, ki, vi in zip(q3, k3, v3)])

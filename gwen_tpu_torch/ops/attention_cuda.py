@@ -3,8 +3,10 @@
 
 Three kernel wrappers, each with a launch count (``.launches``), each
 taking ``q`` as ``(N, dh)`` (the unbatched TPU kernel) or ``(nb, N, dh)``
-with the heads and batch items folded into ``nb`` (the batched one); one
-CUDA kernel serves both forms, with the items as a grid dimension:
+with the heads and batch items folded into ``nb`` (the batched one), or
+with more leading axes, the first one and the rest merged into two item
+axes; one CUDA kernel serves every form, with the items as a grid
+dimension:
 
 * :func:`attention_fwd` — kernels B5 and B5b, replacing
   ``gwen_tpu/ops/attention_pallas.py:_attn_fwd_kernel`` (through
@@ -28,12 +30,28 @@ from the mask (:func:`~gwen_tpu_torch.graph.graph.window_mask`) and
 over blocks, so holding a kernel against its plain version on the card also
 checks the lists.
 
+Operands are strided: a kernel takes two layouts of three strides each
+(the two item axes and the row), q's, which g and the outputs out and dq
+share, and k's, which v, dk and dv share. So the kernels read q, k, v and
+the output cotangent, and write the output and dq, dk, dv, where the
+projections keep them: a head's ``dh`` values at its offset in the
+``(..., N, H·dh)`` rows of the product (``nn/attention.py`` passes such
+views, heads first). A contiguous ``(nb, N, dh)`` operand is the case of
+one item axis and row stride ``dh``. An output is allocated in its
+operand's layout. A wrapper copies an operand only where the kernels
+cannot take it in place — a head width below its lane width
+(zero-padded), a row whose values are not consecutive, a row start that is
+not 16-byte aligned, leading axes that do not merge into two, v in another
+layout than k or g than q — and counts each copy in
+:data:`operand_copies`; the attention cells make none.
+
 On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises. There is no fallback.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -41,14 +59,15 @@ import torch.nn.functional as F
 
 from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
 from gwen_tpu_torch.ops import cuda_lib
-from gwen_tpu_torch.ops.cuda_lib import DTYPE_CODE, FLOAT, INT, PTR, CudaLib, fit_rows
+from gwen_tpu_torch.ops.cuda_lib import DTYPE_CODE, FLOAT, INT, LONG, PTR, CudaLib, fit_rows
 
 Tensor = torch.Tensor
 
 # Head widths the kernels take (32 lanes × 1, 2, 4, 8 or 16 values); the
 # wrappers zero-pad dh up to the next one (zero lanes change no dot product).
 LANE_WIDTHS = (32, 64, 128, 256, 512)
-_TAIL = [INT] * 5 + [FLOAT, INT, PTR]  # nb, n_q, n_kv, deg, vpt, scale, dtype, stream
+# layouts, nb, inner, n_q, n_kv, deg, vpt, scale, dtype, stream
+_TAIL = [PTR] + [INT] * 6 + [FLOAT, INT, PTR]
 LIB = CudaLib("window_attention.cu", gwen_attn_fwd=[PTR] * 5 + _TAIL,
               gwen_attn_dq=[PTR] * 7 + _TAIL, gwen_attn_dkdv=[PTR] * 8 + _TAIL)
 
@@ -57,7 +76,8 @@ LIB = CudaLib("window_attention.cu", gwen_attn_fwd=[PTR] * 5 + _TAIL,
 
 
 def _as3(t: Tensor) -> Tensor:
-    return t if t.dim() == 3 else t.unsqueeze(0)
+    """``(..., rows, f)`` → ``(items, rows, f)``."""
+    return t.reshape(-1, *t.shape[-2:])
 
 
 def _tiles(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
@@ -97,10 +117,10 @@ def _softmax(logits: Tensor, mask: Tensor):
 
 
 def _unfold(t: Tensor, graph: DiagWindowGraph, rows: int, like: Tensor) -> Tensor:
-    """``(nb, blocks, block, c)`` tiles → ``(nb, rows, c)`` (or 2-D like
-    ``like``)."""
+    """``(nb, blocks, block, c)`` tiles → ``(..., rows, c)`` with the
+    leading axes of ``like``."""
     out = t.reshape(t.shape[0], graph.num_padded_nodes, t.shape[-1])[:, :rows]
-    return out if like.dim() == 3 else out[0]
+    return out.reshape(*like.shape[:-2], rows, t.shape[-1])
 
 
 def attention_fwd_plain(graph: DiagWindowGraph, q: Tensor, k: Tensor,
@@ -155,7 +175,7 @@ def attention_dkdv_plain(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     dv = scatter(torch.matmul(p.to(g.dtype).float().transpose(-1, -2), gt))
     n_kv = k.shape[-2]
     dk, dv = fit_rows(dk, n_kv).to(k.dtype), fit_rows(dv, n_kv).to(v.dtype)
-    return (dk, dv) if q.dim() == 3 else (dk[0], dv[0])
+    return dk.reshape(k.shape), dv.reshape(v.shape)
 
 
 # ------------------------------------------------------------ kernel wrappers
@@ -171,13 +191,16 @@ def _lanes(f: int) -> int:
 def check_operands(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                    g: Optional[Tensor] = None) -> None:
     """Raise on anything the kernels do not take: ``q`` (and ``g``)
-    ``(N, dh)`` or ``(nb, N, dh)``; ``k`` and ``v`` ``(N_kv, dh)`` or
-    ``(nb, N_kv, dh)`` with q's items; all float32 or all bfloat16,
-    contiguous, on one device, with the graph's neighbour lists;
-    ``N ≤ N_pad``, ``N_kv ≤ num_src_rows``, dh at most 512."""
-    if q.dim() not in (2, 3):
-        raise ValueError(f"q must be (N, dh) or (nb, N, dh); got shape "
-                         f"{tuple(q.shape)} (fold other leading axes)")
+    ``(..., N, dh)``; ``k`` and ``v`` ``(..., N_kv, dh)`` with q's leading
+    axes; all float32 or all bfloat16, on one device, with the graph's
+    neighbour lists; ``N ≤ N_pad``, ``N_kv ≤ num_src_rows``, dh at most
+    512; each row's values consecutive and each row start 16-byte aligned,
+    at any strides, with v in k's layout and g in q's (the kernels address
+    each pair through one set of strides). The wrappers check the operands
+    as :func:`_operands` hands them to the kernels, having copied those the
+    kernels cannot address in place."""
+    if q.dim() < 2:
+        raise ValueError(f"q must be (..., N, dh); got shape {tuple(q.shape)}")
     if q.dtype not in DTYPE_CODE:
         raise TypeError(f"the attention kernels take float32 or bfloat16, "
                         f"not {q.dtype}")
@@ -203,97 +226,165 @@ def check_operands(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
     for t in (*ts, graph.attn_nbr, graph.attn_nbr_t):
         if t.device != q.device:
             raise ValueError(f"operand on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError("windowed-attention operands must be contiguous")
+    if not (graph.attn_nbr.is_contiguous() and graph.attn_nbr_t.is_contiguous()):
+        raise ValueError("the graph's neighbour lists must be contiguous")
+    if not all(_in_place(t) for t in ts):
+        raise ValueError("windowed-attention operands need consecutive row "
+                         "values and 16-byte aligned row starts; strides "
+                         + ", ".join(str(t.stride()) for t in ts))
+    if not (_same_layout(v, k) and (g is None or _same_layout(g, q))):
+        raise ValueError("v must have k's strides and g q's; strides "
+                         + ", ".join(str(t.stride()) for t in ts))
 
 
-def _lane_pad(t: Tensor) -> Tensor:
-    """``t`` as ``(nb, rows, width)``, zero-padded to the kernels' lane
-    width."""
-    t = _as3(t)
+def _same_layout(a: Tensor, b: Tensor) -> bool:
+    """Whether ``a`` and ``b`` have one shape and the same strides on
+    every axis longer than one."""
+    return a.shape == b.shape and all(
+        sa == sb for sa, sb, n in zip(a.stride(), b.stride(), a.shape) if n > 1)
+
+
+def _in_place(t: Tensor) -> bool:
+    """Whether the kernels address ``t``'s rows where they lie: a row's
+    values consecutive, every row start 16-byte aligned, the row stride
+    under 2**31 elements (the kernels' 32-bit row stride)."""
+    size = t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and t.stride(-2) < 2**31
+            and all(s * size % 16 == 0
+                    for s, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1))
+
+
+def _operand(t: Tensor) -> Tensor:
+    """``t`` ``(..., rows, f)`` as the kernels take it, ``(n0, n1, rows,
+    width)``: the first leading axis, then the others merged, at the lane
+    width. A view of ``t`` where its strides allow; else a copy, counted in
+    :data:`operand_copies` (a head width under its lane width, zero-padded;
+    leading axes that do not merge; a row whose values are not consecutive
+    or whose start is not 16-byte aligned)."""
+    global operand_copies
+    if t.dim() < 2:
+        raise ValueError(f"operands must be (..., rows, dh); got shape "
+                         f"{tuple(t.shape)}")
+    lead = t.shape[:-2]
+    shape = (lead[0] if lead else 1, math.prod(lead[1:]), *t.shape[-2:])
     width = _lanes(t.shape[-1])
-    return t if width == t.shape[-1] else F.pad(t, (0, width - t.shape[-1]))
+    try:
+        t4 = t.view(shape)
+    except RuntimeError:  # leading axes whose strides do not merge
+        t4 = None
+    if t4 is not None and width == t.shape[-1] and _in_place(t4):
+        return t4
+    operand_copies += 1
+    t4 = t.reshape(shape)
+    return (t4.contiguous() if width == t.shape[-1]
+            else F.pad(t4, (0, width - t.shape[-1])))
 
 
-def _args(q: Tensor, k: Tensor, table: Tensor, scale: float) -> list:
-    """The launch's shared trailing arguments."""
-    q3, k3 = _as3(q), _as3(k)
-    return [q3.shape[0], q3.shape[1], k3.shape[1], table.shape[1],
-            _lanes(q.shape[-1]) // 32, float(scale), DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream]
+def _empty(like: Tensor) -> Tensor:
+    """An uninitialised tensor with the shape and strides of ``like``."""
+    return torch.empty_strided(like.shape, like.stride(), dtype=like.dtype,
+                               device=like.device)
 
 
-def _cut(t: Tensor, f: int, like: Tensor) -> Tensor:
-    """Kernel output ``(nb, rows, width)`` → the caller's head width and
-    rank."""
-    t = t[..., :f] if t.shape[-1] != f else t
-    return t if like.dim() == 3 else t[0]
+def _operands(q: Tensor, k: Tensor, v: Tensor, g: Optional[Tensor] = None
+              ) -> list:
+    """``q``, ``k``, ``v`` (and ``g``) as the kernels take them: each
+    through :func:`_operand`, then ``v`` in k's layout and ``g`` in q's (a
+    copy, counted in :data:`operand_copies`, where the strides differ)."""
+    global operand_copies
+    ts = [_operand(t) for t in ((q, k, v) if g is None else (q, k, v, g))]
+    for at, like in ((2, 1), (3, 0)):  # v as k, g as q
+        if at < len(ts) and ts[at].shape == ts[like].shape and not _same_layout(
+                ts[at], ts[like]):
+            operand_copies += 1
+            ts[at] = _empty(ts[like]).copy_(ts[at])
+    return ts
+
+
+def _launch(entry, name: str, table: Tensor, q: Tensor, k: Tensor,
+            scale: float, pointers: list) -> None:
+    """One launch of ``entry`` on the kernel operands ``q`` and ``k``
+    ``(n0, n1, rows, width)``: its pointers, the layouts (item, item and
+    row strides) of q, which g and the q-side outputs share, and of k,
+    which v and dk, dv share, then the shared trailing arguments."""
+    layouts = (LONG * 6)(*q.stride()[:3], *k.stride()[:3])
+    rc = entry(*pointers, layouts, q.shape[0] * q.shape[1], q.shape[1],
+               q.shape[2], k.shape[2], table.shape[1], q.shape[3] // 32,
+               float(scale), DTYPE_CODE[q.dtype],
+               torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise cuda_lib.launch_failed(name, rc)
+
+
+def _result(t: Tensor, like: Tensor) -> Tensor:
+    """Kernel output ``(n0, n1, rows, width)`` → the shape of ``like`` (a
+    view)."""
+    f = like.shape[-1]
+    return (t[..., :f] if t.shape[-1] != f else t).view(like.shape)
 
 
 def attention_fwd(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                   scale: float) -> Tensor:
-    """Kernels B5 (``q`` 2-D) and B5b (3-D): the attention output, shaped
-    like q, in q's type."""
+    """Kernels B5 (``q`` 2-D) and B5b (more axes): the attention output,
+    shaped like q, in q's type and, where q's rows are read in place, in
+    q's layout."""
     if not cuda_lib.on_cuda(q, "windowed-attention"):
         return attention_fwd_plain(graph, q, k, v, scale)
-    check_operands(graph, q, k, v)
-    qp, kp, vp = _lane_pad(q), _lane_pad(k), _lane_pad(v)
-    out = torch.empty_like(qp)
-    rc = LIB().gwen_attn_fwd(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                             graph.attn_nbr.data_ptr(), out.data_ptr(),
-                             *_args(q, k, graph.attn_nbr, scale))
-    if rc != 0:
-        raise cuda_lib.launch_failed("B5", rc)
+    qk, kk, vk = _operands(q, k, v)
+    check_operands(graph, qk, kk, vk)
+    out = _empty(qk)
+    _launch(LIB().gwen_attn_fwd, "B5", graph.attn_nbr, qk, kk, scale,
+            [qk.data_ptr(), kk.data_ptr(), vk.data_ptr(),
+             graph.attn_nbr.data_ptr(), out.data_ptr()])
     attention_fwd.launches += 1
-    return _cut(out, q.shape[-1], q)
+    return _result(out, q)
 
 
 def attention_dq(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                  g: Tensor, scale: float) -> tuple[Tensor, Tensor]:
     """Kernels B6/B6b: ``(dq, stats)`` for the output cotangent ``g``
-    (shaped like q, in v's type); stats ``(..., N, 3)`` float32."""
+    (shaped like q, in v's type); dq in q's layout where q is read in
+    place, stats ``(..., N, 3)`` float32, contiguous."""
     if not cuda_lib.on_cuda(q, "windowed-attention"):
         return attention_dq_plain(graph, q, k, v, g, scale)
-    check_operands(graph, q, k, v, g)
-    qp, kp, vp, gp = _lane_pad(q), _lane_pad(k), _lane_pad(v), _lane_pad(g)
-    dq = torch.empty_like(qp)
-    stats = torch.empty(*qp.shape[:-1], 3, dtype=torch.float32,
+    qk, kk, vk, gk = _operands(q, k, v, g)
+    check_operands(graph, qk, kk, vk, gk)
+    dq = _empty(qk)
+    stats = torch.empty(*qk.shape[:-1], 3, dtype=torch.float32,
                         device=q.device)
-    rc = LIB().gwen_attn_dq(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                            gp.data_ptr(), graph.attn_nbr.data_ptr(),
-                            dq.data_ptr(), stats.data_ptr(),
-                            *_args(q, k, graph.attn_nbr, scale))
-    if rc != 0:
-        raise cuda_lib.launch_failed("B6", rc)
+    _launch(LIB().gwen_attn_dq, "B6", graph.attn_nbr, qk, kk, scale,
+            [qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), gk.data_ptr(),
+             graph.attn_nbr.data_ptr(), dq.data_ptr(), stats.data_ptr()])
     attention_dq.launches += 1
-    return _cut(dq, q.shape[-1], q), stats if q.dim() == 3 else stats[0]
+    return _result(dq, q), stats.view(*q.shape[:-1], 3)
 
 
 def attention_dkdv(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
                    g: Tensor, stats: Tensor, scale: float
                    ) -> tuple[Tensor, Tensor]:
-    """Kernels B7/B7b: ``(dk, dv)``, shaped like k, from the stats of
+    """Kernels B7/B7b: ``(dk, dv)``, shaped like k and, where k and v are
+    read in place, in their layouts, from the stats of
     :func:`attention_dq`."""
     if not cuda_lib.on_cuda(q, "windowed-attention"):
         return attention_dkdv_plain(graph, q, k, v, g, stats, scale)
-    check_operands(graph, q, k, v, g)
     if (stats.dtype != torch.float32 or stats.shape != (*q.shape[:-1], 3)
             or not stats.is_contiguous() or stats.device != q.device):
         raise ValueError(f"stats must be contiguous float32 "
                          f"{(*q.shape[:-1], 3)} on {q.device}")
-    qp, kp, vp, gp = _lane_pad(q), _lane_pad(k), _lane_pad(v), _lane_pad(g)
-    dk, dv = torch.empty_like(kp), torch.empty_like(vp)
-    rc = LIB().gwen_attn_dkdv(qp.data_ptr(), kp.data_ptr(), vp.data_ptr(),
-                              gp.data_ptr(), stats.data_ptr(),
-                              graph.attn_nbr_t.data_ptr(), dk.data_ptr(),
-                              dv.data_ptr(),
-                              *_args(q, k, graph.attn_nbr_t, scale))
-    if rc != 0:
-        raise cuda_lib.launch_failed("B7", rc)
+    qk, kk, vk, gk = _operands(q, k, v, g)
+    check_operands(graph, qk, kk, vk, gk)
+    dk, dv = _empty(kk), _empty(kk)
+    _launch(LIB().gwen_attn_dkdv, "B7", graph.attn_nbr_t, qk, kk, scale,
+            [qk.data_ptr(), kk.data_ptr(), vk.data_ptr(), gk.data_ptr(),
+             stats.data_ptr(), graph.attn_nbr_t.data_ptr(), dk.data_ptr(),
+             dv.data_ptr()])
     attention_dkdv.launches += 1
-    return _cut(dk, k.shape[-1], q), _cut(dv, v.shape[-1], q)
+    return _result(dk, k), _result(dv, v)
 
 
 attention_fwd.launches = 0
 attention_dq.launches = 0
 attention_dkdv.launches = 0
+# Operands the wrappers copied because the kernels could not read them in
+# place (see _operand).
+operand_copies = 0

@@ -9,6 +9,7 @@ results are held to rtol = atol = 1e-4.
 """
 
 import json
+import math
 
 import jax
 import jax.numpy as jnp
@@ -28,12 +29,14 @@ from gwen_tpu.train.optim import make_optimizer as j_make_optimizer
 from gwen_tpu.train.tasks import mesh_graph_loss_fn as j_loss_fn
 from gwen_tpu_torch.cli.main import main as cli
 from gwen_tpu_torch.nn import EncodeProcessDecode, params_from_jax, params_to_tree
+from gwen_tpu_torch.nn import attention as attn_module
 from gwen_tpu_torch.nn.attention import graph_attention_apply, graph_attention_init
 from gwen_tpu_torch.ops import attention_cuda
 from gwen_tpu_torch.ops.attention import windowed_attention
 from gwen_tpu_torch.registry import Registry
 from gwen_tpu_torch.serve import ServingModel, export_model, model_from_metadata
 from gwen_tpu_torch.train import Trainer, TrainState, make_optimizer, mesh_graph_loss_fn
+from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 from test_torch_train import _flat
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -230,15 +233,35 @@ def test_pack_splits_into_sub_heads_like_the_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _zeros(spec):
+    """A zero operand: ``spec`` is its shape, or ``("strided", shape)`` (every
+    second value of a row twice as wide: an inner stride of 2) or
+    ``("offset", shape)`` (rows starting 4 bytes past a 16-byte boundary) or
+    ``("wide", shape)`` (rows in place, twice as far apart)."""
+    if spec[0] == "strided":
+        return torch.zeros(*spec[1][:-1], 2 * spec[1][-1])[..., ::2]
+    if spec[0] == "offset":
+        return torch.zeros(math.prod(spec[1]) + 1)[1:].view(spec[1])
+    if spec[0] == "wide":  # the first columns of rows twice as long
+        return torch.zeros(*spec[1][:-1], 2 * spec[1][-1])[..., :spec[1][-1]]
+    return torch.zeros(spec)
+
+
 @pytest.mark.parametrize("shapes,exc", [
-    (((4, 3, 8, 32),) * 3, ValueError),  # 4-d q
+    ((("strided", (8, 32)), (8, 32), (8, 32)), ValueError),  # inner stride 2
     (((8, 32), (8, 32), (9, 32)), ValueError),  # v unlike k
     (((8, 600),) * 3, ValueError),  # head over 512
     (((2, 8, 32), (3, 8, 32), (3, 8, 32)), ValueError),  # items differ
+    (((8, 32), ("offset", (8, 32)), (8, 32)), ValueError),  # misaligned rows
+    (((8, 32), (8, 32), ("wide", (8, 32))), ValueError),  # v not in k's layout
 ])
 def test_kernel_operand_checks_refuse(shapes, exc):
+    """The kernels' own check, on operands as the wrappers hand them over:
+    a row whose values are not consecutive, or whose start is not 16-byte
+    aligned, and a v whose strides are not k's, are refused (the wrappers
+    copy such an operand first)."""
     _, dp, _ = _graphs(levels=2)
-    q, k, v = (torch.zeros(s) for s in shapes)
+    q, k, v = (_zeros(s) for s in shapes)
     with pytest.raises(exc):
         attention_cuda.check_operands(dp, q, k, v)
     with pytest.raises(TypeError):
@@ -277,6 +300,118 @@ def test_graph_attention_apply_matches_reference(heads, dh):
     want_p = _flat(j_dp)
     for name, p in mod.named_parameters():
         np.testing.assert_allclose(p.grad.numpy(), want_p[name], **TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("dh,copies", [(128, 0), (48, 3 + 4 + 4)])
+def test_graph_attention_apply_launches_on_the_products_rows(dh, copies, fake_lib,
+                                                             monkeypatch):
+    """At 2 heads, B5, B6 and B7 read q, k, v and the output cotangent in
+    the ``(B, N, H·dh)`` rows of their products and write the output and
+    dq, dk, dv in that layout: each launch gets the product's own
+    ``data_ptr()``, head 0's offset, and the strides head (dh), batch item
+    (N·H·dh) and row (H·dh); the output projection reads the buffer B5
+    wrote, and each product's backward gets the buffer B6 or B7 wrote, as
+    views. No operand is copied at dh 128; at dh 48 every operand is
+    zero-padded to 64 lanes, one counted copy each (3 forward, 4 a
+    backward launch)."""
+    heads, latent, batch = 2, 2 * dh, 2
+    _, dp, n = _graphs(levels=2)
+    mod = graph_attention_init(latent, heads, torch.Generator().manual_seed(0), "cpu")
+    products, inputs, grads = {}, {}, {}
+    plain_linear = attn_module.core.linear_apply
+
+    def linear_apply(p, x):
+        name = next(k for k in ("wq", "wk", "wv", "wo") if mod[k] is p)
+        inputs[name] = x
+        if name == "wo":
+            x.register_hook(lambda g: grads.setdefault("o", g))
+        y = products[name] = plain_linear(p, x)
+        y.register_hook(lambda g: grads.setdefault(name, g))
+        return y
+
+    monkeypatch.setattr(attn_module.core, "linear_apply", linear_apply)
+    x = torch.zeros(batch, n, latent, requires_grad=True)
+    before = attention_cuda.operand_copies
+    graph_attention_apply(mod, dp, x, heads=heads).sum().backward()
+    assert attention_cuda.operand_copies == before + copies
+    assert [c[0] for c in fake_lib.calls] == ["gwen_attn_fwd", "gwen_attn_dq",
+                                              "gwen_attn_dkdv"]
+    (_, a5), (_, a6), (_, a7) = fake_lib.calls
+    if copies:
+        assert {a5[0], a5[1], a5[2]}.isdisjoint(
+            products[k].data_ptr() for k in ("wq", "wk", "wv"))
+        return
+    layout = [dh, n * latent, latent]
+    ptr = {k: t.data_ptr() for k, t in products.items()}
+    assert list(a5[:3]) == [ptr["wq"], ptr["wk"], ptr["wv"]]
+    assert a5[4] == inputs["wo"].data_ptr()
+    assert list(a5[5]) == layout * 2
+    assert list(a5[6:10]) == [heads * batch, batch, n, n]
+    assert list(a6[:4]) == [ptr["wq"], ptr["wk"], ptr["wv"], grads["o"].data_ptr()]
+    assert a6[5] == grads["wq"].data_ptr()
+    assert list(a6[7]) == layout * 2
+    assert list(a7[:4]) == list(a6[:4])
+    assert [a7[6], a7[7]] == [grads["wk"].data_ptr(), grads["wv"].data_ptr()]
+    assert list(a7[8]) == layout * 2
+    for k in ("wq", "wk", "wv"):
+        assert grads[k].is_contiguous() and grads[k].shape == (batch * n, latent)
+
+
+def test_v_and_g_are_copied_into_k_and_q_layouts(fake_lib):
+    """The kernels address v through k's strides and g through q's: a v or
+    g in place but laid out otherwise is copied into its partner's layout,
+    one counted copy, and launched from the copy; outputs take q's and k's
+    layouts."""
+    _, dp, n = _graphs(levels=2)
+    q, k = torch.zeros(2, n, 32), torch.zeros(2, n, 32)
+    v, g = _zeros(("wide", (2, n, 32))), _zeros(("wide", (2, n, 32)))
+    before = attention_cuda.operand_copies
+    out = attention_cuda.attention_fwd(dp, q, k, v, 1.0)
+    assert attention_cuda.operand_copies == before + 1
+    dq, stats = attention_cuda.attention_dq(dp, q, k, v, g, 1.0)
+    dk, dv = attention_cuda.attention_dkdv(dp, q, k, v, g, stats, 1.0)
+    assert attention_cuda.operand_copies == before + 1 + 2 + 2
+    (_, a5), (_, a6), (_, a7) = fake_lib.calls
+    assert a5[2] != v.data_ptr() and a6[3] != g.data_ptr()
+    assert a5[:2] == (q.data_ptr(), k.data_ptr())
+    assert out.stride() == dq.stride() == q.stride() and dk.stride() == dv.stride() == k.stride()
+
+
+def _strided_and_contiguous(attend, graph, n_rows, heads=2, dh=32, batch=2,
+                            seed=4):
+    """Outputs and gradients of ``attend`` on q, k and v as the model passes
+    them (views ``(H, B, N, dh)`` of ``(B, N, H·dh)`` products) and on
+    contiguous copies of the same values, the gradients read back in the
+    products' layout."""
+    ys = [torch.from_numpy(a) for a in _rand(seed, *[(batch, n_rows, heads * dh)] * 3)]
+    cot = torch.from_numpy(_rand(seed + 1, (heads, batch, n_rows, dh))[0])
+
+    def heads_first(y):
+        return y.view(batch, n_rows, heads, dh).movedim(-2, 0)
+
+    strided = [y.clone().requires_grad_() for y in ys]
+    out_s = attend(graph, *(heads_first(y) for y in strided))
+    out_s.backward(cot)
+    flat = [heads_first(y).contiguous().requires_grad_() for y in ys]
+    assert all(f.is_contiguous() for f in flat)
+    out_c = attend(graph, *flat)
+    out_c.backward(cot)
+    grads_c = [f.grad.movedim(0, -2).reshape(batch, n_rows, heads * dh) for f in flat]
+    return (out_s, [y.grad for y in strided]), (out_c, grads_c)
+
+
+@pytest.mark.parametrize("backend", ["auto", "plain"])
+def test_strided_operands_give_the_gradients_of_contiguous_copies(backend):
+    """``windowed_attention`` on the products' strided views: the output
+    and the gradients in q, k and v equal those through contiguous copies,
+    bit for bit, on the Function (``"auto"``: the kernels' plain versions
+    on the CPU) and on the plain forward under autograd."""
+    _, dp, n = _graphs(levels=2)
+    (out_s, g_s), (out_c, g_c) = _strided_and_contiguous(
+        lambda gr, q, k, v: windowed_attention(gr, q, k, v, backend=backend), dp, n)
+    torch.testing.assert_close(out_s, out_c, rtol=0, atol=0)
+    for a, b in zip(g_s, g_c):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_graph_attention_rejects_a_graph_without_the_diag_layout():

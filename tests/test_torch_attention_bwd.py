@@ -107,6 +107,12 @@ def test_plain_backward_matches_reference(kind, lead, padded):
 # ------------------------------------------------- dispatch to the kernels
 
 
+def _rows(rows: int, dh: int) -> list:
+    """The layout a contiguous ``(..., rows, dh)`` operand is launched
+    with: (outer item, inner item, row) strides in elements."""
+    return [rows * dh, rows * dh, dh]
+
+
 @pytest.mark.parametrize("kind", ["mesh", "wide"])
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -115,27 +121,35 @@ def test_backward_launches_one_kernel_each(lead, dtype, dh, kind, fake_lib):
     """B6 is one ``gwen_attn_dq`` call on the graph's lists and B7 one
     ``gwen_attn_dkdv`` call on the transpose lists, at any list width (the
     kernels walk a list wider than their register chunk themselves): the
-    items, rows, table width, values a lane (dh / 32), scale and dtype code
-    as the kernels take them, each counted once."""
+    operands' own pointers, q's and k's strides, the items, the inner item count,
+    rows, table width, values a lane (dh / 32), scale and dtype code as the
+    kernels take them, each counted once, no operand copied."""
     dp = _port(kind)
     n = dp.num_nodes
     assert (dp.attn_nbr.shape[1] > CHUNK) == (kind == "wide")
     q, k, v, g = (torch.zeros(*lead, n, dh, dtype=dtype) for _ in range(4))
     scale = dh ** -0.5
     b6, b7 = attention_cuda.attention_dq.launches, attention_cuda.attention_dkdv.launches
+    copies = attention_cuda.operand_copies
     dq, stats = attention_cuda.attention_dq(dp, q, k, v, g, scale)
     dk, dv = attention_cuda.attention_dkdv(dp, q, k, v, g, stats, scale)
     assert attention_cuda.attention_dq.launches == b6 + 1
     assert attention_cuda.attention_dkdv.launches == b7 + 1
+    assert attention_cuda.operand_copies == copies
     assert [c[0] for c in fake_lib.calls] == ["gwen_attn_dq", "gwen_attn_dkdv"]
     (_, a6), (_, a7) = fake_lib.calls
-    tail = [lead[0] if lead else 1, n, n]
+    tail = [lead[0] if lead else 1, 1, n, n]
     code = 1 if dtype == torch.bfloat16 else 0
-    assert a6[4] == dp.attn_nbr.data_ptr() and a6[6] == stats.data_ptr()
-    assert list(a6[7:]) == [*tail, dp.attn_nbr.shape[1], dh // 32,
+    qkvg = [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr()]
+    assert list(a6[:7]) == [*qkvg, dp.attn_nbr.data_ptr(), dq.data_ptr(),
+                            stats.data_ptr()]
+    assert list(a6[7]) == _rows(n, dh) * 2
+    assert list(a6[8:]) == [*tail, dp.attn_nbr.shape[1], dh // 32,
                             pytest.approx(scale), code, 0]
-    assert a7[4] == stats.data_ptr() and a7[5] == dp.attn_nbr_t.data_ptr()
-    assert list(a7[8:]) == [*tail, dp.attn_nbr_t.shape[1], dh // 32,
+    assert list(a7[:8]) == [*qkvg, stats.data_ptr(), dp.attn_nbr_t.data_ptr(),
+                            dk.data_ptr(), dv.data_ptr()]
+    assert list(a7[8]) == _rows(n, dh) * 2
+    assert list(a7[9:]) == [*tail, dp.attn_nbr_t.shape[1], dh // 32,
                             pytest.approx(scale), code, 0]
     assert dq.shape == q.shape and dq.dtype == dtype
     assert stats.shape == (*lead, n, 3) and stats.dtype == torch.float32

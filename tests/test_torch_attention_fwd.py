@@ -23,7 +23,7 @@ import torch
 
 from gwen_tpu.ops.attention_pallas import windowed_attention as j_windowed
 from gwen_tpu_torch.ops import attention_cuda
-from test_torch_attention_bwd import CHUNK, _pair, _port
+from test_torch_attention_bwd import CHUNK, _pair, _port, _rows
 from test_torch_cuda_lib import fake_lib  # noqa: F401 (fixture)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -103,9 +103,11 @@ def test_plain_forward_isolated_row_and_short_kv_match_reference(kind, lead, dh,
 def test_forward_launches_one_kernel(lead, dtype, dh, kind, fake_lib):
     """B5 and B5b are one ``gwen_attn_fwd`` call on the graph's lists at
     any list width (the kernel walks a list wider than its register chunk
-    itself, with no width refused): the items, rows, table width, values a
-    lane (dh / 32), scale and dtype code as the kernel takes them, counted
-    once; k and v may be short of q."""
+    itself, with no width refused): the operands' own pointers, q's and
+    k's strides (item, item, row: a contiguous operand has one item axis
+    and row stride dh), the items, the inner item count 1, rows, table width,
+    values a lane (dh / 32), scale and dtype code as the kernel takes them,
+    counted once and with no operand copied; k and v may be short of q."""
     dp = _port(kind)
     n = dp.num_nodes
     n_kv = n - SHORT
@@ -113,12 +115,16 @@ def test_forward_launches_one_kernel(lead, dtype, dh, kind, fake_lib):
     k, v = (torch.zeros(*lead, n_kv, dh, dtype=dtype) for _ in range(2))
     scale = dh ** -0.5
     before = attention_cuda.attention_fwd.launches
+    copies = attention_cuda.operand_copies
     out = attention_cuda.attention_fwd(dp, q, k, v, scale)
     assert attention_cuda.attention_fwd.launches == before + 1
+    assert attention_cuda.operand_copies == copies
     assert [c[0] for c in fake_lib.calls] == ["gwen_attn_fwd"]
     (_, args), = fake_lib.calls
-    assert args[3] == dp.attn_nbr.data_ptr() and args[4] == out.data_ptr()
-    assert list(args[5:]) == [lead[0] if lead else 1, n, n_kv, dp.attn_nbr.shape[1],
-                              dh // 32, pytest.approx(scale),
+    assert list(args[:5]) == [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              dp.attn_nbr.data_ptr(), out.data_ptr()]
+    assert list(args[5]) == [*_rows(n, dh), *_rows(n_kv, dh)]
+    assert list(args[6:]) == [lead[0] if lead else 1, 1, n, n_kv,
+                              dp.attn_nbr.shape[1], dh // 32, pytest.approx(scale),
                               1 if dtype == torch.bfloat16 else 0, 0]
-    assert out.shape == q.shape and out.dtype == dtype
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()

@@ -284,6 +284,24 @@ def test_attend_halo_refuses_what_it_cannot_do():
     assert attend_halo(hg, q128, q128, q128, scale=0.125, pack=True).shape == q128.shape
 
 
+@pytest.mark.parametrize("backend", ["auto", "plain"])
+def test_attend_halo_on_strided_operands_gives_the_gradients_of_copies(backend):
+    """One partition through ``attend_halo`` on q, k and v as the model
+    passes them (views of ``(B, N, H·dh)`` products, heads first; k and v
+    take the halo exchange): output and gradients equal those through
+    contiguous copies, bit for bit."""
+    from test_torch_attention import _strided_and_contiguous
+
+    s, r, n = _edges(kd=True)
+    pg = partition_graph(s, r, n, num_parts=1, **DIAG)
+    hg = local_graph(pg, 0, transpose_tables=True)
+    (out_s, g_s), (out_c, g_c) = _strided_and_contiguous(
+        lambda gr, q, k, v: attend_halo(gr, q, k, v, backend=backend), hg, pg.n_local)
+    torch.testing.assert_close(out_s, out_c, rtol=0, atol=0)
+    for a, b in zip(g_s, g_c):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_to_diag_window_n_pad(same_rcm):
     """``n_pad`` pads the destination rows only: same windows, same escapes,
     same S rows as the reference; refused unless a superblock multiple."""

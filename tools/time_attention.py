@@ -19,7 +19,9 @@ events over 3 steps after a warm-up, then one step under
 ``torch.profiler`` for B5's, B6's and B7's device time in it. ``--root``
 imports ``gwen_tpu_torch`` from another checkout (say the parent commit
 unpacked with ``git archive``; one that has ``ops/cuda_lib.py``), so that
-two versions can be timed in turns, in separate processes, on one card.
+two versions can be timed in turns, in separate processes, on one card;
+``--controls`` launches through the wrappers' ``_launch`` (the kernels'
+strided arguments), so only with a checkout that has it.
 
 ``--controls`` times, instead of the steps, B5b (nb 2 and 8), B6b and B7b
 built from this checkout's ``csrc/window_attention.cu`` with one change
@@ -47,8 +49,8 @@ LEVELS, WINDOW, LATENT, STEPS, HEADS, BATCH = 7, 384, 256, 4, 2, 4
 # name: (text of csrc/window_attention.cu, its replacement)
 CONTROLS = {
     "gathers from 64 rows": [(
-        "out[d].load(base + (int64_t)(in ? j[d] : 0) * dh);",
-        "out[d].load(base + (int64_t)((in ? j[d] : 0) & 63) * dh);")],
+        "out[d].load(base + (in ? j[d] : 0) * rs);",
+        "out[d].load(base + ((in ? j[d] : 0) & 63) * rs);")],
     "fewer registers (B5, B6 64, B7 80)": [
         ("__launch_bounds__(NT, 3)\nattn_fwd_kernel",
          "__launch_bounds__(NT, 4)\nattn_fwd_kernel"),
@@ -213,31 +215,34 @@ def main() -> int:
         st = ac.attention_dq(graph, q, k, v, g, scale)[1]
         out = [torch.empty_like(q) for _ in range(4)]
         st2 = torch.empty_like(st)
+        # (nb, N, dh) as the kernels take operands: (n0, n1, N, dh).
+        q4, k4 = q.unsqueeze(1), k.unsqueeze(1)
 
         def b5(lib, nb):
-            return lambda: lib.gwen_attn_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), graph.attn_nbr.data_ptr(),
-                out[3].data_ptr(), *ac._args(q[:nb], k[:nb], graph.attn_nbr, scale))
+            return lambda: ac._launch(
+                lib.gwen_attn_fwd, "B5", graph.attn_nbr, q4[:nb], k4[:nb], scale,
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), graph.attn_nbr.data_ptr(),
+                 out[3].data_ptr()])
 
         def b6(lib):
-            return lambda: lib.gwen_attn_dq(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                graph.attn_nbr.data_ptr(), out[0].data_ptr(), st2.data_ptr(),
-                *ac._args(q, k, graph.attn_nbr, scale))
+            return lambda: ac._launch(
+                lib.gwen_attn_dq, "B6", graph.attn_nbr, q4, k4, scale,
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 graph.attn_nbr.data_ptr(), out[0].data_ptr(), st2.data_ptr()])
 
         def b7(lib):
-            return lambda: lib.gwen_attn_dkdv(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-                st.data_ptr(), graph.attn_nbr_t.data_ptr(), out[1].data_ptr(),
-                out[2].data_ptr(), *ac._args(q, k, graph.attn_nbr_t, scale))
+            return lambda: ac._launch(
+                lib.gwen_attn_dkdv, "B7", graph.attn_nbr_t, q4, k4, scale,
+                [q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 st.data_ptr(), graph.attn_nbr_t.data_ptr(), out[1].data_ptr(),
+                 out[2].data_ptr()])
 
         want = [ac.attention_dq(graph, q, k, v, g, scale)[0],
                 *ac.attention_dkdv(graph, q, k, v, g, st, scale),
                 ac.attention_fwd(graph, q, k, v, scale)]
         for name, lib in libs.items():
             for fn in (b6(lib), b7(lib), b5(lib, HEADS * BATCH)):
-                if fn() != 0:
-                    raise RuntimeError(f"{name}: launch failed")
+                fn()  # raises on a failed launch
             if name != "gathers from 64 rows":
                 for got, w, what in zip(out, want, ("dq", "dk", "dv", "out")):
                     held(torch, f"{name} {what} against the kernel", got, w)
