@@ -230,7 +230,14 @@ Drives ``gwen_tpu_torch`` only (no JAX); its timers are
    operators on the 0.25° graphs, each block's receiver and sender side,
    against its plain version, for the same bits, timed beside its bound,
    the plain version and ``index_add_``, and one GraphCast train step
-   with its launches counted (:func:`check_segment_sum`);
+   with its launches counted (:func:`check_segment_sum`); then B5b, B6b
+   and B7b on GenCast's 16-hop neighbour lists of the level-6 mesh (40,962
+   rows of 681 to 817 sources) at 4 heads of 128 on the products' views,
+   against the list-based plain versions, for the same bits, timed beside
+   their bounds (:func:`check_khop_attention`), after GenCast's conditional
+   norm (B2 with and without its residual, B2b, the scale and offset
+   computed) at the cell's row counts against its plain version and
+   autograd (:func:`check_cond_norm`);
    then the NCCL probe.
 
 The second-to-last lines are a JSON object of the kernels and the
@@ -4270,6 +4277,201 @@ def segment_phase() -> dict:
     return json.loads(lines[-1])
 
 
+# GenCast's mesh (the level-6 icosphere, 16-hop lists) and its attention's
+# widths: 4 heads of 128 in a 512-wide product, batch 1.
+KHOP_REFINE, KHOP_HOPS, KHOP_HEADS, KHOP_DH = 6, 16, 4, 128
+
+
+def build_khop_graph(device):
+    """GenCast's mesh neighbour lists as the model builds them (the
+    level-``KHOP_REFINE`` icosphere in its locality order, every node's
+    ``KHOP_HOPS``-hop neighbourhood), beside a grid of 3 × 4 nodes."""
+    from gwen_tpu_torch.graph.gencast import build_gencast_graphs
+
+    return build_gencast_graphs(3, 4, KHOP_REFINE, 0.6, KHOP_HOPS, device).mesh
+
+
+def check_khop_attention(device) -> dict:
+    """B5b, B6b and B7b on GenCast's k-hop neighbour lists at its widths:
+    the ``(4, 1, N, 128)`` head views of ``(1, N, 512)`` bf16 products (as
+    ``nn/attention.py`` hands them over), against the list-based plain
+    versions within ``BF16_TOL``; one launch each a call, a second call the
+    same bits, no operand copied; each timed (CUDA events) against its
+    bound from bytes and operations (the lists as stored, 4 bytes an
+    entry). Returns the timings and bounds."""
+    from gwen_tpu_torch.ops import attention_cuda as ac
+
+    t0 = time.perf_counter()
+    graph = build_khop_graph(device)
+    torch.cuda.synchronize()
+    n, heads, dh = graph.num_nodes, KHOP_HEADS, KHOP_DH
+    lens = (graph.attn_nbr >= 0).sum(1)
+    log(f"  M{KHOP_REFINE} {KHOP_HOPS}-hop lists built in {time.perf_counter() - t0:.1f} s: "
+        f"{n} rows of {int(lens.min())} to {int(lens.max())} sources, "
+        f"{graph.num_pairs} pairs")
+    gen = torch.Generator(device=device).manual_seed(26)
+    products = [torch.randn(1, n, heads * dh, device=device, generator=gen).bfloat16()
+                for _ in range(4)]  # q, k, v and the output cotangent
+    q, k, v, g = (y.view(1, n, heads, dh).movedim(-2, 0) for y in products)
+    scale = dh ** -0.5
+    copies = ac.operand_copies
+    w_out = ac.attention_fwd_plain(graph, q, k, v, scale)
+    w_dq, w_st = ac.attention_dq_plain(graph, q, k, v, g, scale)
+    w_dk, w_dv = ac.attention_dkdv_plain(graph, q, k, v, g, w_st, scale)
+    before = (ac.attention_fwd.launches, ac.attention_dq.launches, ac.attention_dkdv.launches)
+    out = ac.attention_fwd(graph, q, k, v, scale)
+    dq, st = ac.attention_dq(graph, q, k, v, g, scale)
+    dk, dv = ac.attention_dkdv(graph, q, k, v, g, st, scale)
+    if (ac.attention_fwd.launches - before[0], ac.attention_dq.launches - before[1],
+            ac.attention_dkdv.launches - before[2]) != (1, 1, 1):
+        raise AssertionError("k-hop lists: B5b, B6b and B7b did not launch once each")
+    name = f"k-hop lists nb {heads} dh {dh} bf16"
+    compare(f"B5b {name} out", out, w_out, BF16_TOL)
+    compare(f"B6b {name} dq", dq, w_dq, BF16_TOL)
+    for i, stat in enumerate(("mx", "den", "delta")):
+        compare(f"B6b {name} {stat}", st[..., i], w_st[..., i], BF16_TOL)
+    compare(f"B7b {name} dk", dk, w_dk, BF16_TOL)
+    compare(f"B7b {name} dv", dv, w_dv, BF16_TOL)
+    same_bits(f"B5b, B6b, B7b {name}", (out, dq, st, dk, dv),
+              lambda: (ac.attention_fwd(graph, q, k, v, scale),
+                       *ac.attention_dq(graph, q, k, v, g, scale),
+                       *ac.attention_dkdv(graph, q, k, v, g, st, scale)))
+    if ac.operand_copies != copies:
+        raise AssertionError(f"{ac.operand_copies - copies} operand copies on the "
+                             "products' views")
+    del w_out, w_dq, w_st, w_dk, w_dv
+    lists = graph.num_pairs * 4
+    calls = {"B5b": (lambda: ac.attention_fwd(graph, q, k, v, scale),
+                     (q, k, v, lists), (out,), 4),
+             "B6b": (lambda: ac.attention_dq(graph, q, k, v, g, scale),
+                     (q, k, v, g, lists), (dq, st), 6),
+             "B7b": (lambda: ac.attention_dkdv(graph, q, k, v, g, st, scale),
+                     (q, k, v, g, st, lists), (dk, dv), 8)}
+    res = {}
+    for key, (call, ins, outs, ops) in calls.items():
+        ms = cuda_ms(call, 5, 1)
+        bound = roofline(ins, outs, float(ops) * dh * heads * graph.num_pairs, torch.bfloat16)
+        res[key] = dict(ms=ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"])
+        log(f"  {key} {name}: {ms:.3f} ms, bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}; {bound['bound_ms'] / ms:.2%})")
+    return res
+
+
+# GenCast's conditional norms: the row counts of the 0.25° cell's norms
+# (the grid, grid2mesh's and mesh2grid's edges, the mesh) at latent 512,
+# with their residual where the model adds one; then a width off the
+# kernel's 128-lane multiples.
+COND_NORM_CASES = (("grid", 1_038_240, 512, True), ("grid", 1_038_240, 512, False),
+                   ("g2m edges", 1_629_780, 512, False), ("m2g edges", 3_114_720, 512, False),
+                   ("mesh", 40_962, 512, True), ("mesh", 40_962, 512, False),
+                   ("width 48", 1_000, 48, True), ("width 48", 1_000, 48, False))
+# The scale's and offset's gradients: float32 sums over up to 3.1 M rows,
+# B2b's partial sums a program against autograd's reduction, the same
+# float32 products in another order.
+COND_SUM_TOL = 1e-4
+
+
+def check_cond_norm(device) -> dict:
+    """``fused_ln.cond_layernorm`` on the card at GenCast's shapes
+    (:data:`COND_NORM_CASES`): bf16 ``m`` (and ``h``), float32 ``scale = 1
+    + s`` and ``offset`` computed from leaves, forward and backward. The
+    output against ``residual_layernorm_plain`` on float32 copies within
+    ``BF16_TOL``; the gradients of ``m`` and ``h`` against autograd through
+    that plain version within ``BF16_TOL``, of ``s`` and the offset within
+    :data:`COND_SUM_TOL`; one B2 and one B2b launch a call, a second call
+    the same bits; B2 and B2b timed (CUDA events) against their bounds
+    from bytes. A batch of 2 with a scale row a sample raises. Returns the
+    timings by case."""
+    from gwen_tpu_torch.ops import fused_ln
+
+    gen = torch.Generator(device=device).manual_seed(27)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, device=device, generator=gen).to(dtype)
+
+    res = {}
+    for name, rows, f, residual in COND_NORM_CASES:
+        tag = f"cond_layernorm {name} {rows} x {f} bf16{' + h' if residual else ''}"
+        m, g = randn(1, rows, f, dtype=torch.bfloat16), randn(1, rows, f, dtype=torch.bfloat16)
+        h = randn(1, rows, f, dtype=torch.bfloat16) if residual else None
+        s0, o0 = 0.1 * randn(f), randn(f)
+
+        def kernel_call():
+            s, o = s0.clone().requires_grad_(True), o0.clone().requires_grad_(True)
+            mm = m.clone().requires_grad_(True)
+            hh = h.clone().requires_grad_(True) if residual else None
+            out = fused_ln.cond_layernorm(mm, 1 + s, o, hh)
+            out.backward(g)
+            return out.detach(), mm.grad, hh.grad if residual else None, s.grad, o.grad
+
+        before = (fused_ln.residual_layernorm.launches, fused_ln.residual_layernorm_bwd.launches)
+        got = kernel_call()
+        if (fused_ln.residual_layernorm.launches - before[0],
+                fused_ln.residual_layernorm_bwd.launches - before[1]) != (1, 1):
+            raise AssertionError(f"{tag}: B2 and B2b did not launch once each")
+        s, o = s0.clone().requires_grad_(True), o0.clone().requires_grad_(True)
+        mm = m.float().requires_grad_(True)
+        hh = h.float().requires_grad_(True) if residual else None
+        want = fused_ln.residual_layernorm_plain(mm, hh, 1 + s, o)
+        want.backward(g.float())
+        compare(f"B2 {tag} out", got[0], want.detach(), BF16_TOL)
+        compare(f"B2b {tag} dm", got[1], mm.grad, BF16_TOL)
+        if residual:
+            compare(f"B2b {tag} dh", got[2], hh.grad, BF16_TOL)
+        compare(f"B2b {tag} dscale", got[3], s.grad, COND_SUM_TOL)
+        compare(f"B2b {tag} doffset", got[4], o.grad, COND_SUM_TOL)
+        del want, mm, hh, s, o
+        same_bits(f"B2, B2b {tag}", tuple(t for t in got if t is not None),
+                  lambda: tuple(t for t in kernel_call() if t is not None))
+        sc, of = (1 + s0).contiguous(), o0
+        fwd_ms = cuda_ms(lambda: fused_ln.residual_layernorm_fwd(m[0], None if h is None
+                                                                 else h[0], sc, of), 5, 1)
+        bwd_ms = cuda_ms(lambda: fused_ln.residual_layernorm_bwd(m[0], g[0], sc), 5, 1)
+        fwd_bound = roofline((m, *(() if h is None else (h,)), sc, of), (m,), 0.0,
+                             torch.bfloat16)["bound_ms"]
+        bwd_bound = roofline((m, g, sc), (m,), 0.0, torch.bfloat16)["bound_ms"]
+        res[tag] = dict(fwd_ms=fwd_ms, fwd_bound_ms=fwd_bound, bwd_ms=bwd_ms,
+                        bwd_bound_ms=bwd_bound)
+        log(f"  {tag}: B2 {fwd_ms:.4f} ms (bound {fwd_bound:.4f}, {fwd_bound / fwd_ms:.1%}), "
+            f"B2b {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, {bwd_bound / bwd_ms:.1%})")
+        del m, g, h, got
+        torch.cuda.empty_cache()
+    m, s = randn(2, 8, 128, dtype=torch.bfloat16), randn(2, 128)
+    try:
+        fused_ln.cond_layernorm(m, 1 + s, s)
+    except ValueError as e:
+        log(f"  cond_layernorm over a batch of 2 raises: {e}")
+    else:
+        raise AssertionError("cond_layernorm over a batch of 2 ran on the card")
+    return res
+
+
+KHOP_CHECK = r"""
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as cs
+cs.check_cond_norm(torch.device("cuda", 0))
+print(json.dumps(cs.check_khop_attention(torch.device("cuda", 0))))
+"""
+
+
+def khop_phase() -> dict:
+    """:func:`check_cond_norm`, then :func:`check_khop_attention`, in a
+    fresh child process, its lines relayed; returns the k-hop kernels'
+    table entries."""
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, "-c", KHOP_CHECK,
+                          str(Path(__file__).resolve().parent)],
+                         timeout=900, capture_output=True, text=True)
+    lines = res.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if res.returncode != 0:
+        raise AssertionError(f"the k-hop attention check failed:\n{res.stderr[-2000:]}")
+    return json.loads(lines[-1])
+
+
 def nccl_one_rank_probe() -> None:
     """Whether this host's NCCL carries the collectives the partitioned
     path uses (``all_reduce`` for the gradients, ``all_gather`` for the
@@ -4463,6 +4665,10 @@ def main() -> int:
         "one GraphCast train step (a child process):")
     results["SS"] = segment_phase()
     launches["SS"] = GC_LAUNCHES
+    log("  GenCast's conditional norms (B2 with and without the residual, B2b) at the "
+        "0.25 deg cell's rows, then B5b, B6b and B7b on its 16-hop lists at its widths "
+        "(a child process):")
+    khop_phase()
     # Last: after this child process the profiler traces of this one lose
     # device events, and the checks above read them.
     nccl_one_rank_probe()

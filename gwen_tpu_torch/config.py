@@ -85,6 +85,10 @@ class GraphConfig:
     grid_lat: int = 721
     grid_lon: int = 1440
     g2m_radius: float = 0.6
+    # GenCast (model.architecture "gencast"): the transformer attends over
+    # each mesh node's neighbours within this many edges of the level-
+    # ``refine`` mesh.
+    k_hop: int = 16
 
 
 @dataclass
@@ -102,7 +106,8 @@ class GNNModelConfig:
     down_layers: int = 3
     up_layers: int = 3
     # Optional encode-process-decode variant (mesh-scale models).
-    architecture: str = "gcn-stack"  # "gcn-stack" | "encode-process-decode" | "graphcast"
+    # "gcn-stack" | "encode-process-decode" | "graphcast" | "gencast"
+    architecture: str = "gcn-stack"
     latent_size: int = 256
     process_steps: int = 4
     mlp_layers: int = 2
@@ -121,6 +126,9 @@ class GNNModelConfig:
     # are ``process_steps``, its latent and hidden width ``latent_size``).
     channels_in: int = 474
     channels_out: int = 227
+    # GenCast's feed-forward width (its transformer layers are
+    # ``process_steps``, its heads ``attn_heads``).
+    ffn_size: int = 2048
 
 
 @dataclass

@@ -3,8 +3,10 @@
 Counterpart of ``gwen_tpu.graph.graph``: the COO graph, the dense
 adjacency of the member graph, the diag-window layout (weighted or
 bit-packed), the banded layout (weighted, int8 rank-1 or bit-packed), the
-windowed-dense, blocked-ELL and block-tile layouts, and the multi-level
-union. Everything is built on the host with
+windowed-dense, blocked-ELL and block-tile layouts, the multi-level
+union, and explicit neighbour lists for attention without a window
+(:class:`NeighbourListGraph`, the k-hop neighbourhoods of
+:func:`khop_lists`). Everything is built on the host with
 numpy (the same code as the reference, so both packages agree edge for
 edge), then held as plain dataclasses of torch tensors; ``.to(device)``
 moves a container and everything inside it.
@@ -345,6 +347,40 @@ class DiagWindowGraph:
         return _to(self, device)
 
 
+@dataclass
+class NeighbourListGraph:
+    """Attention over explicit neighbour lists, no window: ``attn_nbr``
+    ``(num_nodes, D)`` int32 holds destination row ``i``'s source rows in
+    ascending order, padded with -1; ``attn_nbr_t`` ``(num_src_rows,
+    D_t)`` the destination rows whose list holds source row ``c``, in
+    ascending order (the same tensor where the lists are symmetric).
+    ``num_pairs`` is the lists' total length, the (row, source) pairs a
+    head attends. The attention operators
+    (:func:`~gwen_tpu_torch.ops.attention.windowed_attention`) take it
+    where they take a :class:`~gwen_tpu_torch.graph.graph.DiagWindowGraph`
+    and drop no source of a list."""
+
+    attn_nbr: Tensor
+    attn_nbr_t: Tensor
+    num_nodes: int
+    num_src_rows: int
+    num_pairs: int
+
+    @property
+    def num_padded_nodes(self) -> int:
+        return self.num_nodes
+
+    @property
+    def max_degree(self) -> int:
+        return int(self.attn_nbr.shape[1])
+
+    def to(self, device) -> "NeighbourListGraph":
+        nbr = self.attn_nbr.to(device)
+        same = self.attn_nbr_t is self.attn_nbr
+        return dataclasses.replace(self, attn_nbr=nbr,
+                       attn_nbr_t=nbr if same else self.attn_nbr_t.to(device))
+
+
 @dataclass(frozen=True)
 class SlidingPackedGraph:
     """Bit-packed banded layout for rank-1 GCN weights (``w_e = a_r·a_s``).
@@ -455,6 +491,82 @@ def window_mask(graph) -> Tensor:
 
 
 # ------------------------------------------------------------------ builders
+
+# Bytes of the reached-set table a pass of :func:`khop_lists`' frontier
+# expansion holds.
+_REACHED_BYTES = 1 << 28
+
+
+def padded_adjacency(senders: np.ndarray, receivers: np.ndarray,
+                     num_nodes: int) -> np.ndarray:
+    """``(num_nodes, max degree)`` int64: each receiver's senders, padded
+    with -1."""
+    deg = np.bincount(receivers, minlength=num_nodes)
+    order = np.argsort(receivers, kind="stable")
+    start = np.concatenate([[0], np.cumsum(deg)])
+    adj = np.full((num_nodes, max(int(deg.max(initial=0)), 1)), -1, np.int64)
+    r = receivers[order]
+    adj[r, np.arange(len(r)) - start[r]] = senders[order]
+    return adj
+
+
+def khop_lists(senders: np.ndarray, receivers: np.ndarray, num_nodes: int,
+               hops: int, device="cpu") -> Tensor:
+    """Every node's ``hops``-hop neighbourhood over the edges ``senders →
+    receivers`` (a node reaches the senders of its receivers' edges, hop
+    by hop), itself included: ``(num_nodes, D)`` int32 on ``device``, each
+    row ascending and padded with -1, ``D`` the largest neighbourhood.
+
+    Frontier expansion, a pass of source nodes at a time: each hop's
+    frontier pairs (source, node) step to every neighbour of the node, the
+    pairs are made unique, the ones already reached are dropped, and the
+    rest are marked reached and become the next frontier. The reached
+    table of a pass is ``(sources, num_nodes)`` booleans on ``device``;
+    its nonzeros, in row-major order, are the sorted lists."""
+    dev = torch.device(device)
+    adj = torch.from_numpy(padded_adjacency(np.asarray(senders), np.asarray(receivers),
+                                            num_nodes)).to(dev)
+    chunk = max(1, min(num_nodes, _REACHED_BYTES // max(num_nodes, 1)))
+    rows, cols = [], []
+    for lo in range(0, num_nodes, chunk):
+        c = min(chunk, num_nodes - lo)
+        reached = torch.zeros(c * num_nodes, dtype=torch.bool, device=dev)
+        key = torch.arange(c, device=dev) * num_nodes + torch.arange(lo, lo + c, device=dev)
+        reached[key] = True
+        for _ in range(hops):
+            src, node = key // num_nodes, key % num_nodes
+            nxt = adj[node]
+            cand = (src[:, None] * num_nodes + nxt)[nxt >= 0]
+            cand = torch.unique(cand)
+            key = cand[~reached[cand]]
+            reached[key] = True
+        r, col = reached.view(c, num_nodes).nonzero(as_tuple=True)
+        rows.append(r + lo)
+        cols.append(col)
+    r, col = torch.cat(rows), torch.cat(cols)
+    count = torch.bincount(r, minlength=num_nodes)
+    start = torch.cumsum(count, 0) - count
+    out = torch.full((num_nodes, int(count.max())), -1, dtype=torch.int32, device=dev)
+    out[r, torch.arange(len(r), device=dev) - start[r]] = col.to(torch.int32)
+    return out
+
+
+def neighbour_list_graph(senders: np.ndarray, receivers: np.ndarray,
+                         num_nodes: int, hops: int, device="cpu"
+                         ) -> NeighbourListGraph:
+    """The ``hops``-hop neighbourhoods of an undirected graph (every edge
+    present in both directions; raises otherwise) as a
+    :class:`NeighbourListGraph` on ``device``; its transpose lists are its
+    lists."""
+    s, r = np.asarray(senders, np.int64), np.asarray(receivers, np.int64)
+    if not np.array_equal(np.sort(s * num_nodes + r), np.sort(r * num_nodes + s)):
+        raise ValueError("the k-hop lists need an undirected graph: every edge "
+                         "in both directions")
+    nbr = khop_lists(s, r, num_nodes, hops, device)
+    pairs = int((nbr >= 0).sum())
+    return NeighbourListGraph(nbr, nbr, num_nodes, num_nodes, pairs)
+
+
 
 
 def _round_up(x: int, m: int) -> int:

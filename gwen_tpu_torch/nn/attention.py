@@ -3,7 +3,9 @@
 
 Messages are attention-weighted over each node's in-window mesh
 neighbourhood on a :class:`DiagWindowGraph` built with transpose tables
-(:func:`gwen_tpu_torch.ops.attention.windowed_attention`) or, on one rank
+(:func:`gwen_tpu_torch.ops.attention.windowed_attention`), over each
+node's whole neighbour list on a :class:`NeighbourListGraph` (GenCast's
+k-hop neighbourhoods), or, on one rank
 of a partitioned mesh, on a ``HaloDiagGraph``
 (:func:`gwen_tpu_torch.parallel.halo.attend_halo`: K and V take a halo
 exchange first). Parameters are
@@ -35,7 +37,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gwen_tpu_torch.graph.graph import DiagWindowGraph
+from gwen_tpu_torch.graph.graph import DiagWindowGraph, NeighbourListGraph
 from gwen_tpu_torch.nn import core
 from gwen_tpu_torch.ops.attention import windowed_attention
 
@@ -64,11 +66,11 @@ def graph_attention_apply(params, graph, x: Tensor, heads: int = 2,
     # Late import: the halo path attends through this package's operators.
     from gwen_tpu_torch.parallel.halo import HaloDiagGraph, attend_halo
 
-    if not isinstance(graph, (DiagWindowGraph, HaloDiagGraph)):
+    if not isinstance(graph, (DiagWindowGraph, NeighbourListGraph, HaloDiagGraph)):
         raise TypeError(
             "attention processor needs a DiagWindowGraph (diag-window "
-            "layout with transpose tables) or, partitioned, a "
-            f"HaloDiagGraph; got {type(graph).__name__}"
+            "layout with transpose tables), a NeighbourListGraph or, "
+            f"partitioned, a HaloDiagGraph; got {type(graph).__name__}"
         )
     backend = backend if backend in ("auto", "plain") else "reference"
     latent = x.shape[-1]

@@ -37,6 +37,12 @@ grid2mesh, which is ``gwen.graphcast.grid2mesh``), one ``gwen.process``
 a processor layer and ``gwen.decoder`` (mesh2grid, which is
 ``gwen.graphcast.mesh2grid``, and the output). :data:`calls` counts the
 gather and edge-sum calls by block, recomputed calls apart.
+
+The grid blocks (:class:`GridBlocks`: the embedders, grid2mesh, mesh2grid,
+the remat) are shared with GenCast (:mod:`gwen_tpu_torch.nn.gencast`),
+whose every LayerNorm is conditioned on the noise level: there each MLP's
+norm is :func:`~gwen_tpu_torch.ops.fused_ln.cond_layernorm` with the
+scale and offset that ``cond(name)`` gives for the MLP's name.
 """
 
 from __future__ import annotations
@@ -56,7 +62,7 @@ from gwen_tpu_torch.graph.graphcast import (
 from gwen_tpu_torch.nn import core
 from gwen_tpu_torch.nn.gnn import parse_block_remat
 from gwen_tpu_torch.ops.edges import edge_sum, gather_join
-from gwen_tpu_torch.ops.fused_ln import fused_residual_layernorm
+from gwen_tpu_torch.ops.fused_ln import cond_layernorm, fused_residual_layernorm
 from gwen_tpu_torch.profiling import annotate
 
 Tensor = torch.Tensor
@@ -90,9 +96,14 @@ def layer_norm(params, h: Tensor) -> Tensor:
                             params["bias"].to(h.dtype), LN_EPS)
 
 
-def mlp_apply(params, x: Tensor, residual: Optional[Tensor] = None) -> Tensor:
-    """Linear → SiLU → Linear → LayerNorm, plus ``residual`` if given."""
+def mlp_apply(params, x: Tensor, residual: Optional[Tensor] = None,
+              cond: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+    """Linear → SiLU → Linear → LayerNorm, plus ``residual`` if given.
+    With ``cond`` ``(scale, offset)`` the LayerNorm is the conditional one
+    and the MLP has no ``norm`` parameters."""
     h = core.mlp_apply(params["mlp"], x, activation=F.silu)
+    if cond is not None:
+        return cond_layernorm(h, *cond, residual, eps=LN_EPS)
     if residual is None:
         return layer_norm(params["norm"], h)
     return fused_residual_layernorm(params["norm"], h, residual, eps=LN_EPS)
@@ -130,7 +141,68 @@ class _Recompute(torch.autograd.Function):
         return (None, None, *[t.grad if n else None for t, n in zip(inputs, need)])
 
 
-class GraphCast(nn.Module):
+def _no_cond(name: str) -> None:
+    return None
+
+
+class GridBlocks:
+    """The grid side of GraphCast, as methods of a model that holds the
+    MLPs ``g2m_edge_embed``, ``m2g_edge_embed``, ``grid2mesh`` (``edge``,
+    ``mesh_node``, ``grid_node``) and ``mesh2grid`` (``edge``,
+    ``grid_node``), and ``compute_dtype`` and ``_remat``. ``cond(name)``
+    gives an MLP's conditional norm ``(scale, offset)`` by its name (as the
+    state dict names the MLP), or None for its own LayerNorm."""
+
+    def _embed(self, params, feats: Tensor, batch: int,
+               cond: Optional[tuple[Tensor, Tensor]] = None) -> Tensor:
+        """A static ``(N, k)`` feature set embedded to ``(batch, N, L)``;
+        with ``cond``, normalised for each sample after the expansion."""
+        if cond is not None:
+            h = core.mlp_apply(params["mlp"], feats.to(self.compute_dtype), activation=F.silu)
+            return cond_layernorm(h.unsqueeze(0).expand(batch, *h.shape), *cond, eps=LN_EPS)
+        h = mlp_apply(params, feats.to(self.compute_dtype))
+        return h.unsqueeze(0).expand(batch, *h.shape).contiguous()
+
+    def _interact(self, block: str, params, g: BipartiteGraph, e: Tensor,
+                  xs: Tensor, xr: Tensor, residual: bool,
+                  cond: Optional[tuple[Tensor, Tensor]] = None) -> tuple[Tensor, Tensor]:
+        """The edge update and each receiver's sum over its edges:
+        ``(e′, Σ e′)``."""
+        _count(block, "gather")
+        joined = gather_join(e, xs, xr, g)
+        e = mlp_apply(params, joined, e if residual else None, cond)
+        _count(block, "edge_sum")
+        return e, edge_sum(e, g)
+
+    def _grid2mesh(self, graphs, vg: Tensor, vm: Tensor, cond=_no_cond):
+        with annotate("gwen.graphcast.grid2mesh"):
+            p, g = self.grid2mesh, graphs.grid2mesh
+            e = self._embed(self.g2m_edge_embed, g.edge_features, vg.shape[0],
+                            cond("g2m_edge_embed"))
+            _, agg = self._interact("g2m", p["edge"], g, e, vg, vm, residual=False,
+                                    cond=cond("grid2mesh.edge"))
+            vm = mlp_apply(p["mesh_node"], torch.cat([vm, agg], dim=-1), vm,
+                           cond("grid2mesh.mesh_node"))
+            vg = mlp_apply(p["grid_node"], vg, vg, cond("grid2mesh.grid_node"))
+            return vg, vm
+
+    def _mesh2grid(self, graphs, vm: Tensor, vg: Tensor, cond=_no_cond) -> Tensor:
+        with annotate("gwen.graphcast.mesh2grid"):
+            p, g = self.mesh2grid, graphs.mesh2grid
+            e = self._embed(self.m2g_edge_embed, g.edge_features, vg.shape[0],
+                            cond("m2g_edge_embed"))
+            _, agg = self._interact("m2g", p["edge"], g, e, vm, vg, residual=False,
+                                    cond=cond("mesh2grid.edge"))
+            return mlp_apply(p["grid_node"], torch.cat([vg, agg], dim=-1), vg,
+                             cond("mesh2grid.grid_node"))
+
+    def _block(self, name: str, spans: tuple[str, ...], fn, *inputs):
+        if name in self._remat:
+            return _Recompute.apply(fn, spans, *inputs)
+        return fn(*inputs)
+
+
+class GraphCast(GridBlocks, nn.Module):
     """GraphCast on ``(B, grid nodes, channels_in)`` or ``(grid nodes,
     channels_in)`` fields, returning ``channels_out`` per grid node; the
     graphs (:class:`GraphCastGraphs`) come with each call.
@@ -168,48 +240,12 @@ class GraphCast(nn.Module):
         self.output = core.mlp_init([L, L, channels_out], gen, device)
 
     # ------------------------------------------------------------ blocks
-    def _embed(self, params, feats: Tensor, batch: int) -> Tensor:
-        """A static ``(N, k)`` feature set embedded to ``(batch, N, L)``."""
-        h = mlp_apply(params, feats.to(self.compute_dtype))
-        return h.unsqueeze(0).expand(batch, *h.shape).contiguous()
-
-    def _interact(self, block: str, params, g: BipartiteGraph, e: Tensor,
-                  xs: Tensor, xr: Tensor, residual: bool) -> tuple[Tensor, Tensor]:
-        """The edge update and each receiver's sum over its edges:
-        ``(e′, Σ e′)``."""
-        _count(block, "gather")
-        joined = gather_join(e, xs, xr, g)
-        e = mlp_apply(params, joined, e if residual else None)
-        _count(block, "edge_sum")
-        return e, edge_sum(e, g)
-
-    def _grid2mesh(self, graphs: GraphCastGraphs, vg: Tensor, vm: Tensor):
-        with annotate("gwen.graphcast.grid2mesh"):
-            p, g = self.grid2mesh, graphs.grid2mesh
-            e = self._embed(self.g2m_edge_embed, g.edge_features, vg.shape[0])
-            _, agg = self._interact("g2m", p["edge"], g, e, vg, vm, residual=False)
-            vm = mlp_apply(p["mesh_node"], torch.cat([vm, agg], dim=-1), vm)
-            vg = mlp_apply(p["grid_node"], vg, vg)
-            return vg, vm
-
     def _process(self, i: int, graphs: GraphCastGraphs, e: Tensor, vm: Tensor):
         with annotate("gwen.process"):
             p, g = getattr(self, f"process_{i}"), graphs.mesh
             e, agg = self._interact("mesh", p["edge"], g, e, vm, vm, residual=True)
             vm = mlp_apply(p["node"], torch.cat([vm, agg], dim=-1), vm)
             return e, vm
-
-    def _mesh2grid(self, graphs: GraphCastGraphs, vm: Tensor, vg: Tensor) -> Tensor:
-        with annotate("gwen.graphcast.mesh2grid"):
-            p, g = self.mesh2grid, graphs.mesh2grid
-            e = self._embed(self.m2g_edge_embed, g.edge_features, vg.shape[0])
-            _, agg = self._interact("m2g", p["edge"], g, e, vm, vg, residual=False)
-            return mlp_apply(p["grid_node"], torch.cat([vg, agg], dim=-1), vg)
-
-    def _block(self, name: str, spans: tuple[str, ...], fn, *inputs):
-        if name in self._remat:
-            return _Recompute.apply(fn, spans, *inputs)
-        return fn(*inputs)
 
     # ----------------------------------------------------------- forward
     def forward(self, graphs: GraphCastGraphs, x: Tensor) -> Tensor:

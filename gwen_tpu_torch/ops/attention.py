@@ -18,8 +18,10 @@ in-window neighbourhood on a :class:`DiagWindowGraph`: ``out[i] = Σ_j
 P[i, j] v[j]`` with ``P = softmax_j(q[i]·k[j]·scale)`` over the sources
 ``j`` that the mask (``s_mat != 0``, or the S01 bits of a packed graph)
 holds in ``i``'s window. Out-of-window (escape) edges are excluded by
-definition, as in the reference. Scores and softmax run in float32; P is
-cast to v's type before ``P·V``.
+definition, as in the reference. On a :class:`NeighbourListGraph` (no
+window) the sources are the whole of each row's list, and none is
+dropped. Scores and softmax run in float32; P is cast to v's type before
+``P·V``.
 
 Backends:
 
@@ -36,7 +38,8 @@ Backends:
   leaves it to XLA), P cast to v's type, :func:`diag_matvec`; item by item,
   as the reference loops. The backward runs B8, B9 and B1 again through the
   two Functions below. A check on the fused kernels and a path for
-  bisecting them; the ``(N_pad, W)`` tiles live in device memory.
+  bisecting them; the ``(N_pad, W)`` tiles live in device memory. It needs
+  a window: a neighbour-list graph refuses it.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from typing import Optional
 
 import torch
 
-from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
+from gwen_tpu_torch.graph.graph import DiagWindowGraph, NeighbourListGraph, window_mask
 from gwen_tpu_torch.ops import attention_cuda, unfused_cuda
 from gwen_tpu_torch.ops.cuda_lib import fit_rows
 from gwen_tpu_torch.profiling import annotate
@@ -216,10 +219,14 @@ def _attend(graph: DiagWindowGraph, q: Tensor, k: Tensor, v: Tensor,
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}: use one of "
                          f"{_BACKENDS}")
-    if not isinstance(graph, DiagWindowGraph):
-        raise TypeError("windowed_attention needs a DiagWindowGraph, got "
-                        f"{type(graph).__name__}")
-    if backend != "reference":
+    if isinstance(graph, NeighbourListGraph):
+        if backend == "unfused":
+            raise ValueError("the unfused backend walks a diag window; a "
+                             "NeighbourListGraph has none")
+    elif not isinstance(graph, DiagWindowGraph):
+        raise TypeError("windowed_attention needs a DiagWindowGraph or a "
+                        f"NeighbourListGraph, got {type(graph).__name__}")
+    elif backend != "reference":
         _require_tables(graph, "windowed_attention")
     n, f = q.shape[-2:]
     if pack:

@@ -21,14 +21,19 @@ dimension:
 
 The kernels read the mask (``s_mat != 0``, or the S01 bits of a packed
 graph) as the graph's neighbour lists (``attn_nbr``, ``attn_nbr_t``; see
-``csrc/window_attention.cu`` for why). On a packed graph the reference's
+``csrc/window_attention.cu`` for why). A
+:class:`~gwen_tpu_torch.graph.graph.NeighbourListGraph` (GenCast's k-hop
+neighbourhoods, hundreds of sources a row) has only the lists, and the
+kernels read them as they are. On a packed graph the reference's
 ``mp`` kernels unpack the bits per tile; here the lists are built from the
 bits once, when the graph is built, and the kernels do not change. The
 plain versions never read those lists: they gather each block's window
 from the mask (:func:`~gwen_tpu_torch.graph.graph.window_mask`) and
 ``window_start`` and compute the reference's dense tile math, vectorised
 over blocks, so holding a kernel against its plain version on the card also
-checks the lists.
+checks the lists. On a neighbour-list graph the plain versions gather
+each row's sources from its list instead (:func:`_list_tiles`), a pass of
+rows at a time, so they run at the published sizes.
 
 Operands are strided: a kernel takes two layouts of three strides each
 (the two item axes and the row), q's, which g and the outputs out and dq
@@ -57,7 +62,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from gwen_tpu_torch.graph.graph import DiagWindowGraph, window_mask
+from gwen_tpu_torch.graph.graph import DiagWindowGraph, NeighbourListGraph, window_mask
 from gwen_tpu_torch.ops import cuda_lib
 from gwen_tpu_torch.ops.cuda_lib import DTYPE_CODE, FLOAT, INT, LONG, PTR, CudaLib, fit_rows
 
@@ -70,6 +75,9 @@ LANE_WIDTHS = (32, 64, 128, 256, 512)
 _TAIL = [PTR] + [INT] * 6 + [FLOAT, INT, PTR]
 LIB = CudaLib("window_attention.cu", gwen_attn_fwd=[PTR] * 5 + _TAIL,
               gwen_attn_dq=[PTR] * 7 + _TAIL, gwen_attn_dkdv=[PTR] * 8 + _TAIL)
+# Float32 elements a pass of the list-based plain versions gathers (each of
+# the k and v tiles): ~0.5 GB.
+_LIST_PASS = 1 << 27
 
 
 # ------------------------------------------------------------ plain versions
@@ -123,10 +131,88 @@ def _unfold(t: Tensor, graph: DiagWindowGraph, rows: int, like: Tensor) -> Tenso
     return out.reshape(*like.shape[:-2], rows, t.shape[-1])
 
 
+def _list_passes(graph: NeighbourListGraph, q3: Tensor):
+    """The row ranges of the list-based plain versions' passes over
+    ``q3``'s rows."""
+    nb, n, f = q3.shape
+    step = max(1, _LIST_PASS // max(1, nb * graph.max_degree * f))
+    return [(lo, min(n, lo + step)) for lo in range(0, n, step)]
+
+
+def _list_tiles(graph: NeighbourListGraph, q3: Tensor, k3: Tensor, v3: Tensor,
+                g3: Optional[Tensor], scale: float, lo: int, hi: int):
+    """Rows ``lo:hi`` of a neighbour-list graph, float32: q and g rows
+    ``(nb, r, f)``, each row's k and v sources ``(nb, r, D, f)`` (k and v
+    rows past theirs read as zero, as the kernels read them), the mask
+    ``(r, D)`` of real list entries, the masked logits ``(nb, r, D)`` and
+    the source rows (0 where masked)."""
+    nbr = graph.attn_nbr[lo:hi].long()
+    mask = nbr >= 0
+    idx = nbr.clamp_min(0)
+    qt = q3[:, lo:hi].float()
+    kw = fit_rows(k3, graph.num_src_rows)[:, idx].float()
+    vw = fit_rows(v3, graph.num_src_rows)[:, idx].float()
+    logits = torch.where(mask, torch.matmul(kw, qt[..., None])[..., 0] * scale, -1e30)
+    gt = None if g3 is None else g3[:, lo:hi].float()
+    return qt, gt, kw, vw, mask, idx, logits
+
+
+def _list_fwd(graph: NeighbourListGraph, q: Tensor, k: Tensor, v: Tensor,
+              scale: float) -> Tensor:
+    q3, k3, v3 = _as3(q), _as3(k), _as3(v)
+    outs = []
+    for lo, hi in _list_passes(graph, q3):
+        _, _, _, vw, mask, _, logits = _list_tiles(graph, q3, k3, v3, None, scale, lo, hi)
+        p, _, _ = _softmax(logits, mask)
+        outs.append(torch.matmul(p.to(v.dtype).float()[..., None, :], vw)[..., 0, :])
+    return torch.cat(outs, 1).reshape(q.shape).to(v.dtype)
+
+
+def _list_dq(graph: NeighbourListGraph, q: Tensor, k: Tensor, v: Tensor,
+             g: Tensor, scale: float) -> tuple[Tensor, Tensor]:
+    q3, k3, v3, g3 = _as3(q), _as3(k), _as3(v), _as3(g)
+    dqs, stats = [], []
+    for lo, hi in _list_passes(graph, q3):
+        _, gt, kw, vw, mask, _, logits = _list_tiles(graph, q3, k3, v3, g3, scale, lo, hi)
+        p, mx, den = _softmax(logits, mask)
+        dp = torch.matmul(vw, gt[..., None])[..., 0]
+        delta = (dp * p).sum(-1, keepdim=True)
+        dl = p * (dp - delta) * scale
+        dqs.append(torch.matmul(dl.to(k.dtype).float()[..., None, :], kw)[..., 0, :])
+        stats.append(torch.cat([mx, den, delta], dim=-1))
+    return (torch.cat(dqs, 1).reshape(q.shape).to(q.dtype),
+            torch.cat(stats, 1).reshape(*q.shape[:-1], 3))
+
+
+def _list_dkdv(graph: NeighbourListGraph, q: Tensor, k: Tensor, v: Tensor,
+               g: Tensor, stats: Tensor, scale: float) -> tuple[Tensor, Tensor]:
+    q3, k3, v3, g3 = _as3(q), _as3(k), _as3(v), _as3(g)
+    st3 = _as3(stats)
+    nb, f = q3.shape[0], q3.shape[-1]
+    dk = q3.new_zeros(nb, graph.num_src_rows, f, dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    for lo, hi in _list_passes(graph, q3):
+        qt, gt, _, vw, mask, idx, logits = _list_tiles(graph, q3, k3, v3, g3, scale, lo, hi)
+        st = st3[:, lo:hi]
+        mx, den, delta = st[..., 0:1], st[..., 1:2], st[..., 2:3]
+        p = torch.exp(logits - mx) * mask / torch.where(den == 0, 1.0, den)
+        dl = p * (torch.matmul(vw, gt[..., None])[..., 0] - delta) * scale
+        flat = idx.reshape(-1)
+        dk.index_add_(1, flat, (dl.to(q.dtype).float()[..., None] * qt[..., None, :]
+                                ).reshape(nb, -1, f))
+        dv.index_add_(1, flat, (p.to(g.dtype).float()[..., None] * gt[..., None, :]
+                                ).reshape(nb, -1, f))
+    n_kv = k.shape[-2]
+    return (fit_rows(dk, n_kv).to(k.dtype).reshape(k.shape),
+            fit_rows(dv, n_kv).to(v.dtype).reshape(v.shape))
+
+
 def attention_fwd_plain(graph: DiagWindowGraph, q: Tensor, k: Tensor,
                         v: Tensor, scale: float) -> Tensor:
     """Plain version of B5/B5b; differentiable, so autograd through it is
     an independent check of the two backward kernels."""
+    if isinstance(graph, NeighbourListGraph):
+        return _list_fwd(graph, q, k, v, scale)
     _, _, _, vw, mask, _, logits = _tiles(graph, _as3(q), _as3(k), _as3(v),
                                           None, scale)
     p, _, _ = _softmax(logits, mask)
@@ -139,6 +225,8 @@ def attention_dq_plain(graph: DiagWindowGraph, q: Tensor, k: Tensor,
                        ) -> tuple[Tensor, Tensor]:
     """Plain version of B6/B6b: ``(dq, stats)``, stats ``(..., N, 3)``
     float32 holding ``(mx, den, delta)`` per destination row."""
+    if isinstance(graph, NeighbourListGraph):
+        return _list_dq(graph, q, k, v, g, scale)
     _, gt, kw, vw, mask, _, logits = _tiles(graph, _as3(q), _as3(k), _as3(v),
                                             _as3(g), scale)
     p, mx, den = _softmax(logits, mask)
@@ -157,6 +245,8 @@ def attention_dkdv_plain(graph: DiagWindowGraph, q: Tensor, k: Tensor,
     """Plain version of B7/B7b: ``(dk, dv)``, P rebuilt from the stats of
     :func:`attention_dq_plain` as the reference's ``_attn_dkdv_tile`` does,
     each block's window contribution added into the source rows."""
+    if isinstance(graph, NeighbourListGraph):
+        return _list_dkdv(graph, q, k, v, g, stats, scale)
     q3 = _as3(q)
     qt, gt, kw, vw, mask, idx, logits = _tiles(graph, q3, _as3(k), _as3(v),
                                                _as3(g), scale)

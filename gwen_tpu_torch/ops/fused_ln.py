@@ -22,6 +22,14 @@ walk a strided set of row blocks and each writes one partial
 summed outside the kernel (the reference sums its (8, F) block outside
 too): no atomics, so the gradients are the same from run to run.
 
+The conditional LayerNorm of a noise-conditioned model (GenCast,
+:func:`cond_layernorm`) is the same pair: ``LN(m)·scale + offset (+ h)``
+with ``scale = 1 + s`` and ``offset = o`` computed from the noise level,
+one of each a sample. They are B2's scale and bias (B2 without ``h``
+where the norm has no residual), and B2b's ``dscale``/``dbias`` are their
+gradients, so on the card a call takes one sample; a batch with a row a
+sample raises there (the CPU runs it in plain torch).
+
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernels or raise.
 """
@@ -31,6 +39,7 @@ from __future__ import annotations
 import os
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -49,15 +58,18 @@ BWD_PROGRAMS_PER_SM = 4
 BWD_WARPS = 2
 
 
-def residual_layernorm_plain(m: Tensor, h: Tensor, scale: Tensor,
+def residual_layernorm_plain(m: Tensor, h: Optional[Tensor], scale: Tensor,
                              bias: Tensor, eps: float = 1e-6) -> Tensor:
-    """Plain version of the forward, B2."""
+    """Plain version of the forward, B2 (without ``h`` where it is
+    None)."""
     x = m.float()
     mu = x.mean(dim=-1, keepdim=True)
     d = x - mu
     var = (d * d).mean(dim=-1, keepdim=True)
     xhat = d * torch.rsqrt(var + eps)
-    out = xhat * scale.float() + bias.float() + h.float()
+    out = xhat * scale.float() + bias.float()
+    if h is not None:
+        out = out + h.float()
     return out.to(m.dtype)
 
 
@@ -93,7 +105,8 @@ def _kernels() -> dict:
 
         @triton.jit
         def ln_fwd(m_ptr, h_ptr, sc_ptr, bi_ptr, out_ptr, n_rows, f, eps,
-                   ROWS: tl.constexpr, BLOCK_F: tl.constexpr):
+                   ROWS: tl.constexpr, BLOCK_F: tl.constexpr,
+                   HAS_H: tl.constexpr):
             rows = tl.program_id(0) * ROWS + tl.arange(0, ROWS)
             cols = tl.arange(0, BLOCK_F)
             cmask = cols < f
@@ -106,8 +119,9 @@ def _kernels() -> dict:
             xhat = d * tl.rsqrt(var + eps)[:, None]
             sc = tl.load(sc_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
             bi = tl.load(bi_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-            h = tl.load(h_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-            out = xhat * sc[None, :] + bi[None, :] + h
+            out = xhat * sc[None, :] + bi[None, :]
+            if HAS_H:
+                out += tl.load(h_ptr + offs, mask=mask, other=0.0).to(tl.float32)
             tl.store(out_ptr + offs, out.to(out_ptr.dtype.element_ty),
                      mask=mask)
 
@@ -180,23 +194,26 @@ def _blocks(f: int) -> tuple[int, int]:
     return block_f, max(1, 4096 // block_f)
 
 
-def residual_layernorm_fwd(m: Tensor, h: Tensor, scale: Tensor,
+def residual_layernorm_fwd(m: Tensor, h: Optional[Tensor], scale: Tensor,
                            bias: Tensor, eps: float = 1e-6) -> Tensor:
-    """Kernel B2: ``h + layer_norm(m)`` over the last axis (no autograd;
-    :func:`residual_layernorm` is the differentiable entry)."""
+    """Kernel B2: ``h + layer_norm(m)`` over the last axis, or
+    ``layer_norm(m)`` where ``h`` is None (no autograd;
+    :func:`residual_layernorm` and :func:`cond_layernorm` are the
+    differentiable entries)."""
     if not cuda_lib.on_cuda(m, "fused LayerNorm"):
         return residual_layernorm_plain(m, h, scale, bias, eps)
-    _check(m, h, (scale, bias))
+    _check(m, m if h is None else h, (scale, bias))
     f = m.shape[-1]
     n_rows = m.numel() // f
     block_f, rows = _blocks(f)
     out = torch.empty_like(m)
     with torch.cuda.device(m.device):
         _first_call(residual_layernorm_fwd,
-                    (m.dtype, scale.dtype, n_rows % 16 == 0, n_rows == 1, f),
+                    (m.dtype, scale.dtype, n_rows % 16 == 0, n_rows == 1, f, h is None),
                     lambda: _kernels()["fwd"][((n_rows + rows - 1) // rows,)](
-                        m, h, scale, bias, out, n_rows, f, eps,
-                        ROWS=rows, BLOCK_F=block_f, num_warps=4))
+                        m, m if h is None else h, scale, bias, out, n_rows, f, eps,
+                        ROWS=rows, BLOCK_F=block_f, HAS_H=h is not None,
+                        num_warps=4))
     residual_layernorm.launches += 1
     return out
 
@@ -236,22 +253,26 @@ residual_layernorm_bwd.specialisations = set()
 
 
 class _ResidualLayerNorm(torch.autograd.Function):
-    """B2 forward, B2b backward; saves ``(m, scale)`` as the reference's
-    ``_fused_fwd`` does and recomputes the statistics."""
+    """B2 forward (``h`` None: no residual), B2b backward inside the span
+    ``span``; saves ``(m, scale)`` as the reference's ``_fused_fwd`` does
+    and recomputes the statistics. The scale's and bias's gradients are
+    B2b's ``dscale`` and ``dbias``, whether they are parameters or
+    computed (the conditional norm)."""
 
     @staticmethod
-    def forward(ctx, m, h, scale, bias, eps):
+    def forward(ctx, m, h, scale, bias, eps, span):
         ctx.save_for_backward(m, scale)
-        ctx.eps = eps
+        ctx.eps, ctx.span, ctx.has_h = eps, span, h is not None
         return residual_layernorm_fwd(m, h, scale, bias, eps)
 
     @staticmethod
     def backward(ctx, g):
-        with annotate("gwen.op.residual_ln.bwd"):
+        with annotate(ctx.span):
             m, scale = ctx.saved_tensors
             dm, ds, db = residual_layernorm_bwd(m, g.contiguous(), scale,
                                                 ctx.eps)
-            return dm, g, ds.to(scale.dtype), db.to(scale.dtype), None
+            return (dm, g if ctx.has_h else None, ds.to(scale.dtype),
+                    db.to(scale.dtype), None, None)
 
 
 def residual_layernorm(m: Tensor, h: Tensor, scale: Tensor, bias: Tensor,
@@ -259,7 +280,7 @@ def residual_layernorm(m: Tensor, h: Tensor, scale: Tensor, bias: Tensor,
     """Kernel B2 (its launch count is ``residual_layernorm.launches``):
     ``h + layer_norm(m)`` over the last axis, differentiable through
     kernel B2b."""
-    return _ResidualLayerNorm.apply(m, h, scale, bias, eps)
+    return _ResidualLayerNorm.apply(m, h, scale, bias, eps, "gwen.op.residual_ln.bwd")
 
 
 residual_layernorm.launches = 0
@@ -285,3 +306,34 @@ def fused_residual_layernorm(norm_params, m: Tensor, h: Tensor,
             return h + core.layer_norm_apply(norm_params, m, eps=eps)
         fn = residual_layernorm if backend == "auto" else residual_layernorm_plain
         return fn(m, h, norm_params["scale"], norm_params["bias"], eps)
+
+
+def cond_layernorm(m: Tensor, scale: Tensor, offset: Tensor,
+                   h: Optional[Tensor] = None, eps: float = 1e-6,
+                   backend: str = "auto") -> Tensor:
+    """The conditional LayerNorm ``LN(m)·scale + offset`` (``+ h``) over the
+    last axis, float32 statistics, no learned affine of its own: ``scale``
+    (``1 + s``) and ``offset`` come from the noise level, ``(F,)`` (or a
+    ``(1, F)`` row) for one sample, or ``(B, F)`` for ``m`` ``(B, ...,
+    F)``; differentiable. With ``backend="auto"`` one sample takes kernels
+    B2/B2b, any width; ``h`` must then match ``m``. On a CUDA tensor a
+    ``(B, F)`` scale with ``B > 1``, or an ``h`` of another shape, raises:
+    B2/B2b take one scale and offset row. On the CPU, or with another
+    backend, those run in plain torch. One span ``gwen.op.cond_norm`` under
+    a profiler, ``.bwd`` over B2b."""
+    with annotate("gwen.op.cond_norm"):
+        if scale.dim() == 2 and scale.shape[0] == 1:
+            scale, offset = scale[0], offset[0]
+        fused = scale.dim() == 1 and (h is None or h.shape == m.shape)
+        if backend == "auto" and (fused or cuda_lib.on_cuda(m, "conditional LayerNorm")):
+            if not fused:
+                raise ValueError(
+                    f"cond_layernorm on the card takes one sample: scale {tuple(scale.shape)}, "
+                    f"m {tuple(m.shape)}, h {None if h is None else tuple(h.shape)}")
+            return _ResidualLayerNorm.apply(
+                m.contiguous(), None if h is None else h.contiguous(),
+                scale.contiguous(), offset.contiguous(), eps, "gwen.op.cond_norm.bwd")
+        if scale.dim() == 2:  # one row a sample, over (B, ..., F)
+            shape = (scale.shape[0],) + (1,) * (m.dim() - 2) + (scale.shape[1],)
+            scale, offset = scale.reshape(shape), offset.reshape(shape)
+        return residual_layernorm_plain(m, h, scale, offset, eps)

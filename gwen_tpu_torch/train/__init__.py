@@ -14,6 +14,7 @@ from gwen_tpu_torch.train.mesh import (
 from gwen_tpu_torch.train.tasks import (
     cnn_loss_fn,
     ensemble_crps_loss_fn,
+    gencast_denoising_loss_fn,
     gnn_loss_fn,
     graphcast_loss_fn,
     mesh_graph_loss_fn,
@@ -33,6 +34,7 @@ __all__ = [
     "TrainState",
     "cnn_loss_fn",
     "ensemble_crps_loss_fn",
+    "gencast_denoising_loss_fn",
     "gnn_loss_fn",
     "graphcast_loss_fn",
     "initialize_distributed",

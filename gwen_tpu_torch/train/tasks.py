@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from gwen_tpu_torch import ensemble, losses
+from gwen_tpu_torch.profiling import annotate
 
 
 def gnn_loss_fn(model, graph, loss: str = "l1-masked",
@@ -191,6 +192,58 @@ def graphcast_loss_fn(model, n_lat: int, n_lon: int,
         w_node, w_chan = on[preds.device]
         err = ((preds.float() - y) ** 2 * w_chan).mean(dim=-1)
         return (err * w_node).mean(), preds
+
+    return loss_fn
+
+
+def edm_scalings(sigma: torch.Tensor, sigma_data: float = 1.0
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """EDM's preconditioning and loss weight (Karras et al. 2022) for noise
+    levels ``sigma``: ``(c_skip, c_out, c_in, λ)`` with ``c_skip = σd² /
+    (σ² + σd²)``, ``c_out = σ σd / sqrt(σ² + σd²)``, ``c_in = 1 / sqrt(σ² +
+    σd²)`` and ``λ = (σ² + σd²) / (σ σd)²``."""
+    s2, d2 = sigma * sigma, sigma_data * sigma_data
+    root = torch.sqrt(s2 + d2)
+    return d2 / (s2 + d2), sigma * sigma_data / root, 1 / root, (s2 + d2) / (s2 * d2)
+
+
+def gencast_denoising_loss_fn(model, n_lat: int, n_lon: int,
+                              channel_weights: np.ndarray, p_mean: float = -1.2,
+                              p_std: float = 1.2, sigma_data: float = 1.0) -> Callable:
+    """GenCast's denoising task (EDM): ``loss_fn((cond, y, seed), graphs)
+    -> (loss, denoised)`` with the conditioning ``cond`` ``(B, n_lat ·
+    n_lon, C_cond)`` (the two input states, forcings and static fields) and
+    the target ``y`` ``(B, n_lat · n_lon, C)``.
+
+    The draw, on y's device from a ``torch.Generator`` seeded with
+    ``seed``: ``σ = exp(p_mean + p_std · randn(B))``, then the noise
+    ``randn(y.shape)``, i.i.d. per grid node. The model ``F`` sees ``[c_in
+    (y + σ n), cond]`` and ``σ``; the denoised ``D = c_skip (y + σ n) +
+    c_out F`` (:func:`edm_scalings`) is scored by ``λ(σ)`` times the squared
+    error weighted by :func:`latitude_weights` of the node's row and by
+    ``channel_weights``, averaged over samples, nodes and channels. The draw
+    and the preconditioning are the span ``gwen.gencast.noise``."""
+    host = (np.repeat(latitude_weights(n_lat), n_lon), np.asarray(channel_weights))
+    on: dict = {}
+
+    def loss_fn(batch, graphs):
+        cond, y, seed = batch
+        with annotate("gwen.gencast.noise"):
+            gen = torch.Generator(device=y.device).manual_seed(int(seed))
+            b = y.shape[0]
+            sigma = torch.exp(p_mean + p_std * torch.randn(b, generator=gen, device=y.device))
+            noisy = y + sigma[:, None, None] * torch.randn(y.shape, generator=gen,
+                                                           device=y.device)
+            c_skip, c_out, c_in, lam = (v[:, None, None] for v in edm_scalings(sigma, sigma_data))
+            x = torch.cat([c_in * noisy, cond.to(noisy.dtype)], dim=-1)
+        out = model(graphs, x, sigma)
+        if y.device not in on:
+            on[y.device] = tuple(torch.as_tensor(w, dtype=torch.float32, device=y.device)
+                                 for w in host)
+        w_node, w_chan = on[y.device]
+        denoised = c_skip * noisy + c_out * out.float()
+        err = ((denoised - y) ** 2 * w_chan).mean(dim=-1)
+        return (lam[:, :, 0] * err * w_node).mean(), denoised
 
     return loss_fn
 

@@ -277,10 +277,10 @@ def test_losses_match_reference():
         np.testing.assert_allclose(got.item(), float(want), **TOL)
 
 
-# The port's GraphCast keys (model.architecture "graphcast"), which the
-# reference's configuration does not have.
-PORT_ONLY = {"graph": ("grid_lat", "grid_lon", "g2m_radius"),
-             "model": ("channels_in", "channels_out")}
+# The port's GraphCast and GenCast keys (model.architecture "graphcast" and
+# "gencast"), which the reference's configuration does not have.
+PORT_ONLY = {"graph": ("grid_lat", "grid_lon", "g2m_radius", "k_hop"),
+             "model": ("channels_in", "channels_out", "ffn_size")}
 
 
 def shared_keys(cfg: GwenConfig) -> dict:
